@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's main path — `TorchBackend.assign`, the greedy wavefront
-batch solve — at scheduler_perf SchedulingBasic/5000Nodes size (5000 nodes
-of cpu 8 / memory 32Gi / pods 110, 1000 init pods, then 10000 measured
-pods of cpu 100m / memory 250Mi, 1024-pod chunks, W=32, K=4), after
-building the hand-written kernels from `kubernetes_tpu_torch/csrc/` with
-nvcc and holding each against its plain PyTorch version on the card.
+Drives the port's two paths at scheduler_perf SchedulingBasic/5000Nodes
+size (5000 nodes of cpu 8 / memory 32Gi / pods 110, 1000 init pods, then
+10000 measured pods of cpu 100m / memory 250Mi in 1024-pod chunks, W=32):
+the main path `TorchBackend.assign` (the greedy wavefront batch solve, K=4
+orders), and the node-sharded solver of `kubernetes_tpu_torch.parallel`
+on a 1-shard and a 4-shard mesh of cuda:0 — after building the
+hand-written kernels from `kubernetes_tpu_torch/csrc/` with nvcc and
+holding each against its plain PyTorch version on the card.
 
 Phases (any failure raises and the script exits non-zero with no result):
-  1. build csrc/wave_solve.cu for sm_90a (nvcc's -Xptxas -v report printed);
+  1. build csrc/wave_solve.cu and csrc/wave_eval.cu for sm_90a, one nvcc
+     each, started together, into one library (nvcc's -Xptxas -v report
+     printed);
   2. the probe kernel against x + 1;
   3. wave_solve against wave_solve_reference, identical assignments and
      counters required: on the class planes the port's own prep builds for
@@ -20,9 +24,23 @@ Phases (any failure raises and the script exits non-zero with no result):
   4. the main path, with every launch counter set to 0 just before it:
      every pod placed, no node over capacity on a host re-check, the
      kernels launched;
-  5. timings (CUDA events) and the result lines: a `kernels` JSON line,
-     the card's name and power limit from nvidia-smi, and last
-     {"ok": true, "device": {...}}.
+  5. timings (CUDA events) and the device's busy share (torch.profiler);
+  6. the sharded path: (a) wave_eval against wave_eval_reference, masked
+     scores and gated mask identical, at W=32, R=2, C=2, local_n 5120 and
+     1280, each strategy, with pinned members whose column lies in
+     another shard, padding members, an all-infeasible class row and
+     uniform nodes; (b) the conflict storm through the 4-shard route,
+     identical to the one-pod-per-step solver; (c) the 10000 measured pods
+     through sharded_masks_scores and sharded_greedy_assign(wave_w=32,
+     kernel=True) on a 1-shard and a 4-shard mesh, the used state chained
+     from chunk to chunk, every launch counter set to 0 just before each
+     and read just after: every pod placed, no node over capacity,
+     assignments identical to the kernel-off route and to the
+     single-device wave scan, wave_eval launched once per wave; (d)
+     pods/s, one profiled chunk, wave_eval ms per launch, plain ms and
+     bound;
+  7. the result lines: a `kernels` JSON line, the card's name and power
+     limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device; without one, or outside a checkout of the repository, it exits
@@ -82,6 +100,72 @@ def wave_bound_ms(p: int, n: int, r: int, c: int, k: int, s: int,
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def wave_eval_bound_ms(shards: int, local_n: int, c: int, r: int, w: int,
+                       pts: int) -> tuple[float, str]:
+    """Least time for one wave_eval launch over `shards` shards: the larger
+    of its bytes (each input read once — class mask and static planes,
+    node state, member vectors, parameters — and the (W, L) score and mask
+    outputs written once) over HBM bandwidth, and its float operations,
+    one live score per (shard, member, node) at 9R + 10 each (see
+    `wave_bound_ms`), over the fp32 peak."""
+    bytes_in = shards * (5 * c * local_n + 4 * (3 * r + 1) * local_n
+                         + 4 * w) + w * (8 * r + 13) + 5 * r + 8 * pts
+    bytes_out = 5 * shards * w * local_n
+    t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S
+    t_ops = shards * w * local_n * (9 * r + 10) / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def wave_eval_case(seed: int, n: int, shards: int, uniform: bool,
+                   w: int = 32, r: int = 2, c: int = 2) -> dict:
+    """Seeded arguments of one wave_eval launch over `shards` shards of
+    n / shards nodes (numpy, shard axis leading). Class row 0 is
+    infeasible everywhere; the last three members are padding; member 1 is
+    pinned to a column of the last shard and member 2 to one of shard 0,
+    so their local column lies outside [0, n / shards) on every other
+    shard; `uniform` makes every node identical, so every score ties."""
+    rng = np.random.default_rng(seed)
+    local_n = n // shards
+    if uniform:
+        alloc = np.tile(rng.integers(4, 9, size=(1, r)) * 1000, (n, 1))
+    else:
+        alloc = rng.integers(2, 9, size=(n, r)) * 1000
+    alloc = alloc.astype(np.int32)
+    used = (alloc * rng.uniform(0, 0.7, size=(n, r))).astype(np.int32)
+    free_pods = rng.integers(0, 4, size=(n,)).astype(np.int32)
+    if uniform:
+        used[:] = used[0]
+        free_pods[:] = 3
+    mask = rng.random((c, n)) > 0.1
+    mask[0] = False
+    static = (np.repeat(rng.integers(0, 3, size=(c, 1)), n, axis=1)
+              if uniform else rng.uniform(0, 4, size=(c, n)))
+    req = rng.integers(100, 2500, size=(w, r)).astype(np.int32)
+    e = np.full((w,), -1, np.int32)
+    e[1], e[2] = n - 3, 5
+    base = np.arange(shards, dtype=np.int32) * local_n
+
+    def by_shard(x, axis):                 # node axis → (shards, ..., L)
+        rest = x.shape[:axis] + x.shape[axis + 1:]
+        x = np.moveaxis(x, axis, 0).reshape((shards, local_n) + rest)
+        return np.ascontiguousarray(np.moveaxis(x, 1, 1 + axis))
+    return dict(
+        mask=by_shard(mask, 1), static_sc=by_shard(static.astype(
+            np.float32), 1),
+        alloc_q=by_shard(alloc, 0), free_q=by_shard(alloc - used, 0),
+        free_pods=by_shard(free_pods, 0), used_nz=by_shard(used, 0),
+        req=req, req_nz=req,
+        row=rng.integers(0, c, size=(w,)).astype(np.int32),
+        e=e, el=(e[None, :] - base[:, None]).astype(np.int32),
+        real=np.arange(w) < w - 3,
+        fit_col_w=np.ones((r,), np.float32),
+        bal_col_mask=np.ones((r,), np.bool_),
+        shape_u=np.array([0.0, 50.0, 100.0], np.float32),
+        shape_s=np.array([0.0, 4.0, 10.0], np.float32),
+        w_fit=1.0, w_bal=1.0)
+
+
 def storm(seed: int, n: int = 64, p: int = 256, r: int = 2, k: int = 4):
     """Seeded conflict storm over class planes: identical small nodes
     (every score ties), contested capacity and pod slots, exception
@@ -113,6 +197,250 @@ def storm(seed: int, n: int = 64, p: int = 256, r: int = 2, k: int = 4):
         shape_u=np.array([0.0, 50.0, 100.0], np.float32),
         shape_s=np.array([0.0, 4.0, 10.0], np.float32))
     return arrays, rows, exc, perms
+
+
+def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
+                  main_assignments, node_infos) -> dict:
+    """Phase 6, the node-sharded solver on the card; see the module
+    docstring. Returns the `wave_eval` entry of the kernels line."""
+    from kubernetes_tpu_torch.ops import solver, wave_eval, wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
+    from kubernetes_tpu_torch.ops.tensorize import NODE_PAD
+    from kubernetes_tpu_torch.parallel import (
+        build_mesh, build_mesh_2d, sharded_greedy_assign,
+        sharded_masks_scores)
+    from kubernetes_tpu_torch.scheduler.types import Snapshot
+
+    def on_card(case):
+        return {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                else v for k, v in case.items()}
+
+    # -- (a) the kernel against its plain version ---------------------------
+    n_pad = math.ceil(N_NODES / NODE_PAD) * NODE_PAD       # 5120
+    max_err = 0.0
+    for shards in (1, 4):
+        local_n = n_pad // shards
+        for strategy in wave_kernel.STRATEGIES:
+            for uniform in (False, True):
+                case = on_card(wave_eval_case(
+                    7 + shards, n_pad, shards, uniform))
+                before = wave_eval.wave_eval.launches
+                got = wave_eval.wave_eval(**case, strategy=strategy)
+                ref = wave_eval.wave_eval_reference(**case,
+                                                    strategy=strategy)
+                torch.cuda.synchronize()
+                if wave_eval.wave_eval.launches != before + 1:
+                    raise RuntimeError("wave_eval did not launch")
+                finite = torch.isfinite(ref[0])
+                err = float((got[0] - ref[0])[finite].abs().max())
+                same = torch.equal(got[0], ref[0]) and torch.equal(
+                    got[1], ref[1])
+                max_err = max(max_err, err)
+                feasible = int(finite.sum())
+                nodes_kind = "uniform" if uniform else "random"
+                print(f"compare wave_eval local_n={local_n} shards="
+                      f"{shards} {strategy} {nodes_kind} nodes: "
+                      f"{'identical' if same else 'DIFFER'}, max |masked "
+                      f"diff| {err}, {feasible} feasible of "
+                      f"{finite.numel()}")
+                if not same:
+                    raise RuntimeError("wave_eval differs from its plain "
+                                       "version")
+                m = got[1].cpu()
+                if m[:, -3:].any() or m[:, 1].sum() > 1 or m[:, 2].sum() > 1:
+                    raise RuntimeError("wave_eval gated a padding member "
+                                       "or a foreign pinned column")
+
+    # -- (b) the conflict storm at 4 shards (before the full-width path: it
+    # also warms up every op of the route before that is timed) ---------------
+    arrays, rows, exc, _ = storm(seed=1)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    rows_t, exc_t = torch.from_numpy(rows).to(dev), torch.from_numpy(
+        exc).to(dev)
+    storm_args = (t["req_q"], t["req_nz_q"], t["free_q"], t["free_pods"],
+                  t["used_nz_q"], t["alloc_q"], t["mask"],
+                  t["static_scores"], t["fit_col_w"], t["bal_col_mask"],
+                  t["shape_u"], t["shape_s"], 1.0, 1.0, "LeastAllocated")
+    want = solver.greedy_assign_rescoring(*storm_args, rows=rows_t,
+                                          exc=exc_t)
+    _, _, replays = solver.greedy_assign_rescoring_wave(
+        *storm_args, 32, rows=rows_t, exc=exc_t)
+    for kernel in (True, False):
+        got = sharded_greedy_assign(build_mesh(4, device=dev), *storm_args,
+                                    rows=rows_t, exc=exc_t, wave_w=32,
+                                    kernel=kernel)
+        same = torch.equal(got, want)
+        print(f"compare storm, 4-shard route (kernel "
+              f"{'on' if kernel else 'off'}) vs one pod per step: "
+              f"{'identical' if same else 'DIFFER'} "
+              f"({int((got >= 0).sum())}/{got.numel()} placed, {replays} "
+              f"pods replayed by the single-device wave scan)")
+        if not same:
+            raise RuntimeError("sharded storm differs")
+
+    # -- (c) the full-width path ---------------------------------------------
+    nodes = node_infos()
+    by_name = {ni.name: ni for ni in nodes}
+    for pi in init_pods:
+        by_name[init_assign[pi.key]].add_pod(pi)
+    host = TorchBackend(device=dev)         # its host prep: class planes
+    ctx = host._start(measured, Snapshot(nodes, 4), fwk)
+    preps = [host._prep_chunk(chunk, ctx) for chunk in ctx.chunks]
+    st, prm = host.ensure_static(ctx.ct), ctx.params
+    used0 = host.used.pack.clone()
+    r = st["alloc_q"].shape[1]
+    tf = st["taint_f"].shape[1]
+    n = st["alloc_q"].shape[0]
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+    score_args = (prm["fit_col_w"], prm["bal_col_mask"], prm["shape_u"],
+                  prm["shape_s"], prm["w_fit"], prm["w_bal"],
+                  prm["strategy"])
+
+    def chain(used, req_q, req_nz_q, assign):
+        hit = assign >= 0
+        inc = torch.cat([req_q, req_nz_q, hit.to(torch.int32)[:, None]], 1)
+        return used + torch.zeros((n + 1, used.shape[1]), dtype=used.dtype,
+                                  device=dev).index_add_(
+            0, torch.where(hit, assign, n).long(),
+            torch.where(hit[:, None], inc, 0))[:n]
+
+    def sharded_route(shards: int, kernel: bool, chunks=preps):
+        mesh2d = build_mesh_2d(shards, device=dev)
+        mesh = build_mesh(shards, device=dev)
+        used, out = used0, []
+        for prep in chunks:
+            pack, cls = prep["dev_pack"], prep["dev_cls"]
+            cmask = ((prep["dev_mask"][:, :, None] >> shifts) & 1).reshape(
+                pack.shape[0], -1).to(torch.bool)[:, :n]
+            mask, _, static = sharded_masks_scores(
+                mesh2d, st["alloc_q"], used[:, :r], used[:, r:2 * r],
+                st["alloc_pods"], used[:, 2 * r], pack[:, :r],
+                pack[:, r:2 * r], pack[:, 2 * r:2 * r + tf].to(torch.bool),
+                pack[:, 2 * r + tf:].to(torch.bool), st["taint_f"],
+                st["taint_p"], cmask, prep["dev_scores"].to(torch.float32),
+                prm["w_taint"], prm["taint_filter_on"], prm["strategy"])
+            req_q = pack[:, :r][cls.long()]
+            req_nz_q = pack[:, r:2 * r][cls.long()]
+            assign = sharded_greedy_assign(
+                mesh, req_q, req_nz_q, st["alloc_q"] - used[:, :r],
+                st["alloc_pods"] - used[:, 2 * r], used[:, r:2 * r],
+                st["alloc_q"], mask, static, *score_args, rows=cls,
+                exc=prep["dev_exc"], row_req_q=pack[:, :r],
+                row_req_nz_q=pack[:, r:2 * r], wave_w=32, kernel=kernel)
+            used = chain(used, req_q, req_nz_q, assign)
+            out.append(assign[:prep["batch"].p_real])
+        return torch.cat(out)
+
+    def single_device_route():
+        used, out = used0, []
+        for prep in preps:
+            pl = chunk_planes(st["alloc_q"], used, st["alloc_pods"],
+                              prep["dev_pack"], prep["dev_cls"],
+                              st["taint_f"], st["taint_p"], prep["dev_mask"],
+                              prep["dev_scores"], prm["w_taint"],
+                              prm["taint_filter_on"])
+            assign, _, _ = solver.greedy_assign_rescoring_wave(
+                pl["req_q"], pl["req_nz_q"], pl["free_q"], pl["free_pods"],
+                pl["used_nz_q"], st["alloc_q"], pl["mask"],
+                pl["static_scores"], *score_args, 32, rows=prep["dev_cls"],
+                exc=prep["dev_exc"])
+            used = chain(used, pl["req_q"], pl["req_nz_q"], assign)
+            out.append(assign[:prep["batch"].p_real])
+        return torch.cat(out)
+
+    waves = sum(math.ceil(prep["batch"].req_q.shape[0] / 32)
+                for prep in preps)
+    routes, launches, rates = {}, {}, {}
+    for shards in (1, 4):
+        torch.cuda.synchronize()
+        wave_eval.wave_eval.launches = 0
+        t0 = time.perf_counter()
+        routes[shards] = sharded_route(shards, kernel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[shards] = wave_eval.wave_eval.launches
+        rates[shards] = N_MEASURED / wall
+        print(f"sharded route, {shards} shard(s) of {dev}, kernel on: "
+              f"{N_MEASURED} pods in {wall:.3f} s = {rates[shards]:.1f} "
+              f"pods/s; wave_eval launches {launches[shards]} ({waves} "
+              f"waves in {len(preps)} chunks)")
+        if launches[shards] != waves:
+            raise RuntimeError(f"wave_eval launched {launches[shards]} "
+                               f"times for {waves} waves")
+    wave_eval.wave_eval.launches = 0
+    off = {shards: sharded_route(shards, kernel=False) for shards in (1, 4)}
+    single = single_device_route()
+    if wave_eval.wave_eval.launches:
+        raise RuntimeError("the kernel-off route launched wave_eval")
+    for shards in (1, 4):
+        for what, other in (("kernel off", off[shards]),
+                            ("single-device wave scan", single)):
+            same = torch.equal(routes[shards], other)
+            print(f"compare sharded {shards}-shard route vs {what}: "
+                  f"{'identical' if same else 'DIFFER'}")
+            if not same:
+                raise RuntimeError(f"sharded route differs from {what}")
+    assign = routes[4].cpu().numpy()
+    if len(assign) != N_MEASURED or (assign < 0).any():
+        raise RuntimeError(f"{int((assign < 0).sum())} pods unplaced by "
+                           "the sharded route")
+    names = ctx.ct.node_names
+    for pi, j in zip(measured, assign):
+        by_name[names[j]].add_pod(pi)
+    for ni in nodes:
+        over = [q for q, v in ni.requested.res.items()
+                if v > ni.allocatable.get(q)]
+        if over or ni.requested.pods > ni.allocatable.pods:
+            raise RuntimeError(f"{ni.name} over capacity: {over}")
+    differ = sum(main_assignments[pi.key] != names[j]
+                 for pi, j in zip(measured, assign))
+    print(f"compare sharded route vs TorchBackend.assign (phase 4): "
+          f"{differ} of {N_MEASURED} placements differ")
+
+    # -- (d) numbers ----------------------------------------------------------
+    # One chunk of the 4-shard route, kernel on, under torch.profiler: the
+    # device's busy share and the kernels it launched.
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sharded_route(4, kernel=True, chunks=preps[:1])
+        torch.cuda.synchronize()
+        chunk_wall = time.perf_counter() - t0
+    busy_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+                  for e in prof.key_averages())
+    device_kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                         for e in prof.events())
+    dev_us = [getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)) / e.count
+              for e in prof.key_averages() if "wave_eval_kernel" in e.key]
+    print(f"profiled 4-shard chunk: wall {chunk_wall:.4f} s, device busy "
+          f"{busy_us / 1e6:.4f} s, idle share "
+          f"{1 - busy_us / 1e6 / chunk_wall:.4f}, {device_kernels} device "
+          f"kernels")
+
+    case = on_card(wave_eval_case(8, n_pad, 1, False))
+    pts = case["shape_u"].shape[0]
+    ms = cuda_ms(torch, lambda: wave_eval.wave_eval(
+        **case, strategy="LeastAllocated"), 200)
+    plain_ms = cuda_ms(torch, lambda: wave_eval.wave_eval_reference(
+        **case, strategy="LeastAllocated"), 20)
+    bound_ms, bound_by = wave_eval_bound_ms(1, n_pad, 2, r, 32, pts)
+    print(f"wave_eval per launch at W=32, local_n={n_pad}, R={r}, C=2: "
+          f"{ms:.4f} ms back to back (CUDA events); device time in the "
+          f"profiled chunk (local_n={n_pad // 4}, 4 shards) "
+          f"{f'{dev_us[0] / 1e3:.5f} ms' if dev_us else 'not measured'}; "
+          f"plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}); {waves / len(preps):.1f} "
+          f"launches per chunk; sharded route "
+          f"{rates[1]:.1f} pods/s at 1 shard, {rates[4]:.1f} at 4")
+    return {"name": "wave_eval", "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/wave_eval.cu",
+            "replaces": "kubernetes_tpu/ops/pallas_kernel.py:434",
+            "launches": launches[1] + launches[4], "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main() -> int:
@@ -292,7 +620,7 @@ def main() -> int:
           f"max_memory_allocated {peak_bytes} bytes")
     print(f"measured phase host-clock seconds: {json.dumps(phases)}")
 
-    # -- 5. timings and result ---------------------------------------------
+    # -- 5. timings ---------------------------------------------------------
     # Device busy share of the measured phase: the same assign() again on a
     # fresh copy of the post-init cluster, under torch.profiler.
     nodes2 = node_infos()
@@ -334,6 +662,12 @@ def main() -> int:
     print(f"wave_solve per 1024-pod chunk: kernel {kernel_ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
           f"probe {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms")
+
+    # -- 6. the sharded path ------------------------------------------------
+    eval_entry = sharded_phase(torch, dev, fwk, init_pods, init_assign,
+                               measured, assignments, node_infos)
+
+    # -- 7. result --------------------------------------------------------
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -347,6 +681,7 @@ def main() -> int:
          "launches": launches["probe"], "max_abs_err": probe_err,
          "ms": probe_ms, "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
          "bound_by": "bytes", "library_ms": probe_plain_ms},
+        eval_entry,
     ]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

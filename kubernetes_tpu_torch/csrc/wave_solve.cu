@@ -25,12 +25,11 @@
 // (K,N,R)/(K,N)/(K,N,R), seeded from the chunk state; at N=5000, R=2 it is
 // about 100 KB per order and stays in the 50 MB L2.
 //
-// Floats: build with -fmad=false and without --use_fast_math (IEEE division
-// and square root), sum over R in index order, and keep the association of
-// ops/kernels.py: 100 * (alloc - req) / safe_alloc, acc / tot_w,
-// (1 - sqrt(var)) * 100. The kernel then agrees with the port's plain
-// PyTorch version (ops/wave_kernel.wave_solve_reference) to the last bit,
-// and its assignments and counters are identical.
+// Floats: the score arithmetic is score.cuh's, shared with wave_eval.cu
+// (-fmad=false, IEEE division and square root, sums over R in index order,
+// the association of ops/kernels.py). The kernel then agrees with the
+// port's plain PyTorch version (ops/wave_kernel.wave_solve_reference) to
+// the last bit, and its assignments and counters are identical.
 //
 // What bounds it on this card: latency, not bytes or operations. Only K
 // blocks (K = 4 on the main path) run on 132 SMs, and each wave runs W
@@ -40,18 +39,16 @@
 // the W members of a wave in one pass with a per-member top-W, and capture
 // the chunk's launches in a CUDA graph.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "score.cuh"
 
 namespace {
+
+using ktpu::kMaxR;
+using ktpu::ScoreParams;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxW = 64;
-constexpr int kMaxR = 16;
-constexpr int kMaxS = 16;
-constexpr float kMaxNodeScore = 100.0f;
 
 struct WaveArgs {
   const int* req_q;          // (P, R)
@@ -80,88 +77,6 @@ struct WaveArgs {
   int* free_pods;            // (K, N) carry
   int* used_nz;              // (K, N, R) carry
 };
-
-struct Params {
-  float colw[kMaxR];
-  int balm[kMaxR];
-  float su[kMaxS];
-  float ss[kMaxS];
-};
-
-__device__ __forceinline__ float piecewise(float u, const Params& p, int S) {
-  const bool below = u <= p.su[0];
-  const bool above = u >= p.su[S - 1];
-  float mid = 0.0f;
-  for (int i = 0; i + 1 < S; ++i) {
-    const float u0 = p.su[i], u1 = p.su[i + 1];
-    const float s0 = p.ss[i], s1 = p.ss[i + 1];
-    const float d = u1 - u0;
-    const float t = (u - u0) / (d > 0.0f ? d : 1.0f);
-    const float seg = s0 + (s1 - s0) * t;
-    mid = mid + ((u > u0 && u <= u1) ? seg : 0.0f);
-  }
-  return below ? p.ss[0] : (above ? p.ss[S - 1] : mid);
-}
-
-// static + w_fit * fit + w_bal * balanced for one pod on one node. The
-// node's scoring usage is used[r] (+ add[r] when add is given: a same-wave
-// debit in the conflict check) + req[r], summed as ints like the reference.
-__device__ float live_score(const WaveArgs& a, const Params& p,
-                            const int* alloc, const int* used,
-                            const int* add, const int* req, float st) {
-  const int R = a.R;
-  float tot_w = 0.0f, acc = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    const float al = (float)alloc[r];
-    const float rq = (float)(used[r] + (add ? add[r] : 0) + req[r]);
-    const float sa = al > 0.0f ? al : 1.0f;
-    float s;
-    if (a.strategy == 1) {
-      s = (kMaxNodeScore * rq) / sa;
-    } else if (a.strategy == 2) {
-      s = piecewise((kMaxNodeScore * rq) / sa, p, a.n_shape) *
-          (kMaxNodeScore / 10.0f);
-    } else {
-      s = (kMaxNodeScore * (al - rq)) / sa;
-    }
-    if (rq > al) s = 0.0f;
-    const float w = (al > 0.0f && p.colw[r] > 0.0f) ? p.colw[r] : 0.0f;
-    tot_w = tot_w + w;
-    acc = acc + s * w;
-  }
-  const float fit = tot_w > 0.0f ? acc / tot_w : 0.0f;
-
-  int cnt = 0;
-  float sumf = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    const float al = (float)alloc[r];
-    const float rq = (float)(used[r] + (add ? add[r] : 0) + req[r]);
-    const bool valid = al > 0.0f && p.balm[r];
-    float frac = fminf(rq / (al > 0.0f ? al : 1.0f), 1.0f);
-    frac = valid ? frac : 0.0f;
-    cnt += valid ? 1 : 0;
-    sumf = sumf + frac;
-  }
-  const float safe_cnt = cnt > 0 ? (float)cnt : 1.0f;
-  const float mean = sumf / safe_cnt;
-  float var = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    const float al = (float)alloc[r];
-    const float rq = (float)(used[r] + (add ? add[r] : 0) + req[r]);
-    const bool valid = al > 0.0f && p.balm[r];
-    float frac = fminf(rq / (al > 0.0f ? al : 1.0f), 1.0f);
-    frac = valid ? frac : 0.0f;
-    const float d = frac - mean;
-    var = var + (valid ? d * d : 0.0f);
-  }
-  var = var / safe_cnt;
-  float bal = (1.0f - sqrtf(var)) * kMaxNodeScore;
-  bal = cnt >= 2 ? bal : 0.0f;
-
-  float sc = st + a.w_fit * fit;
-  sc = sc + a.w_bal * bal;
-  return sc;
-}
 
 // One wave's members, staged in shared memory.
 struct Members {
@@ -199,10 +114,11 @@ __device__ __forceinline__ bool fits(const WaveArgs& a, const Members& m,
   return true;
 }
 
-__device__ __forceinline__ float score(const WaveArgs& a, const Params& p,
+__device__ __forceinline__ float score(const WaveArgs& a,
+                                       const ScoreParams& p,
                                        const Members& m, const Carry& c,
                                        int w, int n, const int* add) {
-  return live_score(a, p, a.alloc_q + (size_t)n * a.R,
+  return ktpu::live_score(p, a.alloc_q + (size_t)n * a.R,
                     c.unz + (size_t)n * a.R, add, m.rnz + w * a.R,
                     a.static_sc[(size_t)m.row[w] * a.N + n]);
 }
@@ -239,7 +155,7 @@ __device__ void block_argmax(float& v, int& i, float* sv, int* si) {
 
 __global__ void __launch_bounds__(kThreads)
 wave_solve_kernel(WaveArgs a) {
-  __shared__ Params p;
+  __shared__ ScoreParams p;
   __shared__ int s_req[kMaxW * kMaxR];
   __shared__ int s_rnz[kMaxW * kMaxR];
   __shared__ int s_row[kMaxW];
@@ -259,14 +175,9 @@ wave_solve_kernel(WaveArgs a) {
   int* unz = a.used_nz + (size_t)k * N * R;
   const int* perm = a.perms + (size_t)k * P;
 
-  if (tid < R) {
-    p.colw[tid] = a.fit_col_w[tid];
-    p.balm[tid] = a.bal_mask[tid] ? 1 : 0;
-  }
-  if (tid < a.n_shape) {
-    p.su[tid] = a.shape_u[tid];
-    p.ss[tid] = a.shape_s[tid];
-  }
+  ktpu::load_score_params(p, tid, a.fit_col_w, a.bal_mask, a.shape_u,
+                          a.shape_s, R, a.n_shape, a.strategy, a.w_fit,
+                          a.w_bal);
   for (int idx = tid; idx < N * R; idx += kThreads) {
     fq[idx] = a.free_q0[idx];
     unz[idx] = a.used_nz0[idx];
@@ -401,7 +312,7 @@ extern "C" {
 
 int ktpu_max_wave_width() { return kMaxW; }
 int ktpu_max_resources() { return kMaxR; }
-int ktpu_max_shape_points() { return kMaxS; }
+int ktpu_max_shape_points() { return ktpu::kMaxS; }
 
 const char* ktpu_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

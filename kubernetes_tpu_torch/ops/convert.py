@@ -5,7 +5,10 @@ The reference's fused chunk program (`_mask_solve_update` in
 `mask_solve_inputs` takes the same arrays, by the same names, and returns
 the keyword arguments of this package's `ops.backend.mask_solve_update` as
 tensors on a given device — so a test can feed both programs the identical
-state and compare every output. Arrays are read with `np.asarray` only;
+state and compare every output. `masks_scores_inputs` and
+`sharded_solver_inputs` do the same for the node-sharded phases
+(`parallel.sharded_masks_scores`, `parallel.sharded_greedy_assign`), in the
+layout the port's mesh wants. Arrays are read with `np.asarray` only;
 nothing of the reference package is imported.
 """
 
@@ -15,6 +18,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from kubernetes_tpu_torch.parallel.mesh import Mesh, pad_axis
 
 
 def to_tensor(x: Any, device) -> torch.Tensor:
@@ -46,4 +51,43 @@ def mask_solve_inputs(*, alloc_q, used_pack, alloc_pods, class_pack,
     out["taint_filter_on"] = bool(np.asarray(params["taint_filter_on"]))
     out["strategy"] = str(params["strategy"])
     out["wave_w"] = int(wave_w)
+    return out
+
+
+#: The node axis of each node-indexed input of the sharded solver.
+SOLVER_NODE_AXES = {"free_q": 0, "free_pods": 0, "used_nz_q": 0,
+                    "alloc_q": 0, "mask": 1, "static_scores": 1}
+
+
+def _carry(value: Any, device):
+    """An array as a tensor on `device`; a 0-d value as a Python scalar."""
+    a = np.asarray(value)
+    if a.ndim:
+        return to_tensor(a, device)
+    return bool(a) if a.dtype == np.bool_ else float(np.float32(a))
+
+
+def masks_scores_inputs(mesh: Mesh, arrays: Mapping[str, Any]) -> dict:
+    """Keyword arguments of `parallel.sharded_masks_scores` from the
+    reference's inputs of the same names (alloc_q, used_q, ..., w_taint,
+    taint_filter_on): tensors on the mesh's device, scalars as Python
+    values. Every tile of the mesh reads its rows and columns in place, so
+    nothing is padded."""
+    return {k: _carry(v, mesh.device) for k, v in arrays.items()}
+
+
+def sharded_solver_inputs(mesh: Mesh, arrays: Mapping[str, Any]) -> dict:
+    """Keyword arguments of `parallel.sharded_greedy_assign` from the
+    reference's solver inputs of the same names (the `req_q`, `free_q`,
+    `mask`, ..., `w_fit`, `w_bal`, `rows`, `exc` of its argument dicts;
+    None values are left out). The node axis is padded to a multiple of the
+    mesh's shard count as the reference's callers pad it: capacity, usage
+    and scores with 0, the mask with False, so padding nodes never fit."""
+    out = {}
+    for k, v in arrays.items():
+        if v is None:
+            continue
+        if k in SOLVER_NODE_AXES:
+            v = pad_axis(np.asarray(v), mesh.size, SOLVER_NODE_AXES[k])
+        out[k] = _carry(v, mesh.device)
     return out

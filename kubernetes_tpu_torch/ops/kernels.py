@@ -137,10 +137,22 @@ def taint_toleration_score(node_prefer_taints, untol_prefer, feasible):
     node_prefer_taints: (N,Tp) bool; untol_prefer: (P,Tp) bool;
     feasible: (P,N) bool → (P,N) float32.
     """
-    counts = torch.sum(untol_prefer[:, None, :] & node_prefer_taints[None],
-                       dim=-1).to(torch.float32)
+    counts = taint_prefer_counts(node_prefer_taints, untol_prefer)
     mx = torch.amax(torch.where(feasible, counts, float("-inf")), dim=1,
                     keepdim=True)
-    mx = torch.clamp_min(mx, 0.0)
+    return taint_normalize(counts, mx)
+
+
+def taint_prefer_counts(node_prefer_taints, untol_prefer):
+    """The raw TaintToleration score: (P,N) float32 counts of each pod's
+    untolerated PreferNoSchedule taints on each node."""
+    return torch.sum(untol_prefer[:, None, :] & node_prefer_taints[None],
+                     dim=-1).to(torch.float32)
+
+
+def taint_normalize(counts, row_max):
+    """NormalizeScore of raw counts against each pod's largest count over
+    its feasible nodes (`row_max` (P,1), -inf where none is feasible)."""
+    mx = torch.clamp_min(row_max, 0.0)
     return torch.where(mx > 0, MAX_NODE_SCORE * (mx - counts) / mx,
                        MAX_NODE_SCORE)

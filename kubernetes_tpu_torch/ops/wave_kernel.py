@@ -3,8 +3,9 @@
 Counterpart of `kubernetes_tpu/ops/pallas_kernel.py`: `wave_solve` there
 is a Pallas kernel for the TPU (grid = K multistart orders × waves); here
 it is `csrc/wave_solve.cu`, built for `sm_90a` with `nvcc` at first use
-into `build/torch_kernels/` under the checkout, loaded with `ctypes`, and
-launched on PyTorch's current stream. The same source holds the trivial
+into `build/torch_kernels/` under the checkout (one library with every
+kernel of `csrc/`, see `KernelLibrary`), loaded with `ctypes`, and launched
+on PyTorch's current stream. The same source holds the trivial
 probe kernel (x + 1), the counterpart of `lowering_supported`'s probe: the
 loader launches it once after the build and raises if its output is wrong.
 
@@ -20,11 +21,12 @@ path went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
-import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -32,15 +34,17 @@ import torch
 from kubernetes_tpu_torch.ops import solver
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "wave_solve.cu"
+CSRC = _PKG_DIR / "csrc"
+#: The CUDA sources built into the one kernel library; every header beside
+#: them (*.cuh, *.h) is an input of the build too.
+SOURCES = (CSRC / "wave_solve.cu", CSRC / "wave_eval.cu")
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
 
 #: nvcc flags: Hopper with its architecture-specific features, and IEEE
 #: float arithmetic (no FMA contraction; division and square root stay
 #: correctly rounded because fast math is off).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 STRATEGIES = {"LeastAllocated": 0, "MostAllocated": 1,
               "RequestedToCapacityRatio": 2}
@@ -51,46 +55,84 @@ _F = ctypes.c_float
 
 
 class KernelLibrary:
-    """The built and loaded shared library of csrc/wave_solve.cu.
+    """The built and loaded shared library of the CUDA sources in csrc/.
 
-    `build()` compiles the source with nvcc (once per source content: the
-    library's file name carries the source hash), loads it, declares the
-    C signatures, and launches the probe kernel once, raising if its output
-    is wrong. `ptxas_info` keeps nvcc's register and shared-memory report.
+    `build()` compiles each source with its own nvcc, all started together,
+    links the objects into one library, loads it, declares the C
+    signatures, and launches the probe kernel once, raising if its output
+    is wrong. The library's file name carries a hash of every source and
+    header it is built from and of the flags (`library_path`), so a change
+    to any of them builds a new library. `ptxas_info` keeps nvcc's register
+    and shared-memory report.
     """
 
-    def __init__(self, source: Path = SOURCE, build_dir: Path = BUILD_DIR):
-        self.source = source
+    def __init__(self, sources=SOURCES, build_dir: Path = BUILD_DIR):
+        self.sources = tuple(Path(s) for s in sources)
         self.build_dir = build_dir
         self.lib = None
         self.path: Path | None = None
         self.ptxas_info = ""
 
+    def inputs(self) -> list[Path]:
+        """The sources and every header in their directories."""
+        headers = {h for d in {s.parent for s in self.sources}
+                   for pattern in ("*.cuh", "*.h") for h in d.glob(pattern)}
+        return [*self.sources, *sorted(headers)]
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in self.inputs():
+            digest.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+        return self.build_dir / f"libktpu_kernels_{digest.hexdigest()[:16]}.so"
+
+    def _compile(self, path: Path) -> None:
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        with tempfile.TemporaryDirectory(dir=self.build_dir) as tmp_dir, \
+                contextlib.ExitStack() as logs:
+            tmp = Path(tmp_dir)
+            jobs = []
+            for i, src in enumerate(self.sources):
+                obj = tmp / f"{i}_{src.stem}.o"
+                log = logs.enter_context(open(tmp / f"{i}.log", "w+"))
+                jobs.append((src, obj, log, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=log, stderr=subprocess.STDOUT)))
+            # Every nvcc ends before any failure is raised.
+            rcs = [proc.wait() for _, _, _, proc in jobs]
+            reports = []
+            for (src, _, log, _), rc in zip(jobs, rcs):
+                log.seek(0)
+                reports.append(log.read())
+                if rc != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({rc}) on {src}:\n{reports[-1]}")
+            lib_tmp = tmp / path.name
+            proc = subprocess.run(
+                [nvcc, "-shared", "-o", str(lib_tmp),
+                 *(str(obj) for _, obj, _, _ in jobs)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) linking {path.name}:\n"
+                    f"{proc.stderr}")
+            self.ptxas_info = "".join(reports)
+            lib_tmp.replace(path)
+
     def build(self) -> "KernelLibrary":
         if self.lib is not None:
             return self
         if not torch.cuda.is_available():
-            raise RuntimeError("the wave_solve kernel needs a CUDA device")
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+            raise RuntimeError("the CUDA kernels need a CUDA device")
         self.build_dir.mkdir(parents=True, exist_ok=True)
-        path = self.build_dir / f"libwave_solve_{digest}.so"
+        path = self.library_path()
         if not path.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {self.source}:\n"
-                    f"{proc.stderr}")
-            self.ptxas_info = proc.stderr
-            tmp.replace(path)
+            self._compile(path)
         lib = ctypes.CDLL(str(path))
         lib.ktpu_error_string.argtypes = [_I]
         lib.ktpu_error_string.restype = ctypes.c_char_p
         for name in ("ktpu_max_wave_width", "ktpu_max_resources",
-                     "ktpu_max_shape_points"):
+                     "ktpu_max_shape_points", "ktpu_wave_eval_max_members",
+                     "ktpu_wave_eval_max_shards"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = _I
         lib.ktpu_probe.argtypes = [_VP, _VP, _I, _VP]
@@ -98,11 +140,16 @@ class KernelLibrary:
         lib.ktpu_wave_solve.argtypes = (
             [_VP] * 15 + [_I, _F, _F, _I] + [_I] * 7 + [_VP] * 6)
         lib.ktpu_wave_solve.restype = _I
+        lib.ktpu_wave_eval.argtypes = (
+            [_VP] * 16 + [_I, _F, _F, _I] + [_I] * 5 + [_VP] * 3)
+        lib.ktpu_wave_eval.restype = _I
         self.lib = lib
         self.path = path
         self.max_w = lib.ktpu_max_wave_width()
         self.max_r = lib.ktpu_max_resources()
         self.max_s = lib.ktpu_max_shape_points()
+        self.max_eval_w = lib.ktpu_wave_eval_max_members()
+        self.max_eval_shards = lib.ktpu_wave_eval_max_shards()
         try:
             probe_check(self)
         except RuntimeError:
@@ -244,7 +291,7 @@ def _check(device, dtype, shape, **tensors) -> None:
         if t.device != device or t.dtype != dtype \
                 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(
-                f"wave_solve: {name} must be a contiguous {dtype} tensor of "
+                f"kernel input {name} must be a contiguous {dtype} tensor of "
                 f"shape {tuple(shape)} on {device}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}"
                 f"{'' if t.is_contiguous() else ' (not contiguous)'}")

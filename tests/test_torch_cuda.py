@@ -7,15 +7,18 @@ so it also runs where JAX is not installed:
 Contract: the kernel (`wave_solve` on CUDA tensors) and
 `wave_solve_reference` on the same CUDA tensors give identical
 assignments, commits, replays and poisoned flags; the probe kernel
-returns x + 1.
+returns x + 1; the `wave_eval` kernel and `wave_eval_reference` give
+identical masked scores and gated masks; and the node-sharded solver with
+the kernel on a 4-shard mesh of the card assigns exactly as the
+single-device solver.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import storm
-from kubernetes_tpu_torch.ops import wave_kernel
+from chip_smoke import storm, wave_eval_case
+from kubernetes_tpu_torch.ops import solver, wave_eval, wave_kernel
 
 STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
 WIDTHS = (1, 2, 8, 31)
@@ -106,3 +109,43 @@ def test_probe_kernel(cuda):
     wave_kernel.probe_check()
     x = torch.randn(1000, device=cuda)
     assert torch.equal(wave_kernel.probe(x), x + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_wave_eval_kernel_matches_plain_version(cuda, strategy):
+    for shards in (1, 4):
+        for uniform in (False, True):
+            case = _on(wave_eval_case(30 + shards, 1024, shards, uniform),
+                       cuda)
+            before = wave_eval.wave_eval.launches
+            got = wave_eval.wave_eval(**case, strategy=strategy)
+            torch.cuda.synchronize()
+            assert wave_eval.wave_eval.launches == before + 1
+            ref = wave_eval.wave_eval_reference(**case, strategy=strategy)
+            assert torch.equal(got[0], ref[0]), (shards, uniform)
+            assert torch.equal(got[1], ref[1]), (shards, uniform)
+            assert torch.isfinite(ref[0]).any()
+    with pytest.raises(ValueError, match="R=17"):
+        big = _on(wave_eval_case(1, 256, 1, False, r=17), cuda)
+        wave_eval.wave_eval(**big, strategy=strategy)
+
+
+@pytest.mark.cuda
+def test_sharded_route_on_card_matches_single_device(cuda):
+    from kubernetes_tpu_torch.parallel import (
+        build_mesh, sharded_greedy_assign)
+
+    args, rows, exc, _ = storm(seed=62, n=64, p=96, r=2)   # replays
+    t = _on(dict(args, w_fit=np.float32(1.0), w_bal=np.float32(1.0)), cuda)
+    rows_t = torch.from_numpy(rows).to(cuda)
+    exc_t = torch.from_numpy(exc).to(cuda)
+    want = solver.greedy_assign_rescoring(
+        **t, strategy="MostAllocated", rows=rows_t, exc=exc_t)
+    for w in (8, 32):
+        before = wave_eval.wave_eval.launches
+        got = sharded_greedy_assign(
+            build_mesh(4), **t, strategy="MostAllocated", rows=rows_t,
+            exc=exc_t, wave_w=w, kernel=True)
+        assert wave_eval.wave_eval.launches == before + -(-96 // w)
+        assert torch.equal(got, want), w
