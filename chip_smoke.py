@@ -14,17 +14,26 @@ Phases (any failure raises and the script exits non-zero with no result):
   1. build csrc/wave_solve.cu and csrc/wave_eval.cu for sm_90a, one nvcc
      each, started together, into one library (nvcc's -Xptxas -v report
      printed);
-  2. the probe kernel against x + 1;
+  2. the probe kernel against x + 1 (vector and scalar forms), timed back
+     to back in turns with x + 1 and per launch under torch.profiler;
   3. wave_solve against wave_solve_reference, identical assignments and
-     counters required: on the class planes the port's own prep builds for
-     a 1024-pod chunk over 5000 nodes (K=4 poison=True and K=1
-     poison=False at W=32), and on a seeded conflict storm that drives the
-     in-wave replay, the poisoned chunk and its W=1 rerun; plus the whole
-     CUDA backend against the CPU backend on a small cluster;
+     counters required, each case printing the launch plan it took: on
+     the class planes the port's own prep builds for a 1024-pod chunk
+     over 5000 nodes (K=4 poison=True and K=1 poison=False at W=32); on
+     seeded heterogeneous chunks (several node shapes, near-ties,
+     exception columns, an exhausted resource) at N=5000 and N=4093
+     under each strategy, K=4 poison and K=1 replay, at R=16, N=20000
+     in the global-carry form, and at N=320 R=11 and N=5120 R=10, whose
+     shared memory lies just under 48 KB; and on a seeded conflict storm
+     that drives the in-wave replay, the poisoned chunk and its W=1
+     rerun; plus the whole CUDA backend against the CPU backend on a
+     small cluster;
   4. the main path, with every launch counter set to 0 just before it:
      every pod placed, no node over capacity on a host re-check, the
      kernels launched;
-  5. timings (CUDA events) and the device's busy share (torch.profiler);
+  5. timings (CUDA events), the device's busy share and wave_solve's
+     device time per launch (torch.profiler), and the launch-plan sweep
+     (clusters of 4, 8, 16 blocks x 128, 256 threads);
   6. the sharded path: (a) wave_eval against wave_eval_reference, masked
      scores and gated mask identical, at W=32, R=2, C=2, local_n 5120 and
      1280, each strategy, with pinned members whose column lies in
@@ -81,19 +90,52 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_us(event) -> float:
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def kernel_ms_from(prof, match: str) -> float | None:
+    """Mean device milliseconds per launch of the kernels whose name holds
+    `match` in a torch.profiler session, or None if it recorded none."""
+    hits = [(device_us(e), e.count) for e in prof.key_averages()
+            if match in e.key and device_us(e) > 0]
+    if not hits:
+        return None
+    return sum(t for t, _ in hits) / sum(c for _, c in hits) / 1e3
+
+
+def profiled_kernel_ms(torch, fn, reps: int, match: str) -> float | None:
+    """`kernel_ms_from` over `reps` calls of fn under torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_ms_from(prof, match)
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
 def wave_bound_ms(p: int, n: int, r: int, c: int, k: int, s: int,
                   feasible_evals: int) -> tuple[float, str]:
     """Least time for one wave_solve launch: the larger of its bytes (each
-    input read once, each output written once) over HBM bandwidth and its
-    float operations over the fp32 peak. The operations are one live score
-    per (order, pod, feasible node) — the serial algorithm's own work,
+    input read once, each output — assign and the counters — written once)
+    over HBM bandwidth and its float operations over the fp32 peak. The
+    operations are one live score per (order, pod, feasible node) — the
+    serial algorithm's own work,
     `feasible_evals` summed over orders and pods — at 9R + 10 float ops
     each (fit: 2 converts, sub/mul, div, compare, mul, 2 adds per column
     plus the mean; balanced: div, min, add, sub, mul, add per column plus
     two divides, sqrt, sub, mul; 4 for the static + weighted sum)."""
     bytes_in = 4 * (2 * p * r + 2 * p + k * p + 3 * n * r + n) \
         + c * math.ceil(n / 8) + 4 * c * n + 5 * r + 8 * s
-    bytes_out = 4 * (k * p + 4 * k + 2 * k * n * r + k * n)
+    bytes_out = 4 * (k * p + 4 * k)
     t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S
     t_ops = feasible_evals * (9 * r + 10) / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -192,6 +234,53 @@ def storm(seed: int, n: int = 64, p: int = 256, r: int = 2, k: int = 4):
         used_nz_q=used, alloc_q=alloc, mask=mask,
         static_scores=np.repeat(rng.integers(0, 3, size=(4, 1)), n,
                                 axis=1).astype(np.float32),
+        fit_col_w=np.ones((r,), np.float32),
+        bal_col_mask=np.ones((r,), np.bool_),
+        shape_u=np.array([0.0, 50.0, 100.0], np.float32),
+        shape_s=np.array([0.0, 4.0, 10.0], np.float32))
+    return arrays, rows, exc, perms
+
+
+def hetero_chunk(seed: int, n: int, p: int = 1024, r: int = 2,
+                 classes: int = 10, k: int = 4, groups: int = 24):
+    """Seeded heterogeneous chunk over class planes, for comparisons that a
+    wrong reduction across the blocks of a cluster cannot pass: nodes of
+    four allocatable shapes in `groups` groups of identical nodes (equal
+    state and static scores, so picks tie inside a group: near-ties), one
+    resource near exhaustion on a third of the groups, few pod slots, pods
+    of `classes - 1` classes of mixed requests (row 0 is the reserved
+    empty class), 24 exception columns, and k pod orders. Same return as
+    `storm`."""
+    rng = np.random.default_rng(seed)
+    shapes = np.stack([np.array([4000, 8000, 16000, 32000]) * (1 + (i % 3))
+                       for i in range(r)], axis=1)            # (4, r)
+    group = rng.integers(0, groups, size=(n,))
+    alloc = shapes[rng.integers(0, 4, size=(groups,))][group].astype(
+        np.int32)
+    used = (alloc * rng.uniform(0, 0.6, size=(groups, r))[group]).astype(
+        np.int32)
+    tight = rng.random(groups) < 1 / 3                        # exhaustion
+    used[tight[group], r - 1] = alloc[tight[group], r - 1] - 600
+    free_pods = rng.integers(1, 4, size=(groups,))[group].astype(np.int32)
+    class_req = np.concatenate([
+        rng.integers(50, 400, size=(classes // 2, r)),
+        rng.integers(300, 3000, size=(classes - classes // 2, r))])
+    class_req = class_req.astype(np.int32)
+    rows = rng.integers(1, classes, size=(p,)).astype(np.int32)
+    mask = rng.random((classes, n)) > 0.2
+    mask[0] = False
+    static = rng.integers(0, 4, size=(classes, groups))[:, group]
+    exc = np.full((p,), -1, np.int32)
+    exc[rng.choice(p, size=24, replace=False)] = rng.integers(
+        0, n, size=24).astype(np.int32)
+    perms = np.stack([np.arange(p, dtype=np.int32)]
+                     + [rng.permutation(p).astype(np.int32)
+                        for _ in range(k - 1)])
+    arrays = dict(
+        req_q=class_req[rows], req_nz_q=class_req[rows],
+        free_q=alloc - used, free_pods=free_pods, used_nz_q=used,
+        alloc_q=alloc, mask=mask,
+        static_scores=np.ascontiguousarray(static, dtype=np.float32),
         fit_col_w=np.ones((r,), np.float32),
         bal_col_mask=np.ones((r,), np.bool_),
         shape_u=np.array([0.0, 50.0, 100.0], np.float32),
@@ -407,14 +496,10 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
         sharded_route(4, kernel=True, chunks=preps[:1])
         torch.cuda.synchronize()
         chunk_wall = time.perf_counter() - t0
-    busy_us = sum(getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-                  for e in prof.key_averages())
+    busy_us = sum(device_us(e) for e in prof.key_averages())
     device_kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
                          for e in prof.events())
-    dev_us = [getattr(e, "self_device_time_total",
-                      getattr(e, "self_cuda_time_total", 0.0)) / e.count
-              for e in prof.key_averages() if "wave_eval_kernel" in e.key]
+    eval_dev_ms = kernel_ms_from(prof, "wave_eval_kernel")
     print(f"profiled 4-shard chunk: wall {chunk_wall:.4f} s, device busy "
           f"{busy_us / 1e6:.4f} s, idle share "
           f"{1 - busy_us / 1e6 / chunk_wall:.4f}, {device_kernels} device "
@@ -430,7 +515,7 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
     print(f"wave_eval per launch at W=32, local_n={n_pad}, R={r}, C=2: "
           f"{ms:.4f} ms back to back (CUDA events); device time in the "
           f"profiled chunk (local_n={n_pad // 4}, 4 shards) "
-          f"{f'{dev_us[0] / 1e3:.5f} ms' if dev_us else 'not measured'}; "
+          f"{fmt_ms(eval_dev_ms)}; "
           f"plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.6f} ms ({bound_by}); {waves / len(preps):.1f} "
           f"launches per chunk; sharded route "
@@ -474,10 +559,29 @@ def main() -> int:
     # -- 2. probe ---------------------------------------------------------
     x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
     probe_err = float((wave_kernel.probe(x) - (x + 1)).abs().max())
+    # The scalar forms: a length that is not a multiple of 4, and a view
+    # whose pointer is not 16-byte aligned.
+    odd = torch.randn(1001, device=dev)
+    for what, t in (("n=1001", odd), ("unaligned view", odd[1:])):
+        if not torch.equal(wave_kernel.probe(t), t + 1):
+            raise RuntimeError(f"probe kernel wrong on {what}")
     if probe_err != 0.0:
         raise RuntimeError(f"probe kernel off by {probe_err}")
-    probe_ms = cuda_ms(torch, lambda: wave_kernel.probe(x), 100)
-    probe_plain_ms = cuda_ms(torch, lambda: x + 1, 100)
+    # Back to back in turns: probe, x + 1, x + 1, probe.
+    turns = [cuda_ms(torch, fn, 1000) for fn in (
+        lambda: wave_kernel.probe(x), lambda: x + 1, lambda: x + 1,
+        lambda: wave_kernel.probe(x))]
+    probe_ms = (turns[0] + turns[3]) / 2
+    probe_plain_ms = (turns[1] + turns[2]) / 2
+    probe_dev_ms = profiled_kernel_ms(
+        torch, lambda: wave_kernel.probe(x), 50, "probe_kernel")
+    plus_dev_ms = profiled_kernel_ms(torch, lambda: x + 1, 50, "elementwise")
+    print(f"probe per launch, (8,128) f32, back to back in turns (probe, "
+          f"x+1, x+1, probe): {turns} ms; device time per launch "
+          f"(profiler): probe {fmt_ms(probe_dev_ms)}, x + 1 "
+          f"{fmt_ms(plus_dev_ms)}; probe "
+          f"{'no slower than' if probe_ms <= probe_plain_ms else 'SLOWER than'}"
+          f" x + 1 back to back")
 
     # -- 3. kernel vs plain -------------------------------------------------
     def node_infos():
@@ -491,9 +595,13 @@ def main() -> int:
     mismatches = 0
     max_err = 0.0
 
-    def compare(what, args, **kw):
+    def compare(what, args, plan=None, **kw):
         nonlocal mismatches, max_err
-        got = wave_kernel.wave_solve(*args, **kw)
+        (p, r), n = args[0].shape, args[2].shape[0]
+        if plan is None:
+            plan = wave_kernel.wave_launch_plan(
+                n, r, max(1, min(kw["wave_w"], p)))
+        got = wave_kernel.wave_solve(*args, plan=plan, **kw)
         ref = wave_kernel.wave_solve_reference(*args, **kw)
         torch.cuda.synchronize()
         diff = int((got[0] - ref[0]).abs().max())
@@ -502,10 +610,19 @@ def main() -> int:
         print(f"compare {what}: max |assign diff| {diff}, counters "
               f"{'identical' if same else 'DIFFER'} (commits "
               f"{got[1].tolist()}, replays {got[2].tolist()}, poisoned "
-              f"{got[3].tolist()})")
+              f"{got[3].tolist()}); plan {plan}")
         if diff or not same:
             mismatches += 1
         return got
+
+    def chunk_on_card(arrays, rows, exc, perms, strategy):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        args = (t["req_q"], t["req_nz_q"], t["free_q"], t["free_pods"],
+                t["used_nz_q"], t["alloc_q"], t["mask"], t["static_scores"],
+                t["fit_col_w"], t["bal_col_mask"], t["shape_u"],
+                t["shape_s"], 1.0, 1.0, strategy)
+        return args, *(torch.from_numpy(a).to(dev) for a in (rows, exc,
+                                                             perms))
 
     b = TorchBackend(device=dev)
     snap0 = Snapshot(node_infos(), 1)
@@ -527,14 +644,52 @@ def main() -> int:
     compare("5k chunk K=1 replay", chunk_args, wave_w=prep["wave_w"],
             rows=prep["dev_cls"], exc=prep["dev_exc"], poison=False)
 
-    arrays, rows, exc, perms = storm(seed=1)
-    t = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
-    storm_args = (t["req_q"], t["req_nz_q"], t["free_q"], t["free_pods"],
-                  t["used_nz_q"], t["alloc_q"], t["mask"],
-                  t["static_scores"], t["fit_col_w"], t["bal_col_mask"],
-                  t["shape_u"], t["shape_s"], 1.0, 1.0, "LeastAllocated")
-    rows_t, exc_t, perms_t = (torch.from_numpy(a).to(dev)
-                              for a in (rows, exc, perms))
+    # Heterogeneous chunks: several node shapes, near-ties, exceptions and
+    # an exhausted resource, at N divisible by the cluster and at a prime N
+    # (short last slice), every strategy; then the global-carry form.
+    poisoned = replayed = 0
+    for n in (5000, 4093):
+        for strategy in wave_kernel.STRATEGIES:
+            args, rows_t, exc_t, perms_t = chunk_on_card(
+                *hetero_chunk(seed=n, n=n), strategy)
+            got = compare(f"hetero N={n} {strategy} K=4 poison", args,
+                          wave_w=32, rows=rows_t, exc=exc_t, poison=True,
+                          perms=perms_t)
+            poisoned += int(got[3].sum())
+            got = compare(f"hetero N={n} {strategy} K=1 replay", args,
+                          wave_w=32, rows=rows_t, exc=exc_t, poison=False)
+            replayed += int(got[2].sum())
+    if not (poisoned and replayed):
+        raise RuntimeError(f"the heterogeneous chunks poisoned {poisoned} "
+                           f"orders and replayed {replayed} pods; both "
+                           "paths must run")
+    big = hetero_chunk(seed=3, n=20000, p=256, r=16, k=1)
+    args, rows_t, exc_t, _ = chunk_on_card(*big, "MostAllocated")
+    plan = wave_kernel.wave_launch_plan(20000, 16, 32)
+    if plan.carry != "global":
+        raise RuntimeError(f"R=16 at N=20000 did not take the global-carry "
+                           f"form: {plan}")
+    compare("hetero N=20000 R=16 P=256 K=1 replay (global carry)", args,
+            wave_w=32, rows=rows_t, exc=exc_t, poison=False)
+
+    # Default shared-form plans whose dynamic shared memory needs the
+    # opt-in above the kernel's default limit (48 KB less its static
+    # shared memory) yet stays at or below 48 KB.
+    for n, r in ((320, 11), (5120, 10)):
+        plan = wave_kernel.wave_launch_plan(n, r, 32)
+        if not (plan.carry == "shared"
+                and 48 * 1024 - wave_kernel.STATIC_SMEM_BUDGET
+                < plan.smem_bytes <= 48 * 1024):
+            raise RuntimeError(f"N={n} R={r} is outside the opt-in "
+                               f"window: {plan}")
+        args, rows_t, exc_t, perms_t = chunk_on_card(
+            *hetero_chunk(seed=n, n=n, p=256, r=r), "LeastAllocated")
+        compare(f"hetero N={n} R={r} P=256 K=4 poison (opt-in window)",
+                args, wave_w=32, rows=rows_t, exc=exc_t, poison=True,
+                perms=perms_t)
+
+    storm_args, rows_t, exc_t, perms_t = chunk_on_card(*storm(seed=1),
+                                                 "LeastAllocated")
     got = compare("storm K=4 poison", storm_args, wave_w=32, rows=rows_t,
                   exc=exc_t, poison=True, perms=perms_t)
     if not bool(got[3].any()):
@@ -636,22 +791,53 @@ def main() -> int:
         prof_wall = time.perf_counter() - t2
     if again != assignments:
         raise RuntimeError("a repeated measured phase placed pods differently")
-    busy_us = sum(getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-                  for e in prof.key_averages())
+    busy_us = sum(device_us(e) for e in prof.key_averages())
+    solve_dev_ms = kernel_ms_from(prof, "wave_solve_kernel")
     print(f"profiled measured phase: wall {prof_wall:.3f} s, device busy "
           f"{busy_us / 1e6:.4f} s" + (
               f", idle share {1 - busy_us / 1e6 / prof_wall:.4f}"
-              if busy_us else ", device time not measured by the profiler"))
+              if busy_us else ", device time not measured by the profiler")
+          + f"; wave_solve device time per launch {fmt_ms(solve_dev_ms)}")
     kernel_ms = cuda_ms(
         torch, lambda: wave_kernel.wave_solve(*chunk_args, **main_kw), 20)
+    # The launch-plan sweep at the main path's chunk: clusters of 4, 8 and
+    # 16 blocks x 128 and 256 threads, in two rounds (forward, reversed),
+    # each plan's output identical to the default plan's.
+    p, r = pl["req_q"].shape
+    n = pl["free_q"].shape[0]
+    default_plan = wave_kernel.wave_launch_plan(n, r, prep["wave_w"])
+    want = wave_kernel.wave_solve(*chunk_args, **main_kw)
+    sweep_plans = [wave_kernel.WavePlan(
+        cs, -(-n // cs), threads, wave_kernel.carry_bytes(-(-n // cs), r),
+        "shared") for cs in (4, 8, 16) for threads in (128, 256)]
+    sweep = {plan: [] for plan in sweep_plans}
+    for order in (sweep_plans, sweep_plans[::-1]):
+        for plan in order:
+            got = wave_kernel.wave_solve(*chunk_args, plan=plan, **main_kw)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"wave_solve under {plan} differs from "
+                                   f"{default_plan}")
+            sweep[plan].append(cuda_ms(torch, lambda: wave_kernel.wave_solve(
+                *chunk_args, plan=plan, **main_kw), 10))
+    for plan, times in sweep.items():
+        print(f"sweep wave_solve 1024-pod chunk, cluster {plan.cluster} x "
+              f"{plan.threads} threads ({plan.nodes_per_block} nodes, "
+              f"{plan.smem_bytes} B per block): {times} ms")
+    # The exchange's floor: the same chunk with an empty class mask, so a
+    # pick reads one mask byte per node and scores nothing; what is left is
+    # the block argmax, the cluster barrier and the slot reads.
+    empty_args = list(chunk_args)
+    empty_args[6] = torch.zeros_like(pl["mask"])
+    floor_ms = cuda_ms(torch, lambda: wave_kernel.wave_solve(
+        *empty_args, **main_kw), 20)
+    print(f"wave_solve floor, empty mask, plan {default_plan}: {floor_ms:.4f}"
+          f" ms per chunk ({floor_ms / p * 1e3:.3f} us per pick)")
     plain_ms = cuda_ms(
         torch, lambda: wave_kernel.wave_solve_reference(*chunk_args,
                                                         **main_kw), 2)
     # Score evaluations the chunk needs: each pod against every node
     # feasible for its class at chunk start, in each of the k orders.
     k = main_kw["perms"].shape[0]
-    p, r = pl["req_q"].shape
     class_req = prep["dev_pack"][:, :r]
     feasible = pl["mask"] & (pl["free_pods"] >= 1)[None, :] & torch.all(
         class_req[:, None, :] <= pl["free_q"][None, :, :], dim=-1)
@@ -659,9 +845,11 @@ def main() -> int:
     bound_ms, bound_by = wave_bound_ms(
         p, pl["free_q"].shape[0], r, pl["mask"].shape[0], k,
         prm["shape_u"].shape[0], evals)
-    print(f"wave_solve per 1024-pod chunk: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
-          f"probe {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms")
+    print(f"wave_solve per 1024-pod chunk: kernel {kernel_ms:.4f} ms "
+          f"({kernel_ms / p * 1e3:.3f} us per pick, {p} picks per order), "
+          f"plan {default_plan}, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}); probe {probe_ms:.4f} ms, plain "
+          f"{probe_plain_ms:.4f} ms")
 
     # -- 6. the sharded path ------------------------------------------------
     eval_entry = sharded_phase(torch, dev, fwk, init_pods, init_assign,

@@ -78,7 +78,7 @@ def wave_eval(mask, static_sc, alloc_q, free_q, free_pods, used_nz, req,
         raise ValueError(f"unknown scoring strategy {strategy!r}")
     masked = torch.empty((s, w, n), dtype=torch.float32, device=dev)
     m = torch.empty((s, w, n), dtype=torch.bool, device=dev)
-    rc = lib.lib.ktpu_wave_eval(
+    rc = lib.wave_eval_fn(
         mask.data_ptr(), static_sc.data_ptr(), alloc_q.data_ptr(),
         free_q.data_ptr(), free_pods.data_ptr(), used_nz.data_ptr(),
         req.data_ptr(), req_nz.data_ptr(), row.data_ptr(), e.data_ptr(),

@@ -17,6 +17,10 @@ kernel does not take.
 Each wrapper counts its kernel launches in a plain integer attribute
 (`wave_solve.launches`, `probe.launches`), so a run can show that the main
 path went through the kernel.
+
+`wave_launch_plan` is the pure function that shapes a `wave_solve` launch
+(one thread-block cluster per order, its carry in shared memory where a
+block's slice fits, else in global scratch); see `csrc/wave_solve.cu`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import hashlib
 import shutil
 import subprocess
 import tempfile
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -49,9 +54,86 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 STRATEGIES = {"LeastAllocated": 0, "MostAllocated": 1,
               "RequestedToCapacityRatio": 2}
 
+#: Shape limits of csrc/wave_solve.cu (kMaxW, kMaxR, kMaxThreads) and of
+#: the card's clusters (16 blocks with the non-portable size allowed).
+MAX_WAVE_W = 64
+MAX_R = 16
+MAX_CLUSTER = 16
+MAX_THREADS = 256
+#: Shared memory one block may use on an H100 (227 KB), and room left in it
+#: for the kernel's static shared arrays (nvcc's report in PERF.md gives
+#: their size; a plan that overflows fails at launch and raises).
+SMEM_PER_BLOCK = 232_448
+STATIC_SMEM_BUDGET = 10_240
+#: The launch shape chosen by a sweep on the card (chip_smoke.py phase 5):
+#: a block scans at most this many nodes, with this many threads.
+NODES_PER_BLOCK = 320
+THREADS = 256
+
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+@dataclass(frozen=True)
+class WavePlan:
+    """The shape of one `wave_solve` launch: K clusters of `cluster` blocks
+    of `threads` threads; block r owns nodes [r*nodes_per_block,
+    (r+1)*nodes_per_block) ∩ [0, N); `carry` "shared" keeps the order's
+    carry of that slice in `smem_bytes` of dynamic shared memory per
+    block, "global" in per-order global scratch (smem_bytes 0)."""
+
+    cluster: int
+    nodes_per_block: int
+    threads: int
+    smem_bytes: int
+    carry: str
+
+
+def carry_bytes(nodes: int, r: int) -> int:
+    """Dynamic shared memory of a block whose slice has `nodes` nodes of R
+    resources: free_q, used_nz and alloc_q (R ints each), free_pods (an
+    int) and the "taken" byte per node (csrc/wave_solve.cu carry_bytes)."""
+    return 4 * nodes * (3 * r + 1) + nodes
+
+
+def _slice_fits(nodes: int, r: int) -> bool:
+    return carry_bytes(nodes, r) + STATIC_SMEM_BUDGET <= SMEM_PER_BLOCK
+
+
+def wave_launch_plan(n: int, r: int, w: int) -> WavePlan:
+    """The launch plan of `wave_solve` over N nodes of R resources at wave
+    width W. The cluster grows in powers of two until each block's slice
+    is at most NODES_PER_BLOCK nodes (1 block for small N) and its carry
+    fits in shared memory, up to MAX_CLUSTER blocks; a slice that still
+    does not fit keeps its carry in global memory. Raises on a shape
+    neither form takes."""
+    if not (n >= 1 and 1 <= r <= MAX_R and 1 <= w <= MAX_WAVE_W):
+        raise ValueError(
+            f"wave_solve kernel does not take this chunk shape: N={n}, R={r} "
+            f"(max {MAX_R}), W={w} (max {MAX_WAVE_W})")
+    cs = 1
+    while cs < MAX_CLUSTER and (-(-n // cs) > NODES_PER_BLOCK
+                                or not _slice_fits(-(-n // cs), r)):
+        cs *= 2
+    per = -(-n // cs)
+    if _slice_fits(per, r):
+        return WavePlan(cs, per, THREADS, carry_bytes(per, r), "shared")
+    return WavePlan(cs, per, THREADS, 0, "global")
+
+
+def _check_plan_shape(plan: WavePlan, n: int, r: int) -> None:
+    """Raise unless `plan` covers N nodes in a shape the kernel takes."""
+    ok = (1 <= plan.cluster <= MAX_CLUSTER and plan.nodes_per_block >= 1
+          and plan.cluster * plan.nodes_per_block >= n
+          and 32 <= plan.threads <= MAX_THREADS and plan.threads % 32 == 0
+          and (plan.carry == "global" and plan.smem_bytes == 0
+               or plan.carry == "shared"
+               and plan.smem_bytes == carry_bytes(plan.nodes_per_block, r)
+               and _slice_fits(plan.nodes_per_block, r)))
+    if not ok:
+        raise ValueError(f"wave_solve launch plan {plan} does not take "
+                         f"N={n}, R={r}")
 
 
 class KernelLibrary:
@@ -72,6 +154,10 @@ class KernelLibrary:
         self.lib = None
         self.path: Path | None = None
         self.ptxas_info = ""
+        #: The bound C entry points, kept for the launch paths.
+        self.probe_fn = None
+        self.wave_solve_fn = None
+        self.wave_eval_fn = None
 
     def inputs(self) -> list[Path]:
         """The sources and every header in their directories."""
@@ -138,7 +224,7 @@ class KernelLibrary:
         lib.ktpu_probe.argtypes = [_VP, _VP, _I, _VP]
         lib.ktpu_probe.restype = _I
         lib.ktpu_wave_solve.argtypes = (
-            [_VP] * 15 + [_I, _F, _F, _I] + [_I] * 7 + [_VP] * 6)
+            [_VP] * 15 + [_I, _F, _F, _I] + [_I] * 12 + [_VP] * 7)
         lib.ktpu_wave_solve.restype = _I
         lib.ktpu_wave_eval.argtypes = (
             [_VP] * 16 + [_I, _F, _F, _I] + [_I] * 5 + [_VP] * 3)
@@ -150,10 +236,14 @@ class KernelLibrary:
         self.max_s = lib.ktpu_max_shape_points()
         self.max_eval_w = lib.ktpu_wave_eval_max_members()
         self.max_eval_shards = lib.ktpu_wave_eval_max_shards()
+        self.probe_fn = lib.ktpu_probe
+        self.wave_solve_fn = lib.ktpu_wave_solve
+        self.wave_eval_fn = lib.ktpu_wave_eval
         try:
             probe_check(self)
         except RuntimeError:
-            self.lib = None
+            self.lib = self.probe_fn = None
+            self.wave_solve_fn = self.wave_eval_fn = None
             raise
         return self
 
@@ -166,21 +256,31 @@ class KernelLibrary:
 #: The process's kernel library; built at the first CUDA launch.
 LIBRARY = KernelLibrary()
 
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_F32 = torch.float32
+
 
 def _stream(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on t's device, without
+    building a `torch.cuda.Stream` object where this PyTorch can."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def probe(x: torch.Tensor, lib: KernelLibrary | None = None) -> torch.Tensor:
     """x + 1 through the probe kernel (f32, contiguous, on the card)."""
-    lib = lib or LIBRARY.build()
-    if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()):
+    lib = lib or LIBRARY
+    fn = lib.probe_fn or lib.build().probe_fn
+    if not (x.is_cuda and x.dtype is _F32 and x.is_contiguous()):
         raise ValueError("probe takes a contiguous float32 CUDA tensor")
     out = torch.empty_like(x)
-    rc = lib.lib.ktpu_probe(x.data_ptr(), out.data_ptr(), x.numel(),
-                            _stream(x))
-    probe.launches += 1
-    lib.check(rc, "probe")
+    n = x.numel()
+    if n:
+        rc = fn(x.data_ptr(), out.data_ptr(), n, _stream(x))
+        probe.launches += 1
+        if rc:
+            lib.check(rc, "probe")
     return out
 
 
@@ -212,7 +312,8 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
 def wave_solve(req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q,
                mask, static_scores, fit_col_w, bal_col_mask, shape_u,
                shape_s, w_fit, w_bal, strategy: str, wave_w: int,
-               rows, exc, *, poison: bool, perms=None):
+               rows, exc, *, poison: bool, perms=None,
+               plan: WavePlan | None = None):
     """The full wavefront solve of one chunk, every order in one launch.
 
     Argument contract of the reference's `pallas_kernel.wave_solve`: class
@@ -221,7 +322,8 @@ def wave_solve(req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q,
     pod orders (None = the identity order alone). Returns (assign (K, P)
     int32 in PERMUTED pod coordinates, commits (K,), replays (K,),
     poisoned (K,) bool). CUDA tensors launch the kernel; CPU tensors run
-    `wave_solve_reference`.
+    `wave_solve_reference`. `plan` (default `wave_launch_plan(N, R, W)`)
+    shapes the launch.
     """
     if free_q.device.type == "cpu":
         return wave_solve_reference(
@@ -260,22 +362,32 @@ def wave_solve(req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q,
             f"{s} (max {lib.max_s}), N={n}, C={c}, K={k}")
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown scoring strategy {strategy!r}")
+    if plan is None:
+        plan = wave_launch_plan(n, r, W)
+    else:
+        _check_plan_shape(plan, n, r)
     bits = pack_bits(mask)
     assign = torch.empty((k, p), dtype=torch.int32, device=dev)
     stats = torch.empty((k, 4), dtype=torch.int32, device=dev)
-    carry_q = torch.empty((k, n, r), dtype=torch.int32, device=dev)
-    carry_pods = torch.empty((k, n), dtype=torch.int32, device=dev)
-    carry_nz = torch.empty((k, n, r), dtype=torch.int32, device=dev)
-    rc = lib.lib.ktpu_wave_solve(
+    # The global form's per-order carry: free_q, free_pods, used_nz, taken.
+    scratch = [torch.empty(shape, dtype=dtype, device=dev)
+               for shape, dtype in (((k, n, r), torch.int32),
+                                    ((k, n), torch.int32),
+                                    ((k, n, r), torch.int32),
+                                    ((k, n), torch.uint8))] \
+        if plan.carry == "global" else []
+    scratch_ptrs = [t.data_ptr() for t in scratch] or [None] * 4
+    rc = lib.wave_solve_fn(
         req_q.data_ptr(), req_nz_q.data_ptr(), rows.data_ptr(),
         exc.data_ptr(), perms.data_ptr(), free_q.data_ptr(),
         free_pods.data_ptr(), used_nz_q.data_ptr(), alloc_q.data_ptr(),
         bits.data_ptr(), static_scores.data_ptr(), fit_col_w.data_ptr(),
         bal_col_mask.data_ptr(), shape_u.data_ptr(), shape_s.data_ptr(),
         s, float(w_fit), float(w_bal), STRATEGIES[strategy],
-        k, p, n, r, bits.shape[1], W, int(poison),
-        assign.data_ptr(), stats.data_ptr(), carry_q.data_ptr(),
-        carry_pods.data_ptr(), carry_nz.data_ptr(), _stream(free_q))
+        k, p, n, r, bits.shape[1], W, int(poison), plan.cluster,
+        plan.nodes_per_block, plan.threads, plan.smem_bytes,
+        int(plan.carry == "shared"), assign.data_ptr(), stats.data_ptr(),
+        *scratch_ptrs, _stream(free_q))
     wave_solve.launches += 1
     lib.check(rc, "wave_solve")
     return assign, stats[:, 0], stats[:, 1], stats[:, 2] > 0
@@ -287,9 +399,10 @@ wave_solve.launches = 0
 def _check(device, dtype, shape, **tensors) -> None:
     """Raise unless every tensor lies on `device` with `dtype`, `shape`
     and a contiguous layout."""
+    shape = tuple(shape)
     for name, t in tensors.items():
-        if t.device != device or t.dtype != dtype \
-                or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        if t.dtype is not dtype or t.shape != shape or t.device != device \
+                or not t.is_contiguous():
             raise ValueError(
                 f"kernel input {name} must be a contiguous {dtype} tensor of "
                 f"shape {tuple(shape)} on {device}; got {t.dtype} "

@@ -6,7 +6,9 @@ so it also runs where JAX is not installed:
 
 Contract: the kernel (`wave_solve` on CUDA tensors) and
 `wave_solve_reference` on the same CUDA tensors give identical
-assignments, commits, replays and poisoned flags; the probe kernel
+assignments, commits, replays and poisoned flags, under the default launch
+plan and under clusters of several blocks (heterogeneous chunks, a prime
+node count, fewer nodes than blocks, the global-carry form); the probe kernel
 returns x + 1; the `wave_eval` kernel and `wave_eval_reference` give
 identical masked scores and gated masks; and the node-sharded solver with
 the kernel on a 4-shard mesh of the card assigns exactly as the
@@ -17,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import storm, wave_eval_case
+from chip_smoke import hetero_chunk, storm, wave_eval_case
 from kubernetes_tpu_torch.ops import solver, wave_eval, wave_kernel
+from kubernetes_tpu_torch.ops.wave_kernel import WavePlan, carry_bytes
 
 STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
 WIDTHS = (1, 2, 8, 31)
@@ -149,3 +152,76 @@ def test_sharded_route_on_card_matches_single_device(cuda):
             exc=exc_t, wave_w=w, kernel=True)
         assert wave_eval.wave_eval.launches == before + -(-96 // w)
         assert torch.equal(got, want), w
+
+
+def _plans(n: int, r: int) -> list[WavePlan]:
+    """The default plan and clusters of 2, 4 and 16 blocks over N nodes,
+    with the carry in shared memory and in global scratch."""
+    plans = [wave_kernel.wave_launch_plan(n, r, 32)]
+    for cs, threads in ((2, 64), (4, 128), (16, 256)):
+        per = -(-n // cs)
+        plans.append(WavePlan(cs, per, threads, carry_bytes(per, r),
+                              "shared"))
+        plans.append(WavePlan(cs, per, threads, 0, "global"))
+    return plans
+
+
+def _compare_plans(t, rows, exc, perms, strategy, plans, dev):
+    rows_t, exc_t, perms_t = (torch.from_numpy(a).to(dev)
+                              for a in (rows, exc, perms))
+    seen = {"poisoned": 0, "replays": 0}
+    for poison, pm in ((True, perms_t), (False, None)):
+        kw = dict(strategy=strategy, wave_w=32, rows=rows_t, exc=exc_t,
+                  poison=poison, perms=pm)
+        ref = wave_kernel.wave_solve_reference(**t, **kw)
+        seen["poisoned"] += int(ref[3].sum())
+        seen["replays"] += int(ref[2].sum())
+        for plan in plans:
+            got = wave_kernel.wave_solve(**t, plan=plan, **kw)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("assign", "commits", "replays",
+                                   "poisoned"), got, ref):
+                assert torch.equal(g.cpu(), r.cpu()), \
+                    f"{strategy} poison={poison} {plan}: {name}"
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_heterogeneous_chunk_across_cluster_blocks(cuda, strategy):
+    """A small heterogeneous chunk (node shapes, near-ties, exceptions, an
+    exhausted resource) at a prime node count, so the last slice is short,
+    under clusters of 1 to 16 blocks in both carry forms."""
+    n = 311
+    args, rows, exc, perms = hetero_chunk(seed=70, n=n, p=160, r=3,
+                                          groups=12)
+    t = _on(dict(args, w_fit=np.float32(1.0), w_bal=np.float32(1.0)), cuda)
+    seen = _compare_plans(t, rows, exc, perms, strategy, _plans(n, 3), cuda)
+    assert seen["poisoned"] or seen["replays"]      # conflicts were met
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(320, 11), (5120, 10)])
+def test_default_plan_in_the_shared_memory_opt_in_window(cuda, n, r):
+    """Default shared-form plans whose dynamic shared memory lies between
+    the limit a kernel gets without opting in (48 KB less its static
+    shared memory) and 48 KB: the launch raises the limit for them too."""
+    plan = wave_kernel.wave_launch_plan(n, r, 32)
+    assert plan.carry == "shared" and 39_312 < plan.smem_bytes <= 49_152
+    args, rows, exc, perms = hetero_chunk(seed=72, n=n, p=128, r=r,
+                                          groups=8, k=2)
+    t = _on(dict(args, w_fit=np.float32(1.0), w_bal=np.float32(1.0)), cuda)
+    _compare_plans(t, rows, exc, perms, "LeastAllocated", [plan], cuda)
+
+
+@pytest.mark.cuda
+def test_fewer_nodes_than_cluster_blocks(cuda):
+    """N < CS: the blocks past the last node own empty slices and offer
+    (-inf, N) to every reduction."""
+    n = 3
+    args, rows, exc, perms = hetero_chunk(seed=71, n=n, p=24, r=2, groups=2)
+    t = _on(dict(args, w_fit=np.float32(1.0), w_bal=np.float32(1.0)), cuda)
+    plans = [WavePlan(cs, 1, 128, carry_bytes(1, 2), "shared")
+             for cs in (4, 16)] + [WavePlan(8, 1, 64, 0, "global")]
+    for strategy in STRATEGIES:
+        _compare_plans(t, rows, exc, perms, strategy, plans, cuda)
