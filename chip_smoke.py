@@ -5,8 +5,9 @@ Drives the port's two paths at scheduler_perf SchedulingBasic/5000Nodes
 size (5000 nodes of cpu 8 / memory 32Gi / pods 110, 1000 init pods, then
 10000 measured pods of cpu 100m / memory 250Mi in 1024-pod chunks, W=32):
 the main path `TorchBackend.assign` (the greedy wavefront batch solve, K=4
-orders), and the node-sharded solver of `kubernetes_tpu_torch.parallel`
-on a 1-shard and a 4-shard mesh of cuda:0 — after building the
+orders, KTPU_SOLVE_MODE=greedy pinned), and the node-sharded solver of
+`kubernetes_tpu_torch.parallel` on a 1-shard and a 4-shard mesh of cuda:0
+(each wave two kernel launches, no host sync) — after building the
 hand-written kernels from `kubernetes_tpu_torch/csrc/` with nvcc and
 holding each against its plain PyTorch version on the card.
 
@@ -38,16 +39,24 @@ Phases (any failure raises and the script exits non-zero with no result):
      scores and gated mask identical, at W=32, R=2, C=2, local_n 5120 and
      1280, each strategy, with pinned members whose column lies in
      another shard, padding members, an all-infeasible class row and
-     uniform nodes; (b) the conflict storm through the 4-shard route,
-     identical to the one-pod-per-step solver; (c) the 10000 measured pods
-     through sharded_masks_scores and sharded_greedy_assign(wave_w=32,
-     kernel=True) on a 1-shard and a 4-shard mesh, the used state chained
-     from chunk to chunk, every launch counter set to 0 just before each
-     and read just after: every pod placed, no node over capacity,
-     assignments identical to the kernel-off route and to the
-     single-device wave scan, wave_eval launched once per wave; (d)
-     pods/s, one profiled chunk, wave_eval ms per launch, plain ms and
-     bound;
+     uniform nodes; (a') the two-launch wave step (wave_step) against
+     wave_step_reference wave by wave, assignments, commit/replay decision
+     and carry identical: the first uniform 5k chunk at 1 and 4 shards,
+     heterogeneous chunks (W = 1, 8, 32, 64), storms that replay, a 2 x 2
+     multislice mesh, members with no feasible node, padding members and
+     exception columns; and W=65 raising; (b) the conflict storm through
+     the 4-shard route, identical to the one-pod-per-step solver; (c) the
+     10000 measured pods through sharded_masks_scores and
+     sharded_greedy_assign(wave_w=32, kernel=True) on a 1-shard and a
+     4-shard mesh, the used state chained from chunk to chunk, every wave
+     loop under torch.cuda.set_sync_debug_mode("error"), every launch
+     counter set to 0 just before each and read just after: every pod
+     placed, no node over capacity, assignments identical to the
+     kernel-off route, the single-device wave scan and TorchBackend.assign,
+     exactly two launches per wave (none with the kernel off); (d) pods/s,
+     one profiled chunk (device busy, idle share, kernel count, launch A's
+     and B's device time), the wave step's ms per wave back to back, plain
+     ms and bound, and the standalone wave_eval's ms, plain ms and bound;
   7. the result lines: a `kernels` JSON line, the card's name and power
      limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 
@@ -58,6 +67,7 @@ non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -157,6 +167,68 @@ def wave_eval_bound_ms(shards: int, local_n: int, c: int, r: int, w: int,
     t_ops = shards * w * local_n * (9 * r + 10) / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
+
+
+def wave_step_bound_ms(n: int, r: int, w: int, rows_read: int,
+                       pts: int) -> tuple[float, str]:
+    """Least time for one wave step over n nodes (all shards together): the
+    larger of its bytes — the node state read once (alloc, free_q, used_nz:
+    R ints each, and free_pods), the mask byte and static float of each of
+    the `rows_read` distinct plane rows the wave's members read, the member
+    vectors and parameters, the picks' node state and the (W,) assignments
+    written — over HBM bandwidth, and its float operations — one live score
+    per (member, node) and one per (member, earlier pick) of the conflict
+    check, 9R + 10 each (see `wave_bound_ms`) — over the fp32 peak."""
+    bytes_in = 4 * (3 * r + 1) * n + 5 * rows_read * n + w * (8 * r + 9) \
+        + 5 * r + 8 * pts
+    bytes_out = 4 * w * (2 * r + 1) + 4 * w + 4
+    t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S
+    t_ops = (w * n + w * w) * (9 * r + 10) / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def compare_wave_steps(torch, t: dict, rows, exc, sizes, w: int,
+                       w_fit: float, w_bal: float,
+                       strategy: str) -> tuple[int, int]:
+    """The wave step kernel against `wave_step_reference` on the card,
+    wave by wave from one carry: the (W,) assignments, the commit/replay
+    decision and the carry (free_q, free_pods, used_nz) after each wave
+    must be identical. `t` holds the solve's tensors on the card (the
+    names of `storm`'s arrays), `sizes` the mesh axes. Returns (waves,
+    waves replayed); raises at the first difference."""
+    from kubernetes_tpu_torch.ops import solver, wave_eval
+
+    def shards():
+        return wave_eval.Shards(
+            sizes, t["free_q"], t["free_pods"], t["used_nz_q"], t["alloc_q"],
+            t["mask"], t["static_scores"], t["fit_col_w"], t["bal_col_mask"],
+            t["shape_u"], t["shape_s"], w_fit, w_bal, strategy)
+    kern, plain = shards(), shards()
+    (req_w, req_nz_w, rows_w, ex_w), real_w = solver._wave_split(
+        w, (t["req_q"], t["req_nz_q"], rows, exc))
+    replayed = 0
+    for i in range(req_w.shape[0]):
+        wave = (req_w[i], req_nz_w[i], rows_w[i], ex_w[i], real_w[i])
+        before = (wave_eval.wave_eval.launches,
+                  wave_eval.wave_resolve.launches)
+        got = wave_eval.wave_step(kern, *wave)
+        if (wave_eval.wave_eval.launches, wave_eval.wave_resolve.launches) \
+                != (before[0] + 1, before[1] + 1):
+            raise RuntimeError("the wave step did not launch its kernels")
+        want = wave_eval.wave_step_reference(plain, *wave)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        carry = all(torch.equal(a, b)
+                    for a, b in zip(kern.carry(), plain.carry()))
+        if not (same and carry):
+            raise RuntimeError(
+                f"wave step kernel differs from wave_step_reference at wave "
+                f"{i}: assignments {got[0].tolist()} vs {want[0].tolist()}, "
+                f"replayed {got[1].tolist()} vs {want[1].tolist()}, carry "
+                f"{'identical' if carry else 'DIFFERS'}")
+        replayed += int(want[1])
+    return req_w.shape[0], replayed
 
 
 def wave_eval_case(seed: int, n: int, shards: int, uniform: bool,
@@ -288,15 +360,39 @@ def hetero_chunk(seed: int, n: int, p: int = 1024, r: int = 2,
     return arrays, rows, exc, perms
 
 
+@contextlib.contextmanager
+def no_host_sync_in_wave_loop(torch):
+    """Run every wave loop of the sharded route
+    (`parallel.sharded._wave_body`) under
+    `torch.cuda.set_sync_debug_mode("error")`: a torch operation that
+    synchronises the host with the card inside the loop raises."""
+    from kubernetes_tpu_torch.parallel import sharded
+
+    body = sharded._wave_body
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return body(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sharded._wave_body = guarded
+    try:
+        yield
+    finally:
+        sharded._wave_body = body
+
+
 def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
-                  main_assignments, node_infos) -> dict:
+                  main_assignments, node_infos) -> list[dict]:
     """Phase 6, the node-sharded solver on the card; see the module
-    docstring. Returns the `wave_eval` entry of the kernels line."""
+    docstring. Returns the `wave_eval` and `wave_step` entries of the
+    kernels line."""
     from kubernetes_tpu_torch.ops import solver, wave_eval, wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
     from kubernetes_tpu_torch.ops.tensorize import NODE_PAD
     from kubernetes_tpu_torch.parallel import (
-        build_mesh, build_mesh_2d, sharded_greedy_assign,
+        build_mesh, build_mesh_2d, sharded, sharded_greedy_assign,
         sharded_masks_scores)
     from kubernetes_tpu_torch.scheduler.types import Snapshot
 
@@ -367,7 +463,7 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
         if not same:
             raise RuntimeError("sharded storm differs")
 
-    # -- (c) the full-width path ---------------------------------------------
+    # -- the full-width chunks -------------------------------------------------
     nodes = node_infos()
     by_name = {ni.name: ni for ni in nodes}
     for pi in init_pods:
@@ -393,30 +489,41 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
             0, torch.where(hit, assign, n).long(),
             torch.where(hit[:, None], inc, 0))[:n]
 
+    def solve_inputs(prep, used, mesh2d):
+        """The chunk's mask/score phase on `mesh2d`; returns the solver's
+        tensors under `storm`'s names, the rows and the exceptions."""
+        pack, cls = prep["dev_pack"], prep["dev_cls"]
+        cmask = ((prep["dev_mask"][:, :, None] >> shifts) & 1).reshape(
+            pack.shape[0], -1).to(torch.bool)[:, :n]
+        mask, _, static = sharded_masks_scores(
+            mesh2d, st["alloc_q"], used[:, :r], used[:, r:2 * r],
+            st["alloc_pods"], used[:, 2 * r], pack[:, :r],
+            pack[:, r:2 * r], pack[:, 2 * r:2 * r + tf].to(torch.bool),
+            pack[:, 2 * r + tf:].to(torch.bool), st["taint_f"],
+            st["taint_p"], cmask, prep["dev_scores"].to(torch.float32),
+            prm["w_taint"], prm["taint_filter_on"], prm["strategy"])
+        return dict(
+            req_q=pack[:, :r][cls.long()],
+            req_nz_q=pack[:, r:2 * r][cls.long()],
+            free_q=st["alloc_q"] - used[:, :r],
+            free_pods=st["alloc_pods"] - used[:, 2 * r],
+            used_nz_q=used[:, r:2 * r], alloc_q=st["alloc_q"], mask=mask,
+            static_scores=static, fit_col_w=prm["fit_col_w"],
+            bal_col_mask=prm["bal_col_mask"], shape_u=prm["shape_u"],
+            shape_s=prm["shape_s"]), cls, prep["dev_exc"]
+
     def sharded_route(shards: int, kernel: bool, chunks=preps):
         mesh2d = build_mesh_2d(shards, device=dev)
         mesh = build_mesh(shards, device=dev)
         used, out = used0, []
         for prep in chunks:
-            pack, cls = prep["dev_pack"], prep["dev_cls"]
-            cmask = ((prep["dev_mask"][:, :, None] >> shifts) & 1).reshape(
-                pack.shape[0], -1).to(torch.bool)[:, :n]
-            mask, _, static = sharded_masks_scores(
-                mesh2d, st["alloc_q"], used[:, :r], used[:, r:2 * r],
-                st["alloc_pods"], used[:, 2 * r], pack[:, :r],
-                pack[:, r:2 * r], pack[:, 2 * r:2 * r + tf].to(torch.bool),
-                pack[:, 2 * r + tf:].to(torch.bool), st["taint_f"],
-                st["taint_p"], cmask, prep["dev_scores"].to(torch.float32),
-                prm["w_taint"], prm["taint_filter_on"], prm["strategy"])
-            req_q = pack[:, :r][cls.long()]
-            req_nz_q = pack[:, r:2 * r][cls.long()]
+            t, cls, exc = solve_inputs(prep, used, mesh2d)
             assign = sharded_greedy_assign(
-                mesh, req_q, req_nz_q, st["alloc_q"] - used[:, :r],
-                st["alloc_pods"] - used[:, 2 * r], used[:, r:2 * r],
-                st["alloc_q"], mask, static, *score_args, rows=cls,
-                exc=prep["dev_exc"], row_req_q=pack[:, :r],
-                row_req_nz_q=pack[:, r:2 * r], wave_w=32, kernel=kernel)
-            used = chain(used, req_q, req_nz_q, assign)
+                mesh, *t.values(), *score_args[4:], rows=cls, exc=exc,
+                row_req_q=prep["dev_pack"][:, :r],
+                row_req_nz_q=prep["dev_pack"][:, r:2 * r], wave_w=32,
+                kernel=kernel)
+            used = chain(used, t["req_q"], t["req_nz_q"], assign)
             out.append(assign[:prep["batch"].p_real])
         return torch.cat(out)
 
@@ -437,30 +544,95 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
             out.append(assign[:prep["batch"].p_real])
         return torch.cat(out)
 
+    # -- (a') the wave step kernels against wave_step_reference ---------------
+    step_cases = []
+    t5k, cls5k, exc5k = solve_inputs(preps[0], used0, build_mesh_2d(
+        1, device=dev))
+    for shards in (1, 4):
+        step_cases.append((f"uniform 5k chunk, {shards} shard(s), W=32",
+                           t5k, cls5k, exc5k, (shards,), 32,
+                           prm["w_fit"], prm["w_bal"], prm["strategy"]))
+
+    def seeded(builder, what, seed, sizes, w, strategy, empty_rows=3,
+               **kw):
+        arrays, rows, exc, _ = builder(seed=seed, k=1, **kw)
+        rows = rows.copy()
+        rows[:empty_rows] = 0              # members with no feasible node
+        step_cases.append((
+            what, {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                   for k, v in arrays.items()},
+            torch.from_numpy(rows).to(dev), torch.from_numpy(exc).to(dev),
+            sizes, w, 1.0, 1.0, strategy))
+    for shards in (1, 4):
+        seeded(hetero_chunk, f"hetero 5120 nodes, {shards} shard(s), W=32",
+               5120 + shards, (shards,), 32, "LeastAllocated", n=5120,
+               p=500)
+    seeded(hetero_chunk, "hetero 5120 nodes, 4 shards, W=64", 11, (4,), 64,
+           "MostAllocated", n=5120, p=500)
+    seeded(hetero_chunk, "hetero 1024 nodes, 4 shards, W=8", 12, (4,), 8,
+           "RequestedToCapacityRatio", n=1024, p=250)
+    seeded(hetero_chunk, "hetero 1024 nodes, 1 shard, W=1", 13, (1,), 1,
+           "LeastAllocated", n=1024, p=60)
+    seeded(storm, "storm (PR 4's seed), 4 shards, W=32", 1, (4,), 32,
+           "LeastAllocated", empty_rows=0)
+    seeded(storm, "storm, 4 shards, W=64", 2, (4,), 64, "MostAllocated",
+           p=250)
+    seeded(storm, "storm, 2 x 2 multislice mesh, W=32", 3, (2, 2), 32,
+           "RequestedToCapacityRatio", p=250)
+    step_replays = 0
+    for what, t, rows_c, exc_c, sizes, w, w_fit, w_bal, strategy \
+            in step_cases:
+        waves, replayed = compare_wave_steps(torch, t, rows_c, exc_c, sizes,
+                                             w, w_fit, w_bal, strategy)
+        step_replays += replayed if what.startswith("storm") else 0
+        print(f"compare wave step {what}, {rows_c.numel()} pods, "
+              f"{strategy}: identical (assignments, commit/replay, carry) "
+              f"over {waves} waves, {replayed} replayed")
+    if not step_replays:
+        raise RuntimeError("the storms replayed no wave on the card")
+    t, rows_c, exc_c = step_cases[0][1:4]
+    try:
+        compare_wave_steps(torch, t, rows_c, exc_c, (4,), 65, 1.0, 1.0,
+                           "LeastAllocated")
+    except ValueError as err:
+        print(f"wave step at W=65 raises: {err}")
+    else:
+        raise RuntimeError("a wave step wider than its top lists ran")
+
+    # -- (c) the full-width path ---------------------------------------------
     waves = sum(math.ceil(prep["batch"].req_q.shape[0] / 32)
                 for prep in preps)
     routes, launches, rates = {}, {}, {}
-    for shards in (1, 4):
-        torch.cuda.synchronize()
-        wave_eval.wave_eval.launches = 0
-        t0 = time.perf_counter()
-        routes[shards] = sharded_route(shards, kernel=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[shards] = wave_eval.wave_eval.launches
-        rates[shards] = N_MEASURED / wall
-        print(f"sharded route, {shards} shard(s) of {dev}, kernel on: "
-              f"{N_MEASURED} pods in {wall:.3f} s = {rates[shards]:.1f} "
-              f"pods/s; wave_eval launches {launches[shards]} ({waves} "
-              f"waves in {len(preps)} chunks)")
-        if launches[shards] != waves:
-            raise RuntimeError(f"wave_eval launched {launches[shards]} "
-                               f"times for {waves} waves")
+    with no_host_sync_in_wave_loop(torch):
+        for shards in (1, 4):
+            torch.cuda.synchronize()
+            wave_eval.wave_eval.launches = 0
+            wave_eval.wave_resolve.launches = 0
+            t0 = time.perf_counter()
+            routes[shards] = sharded_route(shards, kernel=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[shards] = (wave_eval.wave_eval.launches,
+                                wave_eval.wave_resolve.launches)
+            rates[shards] = N_MEASURED / wall
+            print(f"sharded route, {shards} shard(s) of {dev}, kernel on: "
+                  f"{N_MEASURED} pods in {wall:.3f} s = {rates[shards]:.1f} "
+                  f"pods/s; launches: wave_eval (A) {launches[shards][0]}, "
+                  f"wave_resolve (B) {launches[shards][1]} ({waves} waves "
+                  f"in {len(preps)} chunks), no host sync in the wave loop")
+            if launches[shards] != (waves, waves):
+                raise RuntimeError(f"{launches[shards]} launches for "
+                                   f"{waves} waves, not 2 per wave")
     wave_eval.wave_eval.launches = 0
+    wave_eval.wave_resolve.launches = 0
     off = {shards: sharded_route(shards, kernel=False) for shards in (1, 4)}
     single = single_device_route()
-    if wave_eval.wave_eval.launches:
-        raise RuntimeError("the kernel-off route launched wave_eval")
+    off_launches = (wave_eval.wave_eval.launches,
+                    wave_eval.wave_resolve.launches)
+    print(f"kernel-off routes and the single-device wave scan: launches "
+          f"wave_eval {off_launches[0]}, wave_resolve {off_launches[1]}")
+    if any(off_launches):
+        raise RuntimeError("the kernel-off route launched a wave kernel")
     for shards in (1, 4):
         for what, other in (("kernel off", off[shards]),
                             ("single-device wave scan", single)):
@@ -485,6 +657,9 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
                  for pi, j in zip(measured, assign))
     print(f"compare sharded route vs TorchBackend.assign (phase 4): "
           f"{differ} of {N_MEASURED} placements differ")
+    if differ:
+        raise RuntimeError("the sharded route places differently from "
+                           "TorchBackend.assign")
 
     # -- (d) numbers ----------------------------------------------------------
     # One chunk of the 4-shard route, kernel on, under torch.profiler: the
@@ -499,33 +674,96 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
     busy_us = sum(device_us(e) for e in prof.key_averages())
     device_kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
                          for e in prof.events())
-    eval_dev_ms = kernel_ms_from(prof, "wave_eval_kernel")
+    a_dev_ms = kernel_ms_from(prof, "wave_eval_kernel<true>")
+    b_dev_ms = kernel_ms_from(prof, "wave_resolve_kernel")
     print(f"profiled 4-shard chunk: wall {chunk_wall:.4f} s, device busy "
           f"{busy_us / 1e6:.4f} s, idle share "
           f"{1 - busy_us / 1e6 / chunk_wall:.4f}, {device_kernels} device "
-          f"kernels")
+          f"kernels; device time per launch: A (wave_eval, top lists) "
+          f"{fmt_ms(a_dev_ms)}, B (wave_resolve) {fmt_ms(b_dev_ms)}")
+
+    # The wave step back to back: the first chunk's waves through
+    # `_wave_body` on a fresh copy of its node state each time (CUDA
+    # events, the state built outside the timed window).
+    (req_w, req_nz_w, rows_w, ex_w), _ = solver._wave_split(
+        32, (t5k["req_q"], t5k["req_nz_q"], cls5k, exc5k))
+    n_waves = req_w.shape[0]
+    rows_read = int(torch.unique(cls5k).numel())
+
+    def fresh(shards):
+        return wave_eval.Shards(
+            (shards,), t5k["free_q"], t5k["free_pods"], t5k["used_nz_q"],
+            t5k["alloc_q"], t5k["mask"], t5k["static_scores"],
+            *score_args)
+
+    step_ms, step_plain_ms, host_ms = {}, {}, {}
+    for shards in (1, 4):
+        times, host = [], []
+        for state in [fresh(shards) for _ in range(6)]:
+            t0e = torch.cuda.Event(enable_timing=True)
+            t1e = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0e.record()
+            t0 = time.perf_counter()
+            sharded._wave_body(state, t5k["req_q"], t5k["req_nz_q"], cls5k,
+                               exc5k, 32, True)
+            host.append((time.perf_counter() - t0) * 1e3 / n_waves)
+            t1e.record()
+            torch.cuda.synchronize()
+            times.append(t0e.elapsed_time(t1e) / n_waves)
+        # The first run is the warm-up; `host` is the time the host takes
+        # to enqueue a wave (the loop returns before the card finishes).
+        step_ms[shards] = sum(times[1:]) / len(times[1:])
+        host_ms[shards] = sum(host[1:]) / len(host[1:])
+        state = fresh(shards)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded._wave_body(state, t5k["req_q"], t5k["req_nz_q"], cls5k,
+                           exc5k, 32, False)
+        torch.cuda.synchronize()
+        step_plain_ms[shards] = (time.perf_counter() - t0) * 1e3 / n_waves
+    pts = prm["shape_u"].shape[0]
+    step_bound, step_bound_by = wave_step_bound_ms(n, r, 32, rows_read, pts)
+    print(f"wave step per wave at W=32, N={n}, R={r}, {rows_read} plane "
+          f"row(s) read: {step_ms[1]:.4f} ms (1 shard), {step_ms[4]:.4f} ms "
+          f"(4 shards) back to back over the first chunk's {n_waves} waves "
+          f"(CUDA events, 5 runs); the host enqueues a wave in "
+          f"{host_ms[1]:.4f} / {host_ms[4]:.4f} ms; plain "
+          f"{step_plain_ms[1]:.4f} / "
+          f"{step_plain_ms[4]:.4f} ms; bound {step_bound:.6f} ms "
+          f"({step_bound_by}) per wave, {step_bound * n_waves:.6f} ms per "
+          f"chunk")
 
     case = on_card(wave_eval_case(8, n_pad, 1, False))
-    pts = case["shape_u"].shape[0]
     ms = cuda_ms(torch, lambda: wave_eval.wave_eval(
         **case, strategy="LeastAllocated"), 200)
+    dev_ms = profiled_kernel_ms(torch, lambda: wave_eval.wave_eval(
+        **case, strategy="LeastAllocated"), 50, "wave_eval_kernel<false>")
     plain_ms = cuda_ms(torch, lambda: wave_eval.wave_eval_reference(
         **case, strategy="LeastAllocated"), 20)
-    bound_ms, bound_by = wave_eval_bound_ms(1, n_pad, 2, r, 32, pts)
-    print(f"wave_eval per launch at W=32, local_n={n_pad}, R={r}, C=2: "
-          f"{ms:.4f} ms back to back (CUDA events); device time in the "
-          f"profiled chunk (local_n={n_pad // 4}, 4 shards) "
-          f"{fmt_ms(eval_dev_ms)}; "
-          f"plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.6f} ms ({bound_by}); {waves / len(preps):.1f} "
-          f"launches per chunk; sharded route "
-          f"{rates[1]:.1f} pods/s at 1 shard, {rates[4]:.1f} at 4")
-    return {"name": "wave_eval", "route": "cuda",
-            "source": "kubernetes_tpu_torch/csrc/wave_eval.cu",
-            "replaces": "kubernetes_tpu/ops/pallas_kernel.py:434",
-            "launches": launches[1] + launches[4], "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    bound_ms, bound_by = wave_eval_bound_ms(1, n_pad, 2, r, 32,
+                                            case["shape_u"].shape[0])
+    print(f"wave_eval (standalone) per launch at W=32, local_n={n_pad}, "
+          f"R={r}, C=2: {ms:.4f} ms back to back (CUDA events), "
+          f"{fmt_ms(dev_ms)} of device time (profiler); plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+          f"sharded route {rates[1]:.1f} pods/s at 1 shard, {rates[4]:.1f} "
+          f"at 4")
+    src = "kubernetes_tpu_torch/csrc/wave_eval.cu"
+    replaces = "kubernetes_tpu/ops/pallas_kernel.py:434"
+    return [
+        {"name": "wave_eval", "route": "cuda", "source": src,
+         "replaces": replaces,
+         "launches": launches[1][0] + launches[4][0], "max_abs_err": max_err,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": None},
+        {"name": "wave_step", "route": "cuda", "source": src,
+         "replaces": replaces,
+         "launches": launches[1][1] + launches[4][1], "max_abs_err": 0.0,
+         "ms": step_ms[4], "plain_ms": step_plain_ms[4],
+         "bound_ms": step_bound, "bound_by": step_bound_by,
+         "library_ms": None},
+    ]
 
 
 def main() -> int:
@@ -535,6 +773,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from kubernetes_tpu_torch.utils import flags
+
+    # The reference's documented greedy configuration, pinned: with no
+    # flag the solve-mode policy sends every chunk of 64 or more pods to
+    # the Sinkhorn route, which the port refuses until it has one.
+    with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
+        return smoke(torch)
+
+
+def smoke(torch) -> int:
+    """Phases 1-7 (see the module docstring)."""
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
@@ -852,8 +1101,8 @@ def main() -> int:
           f"{probe_plain_ms:.4f} ms")
 
     # -- 6. the sharded path ------------------------------------------------
-    eval_entry = sharded_phase(torch, dev, fwk, init_pods, init_assign,
-                               measured, assignments, node_infos)
+    sharded_entries = sharded_phase(torch, dev, fwk, init_pods, init_assign,
+                                    measured, assignments, node_infos)
 
     # -- 7. result --------------------------------------------------------
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
@@ -869,7 +1118,7 @@ def main() -> int:
          "launches": launches["probe"], "max_abs_err": probe_err,
          "ms": probe_ms, "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
          "bound_by": "bytes", "library_ms": probe_plain_ms},
-        eval_entry,
+        *sharded_entries,
     ]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -19,7 +19,11 @@ plugins of scheduler/plugins/registry.py (NodeResourceTopologyMatch among
 them), and wavefront widths below 2. The Sinkhorn optimal mode, the
 shortlist and block index, the serving fast path and multi-device sharding
 are later slices; the route here is the reference's `KTPU_SOLVE_MODE=greedy`
-configuration with the shortlist off.
+configuration with the shortlist off. The reference's solve-mode policy
+runs per chunk (`AdaptiveTuner.solve_mode`): a chunk it sends to the
+optimal mode (flagless, every chunk of 64 or more real pods with class
+planes below 32768 nodes) raises NotImplementedError before its device
+work, never a silent greedy; `KTPU_SOLVE_MODE=greedy` pins greedy.
 """
 
 from __future__ import annotations
@@ -120,23 +124,50 @@ def unsupported_feature(pi: PodInfo) -> str | None:
 
 
 class AdaptiveTuner:
-    """Wavefront width policy (the reference's `AdaptiveTuner.wave_width`
-    row and its replay-ratio shrink): W pods per wave, WAVE_WIDTH_SMALL
-    below LARGE_N nodes and WAVE_WIDTH_LARGE above, halved at assign()
-    boundaries while the measured replay fraction exceeds the ratio.
-    KTPU_WAVE_WIDTH overrides it."""
+    """Two policy rows of the reference's `AdaptiveTuner`:
+
+    - the wavefront width (`wave_width` and its replay-ratio shrink): W
+      pods per wave, WAVE_WIDTH_SMALL below LARGE_N nodes and
+      WAVE_WIDTH_LARGE above, halved at assign() boundaries while the
+      measured replay fraction exceeds the ratio; KTPU_WAVE_WIDTH
+      overrides it;
+    - the solve mode (`solve_mode`, the KTPU_SOLVE_MODE row), with its
+      OPTIMAL_MIN_PODS threshold."""
 
     LARGE_N = 32768
     WAVE_WIDTH_SMALL = 32
     WAVE_WIDTH_LARGE = 64
     WAVE_REPLAY_RATIO = 0.25
     WAVE_MIN_SAMPLE = 512
+    #: Under `auto`, a non-gang chunk of fewer real pods keeps the greedy
+    #: scan (the reference's value).
+    OPTIMAL_MIN_PODS = 64
 
     def __init__(self):
         self.n_nodes = 0
         self.wave_shrink = 1
         self.wave_commits = 0
         self.wave_replays = 0
+
+    def solve_mode(self, p_real: int, has_gang: bool, spread: bool,
+                   class_mode: bool) -> tuple[str, bool]:
+        """('greedy' | 'optimal', structural_fallback) for one chunk, row
+        for row the reference's policy: `greedy` pins greedy; optimal needs
+        class planes and no spread; under `auto` a non-gang chunk below
+        OPTIMAL_MIN_PODS real pods, or at n_nodes >= LARGE_N, stays greedy;
+        a chunk the policy wants optimal but that is not eligible becomes
+        greedy with the structural-fallback bit set."""
+        raw = flags.get("KTPU_SOLVE_MODE")
+        if raw == "greedy":
+            return "greedy", False
+        eligible = class_mode and not spread
+        if raw == "optimal":
+            return ("optimal", False) if eligible else ("greedy", True)
+        if not (has_gang or p_real >= self.OPTIMAL_MIN_PODS):
+            return "greedy", False
+        if not has_gang and self.n_nodes >= self.LARGE_N:
+            return "greedy", False
+        return ("optimal", False) if eligible else ("greedy", True)
 
     def observe_wave(self, commits: int, replays: int) -> None:
         """Wavefront commit/replay sample from one finalized chunk."""
@@ -336,8 +367,12 @@ class TorchBackend:
         self._dev_zero_gang: dict[int, tuple] = {}
         self.used = UsedStateChain(self.device)
         #: cumulative solve counters: chunks solved, wavefront commits and
-        #: replays (a poisoned chunk counts all its pods as replays).
-        self.counters = {"chunks": 0, "wave_commits": 0, "wave_replays": 0}
+        #: replays (a poisoned chunk counts all its pods as replays), and
+        #: chunks the solve-mode policy wanted optimal but that were not
+        #: eligible (no class planes) and ran greedy, the reference's
+        #: solver_optimal_fallbacks_total.
+        self.counters = {"chunks": 0, "wave_commits": 0, "wave_replays": 0,
+                         "optimal_fallbacks": 0}
         #: cumulative host-clock seconds of assign() and of its per-chunk
         #: phases: host prep, the device pass up to the assignment fetch
         #: (which waits for the device), and host verify + diagnostics.
@@ -700,6 +735,23 @@ class TorchBackend:
                 cls_np[i] = c
                 if pin is not None:
                     exc_np[i] = pin
+
+        # The solve-mode policy, before this chunk's device work: this slice
+        # has no Sinkhorn route, so a chunk the reference would solve
+        # optimally is refused rather than placed by greedy. Gangs and
+        # spread are refused by _check_supported.
+        mode, fallback = self._tuner.solve_mode(
+            batch.p_real, has_gang=False, spread=False,
+            class_mode=class_reps is not None)
+        if mode == "optimal":
+            raise NotImplementedError(
+                f"a chunk of {batch.p_real} pods goes to the Sinkhorn "
+                f"optimal mode under KTPU_SOLVE_MODE="
+                f"{flags.get('KTPU_SOLVE_MODE')} (the reference's "
+                "solver.sinkhorn_plan), which this slice does not port yet "
+                "(ROADMAP queue 1 item 1); set KTPU_SOLVE_MODE=greedy to "
+                "run the greedy wavefront solve")
+        self.counters["optimal_fallbacks"] += int(fallback)
 
         if class_reps is not None:
             crows = _class_rows_bucket(len(class_reps))

@@ -158,6 +158,8 @@ class KernelLibrary:
         self.probe_fn = None
         self.wave_solve_fn = None
         self.wave_eval_fn = None
+        self.wave_topk_fn = None
+        self.wave_resolve_fn = None
 
     def inputs(self) -> list[Path]:
         """The sources and every header in their directories."""
@@ -218,7 +220,8 @@ class KernelLibrary:
         lib.ktpu_error_string.restype = ctypes.c_char_p
         for name in ("ktpu_max_wave_width", "ktpu_max_resources",
                      "ktpu_max_shape_points", "ktpu_wave_eval_max_members",
-                     "ktpu_wave_eval_max_shards"):
+                     "ktpu_wave_eval_max_shards", "ktpu_wave_step_max_w",
+                     "ktpu_wave_resolve_static_smem"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = _I
         lib.ktpu_probe.argtypes = [_VP, _VP, _I, _VP]
@@ -229,6 +232,12 @@ class KernelLibrary:
         lib.ktpu_wave_eval.argtypes = (
             [_VP] * 16 + [_I, _F, _F, _I] + [_I] * 5 + [_VP] * 3)
         lib.ktpu_wave_eval.restype = _I
+        lib.ktpu_wave_topk.argtypes = [_VP] * 7
+        lib.ktpu_wave_topk.restype = _I
+        lib.ktpu_wave_resolve.argtypes = [_VP] * 9
+        lib.ktpu_wave_resolve.restype = _I
+        if lib.ktpu_wave_resolve_static_smem() < 0:
+            raise RuntimeError("cannot read wave_resolve_kernel's attributes")
         self.lib = lib
         self.path = path
         self.max_w = lib.ktpu_max_wave_width()
@@ -236,14 +245,19 @@ class KernelLibrary:
         self.max_s = lib.ktpu_max_shape_points()
         self.max_eval_w = lib.ktpu_wave_eval_max_members()
         self.max_eval_shards = lib.ktpu_wave_eval_max_shards()
+        self.max_step_w = lib.ktpu_wave_step_max_w()
+        self.resolve_static_smem = lib.ktpu_wave_resolve_static_smem()
         self.probe_fn = lib.ktpu_probe
         self.wave_solve_fn = lib.ktpu_wave_solve
         self.wave_eval_fn = lib.ktpu_wave_eval
+        self.wave_topk_fn = lib.ktpu_wave_topk
+        self.wave_resolve_fn = lib.ktpu_wave_resolve
         try:
             probe_check(self)
         except RuntimeError:
             self.lib = self.probe_fn = None
             self.wave_solve_fn = self.wave_eval_fn = None
+            self.wave_topk_fn = self.wave_resolve_fn = None
             raise
         return self
 

@@ -1,9 +1,10 @@
 """The `KTPU_*` environment flags this package reads.
 
 Counterpart of `kubernetes_tpu/utils/flags.py`, cut to the flags the
-greedy wavefront batch solve reads. Names, defaults and parsing are the
-reference's: every read is a LIVE `os.environ` lookup, and a malformed
-value degrades to the flag's default.
+greedy wavefront batch solve and its solve-mode policy read. Names,
+defaults and parsing are the reference's: every read is a LIVE
+`os.environ` lookup, and a malformed value degrades to the flag's
+default.
 """
 
 from __future__ import annotations
@@ -24,6 +25,13 @@ def _parse_bool(raw: str) -> bool:
 
 def _parse_int(raw: str) -> int:
     return int(raw.strip())
+
+
+def _parse_solve_mode(raw: str) -> str:
+    v = raw.strip().lower()
+    if v not in ("greedy", "optimal", "auto"):
+        raise ValueError(raw)  # degrades to the default, per read()
+    return v
 
 
 @dataclass(frozen=True)
@@ -50,6 +58,13 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
     Flag("KTPU_WAVE_WIDTH", None, _parse_int,
          "Wavefront width override (pods evaluated per wave). Unset = "
          "the tuner picks W and shrinks it when replays climb."),
+    Flag("KTPU_SOLVE_MODE", "auto", _parse_solve_mode,
+         "Batch solve mode: `greedy` pins the greedy wavefront scan, "
+         "`optimal` asks for the Sinkhorn transport plan for every "
+         "eligible chunk, `auto` sends drain-scale chunks (at least "
+         "OPTIMAL_MIN_PODS real pods, below the large-N row) to it. The "
+         "Sinkhorn route is not ported yet: a chunk the policy sends "
+         "there raises NotImplementedError."),
     Flag("KTPU_CLASS_PAD", 31, _parse_int,
          "Max real pod-equivalence classes per chunk before the "
          "per-pod fallback (plane rows bucket to the next power of "

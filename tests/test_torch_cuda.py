@@ -10,16 +10,20 @@ assignments, commits, replays and poisoned flags, under the default launch
 plan and under clusters of several blocks (heterogeneous chunks, a prime
 node count, fewer nodes than blocks, the global-carry form); the probe kernel
 returns x + 1; the `wave_eval` kernel and `wave_eval_reference` give
-identical masked scores and gated masks; and the node-sharded solver with
-the kernel on a 4-shard mesh of the card assigns exactly as the
-single-device solver.
+identical masked scores and gated masks; the two-launch wave step
+(`wave_step`) and `wave_step_reference` give identical assignments,
+commit/replay decisions and carries wave by wave, and a wave wider than
+the kernels' top lists raises; and the node-sharded solver with the kernel
+on a 4-shard mesh of the card assigns exactly as the kernel-off route and
+the single-device solver.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import hetero_chunk, storm, wave_eval_case
+from chip_smoke import (compare_wave_steps, hetero_chunk, storm,
+                        wave_eval_case)
 from kubernetes_tpu_torch.ops import solver, wave_eval, wave_kernel
 from kubernetes_tpu_torch.ops.wave_kernel import WavePlan, carry_bytes
 
@@ -152,6 +156,66 @@ def test_sharded_route_on_card_matches_single_device(cuda):
             exc=exc_t, wave_w=w, kernel=True)
         assert wave_eval.wave_eval.launches == before + -(-96 // w)
         assert torch.equal(got, want), w
+
+
+def _step_case(kind: str, seed: int, dev, p: int = 200):
+    """A conflict storm (64 identical nodes) or a heterogeneous chunk (1024
+    nodes), with three pods of the empty class row 0 (no feasible node),
+    as card tensors."""
+    if kind == "storm":
+        arrays, rows, exc, _ = storm(seed=seed, n=64, p=p, k=1)
+    else:
+        arrays, rows, exc, _ = hetero_chunk(seed=seed, n=1024, p=p, k=1)
+    rows = rows.copy()
+    rows[:3] = 0
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in arrays.items()}
+    return t, torch.from_numpy(rows).to(dev), torch.from_numpy(exc).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["storm", "hetero"])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_wave_step_kernel_matches_plain_version(cuda, kind, shards):
+    t, rows, exc = _step_case(kind, 80 + shards, cuda)
+    waves, replayed = compare_wave_steps(
+        torch, t, rows, exc, (shards,), 32, 1.0, 1.0, "MostAllocated")
+    assert waves == -(-200 // 32)
+    if kind == "storm":
+        assert replayed > 0                    # the replay ran on the card
+
+
+@pytest.mark.cuda
+def test_wave_step_wider_than_its_top_lists_raises(cuda):
+    t, rows, exc = _step_case("storm", 90, cuda)
+    with pytest.raises(ValueError, match="W=65"):
+        compare_wave_steps(torch, t, rows, exc, (4,), 65, 1.0, 1.0,
+                           "LeastAllocated")
+
+
+@pytest.mark.cuda
+def test_sharded_route_kernel_on_equals_kernel_off(cuda):
+    """Two launches per wave with the kernel on, none with it off, and the
+    same assignments."""
+    from kubernetes_tpu_torch.parallel import (
+        build_mesh, sharded_greedy_assign)
+
+    for kind in ("storm", "hetero"):
+        t, rows, exc = _step_case(kind, 91, cuda, p=300)
+        got = {}
+        for kernel in (True, False):
+            before = (wave_eval.wave_eval.launches,
+                      wave_eval.wave_resolve.launches)
+            got[kernel] = sharded_greedy_assign(
+                build_mesh(4), **t, w_fit=1.0, w_bal=1.0,
+                strategy="LeastAllocated", rows=rows, exc=exc, wave_w=32,
+                kernel=kernel)
+            torch.cuda.synchronize()
+            n = -(-300 // 32) if kernel else 0
+            assert (wave_eval.wave_eval.launches,
+                    wave_eval.wave_resolve.launches) == (before[0] + n,
+                                                         before[1] + n)
+        assert torch.equal(got[True], got[False]), kind
 
 
 def _plans(n: int, r: int) -> list[WavePlan]:
