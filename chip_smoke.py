@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's two paths at scheduler_perf SchedulingBasic/5000Nodes
+Drives the port's three paths at scheduler_perf SchedulingBasic/5000Nodes
 size (5000 nodes of cpu 8 / memory 32Gi / pods 110, 1000 init pods, then
-10000 measured pods of cpu 100m / memory 250Mi in 1024-pod chunks, W=32):
-the main path `TorchBackend.assign` (the greedy wavefront batch solve, K=4
-orders, KTPU_SOLVE_MODE=greedy pinned), and the node-sharded solver of
+10000 measured pods of cpu 100m / memory 250Mi in 1024-pod chunks, K=4
+orders): `TorchBackend.assign` with KTPU_SOLVE_MODE=greedy pinned (the
+greedy wavefront batch solve, W=32), the node-sharded solver of
 `kubernetes_tpu_torch.parallel` on a 1-shard and a 4-shard mesh of cuda:0
-(each wave two kernel launches, no host sync) — after building the
-hand-written kernels from `kubernetes_tpu_torch/csrc/` with nvcc and
-holding each against its plain PyTorch version on the card.
+(each wave two kernel launches, no host sync), and flagless
+`TorchBackend.assign` (KTPU_SOLVE_MODE=auto, the reference's default:
+every chunk through the Sinkhorn plan, rounded by one W=1 launch of
+wave_solve) — after building the hand-written kernels from
+`kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
+PyTorch version on the card.
 
 Phases (any failure raises and the script exits non-zero with no result):
   1. build csrc/wave_solve.cu and csrc/wave_eval.cu for sm_90a, one nvcc
@@ -57,8 +60,31 @@ Phases (any failure raises and the script exits non-zero with no result):
      one profiled chunk (device busy, idle share, kernel count, launch A's
      and B's device time), the wave step's ms per wave back to back, plain
      ms and bound, and the standalone wave_eval's ms, plain ms and bound;
-  7. the result lines: a `kernels` JSON line, the card's name and power
-     limit from nvidia-smi, and last {"ok": true, "device": {...}}.
+  7. the flagless route, under a scoped KTPU_SOLVE_MODE=auto: (a) with
+     TF32 off asserted, `sinkhorn_plan` on the card against the port's
+     plan on the CPU — on the first flagless measured chunk's planes and on
+     three heterogeneous chunks — within the tests' plan tolerance, the
+     -1e30 sanitization identical, and one value per group of identical
+     columns; (b) `wave_solve` at W=1, poison=False, K=4 on those
+     log-plans with w_fit = w_bal = 0 (rows of -1e30 included) identical
+     to wave_solve_reference; (c) the 1000 init and 10000 measured pods
+     through `TorchBackend()`, every launch counter set to 0 just before
+     it and every device pass under torch.cuda.set_sync_debug_mode("error"):
+     every pod placed, no node over capacity on a host re-check, every
+     chunk an optimal solve, exactly one wave_solve launch per chunk, and
+     the first measured chunk placed identically by
+     `TorchBackend(device="cpu")` from the same snapshot; (d) pods/s and the
+     prep / device / verify split, the device's busy and idle share over a
+     profiled repeat of the phase, the plan's ms per chunk (CUDA events),
+     its host enqueue time, device kernels and device time (profiler) and
+     bound, the W=1 wave_solve's ms and device time per chunk and bound,
+     and fragmentation_occupied (%) after the greedy and the flagless
+     measured phases; (e) `sharded_sinkhorn_plan` on 1- and 4-shard meshes
+     of cuda:0 against the single-device plan;
+  8. the result lines: a `kernels` JSON line (wave_solve's entry also
+     carries the flagless path's W=1 launches, ms, device ms, plain ms and
+     bound), the card's name and power limit from nvidia-smi, and last
+     {"ok": true, "device": {...}}.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device; without one, or outside a checkout of the repository, it exits
@@ -766,6 +792,382 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
     ]
 
 
+#: The port's plan tolerance, stated in tests/test_torch_optimal.py (the
+#: reference's own parity tolerance): on the plan and the log-plan.
+PLAN_RTOL, PLAN_ATOL = 1e-4, 1e-5
+
+
+def plan_bound_ms(c: int, n: int, iters: int) -> tuple[float, str]:
+    """Least time for one `sinkhorn_plan` over (C, N) planes: the larger of
+    its bytes (feasible, cost, row counts and capacities read once, the
+    log-plan and the plan written once) over HBM bandwidth, and its float
+    operations over the fp32 peak: per iteration 4CN (the row marginal's
+    and the column sums' products and adds) + 2C + 3N (the two clamps and
+    divides and the column min), plus 18CN to set up (row max, shift,
+    three stage kernels of divide, exp, flush and mask) and 6CN to finish
+    (two products, add, log, the sanitization)."""
+    bytes_io = c * n + 4 * c * n + 4 * c + 4 * n + 8 * c * n
+    ops = iters * (4 * c * n + 2 * c + 3 * n) + 24 * c * n
+    t_bytes, t_ops = bytes_io / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def identical_column_groups(torch, feasible, cost, cap, log_plan) -> int:
+    """Raise unless every group of identical columns (feasibility, cost and
+    capacity equal in every class row) has bit-identical log-plan columns;
+    return the number of groups."""
+    key = torch.cat([feasible.to(torch.float32), cost.to(torch.float32),
+                     cap.to(torch.float32)[None, :]])
+    _, inv = torch.unique(key, dim=1, return_inverse=True)
+    groups = int(inv.max()) + 1
+    idx = inv[None, :].expand_as(log_plan)
+    shape = (log_plan.shape[0], groups)
+    lo = torch.full(shape, math.inf, device=log_plan.device).scatter_reduce(
+        1, idx, log_plan, "amin")
+    hi = torch.full(shape, -math.inf, device=log_plan.device).scatter_reduce(
+        1, idx, log_plan, "amax")
+    if not torch.equal(lo, hi):
+        raise RuntimeError("identical columns got different log-plan values")
+    return groups
+
+
+def compare_plan(torch, what, feasible, cost, counts, cap, iters, temp):
+    """The plan on the card against the port's plan on the CPU: the
+    log-plan and the plan within (PLAN_RTOL, PLAN_ATOL), the sanitization
+    mask identical, identical columns bit-identical on the card. Returns
+    (the card's log-plan, max |log-plan diff| on feasible entries)."""
+    from kubernetes_tpu_torch.ops import solver
+
+    got = solver.sinkhorn_plan(feasible, cost, counts, cap, iters, temp)
+    want = solver.sinkhorn_plan(feasible.cpu(), cost.cpu(), counts.cpu(),
+                                cap.cpu(), iters, temp)
+    torch.cuda.synchronize()
+    close = all(bool(((g.cpu() - w).abs()
+                      <= PLAN_ATOL + PLAN_RTOL * w.abs()).all())
+                for g, w in zip(got, want))
+    same_mask = torch.equal(got[0].cpu() == -1e30, want[0] == -1e30)
+    feas = feasible.cpu()
+    err = float((got[0].cpu() - want[0])[feas].abs().max()) \
+        if bool(feas.any()) else 0.0
+    groups = identical_column_groups(torch, feasible, cost, cap, got[0])
+    print(f"compare plan {what}: C={cost.shape[0]} N={cost.shape[1]}, "
+          f"card vs CPU max |log-plan diff| {err} (tolerance rtol "
+          f"{PLAN_RTOL}, atol {PLAN_ATOL}: {'within' if close else 'OUT'}), "
+          f"sanitization {'identical' if same_mask else 'DIFFERS'}, "
+          f"{groups} groups of identical columns, one value each")
+    if not (close and same_mask):
+        raise RuntimeError(f"the plan on the card differs from the CPU's: "
+                           f"{what}")
+    return got[0], err
+
+
+@contextlib.contextmanager
+def no_host_sync_in_device_pass(torch):
+    """Run every `TorchBackend` device pass (`backend.mask_solve_update`:
+    masks, the plan, the rounding launch, the state update) under
+    `torch.cuda.set_sync_debug_mode("error")`: a torch operation that
+    waits for the card inside it raises."""
+    from kubernetes_tpu_torch.ops import backend
+
+    fn = backend.mask_solve_update
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    backend.mask_solve_update = guarded
+    try:
+        yield
+    finally:
+        backend.mask_solve_update = fn
+
+
+def occupied_fragmentation(torch, backend) -> float:
+    """`solver.fragmentation_occupied` (%) of a backend's chained used
+    state over the real nodes."""
+    from kubernetes_tpu_torch.ops import solver
+
+    st = backend.ensure_static(backend._ct)
+    pack = backend.used.pack
+    r = st["alloc_q"].shape[1]
+    valid = torch.arange(pack.shape[0], device=pack.device) \
+        < backend._ct.n_real
+    return float(solver.fragmentation_occupied(
+        st["alloc_q"] - pack[:, :r], st["alloc_q"], pack[:, 2 * r], valid))
+
+
+def optimal_phase(torch, dev, fwk, init_pods, measured, node_infos,
+                  greedy_frag: float) -> dict:
+    """Phase 7, the flagless route (`KTPU_SOLVE_MODE=auto`, which the
+    caller scopes: every chunk of 64 or more pods to the Sinkhorn plan and
+    its W=1 rounding); see the module docstring. Returns the flagless keys
+    of wave_solve's entry in the kernels line."""
+    from kubernetes_tpu_torch.ops import kernels, solver, wave_kernel
+    from kubernetes_tpu_torch.ops.backend import (
+        TorchBackend, chunk_planes, plan_inputs)
+    from kubernetes_tpu_torch.parallel import (
+        build_mesh, sharded_sinkhorn_plan)
+    from kubernetes_tpu_torch.scheduler.types import Snapshot
+    from kubernetes_tpu_torch.utils import flags
+
+    if flags.get("KTPU_SOLVE_MODE") != "auto":
+        raise RuntimeError("the flagless phase runs under the default "
+                           "KTPU_SOLVE_MODE=auto")
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("float32 products may run in TF32 here")
+    print("TF32: torch.backends.cuda.matmul.allow_tf32 False, "
+          "float32 matmul precision 'highest'")
+    iters = max(1, flags.get("KTPU_SINKHORN_ITERS"))
+    temp = float(np.float32(flags.get("KTPU_SINKHORN_TEMP")))
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def init_nodes(assign):
+        nodes = node_infos()
+        by_name = {ni.name: ni for ni in nodes}
+        for pi in init_pods:
+            by_name[assign[pi.key]].add_pod(pi)
+        return nodes
+
+    # -- (a) the plan on the card against the CPU's -------------------------
+    # The first flagless measured chunk: its class planes after a flagless
+    # init, from the backend's own prep.
+    host = TorchBackend(device=dev)
+    first_init, _ = host.assign(init_pods, Snapshot(node_infos(), 1), fwk)
+    ctx = host._start(measured, Snapshot(init_nodes(first_init), 2), fwk)
+    prep = host._prep_chunk(ctx.chunks[0], ctx)
+    if prep["solve_mode"] != "optimal" or prep["wave_w"] != 0:
+        raise RuntimeError(f"the first flagless chunk routed "
+                           f"{prep['solve_mode']} at W={prep['wave_w']}")
+    st, prm = host.ensure_static(ctx.ct), ctx.params
+    pl = chunk_planes(st["alloc_q"], host.used.pack, st["alloc_pods"],
+                      prep["dev_pack"], prep["dev_cls"], st["taint_f"],
+                      st["taint_p"], prep["dev_mask"], prep["dev_scores"],
+                      prm["w_taint"], prm["taint_filter_on"])
+    problem = plan_inputs(pl, st["alloc_q"], prep["dev_pack"],
+                          prep["dev_cls"], prm["fit_col_w"],
+                          prm["bal_col_mask"], prm["shape_u"],
+                          prm["shape_s"], prm["w_fit"], prm["w_bal"],
+                          prm["strategy"])
+    log_plan, plan_err = compare_plan(torch, "first flagless 5k chunk",
+                                      *problem, iters, temp)
+    hetero = []
+    for seed, n in ((31, 5000), (32, 4093), (33, 5120)):
+        arrays, rows, exc, perms = hetero_chunk(seed=seed, n=n, p=256)
+        t = {k: put(v) for k, v in arrays.items()}
+        r = arrays["req_q"].shape[1]
+        class_req = np.zeros((arrays["mask"].shape[0], r), np.int32)
+        class_req[rows] = arrays["req_q"]
+        creq = put(class_req)
+        fit0 = (t["free_pods"] >= 1)[None, :] & torch.all(
+            creq[:, None, :] <= t["free_q"][None, :, :], dim=-1)
+        cost = kernels.chunk_start_scores(
+            t["alloc_q"], t["used_nz_q"], creq, t["static_scores"],
+            t["fit_col_w"], t["bal_col_mask"], t["shape_u"], t["shape_s"],
+            1.0, 1.0, "LeastAllocated")
+        counts = put(np.bincount(rows, minlength=class_req.shape[0]).astype(
+            np.float32))
+        lp, err = compare_plan(torch, f"hetero N={n} seed {seed}",
+                               t["mask"] & fit0, cost, counts,
+                               t["free_pods"], iters, temp)
+        plan_err = max(plan_err, err)
+        hetero.append((f"hetero N={n} seed {seed}", t, lp, put(rows),
+                       put(exc), put(perms)))
+
+    # -- (b) the rounding: wave_solve at W=1 against its plain version ------
+    def rounding_args(t, static):
+        return (t["req_q"], t["req_nz_q"], t["free_q"], t["free_pods"],
+                t["used_nz_q"], t["alloc_q"], t["mask"], static,
+                t["fit_col_w"], t["bal_col_mask"], t["shape_u"],
+                t["shape_s"], 0.0, 0.0, prm["strategy"])
+    chunk_t = dict(req_q=pl["req_q"], req_nz_q=pl["req_nz_q"],
+                   free_q=pl["free_q"], free_pods=pl["free_pods"],
+                   used_nz_q=pl["used_nz_q"], alloc_q=st["alloc_q"],
+                   mask=pl["mask"], fit_col_w=prm["fit_col_w"],
+                   bal_col_mask=prm["bal_col_mask"],
+                   shape_u=prm["shape_u"], shape_s=prm["shape_s"])
+    cases = [("first flagless 5k chunk", chunk_t, log_plan, prep["dev_cls"],
+              prep["dev_exc"], prep["dev_perms"])] + hetero
+    w1_plain_ms = None
+    for what, t, lp, rows_t, exc_t, perms_t in cases:
+        args = rounding_args(t, lp)
+        kw = dict(rows=rows_t, exc=exc_t, poison=False, perms=perms_t)
+        before = wave_kernel.wave_solve.launches
+        got = wave_kernel.wave_solve(*args, 1, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = wave_kernel.wave_solve_reference(*args, 1, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if w1_plain_ms is None:
+            w1_plain_ms = plain_ms
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        sanitized = int((lp == -1e30).sum())
+        print(f"compare rounding {what}: wave_solve W=1 poison=False "
+              f"K={perms_t.shape[0]}, w_fit = w_bal = 0, {sanitized} "
+              f"entries at -1e30: {'identical' if same else 'DIFFER'} to "
+              f"wave_solve_reference ({int((got[0] >= 0).sum())} of "
+              f"{got[0].numel()} placed; plain {plain_ms:.1f} ms)")
+        if not same or wave_kernel.wave_solve.launches != before + 1:
+            raise RuntimeError(f"W=1 rounding differs: {what}")
+
+    # -- (c) the flagless measured phase at full width -----------------------
+    with no_host_sync_in_device_pass(torch):
+        torch.cuda.synchronize()
+        wave_kernel.wave_solve.launches = 0
+        wave_kernel.probe.launches = 0
+        backend = TorchBackend()
+        init_assign, _ = backend.assign(init_pods, Snapshot(node_infos(), 1),
+                                        fwk)
+        if any(v is None for v in init_assign.values()):
+            raise RuntimeError("flagless init pods unplaced")
+        nodes = init_nodes(init_assign)
+        cpu_nodes = init_nodes(init_assign)
+        before_t = dict(backend.timings)
+        before_c = dict(backend.counters)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        assignments, _ = backend.assign(measured, Snapshot(nodes, 2), fwk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    launches = {"wave_solve": wave_kernel.wave_solve.launches,
+                "probe": wave_kernel.probe.launches}
+    phases = {k: round(v - before_t[k], 6)
+              for k, v in backend.timings.items()}
+    chunks = backend.counters["chunks"] - before_c["chunks"]
+    solves = backend.counters["optimal_solves"] - before_c["optimal_solves"]
+    unplaced = [k for k, v in assignments.items() if v is None]
+    if len(assignments) != N_MEASURED or unplaced:
+        raise RuntimeError(f"{len(unplaced)} flagless pods unplaced")
+    by_name = {ni.name: ni for ni in nodes}
+    for pi in measured:
+        by_name[assignments[pi.key]].add_pod(pi)
+    for ni in nodes:
+        over = [q for q, v in ni.requested.res.items()
+                if v > ni.allocatable.get(q)]
+        if over or ni.requested.pods > ni.allocatable.pods:
+            raise RuntimeError(f"{ni.name} over capacity: {over}")
+    total_chunks = backend.counters["chunks"]
+    if solves != chunks or backend.counters["optimal_solves"] \
+            != total_chunks:
+        raise RuntimeError(f"{solves} optimal solves for {chunks} chunks")
+    if launches["wave_solve"] != total_chunks or launches["probe"] < 1:
+        raise RuntimeError(f"launches {launches} for {total_chunks} chunks "
+                           "(init included), not one wave_solve each")
+    flag_frag = occupied_fragmentation(torch, backend)
+    rate = N_MEASURED / wall
+    print(f"flagless path (KTPU_SOLVE_MODE=auto): {N_MEASURED} measured pods "
+          f"in {wall:.3f} s = {rate:.1f} pods/s; {chunks} chunks, "
+          f"{solves} optimal solves, Sinkhorn iterations "
+          f"{backend.counters['sinkhorn_iterations']}; launches {launches} "
+          f"({total_chunks} chunks with the init); no host sync in any "
+          f"device pass")
+    print(f"flagless measured phase host-clock seconds: {json.dumps(phases)}")
+    # The device's busy share: the same measured phase again, on a fresh
+    # copy of the post-init cluster, under torch.profiler.
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t2 = time.perf_counter()
+        again, _ = backend.assign(measured, Snapshot(init_nodes(init_assign),
+                                                     4), fwk)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t2
+    if again != assignments:
+        raise RuntimeError("a repeated flagless phase placed pods differently")
+    busy_us = sum(device_us(e) for e in prof.key_averages())
+    print(f"profiled flagless measured phase: wall {prof_wall:.3f} s, device "
+          f"busy {busy_us / 1e6:.4f} s" + (
+              f", idle share {1 - busy_us / 1e6 / prof_wall:.4f}"
+              if busy_us else ", device time not measured by the profiler")
+          + f"; wave_solve device time per launch "
+          f"{fmt_ms(kernel_ms_from(prof, 'wave_solve_kernel'))}")
+    cpu_assign, _ = TorchBackend(device="cpu").assign(
+        measured[:1024], Snapshot(cpu_nodes, 3), fwk)
+    differ = sum(cpu_assign[pi.key] != assignments[pi.key]
+                 for pi in measured[:1024])
+    print(f"compare flagless first chunk, card vs TorchBackend(device='cpu') "
+          f"from the same snapshot: {differ} of 1024 placements differ")
+    if differ:
+        raise RuntimeError("the flagless first chunk places differently on "
+                           "the card and on the CPU")
+
+    # -- (d) numbers ---------------------------------------------------------
+    def plan_call():
+        return solver.sinkhorn_plan(*problem, iters, temp)
+    plan_ms = cuda_ms(torch, plan_call, 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        plan_call()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        plan_call()
+        torch.cuda.synchronize()
+    plan_kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                       for e in prof.events())
+    plan_dev_ms = sum(device_us(e) for e in prof.key_averages()) / 1e3
+    c, n = problem[1].shape
+    pbound, pbound_by = plan_bound_ms(c, n, iters)
+    print(f"sinkhorn_plan per chunk, C={c} N={n}, {iters} iterations: "
+          f"{plan_ms:.4f} ms back to back (CUDA events, 20 calls), the host "
+          f"enqueues one in {enqueue_ms:.4f} ms, {plan_kernels} device "
+          f"kernels and {plan_dev_ms:.5f} ms of device time per plan "
+          f"(profiler); bound {pbound:.6f} ms ({pbound_by})")
+    w1_args = rounding_args(chunk_t, log_plan)
+    w1_kw = dict(rows=prep["dev_cls"], exc=prep["dev_exc"], poison=False,
+                 perms=prep["dev_perms"])
+    w1_ms = cuda_ms(torch, lambda: wave_kernel.wave_solve(
+        *w1_args, 1, **w1_kw), 10)
+    w1_dev_ms = profiled_kernel_ms(torch, lambda: wave_kernel.wave_solve(
+        *w1_args, 1, **w1_kw), 5, "wave_solve_kernel")
+    p, r = pl["req_q"].shape
+    k = prep["dev_perms"].shape[0]
+    class_req = prep["dev_pack"][:, :r]
+    feasible = pl["mask"] & (pl["free_pods"] >= 1)[None, :] & torch.all(
+        class_req[:, None, :] <= pl["free_q"][None, :, :], dim=-1)
+    evals = k * int(feasible.sum(dim=1)[prep["dev_cls"].long()].sum())
+    w1_bound, w1_bound_by = wave_bound_ms(
+        p, n, r, c, k, prm["shape_u"].shape[0], evals)
+    print(f"wave_solve W=1 (the rounding) per 1024-pod chunk: {w1_ms:.4f} ms "
+          f"back to back (CUDA events), {fmt_ms(w1_dev_ms)} of device time "
+          f"(profiler), plan {wave_kernel.wave_launch_plan(n, r, 1)}; plain "
+          f"{w1_plain_ms:.1f} ms; bound {w1_bound:.6f} ms ({w1_bound_by})")
+    print(f"fragmentation_occupied after the measured phase: greedy "
+          f"{greedy_frag:.4f} %, flagless {flag_frag:.4f} %")
+
+    # -- (e) the sharded plan -----------------------------------------------
+    for shards in (1, 4):
+        got = sharded_sinkhorn_plan(build_mesh(shards, device=dev),
+                                    *problem, iters, temp)
+        want = plan_call()
+        torch.cuda.synchronize()
+        close = all(bool(((g - w).abs()
+                          <= PLAN_ATOL + PLAN_RTOL * w.abs()).all())
+                    for g, w in zip(got, want))
+        same_mask = torch.equal(got[0] == -1e30, want[0] == -1e30)
+        print(f"compare sharded_sinkhorn_plan, {shards} shard(s) of {dev}, vs "
+              f"the single-device plan: max |log-plan diff| "
+              f"{float((got[0] - want[0])[problem[0]].abs().max())}, "
+              f"{'within' if close else 'OUT OF'} tolerance, sanitization "
+              f"{'identical' if same_mask else 'DIFFERS'}")
+        if not (close and same_mask):
+            raise RuntimeError("the sharded plan differs")
+    return {"flagless_launches": launches["wave_solve"],
+            "flagless_ms": w1_ms, "flagless_device_ms": w1_dev_ms,
+            "flagless_plain_ms": w1_plain_ms, "flagless_bound_ms": w1_bound,
+            "flagless_bound_by": w1_bound_by,
+            "flagless_plan_max_abs_err": plan_err}
+
+
 def main() -> int:
     import torch
 
@@ -775,15 +1177,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kubernetes_tpu_torch.utils import flags
 
-    # The reference's documented greedy configuration, pinned: with no
-    # flag the solve-mode policy sends every chunk of 64 or more pods to
-    # the Sinkhorn route, which the port refuses until it has one.
+    # Phases 1-6 run the reference's documented greedy configuration,
+    # pinned: with no flag the solve-mode policy sends every chunk of 64
+    # or more pods to the Sinkhorn route, which phase 7 drives.
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch)
 
 
 def smoke(torch) -> int:
-    """Phases 1-7 (see the module docstring)."""
+    """Phases 1-8 (see the module docstring)."""
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
@@ -1023,6 +1425,7 @@ def smoke(torch) -> int:
           f"{backend.counters['wave_replays']} replays; launches {launches}; "
           f"max_memory_allocated {peak_bytes} bytes")
     print(f"measured phase host-clock seconds: {json.dumps(phases)}")
+    greedy_frag = occupied_fragmentation(torch, backend)
 
     # -- 5. timings ---------------------------------------------------------
     # Device busy share of the measured phase: the same assign() again on a
@@ -1104,7 +1507,12 @@ def smoke(torch) -> int:
     sharded_entries = sharded_phase(torch, dev, fwk, init_pods, init_assign,
                                     measured, assignments, node_infos)
 
-    # -- 7. result --------------------------------------------------------
+    # -- 7. the flagless route ------------------------------------------------
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"):
+        flagless = optimal_phase(torch, dev, fwk, init_pods, measured,
+                                 node_infos, greedy_frag)
+
+    # -- 8. result --------------------------------------------------------
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -1112,7 +1520,7 @@ def smoke(torch) -> int:
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:134",
          "launches": launches["wave_solve"], "max_abs_err": max_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": None},
+         "bound_by": bound_by, "library_ms": None, **flagless},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,

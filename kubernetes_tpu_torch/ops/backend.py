@@ -1,29 +1,35 @@
 """TorchBackend: the batched scheduling backend on one CUDA device.
 
 Counterpart of `kubernetes_tpu/ops/backend.py`'s `TPUBackend`, cut to the
-greedy wavefront route of its batch cycle: `assign(pods, snapshot, fwk)`
-compiles the snapshot to dense tensors (ops/tensorize.py), dedupes each
-chunk's pods into equivalence classes with (C, N) class planes (the host
-filter and score rows of the plugins without device kernels), and runs one
-device pass per chunk — `mask_solve_update`: plugin masks → scores → the
-multistart wavefront solve through the hand-written kernel
-(ops/wave_kernel.py) → the used-state update. The (N, 2R+1) used-state
-pack stays on the device and chains from chunk to chunk with no host round
-trip. Assignments are then verified on the host with exact integer
-arithmetic, and unassigned pods get per-plugin diagnostics.
+greedy wavefront route and the Sinkhorn optimal route of its batch cycle:
+`assign(pods, snapshot, fwk)` compiles the snapshot to dense tensors
+(ops/tensorize.py), dedupes each chunk's pods into equivalence classes with
+(C, N) class planes (the host filter and score rows of the plugins without
+device kernels), and runs one device pass per chunk — `mask_solve_update`:
+plugin masks → scores → the solve → the used-state update. The reference's
+solve-mode policy (`AdaptiveTuner.solve_mode`, `KTPU_SOLVE_MODE`) picks
+the solve per chunk:
+
+- greedy: the multistart wavefront solve through the hand-written kernel
+  (ops/wave_kernel.py) at the tuner's width W;
+- optimal (flagless, every chunk of 64 or more real pods with class
+  planes below 32768 nodes): the chunk-start scores are the cost of
+  `solver.sinkhorn_plan` over the class planes, and its log-plan, with
+  the live weights zeroed, is rounded by the W=1 multistart scan — one
+  launch of the same kernel at W=1.
+
+The (N, 2R+1) used-state pack stays on the device and chains from chunk to
+chunk with no host round trip. Assignments are then verified on the host
+with exact integer arithmetic, and unassigned pods get per-plugin
+diagnostics.
 
 Not covered by this slice, and refused with NotImplementedError rather than
 scheduled on a partial model: inter-pod affinity, topology spread, resource
-claims, volumes, host ports, gangs, plugins beyond the six Filter/Score
-plugins of scheduler/plugins/registry.py (NodeResourceTopologyMatch among
-them), and wavefront widths below 2. The Sinkhorn optimal mode, the
-shortlist and block index, the serving fast path and multi-device sharding
-are later slices; the route here is the reference's `KTPU_SOLVE_MODE=greedy`
-configuration with the shortlist off. The reference's solve-mode policy
-runs per chunk (`AdaptiveTuner.solve_mode`): a chunk it sends to the
-optimal mode (flagless, every chunk of 64 or more real pods with class
-planes below 32768 nodes) raises NotImplementedError before its device
-work, never a silent greedy; `KTPU_SOLVE_MODE=greedy` pins greedy.
+claims, volumes, host ports, gangs, and plugins beyond the six
+Filter/Score plugins of scheduler/plugins/registry.py
+(NodeResourceTopologyMatch among them). The shortlist and block index,
+the serving fast path and multi-device sharding are later slices; the
+greedy route is the reference's configuration with the shortlist off.
 """
 
 from __future__ import annotations
@@ -251,14 +257,38 @@ def chunk_planes(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
         static_scores=static_scores, fit0=fit0, taint_ok=taint_ok)
 
 
+def plan_inputs(pl: dict, alloc_q, class_pack, cls_idx, fit_col_w,
+                bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                strategy: str):
+    """The optimal mode's transport problem over a chunk's class planes
+    (`pl` from `chunk_planes`): (feasible (C,N) = mask ∧ chunk-start fit,
+    cost (C,N) = the chunk-start live scores, row_counts (C,) f32 = pods
+    per class row, padding pods counted into the empty row 0 as in the
+    reference, col_cap (N,) = remaining pod slots, at least 0)."""
+    r = alloc_q.shape[1]
+    dev = alloc_q.device
+    cost = kernels.chunk_start_scores(
+        alloc_q, pl["used_nz_q"], class_pack[:, r:2 * r],
+        pl["static_scores"], fit_col_w, bal_col_mask, shape_u, shape_s,
+        w_fit, w_bal, strategy)
+    row_counts = torch.zeros((class_pack.shape[0],), dtype=torch.float32,
+                             device=dev).index_add_(
+        0, cls_idx.long(),
+        torch.ones(cls_idx.shape, dtype=torch.float32, device=dev))
+    return (pl["mask"] & pl["fit0"], cost, row_counts,
+            torch.clamp_min(pl["free_pods"], 0))
+
+
 def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                       exc_col, taint_f_mat, taint_p_mat, class_mask,
                       class_scores, fit_col_w, bal_col_mask, shape_u,
                       shape_s, w_fit, w_bal, w_taint, taint_filter_on,
                       perms, gang_onehot, gang_required, strategy: str,
-                      wave_w: int):
+                      wave_w: int, solve_mode: str, sink_iters: int,
+                      sink_temp: float):
     """One device pass per chunk: plugin masks → scores → assignment →
-    state (the reference's `_mask_solve_update`, greedy wavefront branch).
+    state (the reference's `_mask_solve_update`, its greedy wavefront,
+    W=1 and optimal branches).
 
     class_mask: (C, N/8) uint8 bit-packed host filter rows per class (row
     0 = the reserved empty class); class_scores: (C, N) f16/f32 host score
@@ -267,27 +297,50 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
     row; exc_col: (P,) exception column (-1 = none). used_pack is the
     chained (N, 2R+1) int32 used_q ‖ used_nz_q ‖ used_pods.
 
+    solve_mode "optimal": the Sinkhorn plan (`sink_iters` iterations, final
+    temperature `sink_temp`) over the class planes, costed by the
+    chunk-start scores, becomes the static scores, and the W=1 multistart
+    scan rounds it with w_fit = w_bal = 0. wave_w < 2 (and every optimal
+    chunk) solves with the W=1 multistart scan, wider waves with the
+    wavefront scan. Nothing here reads a value back from the device.
+
     Returns (assign (P+5,) — the tail is [shortlist fallbacks (0), wave
     commits, wave replays, blocks scanned (0), blocks pruned (0)] —
     used_pack', fit0 (C,N), taint_ok (C,N)); the diagnostic planes are
     class-level.
     """
-    if wave_w <= 1:
-        raise NotImplementedError(
-            f"wavefront width {wave_w}: this slice solves with W >= 2 only")
     pl = chunk_planes(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                       taint_f_mat, taint_p_mat, class_mask, class_scores,
                       w_taint, taint_filter_on)
-    assign, wave_com, wave_rep = solver.multistart_greedy_assign_wave_kernel(
-        pl["req_q"], pl["req_nz_q"], pl["free_q"], pl["free_pods"],
-        pl["used_nz_q"], alloc_q, pl["mask"], pl["static_scores"],
-        fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal, strategy,
-        wave_w, perms, gang_onehot, gang_required, rows=cls_idx,
-        exc=exc_col)
+    static_scores = pl["static_scores"]
+    dev = alloc_q.device
+    if solve_mode == "optimal":
+        # Batch-optimal mode: the transport plan over the class planes,
+        # then the W=1 scan rounds it against live capacity with the
+        # re-scoring weights zeroed.
+        static_scores, _ = solver.sinkhorn_plan(
+            *plan_inputs(pl, alloc_q, class_pack, cls_idx, fit_col_w,
+                         bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                         strategy), sink_iters, sink_temp)
+        w_fit = w_bal = 0.0
+        wave_w = 0
+    solve_args = (pl["req_q"], pl["req_nz_q"], pl["free_q"], pl["free_pods"],
+                  pl["used_nz_q"], alloc_q, pl["mask"], static_scores,
+                  fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                  strategy)
+    if wave_w > 1:
+        assign, wave_com, wave_rep = \
+            solver.multistart_greedy_assign_wave_kernel(
+                *solve_args, wave_w, perms, gang_onehot, gang_required,
+                rows=cls_idx, exc=exc_col)
+    else:
+        assign = solver.multistart_greedy_assign_kernel(
+            *solve_args, perms, gang_onehot, gang_required, rows=cls_idx,
+            exc=exc_col)
+        wave_com = wave_rep = 0
 
     # Post-assignment state update (scatter-add of assigned requests);
     # unassigned rows scatter to a dummy row N, dropped.
-    dev = alloc_q.device
     n = alloc_q.shape[0]
     hit = assign >= 0
     tgt = torch.where(hit, assign, n).long()
@@ -297,8 +350,11 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                         device=dev).index_add_(
         0, tgt, torch.where(hit[:, None], inc, 0))
     used_pack2 = used_pack + delta[:n]
-    tail = torch.tensor([0, wave_com, wave_rep, 0, 0], dtype=torch.int32,
-                        device=dev)
+    # Filled on the device: a tensor built from a host list is a copy that
+    # waits for the card.
+    tail = torch.zeros((5,), dtype=torch.int32, device=dev)
+    tail[1].fill_(wave_com)
+    tail[2].fill_(wave_rep)
     return (torch.cat([assign, tail]), used_pack2, pl["fit0"],
             pl["taint_ok"])
 
@@ -367,12 +423,16 @@ class TorchBackend:
         self._dev_zero_gang: dict[int, tuple] = {}
         self.used = UsedStateChain(self.device)
         #: cumulative solve counters: chunks solved, wavefront commits and
-        #: replays (a poisoned chunk counts all its pods as replays), and
-        #: chunks the solve-mode policy wanted optimal but that were not
-        #: eligible (no class planes) and ran greedy, the reference's
-        #: solver_optimal_fallbacks_total.
+        #: replays (a poisoned chunk counts all its pods as replays);
+        #: chunks solved in the optimal mode (the reference's
+        #: solver_optimal_solves_total) and chunks the solve-mode policy
+        #: wanted optimal but that were not eligible (no class planes) and
+        #: ran greedy (solver_optimal_fallbacks_total); and the Sinkhorn
+        #: iterations of the latest optimal chunk, a gauge
+        #: (solver_sinkhorn_iterations).
         self.counters = {"chunks": 0, "wave_commits": 0, "wave_replays": 0,
-                         "optimal_fallbacks": 0}
+                         "optimal_solves": 0, "optimal_fallbacks": 0,
+                         "sinkhorn_iterations": 0}
         #: cumulative host-clock seconds of assign() and of its per-chunk
         #: phases: host prep, the device pass up to the assignment fetch
         #: (which waits for the device), and host verify + diagnostics.
@@ -533,7 +593,8 @@ class TorchBackend:
 
     def _prep_chunk(self, pods: list[PodInfo], ctx: "_AssignCtx") -> dict:
         """Host side of one chunk: the class dictionary and its planes,
-        the multistart permutations, and the wavefront width."""
+        the multistart permutations, the solve mode and the wavefront
+        width."""
         ct, snapshot, fwk = ctx.ct, ctx.snapshot, ctx.fwk
         P = self.max_batch
         batch = PodBatch(pods, ct, P)
@@ -736,21 +797,12 @@ class TorchBackend:
                 if pin is not None:
                     exc_np[i] = pin
 
-        # The solve-mode policy, before this chunk's device work: this slice
-        # has no Sinkhorn route, so a chunk the reference would solve
-        # optimally is refused rather than placed by greedy. Gangs and
-        # spread are refused by _check_supported.
+        # The solve-mode policy row: an optimal chunk rounds its plan with
+        # the W=1 scan (wave_w 0, as in the reference). Gangs and spread
+        # are refused by _check_supported.
         mode, fallback = self._tuner.solve_mode(
             batch.p_real, has_gang=False, spread=False,
             class_mode=class_reps is not None)
-        if mode == "optimal":
-            raise NotImplementedError(
-                f"a chunk of {batch.p_real} pods goes to the Sinkhorn "
-                f"optimal mode under KTPU_SOLVE_MODE="
-                f"{flags.get('KTPU_SOLVE_MODE')} (the reference's "
-                "solver.sinkhorn_plan), which this slice does not port yet "
-                "(ROADMAP queue 1 item 1); set KTPU_SOLVE_MODE=greedy to "
-                "run the greedy wavefront solve")
         self.counters["optimal_fallbacks"] += int(fallback)
 
         if class_reps is not None:
@@ -824,7 +876,7 @@ class TorchBackend:
             else:
                 dev_scores = self._zero_scores(P, N)
 
-        wave_w = self._tuner.wave_width(P)
+        wave_w = 0 if mode == "optimal" else self._tuner.wave_width(P)
         return {
             "pods": pods, "batch": batch,
             "dev_mask": dev_mask, "dev_scores": dev_scores,
@@ -836,6 +888,7 @@ class TorchBackend:
             "unknown_res": unknown_res,
             "dev_perms": self._perms(pods, batch, P),
             "wave_w": wave_w,
+            "solve_mode": mode,
         }
 
     def _zero_scores(self, rows: int, n: int) -> torch.Tensor:
@@ -916,8 +969,10 @@ class TorchBackend:
         return self._dev_static
 
     def _dispatch_chunk(self, prep: dict, ctx: "_AssignCtx") -> dict:
-        """Run the chunk's device pass; the used state chains on device."""
+        """Run the chunk's device pass; the used state chains on device.
+        The Sinkhorn knobs are read here, per chunk, as live flags."""
         p, st = ctx.params, self.ensure_static(ctx.ct)
+        prep["sink_iters"] = max(1, flags.get("KTPU_SINKHORN_ITERS"))
         assign_d, used_pack2, fit0_d, taint_ok_d = mask_solve_update(
             st["alloc_q"], self.used.pack, st["alloc_pods"],
             prep["dev_pack"], prep["dev_cls"], prep["dev_exc"],
@@ -926,7 +981,9 @@ class TorchBackend:
             p["shape_u"], p["shape_s"], p["w_fit"], p["w_bal"],
             p["w_taint"], p["taint_filter_on"], prep["dev_perms"],
             *self._gang_zeros(prep["batch"].req_q.shape[0]),
-            p["strategy"], prep["wave_w"])
+            p["strategy"], prep["wave_w"], prep["solve_mode"],
+            prep["sink_iters"],
+            float(np.float32(flags.get("KTPU_SINKHORN_TEMP"))))
         self.used.advance(used_pack2)
         prep["assign_d"] = assign_d
         prep["fit0_d"] = fit0_d
@@ -942,10 +999,14 @@ class TorchBackend:
         # the padded width, clamped to the real pods here.
         wave_com = min(int(assign_np[-4]), batch.p_real)
         wave_rep = min(int(assign_np[-3]), batch.p_real)
-        self._tuner.observe_wave(wave_com, wave_rep)
+        if run["wave_w"] > 1:
+            self._tuner.observe_wave(wave_com, wave_rep)
         self.counters["chunks"] += 1
         self.counters["wave_commits"] += wave_com
         self.counters["wave_replays"] += wave_rep
+        if run["solve_mode"] == "optimal":
+            self.counters["optimal_solves"] += 1
+            self.counters["sinkhorn_iterations"] = run["sink_iters"]
 
         rejects = self._verify(pods, assign, ctx)
         # Fold verify rejections back into the device-chained used state so

@@ -32,11 +32,13 @@ def mask_solve_inputs(*, alloc_q, used_pack, alloc_pods, class_pack,
                       cls_idx, exc_col, taint_f_mat, taint_p_mat,
                       class_mask, class_scores, params: Mapping[str, Any],
                       perms, gang_onehot, gang_required, wave_w: int,
+                      solve_mode: str, sink_iters, sink_temp,
                       device) -> dict:
     """Keyword arguments of `mask_solve_update` from the reference
     program's inputs. `params` is the reference backend's `_fwk_params`
     dict (strategy, column weights, shape points, plugin weights and the
-    taint-filter switch)."""
+    taint-filter switch); `sink_iters`/`sink_temp` are the Sinkhorn
+    iterations and temperature the reference program was given."""
     arrays = dict(alloc_q=alloc_q, used_pack=used_pack,
                   alloc_pods=alloc_pods, class_pack=class_pack,
                   cls_idx=cls_idx, exc_col=exc_col, taint_f_mat=taint_f_mat,
@@ -51,6 +53,9 @@ def mask_solve_inputs(*, alloc_q, used_pack, alloc_pods, class_pack,
     out["taint_filter_on"] = bool(np.asarray(params["taint_filter_on"]))
     out["strategy"] = str(params["strategy"])
     out["wave_w"] = int(wave_w)
+    out["solve_mode"] = str(solve_mode)
+    out["sink_iters"] = int(np.asarray(sink_iters))
+    out["sink_temp"] = float(np.float32(np.asarray(sink_temp)))
     return out
 
 

@@ -127,6 +127,27 @@ def balanced_allocation_score(alloc_q, used_nz_q, req_nz_q, col_mask):
     return torch.where(cnt >= 2, score, 0.0)
 
 
+# --- chunk-start live scores -------------------------------------------------
+
+def chunk_start_scores(alloc_q, used_nz_q, req_nz_q, static_scores,
+                       fit_col_w, bal_col_mask, shape_u, shape_s,
+                       w_fit, w_bal, strategy: str):
+    """The full live score (static + weighted fit + weighted balanced)
+    against the used state given, with the reference's association:
+    `static + w_fit·fit`, then `+ w_bal·bal`. At the CHUNK-START state it
+    is the optimal mode's transport cost (the greedy scorer's own value
+    for every (class, node) before any pod of the chunk is placed);
+    against the live state it is the scans' per-step re-score (solver).
+
+    alloc_q/used_nz_q: (N,R); req_nz_q: (S,R); static_scores: (S,N)
+    → (S,N) float32.
+    """
+    sc = static_scores + w_fit * fit_score(
+        alloc_q, used_nz_q, req_nz_q, fit_col_w, strategy, shape_u, shape_s)
+    return sc + w_bal * balanced_allocation_score(
+        alloc_q, used_nz_q, req_nz_q, bal_col_mask)
+
+
 # --- TaintToleration: Score --------------------------------------------------
 
 def taint_toleration_score(node_prefer_taints, untol_prefer, feasible):

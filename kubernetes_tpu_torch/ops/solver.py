@@ -1,11 +1,13 @@
-"""Batched pod→node assignment in PyTorch: the greedy wavefront solve.
+"""Batched pod→node assignment in PyTorch: the greedy wavefront solve and
+the Sinkhorn optimal mode.
 
 Counterpart of `kubernetes_tpu/ops/solver.py`, cut to the greedy
-multistart wavefront route. The reference's `lax.scan`s become Python
-loops over device tensors here; on the CUDA device the main path does
-not run them: `multistart_greedy_assign_wave_kernel` hands the whole
-chunk to the hand-written kernel (ops/wave_kernel.py), and these loops
-are its plain version.
+multistart wavefront route and the batch-optimal route. The reference's
+`lax.scan`s become Python loops over device tensors here; on the CUDA
+device the main paths do not run them: `multistart_greedy_assign_wave_kernel`
+and `multistart_greedy_assign_kernel` hand the whole chunk to the
+hand-written kernel (ops/wave_kernel.py), and these loops are its plain
+version.
 
 Contract (the reference's, unchanged):
 
@@ -22,6 +24,9 @@ Contract (the reference's, unchanged):
   order that places the most pods (then the most request volume); the
   identity order wins ties. Any poisoned order reruns the whole chunk
   one pod per step.
+- `sinkhorn_plan` — the optimal mode's entropic transport plan over the
+  (C, N) class planes; its sanitized log-plan becomes the static scores
+  of the W=1 multistart rounding with the live weights zeroed.
 
 Class-dictionary planes: `mask`/`static_scores` are (C, N) rows addressed
 per pod through `rows`; `exc` is the sparse per-pod exception column
@@ -30,6 +35,7 @@ per pod through `rows`; `exc` is the sparse per-pod exception column
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from kubernetes_tpu_torch.ops import kernels
@@ -45,17 +51,6 @@ def _argmax_low(masked: torch.Tensor, nbig: int) -> torch.Tensor:
                         device=masked.device)
     y = torch.amin(torch.where(masked == b, iota, nbig))
     return torch.where(b > NEG_INF, y, nbig).to(torch.int32)
-
-
-def _live_scores(alloc_q, used_nz, req_nz, static_rows, fit_col_w,
-                 bal_col_mask, shape_u, shape_s, w_fit, w_bal, strategy):
-    """static + w_fit·fit + w_bal·balanced for (P,R) requests over the
-    (N,R) live state — the per-step re-score, same association as the
-    reference."""
-    sc = static_rows + w_fit * kernels.fit_score(
-        alloc_q, used_nz, req_nz, fit_col_w, strategy, shape_u, shape_s)
-    return sc + w_bal * kernels.balanced_allocation_score(
-        alloc_q, used_nz, req_nz, bal_col_mask)
 
 
 def greedy_assign_rescoring(req_q, req_nz_q, free_q, free_pods, used_nz_q,
@@ -79,10 +74,10 @@ def greedy_assign_rescoring(req_q, req_nz_q, free_q, free_pods, used_nz_q,
         if exc is not None:
             m = m & ((exc[i] < 0) | (iota == exc[i]))
         fits = m & torch.all(req[None, :] <= free_q, dim=1) & (free_pods >= 1)
-        sc = _live_scores(alloc_q, used_nz, req_nz[None, :],
-                          static_scores[row][None, :], fit_col_w,
-                          bal_col_mask, shape_u, shape_s, w_fit, w_bal,
-                          strategy)[0]
+        sc = kernels.chunk_start_scores(
+            alloc_q, used_nz, req_nz[None, :], static_scores[row][None, :],
+            fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+            strategy)[0]
         idx = _argmax_low(torch.where(fits, sc, NEG_INF), n)
         hit = iota == idx
         free_q = free_q - torch.where(hit[:, None], req[None, :], 0)
@@ -92,13 +87,17 @@ def greedy_assign_rescoring(req_q, req_nz_q, free_q, free_pods, used_nz_q,
     return torch.stack(out).to(torch.int32)
 
 
-def _multistart_body(req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q,
-                     mask, static_scores, fit_col_w, bal_col_mask, shape_u,
-                     shape_s, w_fit, w_bal, strategy, perms, gang_onehot,
-                     gang_required, rows=None, exc=None):
-    """K permuted one-pod-per-step scans + `_select_best`. Only the small
-    per-pod vectors permute; the (C, N) planes are addressed through
-    `rows[perm]`."""
+def multistart_greedy_assign(req_q, req_nz_q, free_q, free_pods,
+                             used_nz_q, alloc_q, mask, static_scores,
+                             fit_col_w, bal_col_mask, shape_u, shape_s,
+                             w_fit, w_bal, strategy, perms, gang_onehot,
+                             gang_required, rows=None, exc=None):
+    """K permuted one-pod-per-step scans + gang all-or-nothing + the best
+    order (the reference's `multistart_greedy_assign` and its
+    `_multistart_body`; perms[0] is the identity and wins ties): the plain
+    version of `multistart_greedy_assign_kernel`. Only the small per-pod
+    vectors permute; the (C, N) planes are addressed through `rows[perm]`.
+    Returns (P,) int32."""
     P = req_q.shape[0]
     if rows is None:
         rows = torch.arange(P, dtype=torch.int32, device=req_q.device)
@@ -121,6 +120,38 @@ def _unpermute(a, perm):
     return out
 
 
+def _best_of_orders(assigns_p, perms, req_q, gang_onehot, gang_required):
+    """`_select_best` over the (K, P) assignments of the K orders, each in
+    its PERMUTED pod coordinates (the kernel's output)."""
+    assigns = torch.stack([_unpermute(a, perm)
+                           for a, perm in zip(assigns_p, perms)])
+    return _select_best(assigns, req_q, gang_onehot, gang_required)
+
+
+def multistart_greedy_assign_kernel(req_q, req_nz_q, free_q, free_pods,
+                                    used_nz_q, alloc_q, mask, static_scores,
+                                    fit_col_w, bal_col_mask, shape_u,
+                                    shape_s, w_fit, w_bal, strategy: str,
+                                    perms, gang_onehot, gang_required,
+                                    rows=None, exc=None):
+    """`multistart_greedy_assign` with every order's one-pod-per-step scan
+    in ONE launch of the hand-written kernel: `wave_kernel.wave_solve` at
+    W=1 with poison=False (a one-member wave never conflicts), then
+    `_select_best`. The route of the optimal mode's rounding and of W < 2.
+    It reads nothing back from the card. Returns (P,) int32."""
+    from kubernetes_tpu_torch.ops import wave_kernel  # local: import cycle
+
+    if rows is None:
+        rows = torch.arange(req_q.shape[0], dtype=torch.int32,
+                            device=req_q.device)
+    assigns_p, _, _, _ = wave_kernel.wave_solve(
+        req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q, mask,
+        static_scores, fit_col_w, bal_col_mask, shape_u, shape_s, w_fit,
+        w_bal, strategy, 1, rows, exc, poison=False, perms=perms)
+    return _best_of_orders(assigns_p, perms, req_q, gang_onehot,
+                           gang_required)
+
+
 def _select_best(assigns, req_q, gang_onehot, gang_required):
     """Gang-filter K candidate assignments and keep the best order."""
     eff = torch.stack([gang_filter(a, gang_onehot, gang_required)
@@ -134,7 +165,9 @@ def _select_best(assigns, req_q, gang_onehot, gang_required):
     vol = torch.where(placed, sizes[None, :], 0.0).sum(dim=1)
     vol_norm = vol / torch.clamp_min(torch.amax(vol), 1.0)
     best = _argmax_low(n_placed + 0.5 * vol_norm, assigns.shape[0])
-    return eff[best.long()]
+    # index_select, not eff[best]: a 0-d tensor index is read back to the
+    # host, which would wait for the card.
+    return eff.index_select(0, best.long().reshape(1))[0]
 
 
 def gang_filter(assign, gang_onehot, gang_required):
@@ -205,9 +238,9 @@ def _wave_conflicts(b, y, nbig, req, req_nz, free_q, free_pods, used_nz,
     fp_j = free_pods[safe] - 1                                 # (W,)
     unz_j = used_nz[safe] + req_nz                             # (W,R)
     al_j = alloc_q[safe]
-    upd = _live_scores(al_j, unz_j, req_nz, stat_pair, fit_col_w,
-                       bal_col_mask, shape_u, shape_s, w_fit, w_bal,
-                       strategy)                               # (W,W)
+    upd = kernels.chunk_start_scores(
+        al_j, unz_j, req_nz, stat_pair, fit_col_w, bal_col_mask, shape_u,
+        shape_s, w_fit, w_bal, strategy)                       # (W,W)
     cap = torch.all(req[:, None, :] <= fr_j[None, :, :], dim=-1)
     feas = m_pair & cap & (fp_j >= 1)[None, :] & hit[None, :]
     beats = feas & ((upd > b[:, None])
@@ -239,28 +272,28 @@ def _rescoring_wave_scan(req_q, req_nz_q, free_q, free_pods, used_nz_q,
     ncom = nrep = 0
     pois = False
     outs = []
-    for req, req_nz, row, e, real in zip(req_w, req_nz_w, rows_w, ex_w,
-                                         real_w):
+    for i, (req, req_nz, row, e, real) in enumerate(zip(
+            req_w, req_nz_w, rows_w, ex_w, real_w)):
         rl = row.long()
         m = mask[rl]                                           # (W,N)
         m = m & ((e < 0)[:, None] | (iota_n[None, :] == e[:, None]))
         m = m & real[:, None]
         fits = m & torch.all(req[:, None, :] <= free_q[None, :, :],
                              dim=-1) & (free_pods >= 1)[None, :]
-        sc = _live_scores(alloc_q, used_nz, req_nz, static_scores[rl],
-                          fit_col_w, bal_col_mask, shape_u, shape_s,
-                          w_fit, w_bal, strategy)
+        sc = kernels.chunk_start_scores(
+            alloc_q, used_nz, req_nz, static_scores[rl], fit_col_w,
+            bal_col_mask, shape_u, shape_s, w_fit, w_bal, strategy)
         masked = torch.where(fits, sc, NEG_INF)
         node_of = iota_n[None, :].expand(masked.shape)
         b, y = _wave_spec_picks(masked, node_of, n, W)
         safe = torch.clamp_max(y, n - 1).long()
-        conflict = _wave_conflicts(
+        nreal = min(W, p - i * W)
+        # A one-member wave has no earlier member to conflict with.
+        any_conflict = W > 1 and bool(_wave_conflicts(
             b, y, n, req, req_nz, free_q, free_pods, used_nz, alloc_q,
             m[:, safe], static_scores[rl[:, None], safe[None, :]],
             fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
-            strategy)
-        nreal = int(real.sum())
-        any_conflict = bool(conflict.any())
+            strategy).any())
         if poison or not any_conflict:
             hit = y < n
             free_q = free_q.index_add(
@@ -278,10 +311,10 @@ def _rescoring_wave_scan(req_q, req_nz_q, free_q, free_pods, used_nz_q,
             rq, rnz = req[w], req_nz[w]
             fits_w = m[w] & torch.all(rq[None, :] <= free_q, dim=1) \
                 & (free_pods >= 1)
-            scw = _live_scores(alloc_q, used_nz, rnz[None, :],
-                               static_scores[rl[w]][None, :], fit_col_w,
-                               bal_col_mask, shape_u, shape_s, w_fit,
-                               w_bal, strategy)[0]
+            scw = kernels.chunk_start_scores(
+                alloc_q, used_nz, rnz[None, :],
+                static_scores[rl[w]][None, :], fit_col_w, bal_col_mask,
+                shape_u, shape_s, w_fit, w_bal, strategy)[0]
             idx = _argmax_low(torch.where(fits_w, scw, NEG_INF), n)
             hitw = idx < n
             sf = torch.clamp_max(idx, n - 1).long().reshape(1)
@@ -323,8 +356,9 @@ def multistart_greedy_assign_wave(req_q, req_nz_q, free_q, free_pods,
                                   perms, gang_onehot, gang_required,
                                   rows=None, exc=None):
     """Multistart with speculation-only wavefront scans per order: any
-    poisoned order reruns the whole chunk through `_multistart_body`.
-    Returns (assign (P,), commits, replays); the counters are P or 0."""
+    poisoned order reruns the whole chunk through
+    `multistart_greedy_assign`. Returns (assign (P,), commits, replays);
+    the counters are P or 0."""
     P = req_q.shape[0]
     if rows is None:
         rows = torch.arange(P, dtype=torch.int32, device=req_q.device)
@@ -338,7 +372,7 @@ def multistart_greedy_assign_wave(req_q, req_nz_q, free_q, free_pods,
         assigns.append(_unpermute(a, perm))
         any_pois = any_pois or pois
     if any_pois:
-        assign = _multistart_body(
+        assign = multistart_greedy_assign(
             req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q, mask,
             static_scores, fit_col_w, bal_col_mask, shape_u, shape_s,
             w_fit, w_bal, strategy, perms, gang_onehot, gang_required,
@@ -358,11 +392,11 @@ def multistart_greedy_assign_wave_kernel(req_q, req_nz_q, free_q,
                                          exc=None):
     """multistart_greedy_assign_wave with every order's wavefront solve in
     ONE launch of the hand-written kernel (ops/wave_kernel.wave_solve;
-    one thread block per order). The poison contract and `_select_best`
-    are the reference wrapper's: a poisoned chunk reruns through the SAME
-    kernel at W=1 with poison=False — a one-member wave never conflicts,
-    so that launch is the one-pod-per-step scan of every order. Returns
-    (assign (P,), commits, replays); the counters are P or 0."""
+    one thread-block cluster per order). The poison contract and
+    `_select_best` are the reference wrapper's: a poisoned chunk reruns
+    through `multistart_greedy_assign_kernel`, the SAME kernel at W=1 with
+    poison=False. Returns (assign (P,), commits, replays); the counters
+    are P or 0."""
     from kubernetes_tpu_torch.ops import wave_kernel  # local: import cycle
 
     P = req_q.shape[0]
@@ -373,11 +407,143 @@ def multistart_greedy_assign_wave_kernel(req_q, req_nz_q, free_q,
             w_fit, w_bal, strategy)
     assigns_p, _, _, pois = wave_kernel.wave_solve(
         *args, wave_w, rows, exc, poison=True, perms=perms)
-    poisoned = bool(pois.any())
-    if poisoned:
-        assigns_p, _, _, _ = wave_kernel.wave_solve(
-            *args, 1, rows, exc, poison=False, perms=perms)
-    assigns = torch.stack([_unpermute(a, perm)
-                           for a, perm in zip(assigns_p, perms)])
-    assign = _select_best(assigns, req_q, gang_onehot, gang_required)
-    return (assign, 0, P) if poisoned else (assign, P, 0)
+    if bool(pois.any()):
+        return multistart_greedy_assign_kernel(
+            *args, perms, gang_onehot, gang_required, rows, exc), 0, P
+    return _best_of_orders(assigns_p, perms, req_q, gang_onehot,
+                           gang_required), P, 0
+
+
+# ---------------------------------------------------------------------------
+# Batch-optimal mode: the Sinkhorn transport plan, and the packing metric.
+# ---------------------------------------------------------------------------
+
+#: annealing stages of the Sinkhorn temperature schedule (4T → 2T → T).
+SINKHORN_STAGES = 3
+_EPS = 1e-12
+#: The smallest normal float32. XLA on the CPU flushes subnormal results to
+#: zero and a TPU has none, but PyTorch keeps them on the CPU and the card
+#: alike; `exp` outputs below this are flushed to 0 explicitly (see
+#: `_sinkhorn`).
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """(C, N) → (N,): x[0] + x[1] + ... in row order. Elementwise adds, so
+    every column sums in the same order wherever it lies (a reduction
+    over dim 0 may vectorize the columns and sum a ragged tail in another
+    order, which would split identical columns)."""
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+def _reduce_cols(x: torch.Tensor, op: str) -> torch.Tensor:
+    """(C, N) → (C,): the sum or max over the node (column) axis."""
+    return x.sum(dim=1) if op == "sum" else torch.amax(x, dim=1)
+
+
+def sinkhorn_plan(feasible, cost, row_counts, col_cap, iters: int,
+                  temp: float):
+    """Entropic-regularized transport plan over the (C, N) class planes
+    (the reference's `sinkhorn_plan`, the batch-optimal solve mode).
+
+    - feasible (C, N) bool; cost (C, N): the chunk-start live scores;
+    - row_counts (C,) f32: pods per class this chunk (padding rides the
+      empty class row 0, whose all-false feasible row zeros its kernel
+      row);
+    - col_cap (N,): remaining pod slots per node, an INEQUALITY bound (the
+      column step is v = min(1, b / col)).
+
+    Costs are shifted per row by the row's feasible max; the temperature
+    anneals over SINKHORN_STAGES stages (4T → 2T → T). `iters` and `temp`
+    are host numbers (the live KTPU_SINKHORN_ITERS / KTPU_SINKHORN_TEMP
+    knobs); the loop reads nothing back from the device.
+
+    Returns (log_plan (C, N) f32, plan (C, N) f32); log_plan is sanitized
+    (-1e30 where infeasible or not finite) so that it drops into the
+    rounding scans as `static_scores`. Identical columns get bit-identical
+    values, so on uniform workloads the rounding is first-fit.
+    """
+    return _sinkhorn(feasible, cost, row_counts, col_cap, iters, temp,
+                     _reduce_cols)
+
+
+def _sinkhorn(feasible, cost, row_counts, col_cap, iters: int, temp: float,
+              reduce_cols):
+    """`sinkhorn_plan`'s body; `reduce_cols(x, "sum" | "max")` reduces a
+    (C, N) plane over the node axis (the node-sharded form reduces per
+    shard, then across shards: parallel/sharded.sharded_sinkhorn_plan).
+
+    The row marginal and the column sums are elementwise products summed
+    with `sum` and `_sum_rows`, never `@`: no float32 product can fall to
+    TF32, and every column's sum over C runs in row order, so identical
+    columns stay bit-identical."""
+    dev = cost.device
+    a = row_counts.to(torch.float32)
+    b = torch.clamp_min(col_cap.to(torch.float32), 0.0)
+    n_iters = max(int(iters), 1)
+    cost = cost.to(torch.float32)
+    kmask = feasible.to(torch.float32)
+    # Row-relative costs: subtract each row's feasible max so exp() is
+    # bounded in (0, 1] and `temp` is scale-free.
+    rmax = reduce_cols(torch.where(feasible, cost, NEG_INF), "max")
+    sc = torch.where(feasible, cost - rmax[:, None], 0.0)
+    stage_kernels: dict[int, torch.Tensor] = {}
+
+    def kernel(stage: int) -> torch.Tensor:
+        k = stage_kernels.get(stage)
+        if k is None:
+            t = np.maximum(
+                np.float32(temp)
+                * np.exp2(np.float32(SINKHORN_STAGES - 1 - stage)),
+                np.float32(_EPS))
+            # A 0-d tensor on the device, not a Python number: the card
+            # divides by a host scalar as a product with its reciprocal.
+            e = torch.exp(sc / torch.full((), float(t), dtype=torch.float32,
+                                          device=dev))
+            k = stage_kernels[stage] = kmask * e.masked_fill_(
+                e < _F32_TINY, 0.0)
+        return k
+
+    u = torch.ones_like(a)
+    v = torch.ones_like(b)
+    for i in range(n_iters):
+        k = kernel(min(SINKHORN_STAGES * i // n_iters, SINKHORN_STAGES - 1))
+        u = a / torch.clamp_min(reduce_cols(k * v[None, :], "sum"), _EPS)
+        col = _sum_rows(u[:, None] * k)
+        v = torch.clamp_max(b / torch.clamp_min(col, _EPS), 1.0)
+    plan = u[:, None] * kernel(SINKHORN_STAGES - 1) * v[None, :]
+    log_plan = torch.log(plan + 1e-30)
+    log_plan = torch.where(torch.isfinite(log_plan) & feasible, log_plan,
+                           -1e30)
+    return log_plan, plan
+
+
+def _free_fraction(free_q, alloc_q):
+    """Per node, the mean over resource columns with allocatable > 0 of
+    the free/allocatable fraction."""
+    alloc = alloc_q.to(torch.float32)
+    frac = torch.where(alloc > 0, free_q.to(torch.float32) / alloc, 0.0)
+    return kernels._sum_last(frac) / torch.clamp_min(
+        (alloc > 0).sum(dim=1), 1)
+
+
+def fragmentation(free_q, alloc_q, valid):
+    """Node fragmentation %: the mean remaining-capacity fraction over the
+    valid nodes (lower = tighter packing). 0-d float32 tensor."""
+    per_node = _free_fraction(free_q, alloc_q)
+    return 100.0 * torch.where(valid, per_node, 0.0).sum() / torch.clamp_min(
+        valid.sum(), 1)
+
+
+def fragmentation_occupied(free_q, alloc_q, used_pods, valid):
+    """OCCUPIED-node fragmentation %: the mean free-capacity fraction over
+    the nodes hosting at least one pod — the packing metric the optimal
+    mode exists to lower (the all-nodes form is placement-invariant once
+    every pod places). 0 occupied nodes → 0.0. 0-d float32 tensor."""
+    occ = valid & (used_pods > 0)
+    per_node = _free_fraction(free_q, alloc_q)
+    return 100.0 * torch.where(occ, per_node, 0.0).sum() / torch.clamp_min(
+        occ.sum(), 1)

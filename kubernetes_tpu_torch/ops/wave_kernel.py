@@ -318,8 +318,10 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     (np.packbits' layout, the reference's wire format)."""
     c, n = mask.shape
     m = torch.nn.functional.pad(mask.to(torch.uint8), (0, (-n) % 8))
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
-                           device=mask.device)
+    # The bit weights 128 ... 1, made on the device (a host list would be
+    # a copy that waits for the card).
+    weights = torch.bitwise_left_shift(
+        1, torch.arange(7, -1, -1, device=mask.device)).to(torch.uint8)
     return (m.reshape(c, -1, 8) * weights).sum(dim=-1).to(torch.uint8)
 
 

@@ -14,11 +14,12 @@ from kubernetes_tpu_torch.parallel.sharded import (
     sharded_greedy_assign,
     sharded_greedy_assign_multislice,
     sharded_masks_scores,
+    sharded_sinkhorn_plan,
 )
 
 __all__ = [
     "NODES_AXIS", "PODS_AXIS", "SLICE_AXIS", "Mesh",
     "build_mesh", "build_mesh_2d", "build_multislice_mesh", "pad_axis",
     "sharded_greedy_assign", "sharded_greedy_assign_multislice",
-    "sharded_masks_scores",
+    "sharded_masks_scores", "sharded_sinkhorn_plan",
 ]

@@ -1,6 +1,6 @@
 """Node-sharded variants of the batched scheduling step.
 
-Counterpart of `kubernetes_tpu/parallel/sharded.py`, with the same two
+Counterpart of `kubernetes_tpu/parallel/sharded.py`, with the same
 phases and the same semantics:
 
 1. `sharded_masks_scores` — the (P×N) mask and capacity-independent score
@@ -33,9 +33,13 @@ index rule on an all-infeasible shard (see `Shards.local_best`). max and
 min are associative, so the kernels reduce over all S·L nodes at once and
 reach the same (score desc, global id asc) winner.
 
+3. `sharded_sinkhorn_plan` — the optimal mode's transport plan with the
+   node (column) axis sharded: each shard owns a column block, the row max
+   and the row marginal are reduced per shard and then across the shards
+   (innermost mesh axis first), and the column step is shard-local.
+
 Not ported yet: the shard-local shortlist and block index (`shortlist_k`,
-`block_w`; ROADMAP queue 1 item 3) — they raise NotImplementedError;
-`sharded_sinkhorn_plan` (with the Sinkhorn slice) and
+`block_w`; ROADMAP queue 1 item 3) — they raise NotImplementedError; and
 `resident_row_scatter` (with the serving slice).
 """
 
@@ -261,3 +265,55 @@ def _wave_body(st: wave_eval.Shards, req_q, req_nz_q, rows, exc,
         step(st, req_w[i], req_nz_w[i], rows_w[i], ex_w[i], real_w[i],
              out=out[i], replayed=replays[i:i + 1])
     return out.reshape(-1)[:p], replays
+
+
+# ---------------------------------------------------------------------------
+# phase 2a: Sinkhorn transport plan (optimal solve mode, nodes axis sharded)
+# ---------------------------------------------------------------------------
+
+def sharded_sinkhorn_plan(mesh: Mesh, feasible, cost, row_counts, col_cap,
+                          iters: int, temp: float,
+                          axes: tuple[str, ...] = (NODES_AXIS,)):
+    """ops/solver.sinkhorn_plan with the NODE (column) axis sharded over
+    the mesh axes `axes` (the reference's `sharded_sinkhorn_plan`).
+
+    The (C, N) planes keep C whole; shard s of the flattened `axes` owns
+    the column block [s·L, (s+1)·L), L = N / shards, and its slice of the
+    column capacities. Per iteration the only value that crosses shards is
+    the row marginal `k @ v`: each shard sums its block, then the (C,)
+    partial sums are added over the shards, innermost axis first, in shard
+    order (the reference's psum order); the row-max shift is a max over the
+    shards the same way. The column step is shard-local, `u` being whole.
+    Same annealing, inequality column step and sanitized log-plan as the
+    single-device plan. Returns (log_plan (C, N), plan (C, N)) on the
+    mesh's device; a mesh over several devices raises
+    (`Mesh.device`)."""
+    dev = mesh.device
+    sizes = tuple(mesh.shape[a] for a in axes)
+    shards = math.prod(sizes)
+    c, n = cost.shape
+    if n % shards:
+        raise ValueError(f"{n} nodes do not divide into {shards} shards; "
+                         "pad the node axis (pad_axis)")
+    if feasible.shape != cost.shape or row_counts.shape != (c,) \
+            or col_cap.shape != (n,):
+        raise ValueError(
+            f"plan inputs do not agree: feasible {tuple(feasible.shape)}, "
+            f"cost {tuple(cost.shape)}, row_counts "
+            f"{tuple(row_counts.shape)}, col_cap {tuple(col_cap.shape)}")
+
+    def reduce_cols(x, op):
+        part = x.reshape((c,) + sizes + (n // shards,))
+        if op == "sum":
+            part = part.sum(dim=-1)
+            for _ in sizes:                     # innermost axis first
+                part = kernels._sum_last(part)
+        else:
+            part = torch.amax(part, dim=-1)
+            for _ in sizes:
+                part = torch.amax(part, dim=-1)
+        return part
+
+    return solver._sinkhorn(feasible.to(dev), cost.to(dev),
+                            row_counts.to(dev), col_cap.to(dev), iters,
+                            temp, reduce_cols)

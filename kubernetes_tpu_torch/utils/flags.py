@@ -1,10 +1,10 @@
 """The `KTPU_*` environment flags this package reads.
 
 Counterpart of `kubernetes_tpu/utils/flags.py`, cut to the flags the
-greedy wavefront batch solve and its solve-mode policy read. Names,
-defaults and parsing are the reference's: every read is a LIVE
-`os.environ` lookup, and a malformed value degrades to the flag's
-default.
+batch solve (the greedy wavefront and the Sinkhorn optimal mode) and its
+solve-mode policy read. Names, defaults and parsing are the reference's:
+every read is a LIVE `os.environ` lookup, and a malformed value degrades
+to the flag's default.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ def _parse_bool(raw: str) -> bool:
 
 def _parse_int(raw: str) -> int:
     return int(raw.strip())
+
+
+def _parse_float(raw: str) -> float:
+    return float(raw.strip())
 
 
 def _parse_solve_mode(raw: str) -> str:
@@ -60,11 +64,18 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "the tuner picks W and shrinks it when replays climb."),
     Flag("KTPU_SOLVE_MODE", "auto", _parse_solve_mode,
          "Batch solve mode: `greedy` pins the greedy wavefront scan, "
-         "`optimal` asks for the Sinkhorn transport plan for every "
-         "eligible chunk, `auto` sends drain-scale chunks (at least "
-         "OPTIMAL_MIN_PODS real pods, below the large-N row) to it. The "
-         "Sinkhorn route is not ported yet: a chunk the policy sends "
-         "there raises NotImplementedError."),
+         "`optimal` routes every eligible chunk (class planes, no "
+         "spread) through the Sinkhorn transport plan and its W=1 "
+         "multistart rounding, `auto` routes drain-scale chunks (at "
+         "least OPTIMAL_MIN_PODS real pods, below the large-N row) "
+         "there and keeps the greedy scan for the rest."),
+    Flag("KTPU_SINKHORN_ITERS", 24, _parse_int,
+         "Sinkhorn iterations per optimal-mode chunk (the temperature "
+         "annealing's 3 stages split this count)."),
+    Flag("KTPU_SINKHORN_TEMP", 0.05, _parse_float,
+         "Final Sinkhorn temperature (entropic regularization weight "
+         "on the row-normalized cost); annealing runs 4x -> 2x -> 1x "
+         "this value."),
     Flag("KTPU_CLASS_PAD", 31, _parse_int,
          "Max real pod-equivalence classes per chunk before the "
          "per-pod fallback (plane rows bucket to the next power of "

@@ -192,7 +192,8 @@ def test_fused_program_matches_reference(runs):
     ref = [np.asarray(x) for x in ref]
     kwargs = convert.mask_solve_inputs(
         **named, params=p, gang_onehot=gang[0], gang_required=gang[1],
-        wave_w=WAVE_W, device="cpu")
+        wave_w=WAVE_W, solve_mode="greedy", sink_iters=1, sink_temp=1.0,
+        device="cpu")
     got = [x.numpy() for x in tbackend.mask_solve_update(**kwargs)]
     for name, g, r in zip(("assign", "used_pack", "fit0", "taint_ok"),
                           got, ref[:4]):

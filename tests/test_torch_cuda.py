@@ -13,9 +13,12 @@ returns x + 1; the `wave_eval` kernel and `wave_eval_reference` give
 identical masked scores and gated masks; the two-launch wave step
 (`wave_step`) and `wave_step_reference` give identical assignments,
 commit/replay decisions and carries wave by wave, and a wave wider than
-the kernels' top lists raises; and the node-sharded solver with the kernel
+the kernels' top lists raises; the node-sharded solver with the kernel
 on a 4-shard mesh of the card assigns exactly as the kernel-off route and
-the single-device solver.
+the single-device solver; the Sinkhorn plan on the card agrees with the
+CPU's within the plan tolerance, with the same sanitization; and the
+optimal mode's rounding (`wave_solve` at W=1, poison=False, on -1e30 rows
+with zero live weights) equals its plain version.
 """
 
 import numpy as np
@@ -289,3 +292,67 @@ def test_fewer_nodes_than_cluster_blocks(cuda):
              for cs in (4, 16)] + [WavePlan(8, 1, 64, 0, "global")]
     for strategy in STRATEGIES:
         _compare_plans(t, rows, exc, perms, strategy, plans, cuda)
+
+
+def _plan_case(seed: int, n: int, dev):
+    """A heterogeneous chunk's transport problem (costs: its chunk-start
+    scores) and its solve inputs, as card tensors."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    arrays, rows, exc, perms = hetero_chunk(seed=seed, n=n, p=192)
+    t = _on(arrays, dev)
+    class_req = np.zeros((arrays["mask"].shape[0], 2), np.int32)
+    class_req[rows] = arrays["req_q"]
+    creq = torch.from_numpy(class_req).to(dev)
+    feasible = t["mask"] & (t["free_pods"] >= 1)[None, :] & torch.all(
+        creq[:, None, :] <= t["free_q"][None, :, :], dim=-1)
+    cost = kernels.chunk_start_scores(
+        t["alloc_q"], t["used_nz_q"], creq, t["static_scores"],
+        t["fit_col_w"], t["bal_col_mask"], t["shape_u"], t["shape_s"],
+        1.0, 1.0, "LeastAllocated")
+    counts = torch.from_numpy(np.bincount(
+        rows, minlength=class_req.shape[0]).astype(np.float32)).to(dev)
+    return (feasible, cost, counts, t["free_pods"]), t, rows, exc, perms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 4093])
+def test_plan_on_card_matches_cpu(cuda, n):
+    """`sinkhorn_plan` on the card against the port's plan on the CPU:
+    within the plan tolerance of tests/test_torch_optimal.py, the same
+    sanitization, one value per group of identical columns (raised
+    otherwise by `chip_smoke.compare_plan`), with TF32 off."""
+    from chip_smoke import compare_plan
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    problem = _plan_case(40 + n, n, cuda)[0]
+    log_plan, err = compare_plan(torch, f"hetero N={n}", *problem, 24, 0.05)
+    assert (log_plan == -1e30).any() and err <= 1e-2
+
+
+@pytest.mark.cuda
+def test_w1_rounding_on_sanitized_rows_matches_plain_version(cuda):
+    """The optimal mode's rounding launch: `wave_solve` at W=1 with
+    poison=False over K=4 orders, the log-plan (-1e30 where infeasible,
+    the empty class row all -1e30) as static scores and w_fit = w_bal = 0,
+    identical to `wave_solve_reference`."""
+    from kubernetes_tpu_torch.ops import solver as tsolver
+
+    problem, t, rows, exc, perms = _plan_case(45, 2000, cuda)
+    log_plan, _ = tsolver.sinkhorn_plan(*problem, 24, 0.05)
+    assert (log_plan[0] == -1e30).all()
+    args = dict(t, static_scores=log_plan, w_fit=0.0, w_bal=0.0)
+    kw = dict(strategy="LeastAllocated", wave_w=1,
+              rows=torch.from_numpy(rows).to(cuda),
+              exc=torch.from_numpy(exc).to(cuda), poison=False,
+              perms=torch.from_numpy(perms).to(cuda))
+    before = wave_kernel.wave_solve.launches
+    got = wave_kernel.wave_solve(**args, **kw)
+    torch.cuda.synchronize()
+    assert wave_kernel.wave_solve.launches == before + 1
+    ref = wave_kernel.wave_solve_reference(**args, **kw)
+    for name, g, r in zip(("assign", "commits", "replays", "poisoned"),
+                          got, ref):
+        assert torch.equal(g, r), name
+    assert (got[0] >= 0).any()

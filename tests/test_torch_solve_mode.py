@@ -3,12 +3,13 @@
 `AdaptiveTuner.solve_mode` of both packages over a grid of the flag
 (`KTPU_SOLVE_MODE` unset, greedy, optimal, auto), the chunk's real pods,
 gang, spread, class planes and node count: the same answer on every point.
-Then `TorchBackend.assign` on the seeded cluster of test_torch_backend,
-with no flag set: a chunk the policy sends to the optimal mode raises
-NotImplementedError naming the Sinkhorn route (the port has none yet), and
-never runs greedy; chunks under 64 pods place exactly as the reference's
-flagless `TPUBackend.assign`; and without class planes the optimal chunk
-falls back to greedy structurally, counted, as in the reference.
+Then `TorchBackend.assign` on the seeded cluster of test_torch_backend:
+with no flag set, a chunk the policy sends to the optimal mode runs the
+Sinkhorn route and places exactly as the reference's flagless
+`TPUBackend.assign` (and so under `KTPU_SOLVE_MODE=optimal`, at 79 and at
+32 pods per chunk); chunks under 64 pods run greedy and place as the
+reference; and without class planes the optimal chunk falls back to greedy
+structurally, counted, as in the reference.
 """
 
 import itertools
@@ -105,34 +106,42 @@ def _jax_assign(max_batch):
     return b, assignments
 
 
-def test_optimal_chunk_raises_naming_sinkhorn(flagless):
+def test_optimal_chunk_places_as_flagless_reference(flagless):
     """One chunk of all 79 pending pods: the reference's policy sends it
-    to the optimal mode; the port refuses it before placing anything."""
+    to the optimal mode (the chunk where greedy placed 62 of 79 pods
+    elsewhere); flagless and with KTPU_SOLVE_MODE=optimal the port places
+    exactly as the reference, through one Sinkhorn solve. A 32-pod chunk
+    is greedy flagless and optimal when pinned, in both packages."""
     snap, fwk, pods = _torch_inputs()
     assert len(pods) >= 64
     jt = jbackend.AdaptiveTuner()
     jt.n_nodes = len(snap.nodes)
     assert jt.solve_mode(len(pods), has_gang=False, spread=False,
                          class_mode=True) == ("optimal", False)
-    tb = tbackend.TorchBackend(device="cpu", max_batch=128)
-    with pytest.raises(NotImplementedError,
-                       match=r"79 pods.*Sinkhorn.*sinkhorn_plan.*"
-                             r"KTPU_SOLVE_MODE=greedy"):
-        tb.assign(pods, snap, fwk)
-    assert tb.counters["chunks"] == 0
-    for flag in ("optimal", "auto"):
-        with tflags.scoped_set("KTPU_SOLVE_MODE", flag), \
-                pytest.raises(NotImplementedError, match="Sinkhorn"):
-            tb.assign(pods, snap, fwk)
-    # A chunk under 64 pods is greedy under auto, optimal when pinned.
+    _, want = _jax_assign(128)
+    for flag in (None, "optimal"):
+        tb = tbackend.TorchBackend(device="cpu", max_batch=128)
+        if flag is None:
+            got, _ = tb.assign(pods, snap, fwk)
+        else:
+            with tflags.scoped_set("KTPU_SOLVE_MODE", flag):
+                got, _ = tb.assign(pods, snap, fwk)
+        assert got == want, flag
+        assert tb.counters["chunks"] == tb.counters["optimal_solves"] == 1
+        assert tb.counters["sinkhorn_iterations"] == 24
+        assert tb.counters["optimal_fallbacks"] == 0
+    assert 0 < sum(v is not None for v in got.values()) < len(got)
+    # The 32-pod pin: every chunk optimal in both packages.
+    with jflags.scoped_set("KTPU_SOLVE_MODE", "optimal"):
+        _, want32 = _jax_assign(32)
     tb32 = tbackend.TorchBackend(device="cpu", max_batch=32)
-    with tflags.scoped_set("KTPU_SOLVE_MODE", "optimal"), \
-            pytest.raises(NotImplementedError, match="32 pods"):
-        tb32.assign(pods, snap, fwk)
+    with tflags.scoped_set("KTPU_SOLVE_MODE", "optimal"):
+        got32, _ = tb32.assign(pods, snap, fwk)
+    assert got32 == want32
+    assert tb32.counters["optimal_solves"] == tb32.counters["chunks"] == 3
     with tflags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
-        got, _ = tb.assign(pods, snap, fwk)
-    assert tb.counters["chunks"] == 1 and any(
-        v is not None for v in got.values())
+        tb.assign(pods, snap, fwk)
+    assert tb.counters["chunks"] == 2 and tb.counters["optimal_solves"] == 1
 
 
 def test_small_chunks_place_as_flagless_reference(flagless):

@@ -5,8 +5,9 @@ Same seeded numpy inputs go through the reference's
 `pallas_kernel.wave_solve(interpret=True)` (the Pallas kernel, run in
 interpret mode on the CPU as the JAX package's own tests run it), its
 multistart wrapper `multistart_greedy_assign_wave_pallas` and the W=1
-multistart `_multistart_body`, and through the port's `wave_solve` (on CPU
-tensors: its plain version `wave_solve_reference`) and solver functions.
+multistart `_multistart_body` (the port's `multistart_greedy_assign`), and
+through the port's `wave_solve` (on CPU tensors: its plain version
+`wave_solve_reference`) and solver functions.
 The replay form (poison=False) and the one-member waves are held in
 tests/test_torch_wave_replay.py; each (W, strategy, form) costs one
 interpret-mode compile of the reference kernel, so the two files let the
@@ -200,7 +201,7 @@ def test_multistart_body_matches_reference():
     ref = np.asarray(body(**args, perms=perms, gang_onehot=onehot,
                           gang_required=required, rows=jnp.asarray(rows),
                           exc=jnp.asarray(exc)))
-    got = tsolver._multistart_body(
+    got = tsolver.multistart_greedy_assign(
         **_torch(args), strategy="MostAllocated",
         perms=torch.from_numpy(perms), gang_onehot=torch.from_numpy(onehot),
         gang_required=torch.from_numpy(required), rows=_opt(rows),
