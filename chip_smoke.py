@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's three paths at scheduler_perf SchedulingBasic/5000Nodes
+Drives the port's four paths at scheduler_perf SchedulingBasic/5000Nodes
 size (5000 nodes of cpu 8 / memory 32Gi / pods 110, 1000 init pods, then
 10000 measured pods of cpu 100m / memory 250Mi in 1024-pod chunks, K=4
 orders): `TorchBackend.assign` with KTPU_SOLVE_MODE=greedy pinned (the
 greedy wavefront batch solve, W=32), the node-sharded solver of
 `kubernetes_tpu_torch.parallel` on a 1-shard and a 4-shard mesh of cuda:0
-(each wave two kernel launches, no host sync), and flagless
+(each wave two kernel launches, no host sync), flagless
 `TorchBackend.assign` (KTPU_SOLVE_MODE=auto, the reference's default:
 every chunk through the Sinkhorn plan, rounded by one W=1 launch of
-wave_solve) — after building the hand-written kernels from
+wave_solve), and the serving fast path (2000 lone pods, one at a time,
+through `SinglePodFastPath.try_schedule` over a `SchedulerCache`) — after
+building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
 PyTorch version on the card.
 
@@ -81,14 +83,32 @@ Phases (any failure raises and the script exits non-zero with no result):
      and fragmentation_occupied (%) after the greedy and the flagless
      measured phases; (e) `sharded_sinkhorn_plan` on 1- and 4-shard meshes
      of cuda:0 against the single-device plan;
-  8. the result lines: a `kernels` JSON line (wave_solve's entry also
+  8. the serving fast path (`SinglePodFastPath` over `ResidentPlanes` and a
+     `SchedulerCache`), under a scoped KTPU_SOLVE_MODE=auto: (a) on 5000
+     heterogeneous nodes from `--seed` (three shapes, NoSchedule and
+     PreferNoSchedule taints, one cordoned node), 256 lone pods (random
+     requests, tolerations, hostname selectors, a few shapes the fast path
+     must not take) each through the card's fast path, the CPU port's and,
+     when eligible, `TorchBackend(max_batch=16).assign([pi])` on the card —
+     all the same node or all None — then assumed; every solve under
+     torch.cuda.set_sync_debug_mode("error"); the resident pack equal to a
+     fresh pack and the placed/ineligible/no_fit counts equal to the
+     CPU's; (b) SchedulingBasic/5000Nodes: the 1000 init pods by flagless
+     `TorchBackend.assign`, assumed, `warm`, then 2000 lone pods of the
+     measured template through light_snapshot -> try_schedule ->
+     assume_pod, every placement equal to the CPU port's over the same
+     sequence and every 50th to `TorchBackend.assign([pi])`; the
+     per-placement wall (p50/p90/p99/max), serial pods/s, the split of a
+     placement, host syncs per placement, and under torch.profiler over 100
+     placements the device kernels, device time and idle share;
+  9. the result lines: a `kernels` JSON line (wave_solve's entry also
      carries the flagless path's W=1 launches, ms, device ms, plain ms and
      bound), the card's name and power limit from nvidia-smi, and last
      {"ok": true, "device": {...}}.
 
-Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
-device; without one, or outside a checkout of the repository, it exits
-non-zero.
+Run from the repository root: `python3 chip_smoke.py [--seed N]`. It needs
+one CUDA device; without one, or outside a checkout of the repository, it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -109,6 +129,19 @@ FP32_FLOPS_PER_S = 67e12
 
 N_NODES, N_INIT, N_MEASURED = 5000, 1000, 10000
 POD_REQUESTS = {"cpu": "100m", "memory": "250Mi"}
+
+
+def stamped_snapshot(nodes, generation: int):
+    """A Snapshot of hand-built NodeInfos, every node stamped with the
+    snapshot's generation. A backend that built an earlier snapshot
+    re-quantizes only the nodes whose generation moved (the incremental
+    ClusterTensors build, as in the reference), and these nodes gain pods
+    with no SchedulerCache to bump their generations."""
+    from kubernetes_tpu_torch.scheduler.types import Snapshot
+
+    for ni in nodes:
+        ni.generation = generation
+    return Snapshot(nodes, generation)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -420,7 +453,6 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
     from kubernetes_tpu_torch.parallel import (
         build_mesh, build_mesh_2d, sharded, sharded_greedy_assign,
         sharded_masks_scores)
-    from kubernetes_tpu_torch.scheduler.types import Snapshot
 
     def on_card(case):
         return {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
@@ -495,7 +527,7 @@ def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
     for pi in init_pods:
         by_name[init_assign[pi.key]].add_pod(pi)
     host = TorchBackend(device=dev)         # its host prep: class planes
-    ctx = host._start(measured, Snapshot(nodes, 4), fwk)
+    ctx = host._start(measured, stamped_snapshot(nodes, 4), fwk)
     preps = [host._prep_chunk(chunk, ctx) for chunk in ctx.chunks]
     st, prm = host.ensure_static(ctx.ct), ctx.params
     used0 = host.used.pack.clone()
@@ -938,8 +970,10 @@ def optimal_phase(torch, dev, fwk, init_pods, measured, node_infos,
     # The first flagless measured chunk: its class planes after a flagless
     # init, from the backend's own prep.
     host = TorchBackend(device=dev)
-    first_init, _ = host.assign(init_pods, Snapshot(node_infos(), 1), fwk)
-    ctx = host._start(measured, Snapshot(init_nodes(first_init), 2), fwk)
+    first_init, _ = host.assign(init_pods, stamped_snapshot(node_infos(), 1),
+                               fwk)
+    ctx = host._start(measured, stamped_snapshot(init_nodes(first_init), 2),
+                      fwk)
     prep = host._prep_chunk(ctx.chunks[0], ctx)
     if prep["solve_mode"] != "optimal" or prep["wave_w"] != 0:
         raise RuntimeError(f"the first flagless chunk routed "
@@ -1022,8 +1056,8 @@ def optimal_phase(torch, dev, fwk, init_pods, measured, node_infos,
         wave_kernel.wave_solve.launches = 0
         wave_kernel.probe.launches = 0
         backend = TorchBackend()
-        init_assign, _ = backend.assign(init_pods, Snapshot(node_infos(), 1),
-                                        fwk)
+        init_assign, _ = backend.assign(
+            init_pods, stamped_snapshot(node_infos(), 1), fwk)
         if any(v is None for v in init_assign.values()):
             raise RuntimeError("flagless init pods unplaced")
         nodes = init_nodes(init_assign)
@@ -1032,7 +1066,8 @@ def optimal_phase(torch, dev, fwk, init_pods, measured, node_infos,
         before_c = dict(backend.counters)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        assignments, _ = backend.assign(measured, Snapshot(nodes, 2), fwk)
+        assignments, _ = backend.assign(measured, stamped_snapshot(nodes, 2),
+                                        fwk)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
     launches = {"wave_solve": wave_kernel.wave_solve.launches,
@@ -1074,8 +1109,8 @@ def optimal_phase(torch, dev, fwk, init_pods, measured, node_infos,
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t2 = time.perf_counter()
-        again, _ = backend.assign(measured, Snapshot(init_nodes(init_assign),
-                                                     4), fwk)
+        again, _ = backend.assign(
+            measured, stamped_snapshot(init_nodes(init_assign), 4), fwk)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t2
     if again != assignments:
@@ -1168,9 +1203,411 @@ def optimal_phase(torch, dev, fwk, init_pods, measured, node_infos,
             "flagless_plan_max_abs_err": plan_err}
 
 
+SERVING_SHAPES = ({"cpu": "8", "memory": "32Gi", "pods": "110"},
+                  {"cpu": "16", "memory": "64Gi", "pods": "110"},
+                  {"cpu": "4", "memory": "16Gi", "pods": "32"})
+N_LONE_CHECKED, N_TRICKLE, N_PROFILED = 256, 2000, 100
+
+
+def solve_one_case(torch, seed: int, n: int, strategy: str,
+                   uniform: bool = False, bucket: int = 0) -> tuple:
+    """Seeded positional arguments of `solver.solve_one` on the CPU (or,
+    with `bucket` > 0, of `solve_one_fresh`, with `bucket` delta rows
+    padded by repeating the first): n nodes of random capacity and usage,
+    or identical ones (`uniform`: every score ties), random taint
+    membership, a 90%-dense base mask, an f16 host score row."""
+    rng = np.random.default_rng(seed)
+    r, tf, tp = 2, 3, 2
+    if uniform:
+        alloc_q = np.tile(np.array([8000, 32768], np.int32), (n, 1))
+        used_q = alloc_q // 4
+    else:
+        alloc_q = rng.choice([4000, 8000, 16000], size=(n, r)).astype(
+            np.int32)
+        used_q = (alloc_q * rng.uniform(0, 1.05, size=(n, r))).astype(
+            np.int32)
+    used_pods = rng.integers(0, 12, size=n).astype(np.int32)
+    pack = np.concatenate([used_q, used_q, used_pods[:, None]], axis=1)
+    m = rng.random(((n + 7) // 8) * 8) < 0.9
+    m[n:] = False
+    req = rng.integers(100, 1200, size=r).astype(np.int32)
+    arrays = [alloc_q, pack.astype(np.int32),
+              rng.choice([10, 110], size=n).astype(np.int32),
+              rng.random((n, tf)) < (0 if uniform else 0.15),
+              rng.random((n, tp)) < (0 if uniform else 0.3), np.packbits(m),
+              rng.choice([0.0, 12.5, 50.0], size=n).astype(np.float16)
+              * (not uniform),
+              np.concatenate([req, req, (rng.random(tf) < 0.5),
+                              (rng.random(tp) < 0.6)]).astype(np.int32)]
+    if bucket:
+        real = max(1, bucket - 1)
+        rows = np.sort(rng.choice(n, size=real, replace=False))
+        rows = np.concatenate([rows, rows[:1].repeat(bucket - real)])
+        vals = rng.integers(0, 40, size=(real, 2 * r + 1))
+        vals = np.concatenate([vals, vals[:1].repeat(bucket - real, 0)])
+        arrays[2:2] = [rows.astype(np.int32), vals.astype(np.int32)]
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    params = [torch.tensor([1.0, 2.0]), torch.ones(r, dtype=torch.bool),
+              torch.tensor([0.0, 50.0, 100.0]), torch.tensor([10.0, 3.0, 0.0])]
+    return (*tensors, *params, 1.0, 1.0, 3.0, True, strategy)
+
+
+def serving_nodes(seed: int, n: int = N_NODES) -> list[dict]:
+    """Phase 8(a)'s cluster: n nodes of three allocatable shapes drawn
+    from `seed`, a NoSchedule taint on every 7th node, a PreferNoSchedule
+    taint on every 11th, and node 13 cordoned."""
+    from kubernetes_tpu_torch.api.types import make_node
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        taints = []
+        if i % 7 == 0:
+            taints.append({"key": "dedicated", "value": "infra",
+                           "effect": "NoSchedule"})
+        if i % 11 == 0:
+            taints.append({"key": "spot", "value": "true",
+                           "effect": "PreferNoSchedule"})
+        out.append(make_node(
+            f"node-{i}", allocatable=dict(
+                SERVING_SHAPES[int(rng.integers(0, 3))]),
+            taints=taints or None, unschedulable=(i == 13)))
+    return out
+
+
+def lone_pods(seed: int, count: int, n: int = N_NODES) -> list[tuple]:
+    """Phase 8(a)'s traffic: (PodInfo, kind) with random requests, ~30%
+    tolerating the NoSchedule taint, ~25% pinned by a hostname
+    nodeSelector, and a few of each shape the fast path must not take
+    (kind != "plain"): inter-pod affinity, host ports, preferred node
+    affinity, a nominated node; and pods that fit nowhere ("huge")."""
+    from kubernetes_tpu_torch.api.types import make_pod
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for t in range(count):
+        kw = {"requests": {
+            "cpu": f"{int(rng.choice([100, 250, 500, 900, 1700]))}m",
+            "memory": f"{int(rng.choice([128, 512, 1024, 3000]))}Mi"}}
+        if rng.random() < 0.3:
+            kw["tolerations"] = [{"key": "dedicated", "operator": "Exists"}]
+        if rng.random() < 0.25:
+            kw["node_selector"] = {
+                "kubernetes.io/hostname": f"node-{rng.integers(0, n)}"}
+        kind, u = "plain", rng.random()
+        if u < 0.02:
+            kind, kw["requests"] = "huge", {"cpu": "64"}
+        elif u < 0.04:
+            kind, kw["affinity"] = "affinity", {"podAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [{
+                    "topologyKey": "kubernetes.io/hostname",
+                    "labelSelector": {"matchLabels": {"app": "x"}}}]}}
+        elif u < 0.05:
+            kind, kw["host_ports"] = "ports", [8080]
+        elif u < 0.06:
+            kind, kw["affinity"] = "preferred", {"nodeAffinity": {
+                "preferredDuringSchedulingIgnoredDuringExecution": [{
+                    "weight": 5, "preference": {"matchExpressions": [{
+                        "key": "kubernetes.io/hostname", "operator": "In",
+                        "values": ["node-1"]}]}}]}}
+        elif u < 0.07:
+            kind = "nominated"
+        pi = PodInfo(make_pod(f"lone-{t}", uid=f"lone-{t}", **kw))
+        if kind == "nominated":
+            pi.nominated_node = "node-0"
+        out.append((pi, kind))
+    return out
+
+
+@contextlib.contextmanager
+def counted_solves(torch, sync_error: bool):
+    """Count the fast path's `solver.solve_one` (plain) and
+    `solve_one_fresh` (fused) calls; with `sync_error`, each runs under
+    `torch.cuda.set_sync_debug_mode("error")`, so a torch operation that
+    waits for the card inside the solve raises."""
+    from kubernetes_tpu_torch.ops import solver
+
+    counts = {"plain": 0, "fused": 0}
+    fns = {"plain": solver.solve_one, "fused": solver.solve_one_fresh}
+
+    def wrap(kind):
+        def call(*args, **kw):
+            counts[kind] += 1
+            if sync_error:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fns[kind](*args, **kw)
+            finally:
+                if sync_error:
+                    torch.cuda.set_sync_debug_mode("default")
+        return call
+    solver.solve_one, solver.solve_one_fresh = wrap("plain"), wrap("fused")
+    try:
+        yield counts
+    finally:
+        solver.solve_one, solver.solve_one_fresh = fns["plain"], fns["fused"]
+
+
+def compare_solve_one(torch, dev, seed: int, n: int, strategy: str,
+                      uniform: bool = False, bucket: int = 0) -> int:
+    """`solver.solve_one` (or, with `bucket`, `solve_one_fresh`) on the
+    card against the same call on the CPU, on `solve_one_case`'s inputs:
+    the index (and the refreshed pack) must be identical, the card's call
+    must not wait for the card (sync debug mode "error"), and the input
+    pack must be left as it was. Returns the index."""
+    from kubernetes_tpu_torch.ops import solver
+
+    args = solve_one_case(torch, seed, n, strategy, uniform, bucket)
+    on_card = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                    for a in args)
+    fn = solver.solve_one_fresh if bucket else solver.solve_one
+    want = fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, got = (want, got) if bucket else ((want,), (got,))
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    if not same or not torch.equal(on_card[1].cpu(), args[1]):
+        raise RuntimeError(f"solve_one{'_fresh' if bucket else ''} on the "
+                           f"card differs from the CPU: seed {seed}, n {n}, "
+                           f"{strategy}, uniform {uniform}, bucket {bucket}")
+    return int(want[0])
+
+
+def fresh_pack(torch, ct):
+    return torch.from_numpy(np.concatenate(
+        [ct.used_q, ct.used_nz_q, ct.used_pods.astype(np.int32)[:, None]],
+        axis=1))
+
+
+def serving_phase(torch, fwk, init_pods, seed: int) -> None:
+    """Phase 8, the serving fast path; see the module docstring."""
+    import warnings
+
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+    from kubernetes_tpu_torch.serving import ResidentPlanes, SinglePodFastPath
+
+    def fast_path(device=None):
+        backend = TorchBackend(device=device)
+        return SinglePodFastPath(backend, ResidentPlanes(backend))
+
+    # -- (a) solve_one on the card against the CPU, then the whole path ----
+    dev = torch.device("cuda:0")
+    picks = [compare_solve_one(torch, dev, seed + k, 5120, strategy,
+                               uniform=uniform, bucket=bucket)
+             for k, strategy in enumerate(wave_kernel.STRATEGIES)
+             for uniform in (False, True) for bucket in (0, 1, 2, 4)]
+    print(f"compare solve_one / solve_one_fresh, card vs CPU at N=5120 "
+          f"(each strategy, random and tied nodes, buckets 0/1/2/4): "
+          f"{len(picks)} identical, none waiting for the card; picks "
+          f"{picks}")
+
+    # -- (a) the card, the batch path's first step and the CPU port --------
+    t0 = time.perf_counter()
+    cache = SchedulerCache()
+    for nd in serving_nodes(seed):
+        cache.add_node(nd)
+    card, cpu = fast_path(), fast_path("cpu")
+    batch = TorchBackend(max_batch=16)
+    batch_checked = 0
+    kinds: dict[str, int] = {}
+    with counted_solves(torch, sync_error=True) as solves:
+        for pi, kind in lone_pods(seed, N_LONE_CHECKED):
+            kinds[kind] = kinds.get(kind, 0) + 1
+            snap = cache.update_snapshot()
+            got = card.try_schedule(pi, snap, fwk)
+            want = cpu.try_schedule(pi, snap, fwk)
+            if got != want:
+                raise RuntimeError(f"{pi.key} ({kind}): the card's fast path "
+                                   f"says {got}, the CPU port's {want}")
+            if kind in ("plain", "huge"):
+                first, _ = batch.assign([pi], snap, fwk)
+                batch_checked += 1
+                if first[pi.key] != got:
+                    raise RuntimeError(
+                        f"{pi.key} ({kind}): fast path {got}, "
+                        f"TorchBackend(max_batch=16).assign {first[pi.key]}")
+            elif got is not None:
+                raise RuntimeError(f"{pi.key} ({kind}) took the fast path")
+            if got is not None:
+                cache.assume_pod(pi, got)
+                cache.finish_binding(pi.key)
+    snap = cache.update_snapshot()
+    ct = card.backend._tensors(snap)
+    if not torch.equal(card.resident.used_pack(ct, snap).cpu(),
+                       fresh_pack(torch, ct)):
+        raise RuntimeError("the card's resident pack differs from a fresh "
+                           "pack of the final ClusterTensors")
+    counts = (card.placed, card.ineligible, card.no_fit)
+    if counts != (cpu.placed, cpu.ineligible, cpu.no_fit):
+        raise RuntimeError(f"placed/ineligible/no_fit {counts} on the card, "
+                           f"{(cpu.placed, cpu.ineligible, cpu.no_fit)} on "
+                           "the CPU")
+    print(f"compare serving fast path, {N_LONE_CHECKED} lone pods at "
+          f"{N_NODES} heterogeneous nodes (seed {seed}; kinds {kinds}): card "
+          f"= CPU port on all, = TorchBackend(max_batch=16).assign on "
+          f"{batch_checked} eligible; placed/ineligible/no_fit {counts} "
+          f"on both; solves {solves['plain']} plain, {solves['fused']} "
+          f"fused, none waiting for the card; resident pack = fresh pack "
+          f"({card.resident.full_rebuilds} full rebuilds, "
+          f"{card.resident.row_refreshes} row refreshes); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- (b) the full-width trickle ------------------------------------------
+    t0 = time.perf_counter()
+
+    def basic_cluster(init_assign=None):
+        c = SchedulerCache()
+        for i in range(N_NODES):
+            c.add_node(make_node(f"node-{i}"))
+        if init_assign is not None:
+            for pi in init_pods:
+                c.assume_pod(pi, init_assign[pi.key])
+                c.finish_binding(pi.key)
+        return c
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wave_kernel.wave_solve.launches = 0
+    wave_kernel.probe.launches = 0
+    cache = basic_cluster()
+    fp = fast_path()
+    init_assign, _ = fp.backend.assign(init_pods, cache.update_snapshot(),
+                                       fwk)
+    if any(v is None for v in init_assign.values()):
+        raise RuntimeError("serving init pods unplaced")
+    for pi in init_pods:
+        cache.assume_pod(pi, init_assign[pi.key])
+        cache.finish_binding(pi.key)
+    trickle = [PodInfo(make_pod(f"trickle-{i}", uid=f"trickle-{i}",
+                                requests=POD_REQUESTS))
+               for i in range(N_TRICKLE + N_PROFILED + 20)]
+    fp.warm(PodInfo(make_pod("warm", requests=POD_REQUESTS)),
+            cache.light_snapshot(), fwk)
+    check = TorchBackend(max_batch=16)
+    walls, snap_s, placed = [], 0.0, []
+    before = dict(fp.timings)
+    with counted_solves(torch, sync_error=False) as solves:
+        for i, pi in enumerate(trickle[:N_TRICKLE]):
+            if i % 50 == 0:
+                first, _ = check.assign([pi], cache.update_snapshot(), fwk)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            snap = cache.light_snapshot()
+            t2 = time.perf_counter()
+            node = fp.try_schedule(pi, snap, fwk)
+            if node is not None:
+                cache.assume_pod(pi, node)
+            walls.append(time.perf_counter() - t1)
+            snap_s += t2 - t1
+            if node is None:
+                raise RuntimeError(f"trickle pod {i} unplaced")
+            if i % 50 == 0 and first[pi.key] != node:
+                raise RuntimeError(
+                    f"trickle pod {i}: fast path {node}, "
+                    f"TorchBackend.assign {first[pi.key]}")
+            placed.append(node)
+    launches = {"wave_solve": wave_kernel.wave_solve.launches,
+                "probe": wave_kernel.probe.launches}
+    split = {"snapshot_s": snap_s, **{
+        k: v - before[k] for k, v in fp.timings.items()}}
+    peak = torch.cuda.max_memory_allocated()
+    w = np.sort(np.array(walls)) * 1e3
+    pct = {q: float(np.percentile(w, q)) for q in (50, 90, 99)}
+    rate = N_TRICKLE / float(np.sum(walls))
+    # Host syncs of one placement: torch warns at each operation that
+    # waits for the card.
+    syncs = []
+    for pi in trickle[N_TRICKLE:N_TRICKLE + 20]:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                node = fp.try_schedule(pi, cache.light_snapshot(), fwk)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        cache.assume_pod(pi, node)
+        syncs.append(sum("synchroniz" in str(c.message) for c in caught))
+    # Device kernels, device time and idle share over N_PROFILED
+    # placements.
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for pi in trickle[N_TRICKLE + 20:]:
+            node = fp.try_schedule(pi, cache.light_snapshot(), fwk)
+            cache.assume_pod(pi, node)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    busy_us = sum(device_us(e) for e in prof.key_averages())
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    h2d = sum("HtoD" in k for k in on_card)
+    d2h = sum("DtoH" in k for k in on_card)
+    n_kernels = sum(not k.startswith(("Memcpy", "Memset")) for k in on_card)
+    by_name: dict[str, int] = {}
+    for k in on_card:
+        k = k.replace("void ", "").replace("(anonymous namespace)::", "")
+        k = k.split("<")[0].split("(")[0].strip()
+        by_name[k] = by_name.get(k, 0) + 1
+    # The CPU port over the same sequence.
+    cpu_cache = basic_cluster(init_assign)
+    cpu_fp = fast_path("cpu")
+    cpu_fp.warm(PodInfo(make_pod("warm", requests=POD_REQUESTS)),
+                cpu_cache.light_snapshot(), fwk)
+    for i, pi in enumerate(trickle[:N_TRICKLE]):
+        got = cpu_fp.try_schedule(pi, cpu_cache.light_snapshot(), fwk)
+        if got != placed[i]:
+            raise RuntimeError(f"trickle pod {i}: card {placed[i]}, CPU "
+                               f"port {got}")
+        cpu_cache.assume_pod(pi, got)
+    print(f"serving trickle (SchedulingBasic/{N_NODES}Nodes, {N_INIT} init "
+          f"pods by flagless TorchBackend.assign, then {N_TRICKLE} lone pods "
+          f"of {POD_REQUESTS} through light_snapshot -> try_schedule -> "
+          f"assume_pod): all placed, identical to the CPU port on all "
+          f"{N_TRICKLE} and to TorchBackend.assign on every 50th; solves "
+          f"{solves['plain']} plain, {solves['fused']} fused; launches "
+          f"{launches}; resident {fp.resident.full_rebuilds} full rebuilds, "
+          f"{fp.resident.row_refreshes} row refreshes; "
+          f"max_memory_allocated {peak} bytes")
+    print(f"serving per-placement wall (host clock): p50 {pct[50]:.4f} ms, "
+          f"p90 {pct[90]:.4f} ms, p99 {pct[99]:.4f} ms, max "
+          f"{float(w[-1]):.4f} ms; serial {rate:.1f} lone pods/s")
+    print(f"serving placement split, ms per placement: " + json.dumps(
+        {k: round(v * 1e3 / N_TRICKLE, 5) for k, v in split.items()}))
+    print(f"serving host syncs per placement (set_sync_debug_mode warn, "
+          f"{len(syncs)} placements): {syncs}")
+    print(f"profiled serving placements ({N_PROFILED}): wall "
+          f"{prof_wall:.4f} s, device kernels {n_kernels} "
+          f"({n_kernels / N_PROFILED:.1f} per placement), device busy "
+          f"{busy_us / 1e3:.4f} ms ({busy_us / 1e3 / N_PROFILED:.5f} ms per "
+          f"placement), idle share {1 - busy_us / 1e6 / prof_wall:.4f}; "
+          f"copies host->device {h2d} ({h2d / N_PROFILED:.2f} per "
+          f"placement), device->host {d2h} ({d2h / N_PROFILED:.2f} per "
+          f"placement); phase 8(b) {time.perf_counter() - t0:.1f} s")
+    print("serving device launches per placement by kernel: " + json.dumps(
+        {k: v / N_PROFILED for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])}))
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=8,
+                        help="seed of phase 8(a)'s cluster and lone pods")
+    seed = parser.parse_args().seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1181,11 +1618,11 @@ def main() -> int:
     # pinned: with no flag the solve-mode policy sends every chunk of 64
     # or more pods to the Sinkhorn route, which phase 7 drives.
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
-        return smoke(torch)
+        return smoke(torch, seed)
 
 
-def smoke(torch) -> int:
-    """Phases 1-8 (see the module docstring)."""
+def smoke(torch, seed: int) -> int:
+    """Phases 1-9 (see the module docstring)."""
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
@@ -1388,7 +1825,7 @@ def smoke(torch) -> int:
     wave_kernel.wave_solve.launches = 0
     wave_kernel.probe.launches = 0
     backend = TorchBackend()
-    init_assign, _ = backend.assign(init_pods, Snapshot(nodes, 1), fwk)
+    init_assign, _ = backend.assign(init_pods, stamped_snapshot(nodes, 1), fwk)
     if any(v is None for v in init_assign.values()):
         raise RuntimeError("init pods unplaced")
     by_name = {ni.name: ni for ni in nodes}
@@ -1397,7 +1834,7 @@ def smoke(torch) -> int:
     torch.cuda.synchronize()
     before = dict(backend.timings)
     t1 = time.perf_counter()
-    assignments, _ = backend.assign(measured, Snapshot(nodes, 2), fwk)
+    assignments, _ = backend.assign(measured, stamped_snapshot(nodes, 2), fwk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     phases = {k: round(v - before[k], 6) for k, v in backend.timings.items()}
@@ -1438,7 +1875,7 @@ def smoke(torch) -> int:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t2 = time.perf_counter()
-        again, _ = backend.assign(measured, Snapshot(nodes2, 3), fwk)
+        again, _ = backend.assign(measured, stamped_snapshot(nodes2, 3), fwk)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t2
     if again != assignments:
@@ -1512,7 +1949,11 @@ def smoke(torch) -> int:
         flagless = optimal_phase(torch, dev, fwk, init_pods, measured,
                                  node_infos, greedy_frag)
 
-    # -- 8. result --------------------------------------------------------
+    # -- 8. the serving fast path ---------------------------------------------
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"):
+        serving_phase(torch, fwk, init_pods, seed)
+
+    # -- 9. result --------------------------------------------------------
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [

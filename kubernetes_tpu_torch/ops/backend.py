@@ -19,17 +19,22 @@ the solve per chunk:
   launch of the same kernel at W=1.
 
 The (N, 2R+1) used-state pack stays on the device and chains from chunk to
-chunk with no host round trip. Assignments are then verified on the host
-with exact integer arithmetic, and unassigned pods get per-plugin
-diagnostics.
+chunk with no host round trip. It is seeded at each assign() from the
+snapshot, or, when the serving tier's resident planes are attached
+(`resident`, serving/resident.py), from a copy of their refreshed pack.
+Assignments are then verified on the host with exact integer arithmetic,
+and unassigned pods get per-plugin diagnostics. Lone pods have a route of
+their own beside this one: the serving fast path (serving/fastpath.py,
+`solver.solve_one`), which places a pod where this cycle's first scan step
+would.
 
 Not covered by this slice, and refused with NotImplementedError rather than
 scheduled on a partial model: inter-pod affinity, topology spread, resource
 claims, volumes, host ports, gangs, and plugins beyond the six
 Filter/Score plugins of scheduler/plugins/registry.py
-(NodeResourceTopologyMatch among them). The shortlist and block index,
-the serving fast path and multi-device sharding are later slices; the
-greedy route is the reference's configuration with the shortlist off.
+(NodeResourceTopologyMatch among them). The shortlist and block index and
+multi-device sharding are later slices; the greedy route is the
+reference's configuration with the shortlist off.
 """
 
 from __future__ import annotations
@@ -62,6 +67,11 @@ logger = logging.getLogger(__name__)
 DEVICE_FILTER_PLUGINS = {"NodeResourcesFit", "TaintToleration"}
 DEVICE_SCORE_PLUGINS = {
     "NodeResourcesFit", "NodeResourcesBalancedAllocation", "TaintToleration"}
+
+#: Static node-predicate plugins whose (pod-spec → node row) is cacheable by
+#: spec signature while the node set is unchanged.
+STATIC_ROW_PLUGINS = {"NodeAffinity", "NodeName", "NodeUnschedulable"}
+STATIC_SCORE_PLUGINS = {"NodeAffinity", "ImageLocality"}
 
 #: Solve chunk when the caller does not pin one.
 _DEFAULT_CHUNK = 1024
@@ -130,7 +140,8 @@ def unsupported_feature(pi: PodInfo) -> str | None:
 
 
 class AdaptiveTuner:
-    """Two policy rows of the reference's `AdaptiveTuner`:
+    """The policy rows of the reference's `AdaptiveTuner` that this
+    package runs:
 
     - the wavefront width (`wave_width` and its replay-ratio shrink): W
       pods per wave, WAVE_WIDTH_SMALL below LARGE_N nodes and
@@ -138,9 +149,18 @@ class AdaptiveTuner:
       measured replay fraction exceeds the ratio; KTPU_WAVE_WIDTH
       overrides it;
     - the solve mode (`solve_mode`, the KTPU_SOLVE_MODE row), with its
-      OPTIMAL_MIN_PODS threshold."""
+      OPTIMAL_MIN_PODS threshold;
+    - the serving rows: the admission window (`admission_window`), the
+      fast-path dispatch cap (`fast_path_cap`) and rate limit
+      (`fast_path_rate_limit`), pure host policy over measured walls;
+    - the block-index width (BLOCK_WIDTH), which the resident planes'
+      block aggregates use."""
 
     LARGE_N = 32768
+    #: a device round trip at or above this is relay-attached.
+    LATENCY_BOUND_S = 5e-3
+    #: node columns per aggregate block of the block index.
+    BLOCK_WIDTH = 128
     WAVE_WIDTH_SMALL = 32
     WAVE_WIDTH_LARGE = 64
     WAVE_REPLAY_RATIO = 0.25
@@ -148,8 +168,35 @@ class AdaptiveTuner:
     #: Under `auto`, a non-gang chunk of fewer real pods keeps the greedy
     #: scan (the reference's value).
     OPTIMAL_MIN_PODS = 64
+    #: Admission-window row (serving/admission.py): at or below the idle
+    #: rate every pod dispatches immediately; above it the window is sized
+    #: to coalesce ADMISSION_TARGET_PODS at the estimated offered rate,
+    #: capped at ADMISSION_MAX_WINDOW_S (4x that on a relay-attached
+    #: device). The reference's values, seeded from its 5k-node churn
+    #: knee sweep.
+    ADMISSION_IDLE_RATE = 300.0
+    ADMISSION_TARGET_PODS = 8.0
+    ADMISSION_MAX_WINDOW_S = 4e-3
+    #: Fast-path dispatch cap: the largest popped dispatch worth draining
+    #: pod by pod through the single-pod solve instead of one padded
+    #: chunk — the ratio of the measured chunk wall to the measured
+    #: fast-path wall, clamped; these seed both before any measurement.
+    FAST_PATH_SEED_CHUNK_S = 0.25
+    FAST_PATH_SEED_SOLVE_S = 1e-3
+    #: node count the solve seed stands for; an unmeasured fast wall seeds
+    #: at SEED_SOLVE_S x (n / CALIB_N), because solve_one is a full-N scan.
+    FAST_PATH_SEED_CALIB_N = 5000
+    FAST_PATH_CAP_MIN = 8
+    FAST_PATH_CAP_MAX = 512
+    #: highest share of the fast path's serial capacity (1 / fast wall)
+    #: the offered rate may take before the batch path takes over.
+    FAST_PATH_UTILIZATION = 0.5
 
     def __init__(self):
+        #: the device's put+fetch round trip, seconds. The reference
+        #: measures it with a probe transfer; this package has no probe
+        #: yet, so the admission window reads None as a local device (0).
+        self.latency_s: float | None = None
         self.n_nodes = 0
         self.wave_shrink = 1
         self.wave_commits = 0
@@ -187,6 +234,47 @@ class AdaptiveTuner:
         w = self.WAVE_WIDTH_LARGE if self.n_nodes >= self.LARGE_N \
             else self.WAVE_WIDTH_SMALL
         return max(1, min(w // self.wave_shrink, chunk))
+
+    @classmethod
+    def _fast_wall_seed(cls, n_nodes: int) -> float:
+        """Unmeasured-wall seed for the fast-path gates: SEED_SOLVE_S at
+        the calibration node count, scaled linearly above it (the solve
+        is a full-N scan)."""
+        return cls.FAST_PATH_SEED_SOLVE_S \
+            * max(1, n_nodes / cls.FAST_PATH_SEED_CALIB_N)
+
+    @classmethod
+    def fast_path_cap(cls, chunk_wall_s: float, fast_wall_s: float,
+                      n_nodes: int = 0) -> int:
+        """Largest dispatch the serving tier drains pod by pod through the
+        fast path — pure policy over the two measured walls (the node
+        count only shapes the seed while the fast wall is unmeasured)."""
+        if fast_wall_s <= 0:
+            fast_wall_s = cls._fast_wall_seed(n_nodes)
+        if chunk_wall_s <= 0:
+            chunk_wall_s = cls.FAST_PATH_SEED_CHUNK_S
+        return int(min(max(chunk_wall_s / fast_wall_s,
+                           cls.FAST_PATH_CAP_MIN), cls.FAST_PATH_CAP_MAX))
+
+    @classmethod
+    def fast_path_rate_limit(cls, fast_wall_s: float,
+                             n_nodes: int = 0) -> float:
+        """Highest estimated offered rate (pods/s) the serving tier still
+        drains serially — pure policy over the measured wall."""
+        if fast_wall_s <= 0:
+            fast_wall_s = cls._fast_wall_seed(n_nodes)
+        return cls.FAST_PATH_UTILIZATION / fast_wall_s
+
+    @classmethod
+    def admission_window(cls, latency_s: float, rate_est: float) -> float:
+        """Coalesce window (seconds) for the serving admission tier — pure
+        policy. 0.0 = dispatch immediately."""
+        if rate_est <= cls.ADMISSION_IDLE_RATE:
+            return 0.0
+        cap = cls.ADMISSION_MAX_WINDOW_S
+        if latency_s >= cls.LATENCY_BOUND_S:
+            cap = 4.0 * cls.ADMISSION_MAX_WINDOW_S
+        return min(cls.ADMISSION_TARGET_PODS / rate_est, cap)
 
     def decide(self) -> None:
         """Apply the replay feedback once enough pods were observed."""
@@ -422,6 +510,10 @@ class TorchBackend:
         self._dev_perms_cache: dict[tuple, torch.Tensor] = {}
         self._dev_zero_gang: dict[int, tuple] = {}
         self.used = UsedStateChain(self.device)
+        #: serving/resident.ResidentPlanes, attached by the caller that
+        #: serves lone pods: assign() then seeds the chain from a copy of
+        #: its refreshed pack instead of a full upload.
+        self.resident = None
         #: cumulative solve counters: chunks solved, wavefront commits and
         #: replays (a poisoned chunk counts all its pods as replays);
         #: chunks solved in the optimal mode (the reference's
@@ -444,7 +536,7 @@ class TorchBackend:
 
     def _tensors(self, snapshot: Snapshot) -> ClusterTensors:
         if self._ct is None or self._ct.generation != snapshot.generation:
-            self._ct = ClusterTensors(snapshot)
+            self._ct = ClusterTensors(snapshot, prev=self._ct)
         if self._row_fp != self._ct._static_fp:
             self._row_cache.clear()
             self._row_fp = self._ct._static_fp
@@ -534,9 +626,15 @@ class TorchBackend:
         ctx.assignments, ctx.diagnostics = {}, {}
         ctx.working = {}
         ctx.params = self._fwk_params(fwk, ct)
-        self.used.seed(np.concatenate(
-            [ct.used_q, ct.used_nz_q,
-             ct.used_pods.astype(np.int32)[:, None]], axis=1))
+        if self.resident is not None:
+            # The chain is corrected in place (fold_back), so it takes a
+            # copy: a batch never writes the resident planes the fast path
+            # reads.
+            self.used.advance(self.resident.used_pack(ct, snapshot).clone())
+        else:
+            self.used.seed(np.concatenate(
+                [ct.used_q, ct.used_nz_q,
+                 ct.used_pods.astype(np.int32)[:, None]], axis=1))
         return ctx
 
     def _fwk_params(self, fwk: Framework, ct: ClusterTensors) -> dict:

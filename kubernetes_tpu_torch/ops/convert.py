@@ -5,7 +5,9 @@ The reference's fused chunk program (`_mask_solve_update` in
 `mask_solve_inputs` takes the same arrays, by the same names, and returns
 the keyword arguments of this package's `ops.backend.mask_solve_update` as
 tensors on a given device — so a test can feed both programs the identical
-state and compare every output. `masks_scores_inputs` and
+state and compare every output. `solve_one_inputs` does the same for the
+serving fast path's `solver.solve_one` / `solve_one_fresh`.
+`masks_scores_inputs` and
 `sharded_solver_inputs` do the same for the node-sharded phases
 (`parallel.sharded_masks_scores`, `parallel.sharded_greedy_assign`), in the
 layout the port's mesh wants. Arrays are read with `np.asarray` only;
@@ -57,6 +59,35 @@ def mask_solve_inputs(*, alloc_q, used_pack, alloc_pods, class_pack,
     out["sink_iters"] = int(np.asarray(sink_iters))
     out["sink_temp"] = float(np.float32(np.asarray(sink_temp)))
     return out
+
+
+#: Positional arrays of the reference's `solve_one`, in order (after the
+#: resident pack; `solve_one_fresh` puts its `rows`, `vals` there).
+_SOLVE_ONE_ARRAYS = ("alloc_q", "used_pack", "alloc_pods", "taint_f_mat",
+                     "taint_p_mat", "mask_bits", "host_scores", "req_pack")
+
+
+def solve_one_inputs(arrays, params: Mapping[str, Any], device) -> tuple:
+    """Positional arguments of the port's `solver.solve_one` (8 arrays) or
+    `solve_one_fresh` (10: `rows`, `vals` after `used_pack`) from the
+    reference call's positional arrays, in the same order, and the
+    reference backend's `_fwk_params` dict: the arrays as tensors on
+    `device` (copies), then fit_col_w, bal_col_mask, shape_u, shape_s as
+    tensors, w_fit, w_bal, w_taint as float32-valued host numbers, the
+    taint-filter switch as a host bool and the strategy name."""
+    arrays = list(arrays)
+    if len(arrays) not in (len(_SOLVE_ONE_ARRAYS), len(_SOLVE_ONE_ARRAYS) + 2):
+        raise ValueError(f"{len(arrays)} arrays; solve_one takes "
+                         f"{len(_SOLVE_ONE_ARRAYS)}, solve_one_fresh "
+                         f"{len(_SOLVE_ONE_ARRAYS) + 2}")
+    out = [to_tensor(a, device) for a in arrays]
+    out += [to_tensor(params[k], device)
+            for k in ("fit_col_w", "bal_col_mask", "shape_u", "shape_s")]
+    out += [float(np.float32(np.asarray(params[k])))
+            for k in ("w_fit", "w_bal", "w_taint")]
+    out.append(bool(np.asarray(params["taint_filter_on"])))
+    out.append(str(params["strategy"]))
+    return tuple(out)
 
 
 #: The node axis of each node-indexed input of the sharded solver.

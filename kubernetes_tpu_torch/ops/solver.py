@@ -2,7 +2,8 @@
 the Sinkhorn optimal mode.
 
 Counterpart of `kubernetes_tpu/ops/solver.py`, cut to the greedy
-multistart wavefront route and the batch-optimal route. The reference's
+multistart wavefront route, the batch-optimal route and the serving fast
+path's single-pod solve. The reference's
 `lax.scan`s become Python loops over device tensors here; on the CUDA
 device the main paths do not run them: `multistart_greedy_assign_wave_kernel`
 and `multistart_greedy_assign_kernel` hand the whole chunk to the
@@ -27,6 +28,8 @@ Contract (the reference's, unchanged):
 - `sinkhorn_plan` — the optimal mode's entropic transport plan over the
   (C, N) class planes; its sanitized log-plan becomes the static scores
   of the W=1 multistart rounding with the live weights zeroed.
+- `solve_one` / `solve_one_fresh` — the serving fast path's lone pod
+  against the resident planes: the batch scan's first step, exactly.
 
 Class-dictionary planes: `mask`/`static_scores` are (C, N) rows addressed
 per pod through `rows`; `exc` is the sparse per-pod exception column
@@ -547,3 +550,108 @@ def fragmentation_occupied(free_q, alloc_q, used_pods, valid):
     per_node = _free_fraction(free_q, alloc_q)
     return 100.0 * torch.where(occ, per_node, 0.0).sum() / torch.clamp_min(
         occ.sum(), 1)
+
+
+# ---------------------------------------------------------------------------
+# the serving fast path: one pod against the resident cluster planes
+# ---------------------------------------------------------------------------
+
+def _solve_one_core(alloc_q, used_pack, alloc_pods, taint_f_mat,
+                    taint_p_mat, mask_bits, host_scores, req_pack,
+                    fit_col_w, bal_col_mask, shape_u, shape_s,
+                    w_fit, w_bal, w_taint, taint_filter_on, strategy):
+    """Body shared by solve_one / solve_one_fresh."""
+    dev = alloc_q.device
+    n = alloc_q.shape[0]
+    r = alloc_q.shape[1]
+    tf = taint_f_mat.shape[1]
+    # Wire decompression, identical to chunk_planes' (big-endian) unpack.
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+    cmask = ((mask_bits[:, None] >> shifts) & 1).reshape(-1) \
+        .to(torch.bool)[:n]
+    used_q = used_pack[:, :r]
+    used_nz = used_pack[:, r:2 * r]
+    used_pods = used_pack[:, 2 * r]
+    req_q = req_pack[None, :r]
+    req_nz = req_pack[None, r:2 * r]
+    untol_f = req_pack[2 * r:2 * r + tf].to(torch.bool)[None]
+    untol_p = req_pack[2 * r + tf:].to(torch.bool)[None]
+
+    fit0 = kernels.fit_filter_mask(
+        alloc_q, used_q, used_pods, alloc_pods, req_q)          # (1,N)
+    taint_ok = kernels.taint_filter_mask(taint_f_mat, untol_f)
+    if not taint_filter_on:
+        taint_ok = torch.ones_like(taint_ok)
+    mask = cmask[None, :] & taint_ok
+    feasible = mask & fit0
+    static = host_scores[None, :].to(torch.float32) \
+        + w_taint * kernels.taint_toleration_score(
+            taint_p_mat, untol_p, feasible)
+
+    # The scan step body for pod 0: chunk-start free state IS the
+    # current state for a single-pod "chunk".
+    free_q = alloc_q - used_q
+    free_pods = alloc_pods - used_pods
+    fits = mask[0] & torch.all(req_q[0][None, :] <= free_q, dim=1) \
+        & (free_pods >= 1)
+    sc = static[0]
+    sc = sc + w_fit * kernels.fit_score(
+        alloc_q, used_nz, req_nz, fit_col_w, strategy, shape_u, shape_s)[0]
+    sc = sc + w_bal * kernels.balanced_allocation_score(
+        alloc_q, used_nz, req_nz, bal_col_mask)[0]
+    idx = _argmax_low(torch.where(fits, sc, NEG_INF), n)
+    return torch.where(torch.any(fits), idx, -1)
+
+
+def solve_one(alloc_q, used_pack, alloc_pods, taint_f_mat, taint_p_mat,
+              mask_bits, host_scores, req_pack,
+              fit_col_w, bal_col_mask, shape_u, shape_s,
+              w_fit, w_bal, w_taint, taint_filter_on, strategy: str):
+    """One pod against the resident cluster planes, identical to the
+    batch path's first scan step (the reference's `solve_one`).
+
+    The composition is the one `mask_solve_update` + the greedy scan
+    compute for the first pod of a chunk — the same kernels in the same
+    order on the same dtypes, with the same association
+    (`static = host_scores + w_taint·taint_score`, then `+ w_fit·fit`, then
+    `+ w_bal·bal`) and the same tie rule (`_argmax_low`) — so a lone pod
+    gets the node the batch path would give it. What is removed is
+    everything a lone pod cannot use: the P-step scan, the multistart
+    orders, gang masks and the per-chunk plane build.
+
+    mask_bits: (N/8,) uint8 bit-packed host filter row (the pod's AND-
+        folded static rows; all-true for the common template pod).
+    host_scores: (N,) f16/f32 host score row (zero for the common pod).
+    req_pack: (2R+tf+tp,) int32 — req_q ‖ req_nz_q ‖ untol_f ‖ untol_p.
+    used_pack: (N, 2R+1) int32 resident used state (used_q ‖ used_nz_q ‖
+        used_pods).
+    w_fit, w_bal, w_taint: float32-valued host numbers; taint_filter_on:
+        a host bool.
+
+    Returns the node index as a 0-d int32 tensor (-1 = no fit). Nothing
+    here reads a value back from the device. There is no debit output:
+    the placement's assume re-enters through the cache's dirty set and the
+    next refresh re-quantizes that row.
+    """
+    return _solve_one_core(
+        alloc_q, used_pack, alloc_pods, taint_f_mat, taint_p_mat,
+        mask_bits, host_scores, req_pack, fit_col_w, bal_col_mask,
+        shape_u, shape_s, w_fit, w_bal, w_taint, taint_filter_on, strategy)
+
+
+def solve_one_fresh(alloc_q, used_pack, rows, vals, alloc_pods,
+                    taint_f_mat, taint_p_mat, mask_bits, host_scores,
+                    req_pack, fit_col_w, bal_col_mask, shape_u, shape_s,
+                    w_fit, w_bal, w_taint, taint_filter_on, strategy: str):
+    """solve_one with the resident-plane refresh fused in: a NEW pack with
+    the dirty rows set (`vals` re-quantized on the host; `rows` padded to
+    a bucket by repeating the first row with its values, so duplicate
+    writes agree), then the solve against it. `used_pack` is left
+    untouched. Returns (idx, refreshed pack): the caller keeps the
+    refreshed, pre-debit pack as the new resident base."""
+    pack = used_pack.index_put((rows.long(),), vals)
+    idx = _solve_one_core(
+        alloc_q, pack, alloc_pods, taint_f_mat, taint_p_mat,
+        mask_bits, host_scores, req_pack, fit_col_w, bal_col_mask,
+        shape_u, shape_s, w_fit, w_bal, w_taint, taint_filter_on, strategy)
+    return idx, pack

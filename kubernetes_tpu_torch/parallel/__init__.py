@@ -11,6 +11,7 @@ from kubernetes_tpu_torch.parallel.mesh import (
     pad_axis,
 )
 from kubernetes_tpu_torch.parallel.sharded import (
+    resident_row_scatter,
     sharded_greedy_assign,
     sharded_greedy_assign_multislice,
     sharded_masks_scores,
@@ -20,6 +21,6 @@ from kubernetes_tpu_torch.parallel.sharded import (
 __all__ = [
     "NODES_AXIS", "PODS_AXIS", "SLICE_AXIS", "Mesh",
     "build_mesh", "build_mesh_2d", "build_multislice_mesh", "pad_axis",
-    "sharded_greedy_assign", "sharded_greedy_assign_multislice",
+    "resident_row_scatter", "sharded_greedy_assign", "sharded_greedy_assign_multislice",
     "sharded_masks_scores", "sharded_sinkhorn_plan",
 ]

@@ -38,9 +38,11 @@ reach the same (score desc, global id asc) winner.
    and the row marginal are reduced per shard and then across the shards
    (innermost mesh axis first), and the column step is shard-local.
 
+4. `resident_row_scatter` — the serving tier's out-of-place row scatter
+   into the resident used-state pack.
+
 Not ported yet: the shard-local shortlist and block index (`shortlist_k`,
-`block_w`; ROADMAP queue 1 item 3) — they raise NotImplementedError; and
-`resident_row_scatter` (with the serving slice).
+`block_w`; ROADMAP queue 1 item 3) — they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -317,3 +319,28 @@ def sharded_sinkhorn_plan(mesh: Mesh, feasible, cost, row_counts, col_cap,
     return solver._sinkhorn(feasible.to(dev), cost.to(dev),
                             row_counts.to(dev), col_cap.to(dev), iters,
                             temp, reduce_cols)
+
+
+# ---------------------------------------------------------------------------
+# resident-plane row scatter (the serving tier's device-side delta)
+# ---------------------------------------------------------------------------
+
+def resident_row_scatter(mesh: Mesh | None = None):
+    """The function `(pack, rows, vals) -> pack with rows set to vals`, out
+    of place — the serving tier's resident used-state planes
+    (serving/resident.py) take their dirty rows this way (the reference's
+    `resident_row_scatter`). Rows and vals are tiny (the cache's dirty
+    set); the (N, 2R+1) pack is sharded over the node axis of the mesh's
+    one device, so the result stays on that device, and a mesh over
+    several devices raises (`Mesh.device`). Padded deltas repeat their
+    first row with the same values, so duplicate writes agree on any
+    device. The reference caches a jitted program per mesh; nothing here
+    is compiled, so nothing is cached."""
+    dev = None if mesh is None else mesh.device
+
+    def scatter(pack, rows, vals):
+        if dev is not None and pack.device != dev:
+            raise ValueError(f"resident pack on {pack.device}, mesh on {dev}")
+        return pack.index_put((rows.long(),), vals)
+
+    return scatter

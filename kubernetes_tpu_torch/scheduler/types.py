@@ -7,7 +7,9 @@ UsedPorts, ImageStates, Generation; `PodInfo` — cached affinity terms;
 
 These are the *host-side* compiled records; ops/tensorize.py compiles them
 further into dense arrays. Copy of `kubernetes_tpu/scheduler/types.py`, cut to
-what the batch cycle reads.
+what the batch cycle, the scheduler cache and the serving fast path read
+(PodInfo keeps `nominated_node` of the queue bookkeeping: the fast path
+leaves a nominated preemptor to its nominee-first path).
 """
 
 from __future__ import annotations
@@ -49,6 +51,12 @@ class Resource:
                 continue
             self.res[k] = self.res.get(k, 0) + v
 
+    def sub(self, other: Mapping[str, int]) -> None:
+        for k, v in other.items():
+            if k == PODS:
+                continue
+            self.res[k] = self.res.get(k, 0) - v
+
     def get(self, name: str) -> int:
         return self.res.get(name, 0)
 
@@ -72,6 +80,7 @@ class PodInfo:
         "host_ports", "pvc_names", "resource_claims",
         "required_affinity_terms", "required_anti_affinity_terms",
         "preferred_affinity_terms", "preferred_anti_affinity_terms",
+        "nominated_node",
     )
 
     def __init__(self, pod: Mapping):
@@ -110,6 +119,8 @@ class PodInfo:
             pod_aff.get("preferredDuringSchedulingIgnoredDuringExecution") or [])
         self.preferred_anti_affinity_terms = list(
             pod_anti.get("preferredDuringSchedulingIgnoredDuringExecution") or [])
+        #: the node a preemption nominated for this pod ("" = none).
+        self.nominated_node = ""
 
     @property
     def has_required_anti_affinity(self) -> bool:
@@ -175,6 +186,23 @@ class NodeInfo:
         # pod-churn cycles without the id()-recycling hazard.
         self.spec_epoch = 1 if node else 0
 
+    def set_node(self, node: Mapping) -> None:
+        self.node = node
+        self.name = name_of(node)
+        self.labels = node.get("metadata", {}).get("labels") or {}
+        alloc = node_allocatable(node)
+        self.allocatable = Resource(
+            {k: v for k, v in alloc.items() if k != PODS},
+            pods=_alloc_pods(alloc),
+        )
+        self.taints = list(node.get("spec", {}).get("taints") or [])
+        self.unschedulable = bool(node.get("spec", {}).get("unschedulable"))
+        self.image_names = set()
+        for img in node.get("status", {}).get("images") or []:
+            for tag in img.get("names") or []:
+                self.image_names.add(tag)
+        self.spec_epoch += 1
+
     def add_pod(self, pi: PodInfo) -> None:
         self.pods.append(pi)
         self.requested.add(pi.requests)
@@ -185,6 +213,20 @@ class NodeInfo:
         if pi.has_required_anti_affinity:
             self.pods_with_required_anti_affinity.append(pi)
         self.used_ports.update(pi.host_ports)
+
+    def remove_pod(self, pod_key: str) -> bool:
+        for lst in (self.pods, self.pods_with_affinity,
+                    self.pods_with_required_anti_affinity):
+            for i, pi in enumerate(lst):
+                if pi.key == pod_key:
+                    if lst is self.pods:
+                        self.requested.sub(pi.requests)
+                        self.nonzero_requested.sub(pi.nonzero_requests)
+                        self.requested.pods -= 1
+                        self.used_ports.difference_update(pi.host_ports)
+                    del lst[i]
+                    break
+        return True
 
     def clone(self) -> "NodeInfo":
         ni = NodeInfo.__new__(NodeInfo)
@@ -213,11 +255,32 @@ class Snapshot:
     """Immutable-by-convention view handed to a scheduling cycle
     (internal/cache/snapshot.go `Snapshot`)."""
 
-    def __init__(self, nodes: list[NodeInfo] | None = None,
-                 generation: int = 0):
+    def __init__(self, nodes: list[NodeInfo] | None = None, generation: int = 0,
+                 *, by_name: dict | None = None,
+                 have_affinity: list | None = None,
+                 have_anti_affinity: list | None = None):
         self.nodes = nodes or []
         self.generation = generation
-        self._by_name = {n.name: n for n in self.nodes}
+        # The incremental cache passes its maintained structures (already
+        # consistent with `nodes`) so snapshot construction is O(changed),
+        # not three O(N) scans per cycle.
+        self._by_name = by_name if by_name is not None \
+            else {n.name: n for n in self.nodes}
+        self.have_pods_with_affinity = have_affinity \
+            if have_affinity is not None \
+            else [n for n in self.nodes if n.pods_with_affinity]
+        self.have_pods_with_required_anti_affinity = have_anti_affinity \
+            if have_anti_affinity is not None else [
+                n for n in self.nodes if n.pods_with_required_anti_affinity]
+        #: Incremental host-prep handles (set by SchedulerCache; the
+        #: defaults mean "unknown — do the full walk"): `set_epoch`
+        #: changes when the node SET/order changes, `spec_seq` when any
+        #: node object's spec changed, and `changed_since(gen)` returns
+        #: the snapshot-order indices of nodes whose generation advanced
+        #: past `gen` (None = outside the retained window).
+        self.set_epoch = -1
+        self.spec_seq = -1
+        self.changed_since = None
 
     def get(self, name: str) -> NodeInfo | None:
         return self._by_name.get(name)

@@ -1,8 +1,9 @@
 """The `KTPU_*` environment flags this package reads.
 
 Counterpart of `kubernetes_tpu/utils/flags.py`, cut to the flags the
-batch solve (the greedy wavefront and the Sinkhorn optimal mode) and its
-solve-mode policy read. Names, defaults and parsing are the reference's:
+batch solve (the greedy wavefront and the Sinkhorn optimal mode), its
+solve-mode policy and the serving tier (the resident planes' block index
+and the admission window) read. Names, defaults and parsing are the reference's:
 every read is a LIVE `os.environ` lookup, and a malformed value degrades
 to the flag's default.
 """
@@ -29,6 +30,10 @@ def _parse_int(raw: str) -> int:
 
 def _parse_float(raw: str) -> float:
     return float(raw.strip())
+
+
+def _parse_ms(raw: str) -> float:
+    return max(0.0, float(raw.strip()))
 
 
 def _parse_solve_mode(raw: str) -> str:
@@ -59,6 +64,16 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
     Flag("KTPU_CLASS_PLANES", True, _parse_bool,
          "Class-dictionary (C,N) device planes. `0` falls back to "
          "per-pod planes (C == P identity), identical assignments."),
+    Flag("KTPU_BLOCK_INDEX", True, _parse_bool,
+         "Two-level block-sparse node index for the shortlist "
+         "prefilter: per-block aggregate planes + an O(C·B) bound scan "
+         "gate which node columns the chunk-start score pass touches, "
+         "exactly (a block whose score upper bound loses to the "
+         "(K+1)-th shortlist value cannot hold a top-K column). `0` "
+         "degrades structurally to the full-width r18/r21 prefilter "
+         "call graph, bit-identical assignments. This package has no "
+         "prefilter yet (ROADMAP queue 1): the flag gates the block "
+         "aggregate planes the serving tier's resident planes maintain."),
     Flag("KTPU_WAVE_WIDTH", None, _parse_int,
          "Wavefront width override (pods evaluated per wave). Unset = "
          "the tuner picks W and shrinks it when replays climb."),
@@ -80,6 +95,15 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "Max real pod-equivalence classes per chunk before the "
          "per-pod fallback (plane rows bucket to the next power of "
          "two)."),
+    Flag("KTPU_BLOCK_WIDTH", None, _parse_int,
+         "Block width override (node columns per block) for the "
+         "block-sparse index; `0` disables it like KTPU_BLOCK_INDEX=0. "
+         "Unset = the AdaptiveTuner's structural policy row picks the "
+         "width from the node count."),
+    Flag("KTPU_ADMISSION_WINDOW", None, _parse_ms,
+         "Serving admission coalesce window in MILLISECONDS (pinned "
+         "for sweeps; `0` = always dispatch immediately). Unset = the "
+         "AdaptiveTuner policy row sizes it."),
 )}
 
 

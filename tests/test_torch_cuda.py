@@ -18,14 +18,18 @@ on a 4-shard mesh of the card assigns exactly as the kernel-off route and
 the single-device solver; the Sinkhorn plan on the card agrees with the
 CPU's within the plan tolerance, with the same sanitization; and the
 optimal mode's rounding (`wave_solve` at W=1, poison=False, on -1e30 rows
-with zero live weights) equals its plain version.
+with zero live weights) equals its plain version; the serving fast path's
+`solve_one` / `solve_one_fresh` on the card equal the CPU's and wait for
+nothing, and its `SinglePodFastPath` places lone pods where the card's
+`TorchBackend.assign([pi])` does.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (compare_wave_steps, hetero_chunk, storm,
+from chip_smoke import (compare_solve_one, compare_wave_steps, fresh_pack,
+                        hetero_chunk, lone_pods, serving_nodes, storm,
                         wave_eval_case)
 from kubernetes_tpu_torch.ops import solver, wave_eval, wave_kernel
 from kubernetes_tpu_torch.ops.wave_kernel import WavePlan, carry_bytes
@@ -356,3 +360,71 @@ def test_w1_rounding_on_sanitized_rows_matches_plain_version(cuda):
                           got, ref):
         assert torch.equal(g, r), name
     assert (got[0] >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_solve_one_on_card_matches_cpu(cuda, strategy):
+    """The serving fast path's solve at N=5120: `solve_one` and
+    `solve_one_fresh` (delta buckets of 1, 2 and 4 rows) on the card give
+    the CPU's index and refreshed pack, on random and on tied nodes, and
+    enqueue without waiting for the card (sync debug mode "error")."""
+    picks = [compare_solve_one(torch, cuda, 70, 5120, strategy, uniform,
+                               bucket)
+             for uniform in (False, True) for bucket in (0, 1, 2, 4)]
+    assert picks[4] == 0              # tied nodes: the lowest index wins
+    assert all(p >= 0 for p in picks)
+
+
+@pytest.mark.cuda
+def test_sync_debug_mode_catches_a_device_read(cuda):
+    """The guard `compare_solve_one` relies on is live: a read of a card
+    value inside it raises."""
+    x = torch.ones(4, device=cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            x.sum().item()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_fast_path_on_card_matches_batch_path(cuda):
+    """Lone pods on a small heterogeneous cluster (three node shapes,
+    taints, a cordoned node): the card's `SinglePodFastPath` places each
+    eligible pod where `TorchBackend(cuda, max_batch=16).assign([pi])`
+    does, leaves the others to the normal path, and its resident pack ends
+    equal to a fresh pack."""
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+    from kubernetes_tpu_torch.serving import (ResidentPlanes,
+                                              SinglePodFastPath)
+
+    fwk = Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS)
+    cache = SchedulerCache()
+    for nd in serving_nodes(21, n=200):
+        cache.add_node(nd)
+    backend = TorchBackend(device=cuda)
+    fp = SinglePodFastPath(backend, ResidentPlanes(backend))
+    batch = TorchBackend(device=cuda, max_batch=16)
+    placed = 0
+    for pi, kind in lone_pods(21, 96, n=200):
+        snap = cache.update_snapshot()
+        got = fp.try_schedule(pi, snap, fwk)
+        if kind in ("plain", "huge"):
+            want, _ = batch.assign([pi], snap, fwk)
+            assert got == want[pi.key], (pi.key, kind)
+        else:
+            assert got is None, (pi.key, kind)
+        if got is not None:
+            placed += 1
+            cache.assume_pod(pi, got)
+    assert placed == fp.placed >= 48
+    snap = cache.update_snapshot()
+    ct = backend._tensors(snap)
+    assert torch.equal(fp.resident.used_pack(ct, snap).cpu(),
+                       fresh_pack(torch, ct))
