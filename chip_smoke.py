@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's four paths at scheduler_perf SchedulingBasic/5000Nodes
+Drives the port's five paths at scheduler_perf SchedulingBasic/5000Nodes
 size (5000 nodes of cpu 8 / memory 32Gi / pods 110, 1000 init pods, then
 10000 measured pods of cpu 100m / memory 250Mi in 1024-pod chunks, K=4
 orders): `TorchBackend.assign` with KTPU_SOLVE_MODE=greedy pinned (the
@@ -11,7 +11,10 @@ greedy wavefront batch solve, W=32), the node-sharded solver of
 `TorchBackend.assign` (KTPU_SOLVE_MODE=auto, the reference's default:
 every chunk through the Sinkhorn plan, rounded by one W=1 launch of
 wave_solve), and the serving fast path (2000 lone pods, one at a time,
-through `SinglePodFastPath.try_schedule` over a `SchedulerCache`) — after
+through `SinglePodFastPath.try_schedule` over a `SchedulerCache`), and the
+scheduler loop (`Scheduler.run` through the port's scheduler_perf
+`PerfRunner`, pods created in a store and bound through informers, the
+queue and the serving tier) — after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
 PyTorch version on the card.
@@ -101,10 +104,35 @@ Phases (any failure raises and the script exits non-zero with no result):
      per-placement wall (p50/p90/p99/max), serial pods/s, the split of a
      placement, host syncs per placement, and under torch.profiler over 100
      placements the device kernels, device time and idle share;
-  9. the result lines: a `kernels` JSON line (wave_solve's entry also
+  9. the scheduler loop (`Scheduler.run` over a port store, informers,
+     the SchedulingQueue and the serving tier), under a scoped
+     KTPU_SOLVE_MODE=auto with serving on: (a) a heterogeneous cluster
+     from `--seed` (64 nodes of three shapes, taints, a zone label, a
+     cordoned node) and 300 pre-created pods (random requests and
+     priorities, tolerations, zone selectors, preferred node affinity,
+     pods that fit nowhere) through `TorchBackend()` on the card and
+     through `TorchBackend(device="cpu")`: the same nodeName for every
+     pod, the same unschedulable set and FailedScheduling messages, no
+     node over capacity; then 64 lone pods trickled, each awaited until
+     bound: all bound, some through the fast path, no node over
+     capacity; (b) SchedulingBasic/5000Nodes through the port's
+     `PerfRunner` (`Scheduler.run`, `TorchBackend()`, batch_size 16384),
+     the launch counters set to 0 just before the measured createPods and
+     read just after: all 11000 pods bound, no node over capacity on an
+     exact host re-check of the store, more pods through the card (backend
+     dispatches and the fast path) than through the host path, wave_solve
+     launched; printed: SchedulingThroughput, measured_seconds, the exact
+     attempt p50/p90/p99/p999, fragmentation_pct and
+     fragmentation_occupied_pct, the route counts, `TorchBackend.timings`
+     over the window, events emitted and dropped, over a repeat under
+     torch.profiler the device's busy time and idle share, and over a
+     repeat under cProfile the host's own time by area, the busiest
+     functions and the cumulative time of the loop's stages;
+ 10. the result lines: a `kernels` JSON line (wave_solve's entry also
      carries the flagless path's W=1 launches, ms, device ms, plain ms and
-     bound), the card's name and power limit from nvidia-smi, and last
-     {"ok": true, "device": {...}}.
+     bound, and the loop's launches in phase 9(b)'s measured window; the
+     probe's, its launches over phase 9(b)'s run), the card's name and
+     power limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. It needs
 one CUDA device; without one, or outside a checkout of the repository, it
@@ -113,6 +141,7 @@ exits non-zero.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
 import math
@@ -1599,6 +1628,467 @@ def serving_phase(torch, fwk, init_pods, seed: int) -> None:
             by_name.items(), key=lambda kv: -kv[1])}))
 
 
+# -- phase 9: the scheduler loop -----------------------------------------
+
+#: Phase 9(a)'s cluster and traffic sizes, and 9(b)'s super-batch (the
+#: reference bench's default --batch-size).
+N_LOOP_NODES, N_LOOP_PODS, N_LOOP_TRICKLE = 64, 300, 64
+LOOP_BATCH = 16384
+
+
+def port_loop_api():
+    """This package's store, informer factory, scheduler and object
+    constructors, as the `api` run_loop takes (a test builds the JAX
+    package's counterpart and drives both through the same code)."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.client import InformerFactory
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.store import (install_core_validation,
+                                            new_cluster_store)
+    return SimpleNamespace(
+        make_node=make_node, make_pod=make_pod,
+        InformerFactory=InformerFactory, Scheduler=Scheduler,
+        install_core_validation=install_core_validation,
+        new_cluster_store=new_cluster_store)
+
+
+def loop_cluster(seed: int, n_nodes: int, n_pods: int,
+                 prefix: str = "p") -> tuple[list, list]:
+    """A seeded heterogeneous workload for the scheduler loop, as
+    (name, make_node kwargs) and (name, make_pod kwargs) pairs, so each
+    package builds its own objects: nodes of SERVING_SHAPES, a NoSchedule
+    taint on every 7th, a PreferNoSchedule taint on every 11th, a zone
+    label on every 3rd and node 5 cordoned; pods with random requests and
+    priorities 0-3, ~30% tolerating the NoSchedule taint, ~10% selecting
+    the zone, ~3% preferring a node (the fast path does not take them),
+    and ~5% that fit nowhere (too big, or a zone no node has). The
+    preferring pods get priority 0 and the misfits -1, so a pre-created
+    dispatch pops them last."""
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for i in range(n_nodes):
+        taints = []
+        if i % 7 == 0:
+            taints.append({"key": "dedicated", "value": "infra",
+                           "effect": "NoSchedule"})
+        if i % 11 == 0:
+            taints.append({"key": "spot", "value": "true",
+                           "effect": "PreferNoSchedule"})
+        kw = {"allocatable": dict(SERVING_SHAPES[int(rng.integers(0, 3))])}
+        if taints:
+            kw["taints"] = taints
+        if i % 3 == 0:
+            kw["labels"] = {"zone": "a"}
+        if i == 5:
+            kw["unschedulable"] = True
+        nodes.append((f"node-{i}", kw))
+    pods = []
+    for t in range(n_pods):
+        kw = {"requests": {
+            "cpu": f"{int(rng.choice([100, 250, 500, 900, 1700]))}m",
+            "memory": f"{int(rng.choice([128, 512, 1024, 3000]))}Mi"},
+            "priority": int(rng.integers(0, 4))}
+        if rng.random() < 0.3:
+            kw["tolerations"] = [{"key": "dedicated", "operator": "Exists"}]
+        u = rng.random()
+        if u < 0.1:
+            kw["node_selector"] = {"zone": "a"}
+        elif u < 0.13:
+            kw["affinity"] = {"nodeAffinity": {
+                "preferredDuringSchedulingIgnoredDuringExecution": [{
+                    "weight": 5, "preference": {"matchExpressions": [{
+                        "key": "kubernetes.io/hostname", "operator": "In",
+                        "values": [f"node-{int(rng.integers(0, n_nodes))}"]
+                    }]}}]}}
+            kw["priority"] = 0
+        elif u < 0.16:
+            kw["requests"], kw["priority"] = {"cpu": "64"}, -1
+        elif u < 0.18:
+            kw["node_selector"], kw["priority"] = {"zone": "nowhere"}, -1
+        pods.append((f"{prefix}-{t}", kw))
+    return nodes, pods
+
+
+async def start_scheduler(api, store, seed: int = 42, **kw):
+    """The scheduler bootstrap of run_loop and LoopRun: a Scheduler over
+    `store` with its informers started and synced."""
+    sched = api.Scheduler(store, seed=seed, **kw)
+    factory = api.InformerFactory(store)
+    await sched.setup_informers(factory)
+    factory.start()
+    await factory.wait_for_sync()
+    return sched, factory
+
+
+class LoopRun:
+    """One scheduler loop over a fresh store of `api`'s package."""
+
+    def __init__(self, api, backend, batch_size: int):
+        self.api, self.backend, self.batch_size = api, backend, batch_size
+        self.store = self.sched = self.factory = self.task = None
+
+    async def start(self, nodes) -> None:
+        api = self.api
+        self.store = api.new_cluster_store()
+        api.install_core_validation(self.store)
+        for name, kw in nodes:
+            await self.store.create("nodes", api.make_node(name, **kw))
+        self.sched, self.factory = await start_scheduler(
+            api, self.store, backend=self.backend)
+
+    async def create(self, pods) -> None:
+        for name, kw in pods:
+            await self.store.create("pods", self.api.make_pod(name, **kw))
+
+    def open(self) -> None:
+        """Start `Scheduler.run`."""
+        self.task = asyncio.ensure_future(
+            self.sched.run(batch_size=self.batch_size))
+
+    async def wait(self, cond, what: str, timeout: float = 300.0) -> None:
+        """Poll `cond` until it holds; raises the loop's own exception if
+        `run` ended with one, TimeoutError after `timeout` s."""
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if self.task is not None and self.task.done() \
+                    and not self.task.cancelled() \
+                    and self.task.exception() is not None:
+                raise self.task.exception()
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"scheduler loop: {what}")
+            await asyncio.sleep(0.005)
+
+    def queued(self) -> int:
+        st = self.sched.queue.stats()
+        return st["active"] + st["gated"]
+
+    def settled(self, names) -> bool:
+        """Every pod bound or parked unschedulable, no cycle or binding
+        in flight, the event buffer drained."""
+        q, rec = self.sched.queue, self.sched.recorder
+        st = q.stats()
+        if st["active"] or st["backoff"] or st["in_flight"] \
+                or self.sched._binding_tasks or rec._pending \
+                or rec._draining:
+            return False
+        table = self.store._table("pods")
+        return all((table[f"default/{n}"].get("spec") or {}).get("nodeName")
+                   or f"default/{n}" in q._unschedulable for n in names)
+
+    async def results(self) -> tuple[dict, dict, list, list]:
+        """({pod name: node or None}, {pod name: FailedScheduling
+        messages}, node objects, pod objects) from the store."""
+        pods = (await self.store.list("pods")).items
+        nodes = (await self.store.list("nodes")).items
+        assignments = {p["metadata"]["name"]:
+                       (p.get("spec") or {}).get("nodeName") or None
+                       for p in pods}
+        failed: dict[str, set] = {}
+        for ev in (await self.store.list("events")).items:
+            if ev.get("reason") == "FailedScheduling":
+                failed.setdefault(ev["involvedObject"]["name"], set()).add(
+                    ev["message"])
+        return assignments, failed, nodes, pods
+
+    async def close(self) -> None:
+        if self.sched is not None:
+            await self.sched.stop()
+        if self.task is not None:
+            self.task.cancel()
+            await asyncio.gather(self.task, return_exceptions=True)
+        if self.factory is not None:
+            self.factory.stop()
+        if self.store is not None:
+            self.store.stop()
+
+
+async def run_loop(api, nodes, pods, backend, batch_size: int,
+                   trickle: bool = False) -> dict:
+    """Schedule `pods` on `nodes` through `api`'s Scheduler and `backend`.
+    Pre-created (trickle False): every pod is created and queued before
+    `run` opens the loop. Trickle: each pod is created once the one
+    before it is bound or parked unschedulable. Returns the assignments,
+    the FailedScheduling messages per pod, the store's objects, the
+    metrics and the serving tier."""
+    lr = LoopRun(api, backend, batch_size)
+    await lr.start(nodes)
+    names = [name for name, _ in pods]
+    try:
+        if not trickle:
+            await lr.create(pods)
+            await lr.wait(lambda: lr.queued() == len(pods), "pods queued")
+            lr.open()
+        else:
+            lr.open()
+            for k, pod in enumerate(pods):
+                await lr.create([pod])
+                await lr.wait(lambda: lr.settled(names[:k + 1]),
+                              f"pod {pod[0]} placed")
+        await lr.wait(lambda: lr.settled(names), "pods placed")
+        assignments, failed, node_objs, pod_objs = await lr.results()
+        return {"assignments": assignments, "failed": failed,
+                "nodes": node_objs, "pods": pod_objs,
+                "metrics": lr.sched.metrics, "serving": lr.sched.serving}
+    finally:
+        await lr.close()
+
+
+def over_capacity(nodes, pods) -> list[str]:
+    """Nodes whose bound pods exceed their allocatable: an exact host
+    re-check of a store's objects with NodeInfo's integer arithmetic."""
+    from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo
+
+    infos = {n["metadata"]["name"]: NodeInfo(n) for n in nodes}
+    for p in pods:
+        node = (p.get("spec") or {}).get("nodeName")
+        if node:
+            infos[node].add_pod(PodInfo(p))
+    return [ni.name for ni in infos.values()
+            if any(v > ni.allocatable.get(r)
+                   for r, v in ni.requested.res.items())
+            or ni.requested.pods > ni.allocatable.pods]
+
+
+def loop_equality_phase(torch, seed: int) -> None:
+    """Phase 9(a): the loop on the card against the loop on the CPU."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    api = port_loop_api()
+    nodes, pods = loop_cluster(seed, N_LOOP_NODES, N_LOOP_PODS)
+    t0 = time.perf_counter()
+    wave_kernel.wave_solve.launches = 0
+    card = asyncio.run(run_loop(api, nodes, pods, TorchBackend(), LOOP_BATCH))
+    launches = wave_kernel.wave_solve.launches
+    cpu = asyncio.run(run_loop(api, nodes, pods, TorchBackend(device="cpu"),
+                               LOOP_BATCH))
+    placed = sum(v is not None for v in card["assignments"].values())
+    unsched = sorted(k for k, v in card["assignments"].items() if v is None)
+    same = (card["assignments"] == cpu["assignments"],
+            card["failed"] == cpu["failed"])
+    print(f"compare scheduler loop, pre-created ({N_LOOP_NODES} nodes, "
+          f"{N_LOOP_PODS} pods, batch_size {LOOP_BATCH}), card vs CPU: "
+          f"nodeName {'identical' if same[0] else 'DIFFER'}, "
+          f"FailedScheduling messages "
+          f"{'identical' if same[1] else 'DIFFER'}; {placed} bound, "
+          f"{len(unsched)} unschedulable, fast-path pods "
+          f"{int(card['metrics'].serving_fast_path_pods.value())}, "
+          f"wave_solve launches {launches}")
+    if not all(same):
+        raise RuntimeError("the scheduler loop on the card placed pods "
+                           "differently from the CPU")
+    if not unsched or set(unsched) != set(card["failed"]):
+        raise RuntimeError(f"unschedulable pods {unsched} and their "
+                           f"FailedScheduling events {sorted(card['failed'])}"
+                           " do not match")
+    bad = over_capacity(card["nodes"], card["pods"])
+    if bad:
+        raise RuntimeError(f"nodes over capacity: {bad}")
+    _, lone = loop_cluster(seed + 1, N_LOOP_NODES, N_LOOP_TRICKLE, "lone")
+    lone = [(n, kw) for n, kw in lone if kw["priority"] >= 0]
+    trickle = asyncio.run(run_loop(api, nodes, lone, TorchBackend(),
+                                   LOOP_BATCH, trickle=True))
+    fast = int(trickle["metrics"].serving_fast_path_pods.value())
+    unbound = [k for k, v in trickle["assignments"].items() if v is None]
+    bad = over_capacity(trickle["nodes"], trickle["pods"])
+    print(f"scheduler loop trickle: {len(lone)} lone pods, each awaited, "
+          f"{len(lone) - len(unbound)} bound, fast-path pods {fast}; nodes "
+          f"over capacity: {len(bad)}; phase 9(a) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if unbound or fast == 0 or bad:
+        raise RuntimeError(f"trickle: unbound {unbound}, fast-path pods "
+                           f"{fast}, over capacity {bad}")
+
+
+#: Functions whose cumulative host time phase 9(b)'s host profile prints:
+#: the harness's create, the store's commit and watch fan-out, the
+#: informers, the queue, the serving tier's dispatch, the batch backend,
+#: assume, the binding cycle and its write, and the event drain.
+LOOP_STAGES = ("create", "_record", "_dispatch", "_apply", "add",
+               "schedule_next", "_schedule_pods", "assign",
+               "_assume_and_bind", "_binding_cycle_traced",
+               "binding_subresource", "_drain", "update_snapshot")
+
+
+def host_breakdown(prof) -> tuple[dict, list, dict]:
+    """A cProfile of the loop's measured window: own seconds by area (the
+    port's subpackages, asyncio, torch, numpy, builtins), the ten functions
+    with the most own time, and the cumulative seconds of LOOP_STAGES."""
+    import pstats
+
+    areas: dict[str, float] = {}
+    top, cum = [], {}
+    for (path, line, fn), (_, calls, own, total, _) in \
+            pstats.Stats(prof).stats.items():
+        if "kubernetes_tpu_torch/" in path:
+            sub = path.split("kubernetes_tpu_torch/")[1].split("/")[0]
+            area, where = sub.removesuffix(".py"), \
+                path.split("kubernetes_tpu_torch/")[1]
+        else:
+            area = next((a for a in ("asyncio", "torch", "numpy")
+                         if f"/{a}/" in path), "builtins" if path == "~"
+                        else "other")
+            where = path.rsplit("/", 1)[-1]
+        areas[area] = round(areas.get(area, 0.0) + own, 6)
+        top.append((round(own, 6), f"{where}:{line}({fn})", calls))
+        if fn in LOOP_STAGES and "kubernetes_tpu_torch/" in path:
+            key = f"{where}:{fn}"
+            cum[key] = round(cum.get(key, 0.0) + total, 6)
+    top.sort(reverse=True)
+    return dict(sorted(areas.items(), key=lambda kv: -kv[1])), top[:10], \
+        dict(sorted(cum.items(), key=lambda kv: -kv[1]))
+
+
+def scheduler_perf_phase(torch) -> dict:
+    """Phase 9(b): SchedulingBasic/5000Nodes through the port's PerfRunner
+    and `Scheduler.run`; returns the kernels line's loop entries."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.perf.scheduler_perf import (PerfRunner,
+                                                         SCHEDULING_BASIC)
+
+    class CountingRunner(PerfRunner):
+        """PerfRunner that counts each route's pods over the measured
+        window, sets the launch counters to 0 just before the measured
+        createPods and reads them just after, and, when asked, profiles
+        that window: `profile` "device" (torch.profiler) or "host"
+        (cProfile)."""
+
+        def __init__(self, backend, profile: str | None):
+            super().__init__(backend=backend, batch_size=LOOP_BATCH)
+            self.profile = profile
+            self.routes = dict.fromkeys(
+                ("backend_dispatches", "backend_pods", "host_path_pods"), 0)
+            self.window: dict = {}
+
+        async def _drive(self, template_ops, params, timeout, store,
+                         metrics, sched, factory):
+            self.store = store
+            assign, host = sched.backend.assign, sched._schedule_host_path
+
+            def counted_assign(pods, snapshot, fwk):
+                self.routes["backend_dispatches"] += 1
+                self.routes["backend_pods"] += len(pods)
+                return assign(pods, snapshot, fwk)
+
+            async def counted_host(pi, snapshot):
+                self.routes["host_path_pods"] += 1
+                return await host(pi, snapshot)
+
+            sched.backend.assign = counted_assign
+            sched._schedule_host_path = counted_host
+            return await super()._drive(template_ops, params, timeout,
+                                        store, metrics, sched, factory)
+
+        def _begin_measure(self, metrics, backing):
+            torch.cuda.synchronize()
+            self.routes = dict.fromkeys(self.routes, 0)
+            wave_kernel.wave_solve.launches = 0
+            self.window = {"timings": dict(self.backend.timings),
+                           "counters": dict(self.backend.counters)}
+            if self.profile == "device":
+                self.prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                self.prof.start()
+            elif self.profile == "host":
+                import cProfile
+                self.prof = cProfile.Profile()
+                self.prof.enable()
+            self.window["t0"] = time.perf_counter()
+            return super()._begin_measure(metrics, backing)
+
+        def _end_measure(self, result, metrics, backing, base, count):
+            super()._end_measure(result, metrics, backing, base, count)
+            torch.cuda.synchronize()
+            w = self.window
+            w["wall"] = time.perf_counter() - w["t0"]
+            if self.profile == "device":
+                self.prof.stop()
+            elif self.profile == "host":
+                self.prof.disable()
+            w["launches"] = wave_kernel.wave_solve.launches
+            w["routes"] = dict(self.routes)
+            w["timings"] = {k: round(v - w["timings"][k], 6)
+                            for k, v in self.backend.timings.items()}
+            w["counters"] = {k: v - w["counters"][k]
+                             for k, v in self.backend.counters.items()
+                             if k != "sinkhorn_iterations"}
+
+    template = SCHEDULING_BASIC["workloadTemplate"]
+    params = next(w["params"] for w in SCHEDULING_BASIC["workloads"]
+                  if w["name"] == "5000Nodes")
+    want = params["initPods"] + params["measurePods"]
+
+    def one_run(profile: str | None):
+        wave_kernel.probe.launches = 0
+        runner = CountingRunner(TorchBackend(), profile)
+        result = asyncio.run(runner.run(template, params, timeout=900.0))
+        pods = asyncio.run(runner.store.list("pods")).items
+        nodes = asyncio.run(runner.store.list("nodes")).items
+        bound = sum(bool((p.get("spec") or {}).get("nodeName")) for p in pods)
+        bad = over_capacity(nodes, pods)
+        if bound != want or len(pods) != want or bad:
+            raise RuntimeError(f"SchedulingBasic/5000Nodes: {bound}/{want} "
+                               f"bound, nodes over capacity: {bad[:5]}")
+        return runner, result, wave_kernel.probe.launches
+
+    t0 = time.perf_counter()
+    runner, result, probe_launches = one_run(profile=None)
+    w, r = runner.window, result.as_dict()
+    routes = w["routes"]
+    card_pods = routes["backend_pods"] + r["serving_fast_path_pods_total"]
+    print(f"scheduler loop SchedulingBasic/5000Nodes (PerfRunner, "
+          f"Scheduler.run, TorchBackend(), batch_size {LOOP_BATCH}): "
+          f"SchedulingThroughput {r['throughput_pods_per_sec']} pods/s, "
+          f"measured_seconds {result.measured_seconds:.6f}, attempt ms "
+          f"p50 {r['attempt_p50_ms']} p90 {r['attempt_p90_ms']} p99 "
+          f"{r['attempt_p99_ms']} p999 {r['attempt_p999_ms']} (exact "
+          f"{r['attempt_percentiles_exact']}), fragmentation_pct "
+          f"{r['fragmentation_pct']}, fragmentation_occupied_pct "
+          f"{r['fragmentation_occupied_pct']}; {want} pods bound, no node "
+          f"over capacity")
+    print(f"scheduler loop routes over the measured window: fast-path pods "
+          f"{r['serving_fast_path_pods_total']}, backend dispatches "
+          f"{routes['backend_dispatches']} with {routes['backend_pods']} "
+          f"pods, host-path pods {routes['host_path_pods']}, optimal_solves "
+          f"{w['counters']['optimal_solves']}, chunks "
+          f"{w['counters']['chunks']}, wave_solve launches {w['launches']}; "
+          f"probe launches over the run {probe_launches}")
+    print(f"scheduler loop TorchBackend.timings over the measured window: "
+          f"{json.dumps(w['timings'])}; window wall {w['wall']:.6f} s")
+    print(f"scheduler loop events: emitted {result.events_emitted_total}, "
+          f"dropped {result.events_dropped_total}")
+    if card_pods <= routes["host_path_pods"] or w["launches"] == 0 \
+            or probe_launches == 0:
+        raise RuntimeError(f"the measured window did not run on the card: "
+                           f"routes {routes}, fast-path pods "
+                           f"{r['serving_fast_path_pods_total']}, wave_solve "
+                           f"launches {w['launches']}, probe launches "
+                           f"{probe_launches}")
+    prof_runner, prof_result, _ = one_run(profile="device")
+    pw = prof_runner.window
+    busy_us = sum(device_us(e) for e in prof_runner.prof.key_averages())
+    print(f"profiled scheduler loop measured window: wall {pw['wall']:.6f} "
+          f"s, throughput {prof_result.throughput:.1f} pods/s, device busy "
+          f"{busy_us / 1e6:.6f} s" + (
+              f", idle share {1 - busy_us / 1e6 / pw['wall']:.4f}"
+              if busy_us else ", device time not measured by the profiler")
+          )
+    host_runner, host_result, _ = one_run(profile="host")
+    areas, top, cum = host_breakdown(host_runner.prof)
+    print(f"host profile of the scheduler loop measured window (cProfile, "
+          f"wall {host_runner.window['wall']:.6f} s, throughput "
+          f"{host_result.throughput:.1f} pods/s): own seconds by area "
+          f"{json.dumps(areas)}; cumulative seconds {json.dumps(cum)}")
+    print(f"host profile top functions by own seconds: {json.dumps(top)}; "
+          f"phase 9(b) {time.perf_counter() - t0:.1f} s")
+    return {"loop_launches": w["launches"],
+            "loop_probe_launches": probe_launches}
+
+
 def main() -> int:
     import argparse
 
@@ -1622,7 +2112,7 @@ def main() -> int:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-9 (see the module docstring)."""
+    """Phases 1-10 (see the module docstring)."""
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
@@ -1953,7 +2443,13 @@ def smoke(torch, seed: int) -> int:
     with flags.scoped_set("KTPU_SOLVE_MODE", "auto"):
         serving_phase(torch, fwk, init_pods, seed)
 
-    # -- 9. result --------------------------------------------------------
+    # -- 9. the scheduler loop --------------------------------------------------
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        loop_equality_phase(torch, seed)
+        loop = scheduler_perf_phase(torch)
+
+    # -- 10. result --------------------------------------------------------
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -1961,12 +2457,14 @@ def smoke(torch, seed: int) -> int:
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:134",
          "launches": launches["wave_solve"], "max_abs_err": max_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": None, **flagless},
+         "bound_by": bound_by, "library_ms": None, **flagless,
+         "loop_launches": loop["loop_launches"]},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,
          "ms": probe_ms, "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
-         "bound_by": "bytes", "library_ms": probe_plain_ms},
+         "bound_by": "bytes", "library_ms": probe_plain_ms,
+         "loop_launches": loop["loop_probe_launches"]},
         *sharded_entries,
     ]}))
     smi = subprocess.run(

@@ -1,10 +1,11 @@
-"""Core API object builders + typed accessors for Pod / Node.
+"""Core API object constructors + typed accessors for Pod / Node / Binding.
 
 Parity target: staging/src/k8s.io/api/core/v1/types.go (`Pod`, `PodSpec`,
-`Node`, `NodeSpec.taints`, `NodeStatus.allocatable`) and the pod
+`Node`, `NodeSpec.taints`, `NodeStatus.allocatable`, `Binding`) and the pod
 resource-request helpers in pkg/api/v1/resource/helpers.go (`PodRequests`).
-Copy of `kubernetes_tpu/api/types.py`, cut to the pod and node builders and
-the accessors the scheduler compiles its tensors from.
+Copy of `kubernetes_tpu/api/types.py`, cut to the pod, node and binding
+constructors, the accessors the scheduler compiles its tensors from and the
+predicates its informers read.
 """
 
 from __future__ import annotations
@@ -119,6 +120,21 @@ def make_node(
 # Pod resource accounting
 # ---------------------------------------------------------------------------
 
+def make_binding(pod: Mapping, node_name: str) -> dict:
+    """core/v1 Binding: target node for a pod; POSTed to the pod's /binding
+    subresource (pkg/registry/core/pod/storage `BindingREST.Create`)."""
+    return {
+        "apiVersion": "v1",
+        "kind": "Binding",
+        "metadata": {
+            "name": pod["metadata"]["name"],
+            "namespace": pod["metadata"].get("namespace", "default"),
+            "uid": pod["metadata"].get("uid", ""),
+        },
+        "target": {"kind": "Node", "name": node_name},
+    }
+
+
 def container_requests(container: Mapping) -> dict[str, int]:
     return parse_resource_list((container.get("resources") or {}).get("requests"))
 
@@ -170,6 +186,14 @@ def node_allocatable(node: Mapping) -> dict[str, int]:
 
 def pod_priority(pod: Mapping) -> int:
     return pod.get("spec", {}).get("priority") or 0
+
+
+def node_is_unschedulable(node: Mapping) -> bool:
+    return bool(node.get("spec", {}).get("unschedulable"))
+
+
+def pod_is_terminal(pod: Mapping) -> bool:
+    return pod.get("status", {}).get("phase") in ("Succeeded", "Failed")
 
 
 # ---------------------------------------------------------------------------

@@ -30,15 +30,22 @@ would.
 
 Not covered by this slice, and refused with NotImplementedError rather than
 scheduled on a partial model: inter-pod affinity, topology spread, resource
-claims, volumes, host ports, gangs, and plugins beyond the six
-Filter/Score plugins of scheduler/plugins/registry.py
-(NodeResourceTopologyMatch among them). The shortlist and block index and
+claims, volumes, host ports, gangs, and any plugin at a PreFilter, Filter,
+PreScore or Score point beyond the six of `MODELLED_PLUGINS`
+(NodeResourceTopologyMatch among them). Plugins at none of those points
+(queue sort, gates, bind) are the scheduler loop's and pass.
+
+When the scheduler attaches its metrics (`metrics`, `tracer`), each chunk
+observes `scheduler_tpu_solve_seconds` (dispatch to fetched) and the
+solver_* counters the reference's chunk finalization updates, for the
+counters this backend keeps. The shortlist and block index and
 multi-device sharding are later slices; the greedy route is the
 reference's configuration with the shortlist off.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Sequence
@@ -60,8 +67,16 @@ from kubernetes_tpu_torch.scheduler.plugins.noderesources import (
 from kubernetes_tpu_torch.scheduler.plugins.registry import IN_TREE
 from kubernetes_tpu_torch.scheduler.types import PodInfo, Snapshot
 from kubernetes_tpu_torch.utils import flags
+from kubernetes_tpu_torch.utils.locking import check_dispatch_seam
 
 logger = logging.getLogger(__name__)
+
+#: The Filter/Score plugins the backend models, on the device or as host
+#: rows; a plugin at any of `_MODELLED_POINTS` must be one of them.
+MODELLED_PLUGINS = frozenset((
+    "NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
+    "NodeName", "NodeUnschedulable", "TaintToleration"))
+_MODELLED_POINTS = frozenset(("PreFilter", "Filter", "PreScore", "Score"))
 
 #: Plugins with full device kernels.
 DEVICE_FILTER_PLUGINS = {"NodeResourcesFit", "TaintToleration"}
@@ -530,6 +545,10 @@ class TorchBackend:
         #: (which waits for the device), and host verify + diagnostics.
         self.timings = {"assign_s": 0.0, "prep_s": 0.0, "device_s": 0.0,
                         "verify_s": 0.0}
+        #: metrics/registry.SchedulerMetrics and utils/tracing.Tracer,
+        #: attached by Scheduler.attach_backend (None: nothing observed).
+        self.metrics = None
+        self.tracer = None
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -586,13 +605,15 @@ class TorchBackend:
         t0 = time.perf_counter()
         ctx = self._start(pods, snapshot, fwk)
         tm = self.timings
-        for chunk in ctx.chunks:
+        for k, chunk in enumerate(ctx.chunks):
             t1 = time.perf_counter()
             prep = self._prep_chunk(chunk, ctx)
             t2 = time.perf_counter()
             run = self._dispatch_chunk(prep, ctx)
-            assign_np = run["assign_d"].cpu().numpy()
+            assign_np = self._fetch_assign(run, k)
             t3 = time.perf_counter()
+            if self.metrics is not None:
+                self.metrics.solve_duration.observe(t3 - t2)
             self._finalize_chunk(run, assign_np, ctx)
             tm["prep_s"] += t2 - t1
             tm["device_s"] += t3 - t2
@@ -600,13 +621,30 @@ class TorchBackend:
         tm["assign_s"] += time.perf_counter() - t0
         return ctx.assignments, ctx.diagnostics
 
+    def _fetch_assign(self, run: dict, chunk_idx: int) -> np.ndarray:
+        """Blocking device→host fetch of a chunk's assignments (it waits
+        for the device pass), under a `solver.solve` span when tracing is
+        on. The dispatch seam raises under KTPU_LOCK_CHECK when a lock is
+        held across it."""
+        check_dispatch_seam("backend.fetch_assign")
+        tr = self.tracer
+        span = tr.span("solver.solve", chunk=chunk_idx,
+                       pods=run["batch"].p_real) \
+            if tr is not None and tr.enabled else contextlib.nullcontext()
+        with span:
+            return run["assign_d"].cpu().numpy()
+
     @staticmethod
     def _check_supported(pods: list[PodInfo], fwk: Framework) -> None:
         for p in fwk.plugins:
-            if IN_TREE.get(p.NAME) is not type(p):
+            if _MODELLED_POINTS.isdisjoint(p.EXTENSION_POINTS):
+                continue
+            if p.NAME not in MODELLED_PLUGINS \
+                    or IN_TREE.get(p.NAME) is not type(p):
                 raise NotImplementedError(
                     f"plugin {p.NAME!r}: this slice models only "
-                    f"{sorted(IN_TREE)}")
+                    f"{sorted(MODELLED_PLUGINS)} at "
+                    f"{sorted(_MODELLED_POINTS)}")
         for pi in pods:
             feature = unsupported_feature(pi)
             if feature is not None:
@@ -987,6 +1025,7 @@ class TorchBackend:
             "dev_perms": self._perms(pods, batch, P),
             "wave_w": wave_w,
             "solve_mode": mode,
+            "optimal_fallback": fallback,
         }
 
     def _zero_scores(self, rows: int, n: int) -> torch.Tensor:
@@ -1105,6 +1144,19 @@ class TorchBackend:
         if run["solve_mode"] == "optimal":
             self.counters["optimal_solves"] += 1
             self.counters["sinkhorn_iterations"] = run["sink_iters"]
+        m = self.metrics
+        if m is not None:
+            m.solver_scan_width.set(ctx.ct.n_real)
+            m.solver_wave_width.set(max(1, run["wave_w"]))
+            if wave_com:
+                m.solver_wave_commits.inc(wave_com)
+            if wave_rep:
+                m.solver_wave_replays.inc(wave_rep)
+            if run["solve_mode"] == "optimal":
+                m.solver_optimal_solves.inc()
+                m.solver_sinkhorn_iterations.set(run["sink_iters"])
+            elif run["optimal_fallback"]:
+                m.solver_optimal_fallbacks.inc()
 
         rejects = self._verify(pods, assign, ctx)
         # Fold verify rejections back into the device-chained used state so

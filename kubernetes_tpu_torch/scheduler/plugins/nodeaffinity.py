@@ -46,6 +46,7 @@ class NodeUnschedulable(Plugin):
 
     NAME = "NodeUnschedulable"
     EXTENSION_POINTS = ("Filter",)
+    EVENTS = ["Node/Add", "Node/Update"]
 
     def filter(self, state: CycleState, pod: PodInfo, node: NodeInfo) -> Status:
         if not node.unschedulable:
@@ -68,6 +69,7 @@ class NodeAffinity(Plugin):
 
     NAME = "NodeAffinity"
     EXTENSION_POINTS = ("PreFilter", "Filter", "Score")
+    EVENTS = ["Node/Add", "Node/Update"]
 
     def pre_filter(self, state: CycleState, pod: PodInfo, snapshot: Snapshot) -> Status:
         if not pod.node_selector and not (pod.affinity.get("nodeAffinity") or {}):
@@ -120,6 +122,7 @@ class TaintToleration(Plugin):
 
     NAME = "TaintToleration"
     EXTENSION_POINTS = ("Filter", "PreScore", "Score")
+    EVENTS = ["Node/Add", "Node/Update"]
 
     def filter(self, state: CycleState, pod: PodInfo, node: NodeInfo) -> Status:
         taint = find_untolerated_taint(

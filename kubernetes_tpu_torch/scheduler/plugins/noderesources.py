@@ -33,6 +33,7 @@ _STATE_KEY = "PreFilterNodeResourcesFit"
 class NodeResourcesFit(Plugin):
     NAME = "NodeResourcesFit"
     EXTENSION_POINTS = ("PreFilter", "Filter", "Score")
+    EVENTS = ["Node/Add", "Node/Update", "Pod/Delete"]
 
     def __init__(self, args=None):
         super().__init__(args)

@@ -7,9 +7,8 @@ UsedPorts, ImageStates, Generation; `PodInfo` — cached affinity terms;
 
 These are the *host-side* compiled records; ops/tensorize.py compiles them
 further into dense arrays. Copy of `kubernetes_tpu/scheduler/types.py`, cut to
-what the batch cycle, the scheduler cache and the serving fast path read
-(PodInfo keeps `nominated_node` of the queue bookkeeping: the fast path
-leaves a nominated preemptor to its nominee-first path).
+what the batch cycle, the scheduler cache, the serving fast path and the
+scheduler loop read (PodInfo carries the queue's bookkeeping).
 """
 
 from __future__ import annotations
@@ -80,7 +79,8 @@ class PodInfo:
         "host_ports", "pvc_names", "resource_claims",
         "required_affinity_terms", "required_anti_affinity_terms",
         "preferred_affinity_terms", "preferred_anti_affinity_terms",
-        "nominated_node",
+        "attempts", "last_failure", "unschedulable_plugins", "queued_at",
+        "enqueued_at", "dequeued_at", "nominated_node",
     )
 
     def __init__(self, pod: Mapping):
@@ -119,6 +119,17 @@ class PodInfo:
             pod_aff.get("preferredDuringSchedulingIgnoredDuringExecution") or [])
         self.preferred_anti_affinity_terms = list(
             pod_anti.get("preferredDuringSchedulingIgnoredDuringExecution") or [])
+        # Queue bookkeeping (queuedPodInfo in the reference).
+        self.attempts = 0
+        self.last_failure = ""
+        self.unschedulable_plugins: set[str] = set()
+        self.queued_at = 0.0
+        #: endpoints of the retroactive queue-wait span, same clock as
+        #: queued_at: enqueued_at is re-stamped on every activeQ entry
+        #: (so a retry's span covers only THIS attempt's wait, not prior
+        #: cycles/backoff), dequeued_at when pop_batch hands it out.
+        self.enqueued_at = 0.0
+        self.dequeued_at = 0.0
         #: the node a preemption nominated for this pod ("" = none).
         self.nominated_node = ""
 

@@ -27,13 +27,51 @@ Driving a lone pod (on the CPU pass `device="cpu"` to the backend):
     if node is not None:
         cache.assume_pod(pi, node)
 
-The `ServingTier` loop that routes popped pods between this path and the
-batch path waits for the slice that ports the scheduler's run loop and
-queue.
+The **serving tier** (loop.py, `ServingTier`) wires these into the
+scheduler's dispatch loop: `Scheduler.run` delegates each pop to
+`schedule_next`, which routes small dispatches pod by pod through the fast
+path and the rest to the batch pipeline. `maybe_attach_serving` attaches
+it at run()-loop entry when a batched backend is present.
+
+`KTPU_SERVING=0` is the kill switch: the scheduler's run loop degrades
+STRUCTURALLY to the pre-serving shape (plain schedule_batch, full
+used-state uploads, lone pods on the host path).
 """
 
 from kubernetes_tpu_torch.serving.admission import AdmissionWindow
 from kubernetes_tpu_torch.serving.fastpath import SinglePodFastPath
+from kubernetes_tpu_torch.serving.loop import ServingTier
 from kubernetes_tpu_torch.serving.resident import ResidentPlanes
+from kubernetes_tpu_torch.utils import flags
 
-__all__ = ["AdmissionWindow", "ResidentPlanes", "SinglePodFastPath"]
+__all__ = [
+    "AdmissionWindow",
+    "ResidentPlanes",
+    "ServingTier",
+    "SinglePodFastPath",
+    "serving_enabled",
+    "maybe_attach_serving",
+]
+
+
+def serving_enabled() -> bool:
+    """KTPU_SERVING kill switch; default ON (the serving tier is the
+    flagless production shape, like the class planes)."""
+    return flags.get("KTPU_SERVING")
+
+
+def maybe_attach_serving(sched) -> "ServingTier | None":
+    """Build (once) and return the scheduler's serving tier, or None when
+    the kill switch is set / no batched backend is attached. Called at
+    run()-loop entry so tests can flip KTPU_SERVING between runs."""
+    if not serving_enabled() or sched.backend is None:
+        if sched.serving is not None:
+            # Kill switch flipped between runs: detach so the backend's
+            # _start returns to full used-state uploads.
+            if sched.backend is not None:
+                sched.backend.resident = None
+            sched.serving = None
+        return None
+    if sched.serving is None:
+        sched.serving = ServingTier(sched)
+    return sched.serving

@@ -32,9 +32,8 @@ size-independent RTT there, so fuller batches win).
 tests; `0` disables coalescing entirely (every pop dispatches
 immediately — the admission half of the KTPU_SERVING=0 degrade).
 
-Copy of `kubernetes_tpu/serving/admission.py`: pure host policy. The
-serving loop that consults it waits for the slice that ports the
-scheduler's run loop and queue.
+Copy of `kubernetes_tpu/serving/admission.py`: pure host policy, consulted
+by the serving tier's loop (serving/loop.py).
 """
 
 from __future__ import annotations

@@ -29,8 +29,10 @@ its placement is representable in the resident planes —
 
 Anything else falls through (None) to the normal path, which also owns
 diagnostics and preemption for no-fit pods. A framework holding a plugin
-outside the six of scheduler/plugins/registry.py raises
-NotImplementedError, as `TorchBackend.assign` does. A host verify (exact
+at PreFilter, Filter, PreScore or Score that is not one of the six the
+backend models (`MODELLED_PLUGINS`) raises NotImplementedError, as
+`TorchBackend.assign` does; plugins at none of those points (PrioritySort,
+SchedulingGates, DefaultBinder) pass. A host verify (exact
 integer re-check) backstops the quantized device fit exactly like the
 batch verify.
 
@@ -38,8 +40,7 @@ The solve runs on the backend's device: cuda:0 unless the backend was made
 with device="cpu". A placement reads one value back from the device, the
 node index.
 
-Copy of `kubernetes_tpu/serving/fastpath.py`; the metrics registry and the
-lock-check dispatch seam wait for the slice that ports the scheduler loop.
+Copy of `kubernetes_tpu/serving/fastpath.py`.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from kubernetes_tpu_torch.ops.backend import (
 from kubernetes_tpu_torch.scheduler.plugins.noderesources import (
     insufficient_resources,
 )
+from kubernetes_tpu_torch.utils.locking import check_dispatch_seam
 
 logger = logging.getLogger(__name__)
 
@@ -75,9 +77,8 @@ FUSE_MAX_ROWS = 2
 
 class SinglePodFastPath:
     def __init__(self, backend, resident, metrics=None):
-        """`metrics` is the reference's registry argument, kept for the
-        signature: this package has no metrics registry yet (callers pass
-        None), and `placed` / `ineligible` / `no_fit` carry the counts."""
+        """`metrics`: a metrics/registry.SchedulerMetrics, or None; each
+        recorded placement counts in `serving_fast_path_pods_total`."""
         self.backend = backend
         self.resident = resident
         self.metrics = metrics
@@ -91,7 +92,8 @@ class SinglePodFastPath:
         #: resident all-true mask / zero score rows per plane shape.
         self._alltrue: dict[tuple, torch.Tensor] = {}
         self._zero_scores: dict[int, torch.Tensor] = {}
-        #: introspection counters.
+        #: introspection counters (the serving tier also mirrors the
+        #: success count into the metrics registry).
         self.placed = 0
         self.ineligible = 0
         self.no_fit = 0
@@ -266,6 +268,7 @@ class SinglePodFastPath:
                 static["taint_f"], static["taint_p"], *tail)
             self.resident.adopt(pack)
         t4 = time.perf_counter()
+        check_dispatch_seam("serving.fastpath.fetch")
         idx = int(idx_d)
         t5 = time.perf_counter()
         tm["prep_s"] += t2 - t1
@@ -287,6 +290,8 @@ class SinglePodFastPath:
             return None
         if record:
             self.placed += 1
+            if self.metrics is not None:
+                self.metrics.serving_fast_path_pods.inc()
         return name
 
     def warm(self, pi, snapshot, fwk) -> None:

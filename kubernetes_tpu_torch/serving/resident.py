@@ -47,6 +47,8 @@ Copy of `kubernetes_tpu/serving/resident.py`.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -61,9 +63,9 @@ _BLOCK_BIG = 2 ** 30
 
 class ResidentPlanes:
     def __init__(self, backend, metrics=None):
-        """`metrics` is the reference's registry argument, kept for the
-        signature: this package has no metrics registry yet (callers pass
-        None), and `full_rebuilds` / `row_refreshes` carry the counts."""
+        """`metrics`: a metrics/registry.SchedulerMetrics, or None; each
+        refresh that did work observes `resident_plane_refresh_seconds`
+        and each block refresh `scheduler_tpu_solver_block_refresh_seconds`."""
         self.backend = backend
         self.metrics = metrics
         self._key: tuple | None = None
@@ -73,7 +75,7 @@ class ResidentPlanes:
         self._dev: torch.Tensor | None = None
         #: dirty rows whose device scatter hasn't been applied yet.
         self._pending: set[int] = set()
-        #: observability.
+        #: observability (also mirrored into the metrics registry).
         self.full_rebuilds = 0
         self.row_refreshes = 0
         #: block-index aggregate planes (see module docstring): host
@@ -116,12 +118,15 @@ class ResidentPlanes:
         nothing changed), else bucket-padded host (rows, vals) the caller
         must apply — via used_pack's inline scatter or the fast path's
         fused solve followed by adopt()."""
+        t0 = time.perf_counter()
         key = (ct.set_epoch, ct.n_pad, ct.n_real,
                tuple(ct.resources), tuple(ct.scales))
         out = None
+        worked = False
         if self._dev is None or self._key != key or ct.set_epoch < 0:
             self._rebuild(ct)
             self._key = key
+            worked = True
         else:
             changed = None
             fn = getattr(snapshot, "changed_since", None) \
@@ -136,6 +141,7 @@ class ResidentPlanes:
             if len(changed) + len(self._pending) \
                     > REBUILD_FRACTION * max(ct.n_real, 1):
                 self._rebuild(ct)
+                worked = True
             else:
                 self._gen = ct.generation
                 fresh = [i for i in changed
@@ -155,6 +161,15 @@ class ResidentPlanes:
                     self.row_refreshes += 1
                     out = self._pad_bucket(idxs, vals)
                     self._refresh_blocks(ct, idxs)
+                    worked = True
+        if worked and self.metrics is not None:
+            # No-op refreshes (nothing dirty) deliberately don't count:
+            # the counter/histogram describe actual rebuild/scatter
+            # work, and diluting them with no-op walls would misstate
+            # the refresh cost.
+            self.metrics.resident_plane_refreshes.inc()
+            self.metrics.resident_plane_refresh.observe(
+                time.perf_counter() - t0)
         return out
 
     @staticmethod
@@ -257,6 +272,7 @@ class ResidentPlanes:
         (< n_real)."""
         if self._blocks is None or self._block_w <= 0:
             return
+        t0 = time.perf_counter()
         bw = self._block_w
         n = self._alloc_q.shape[0]
         r = self._alloc_q.shape[1]
@@ -274,6 +290,9 @@ class ResidentPlanes:
             self._blocks["umin"][blk] = used_nz.min(axis=0)
             self._blocks["umax"][blk] = used_nz.max(axis=0)
         self._upload_blocks()
+        if self.metrics is not None:
+            self.metrics.solver_block_refresh.observe(
+                time.perf_counter() - t0)
 
     def _upload_blocks(self) -> None:
         """Mirror the host planes to the device as one packed (B, 5R)

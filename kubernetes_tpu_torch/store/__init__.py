@@ -1,0 +1,35 @@
+"""The object store: the hub of the control plane (everything is
+hub-and-spoke through the store; components communicate only by
+reading/writing objects and watching for changes). Counterpart of
+`kubernetes_tpu/store/`: the MVCC store with its watch cache and the core
+validation; server-side apply, durability and the sharded store wait."""
+
+from kubernetes_tpu_torch.store.mvcc import (
+    AlreadyExists,
+    Conflict,
+    Event,
+    Expired,
+    Invalid,
+    ListResult,
+    MVCCStore,
+    NotFound,
+    StoreError,
+    binding_subresource,
+    new_cluster_store,
+)
+from kubernetes_tpu_torch.store.validation import install_core_validation
+
+__all__ = [
+    "AlreadyExists",
+    "Conflict",
+    "Event",
+    "Expired",
+    "Invalid",
+    "ListResult",
+    "MVCCStore",
+    "NotFound",
+    "StoreError",
+    "binding_subresource",
+    "new_cluster_store",
+    "install_core_validation",
+]

@@ -1,9 +1,11 @@
 """The `KTPU_*` environment flags this package reads.
 
-Counterpart of `kubernetes_tpu/utils/flags.py`, cut to the flags the
-batch solve (the greedy wavefront and the Sinkhorn optimal mode), its
-solve-mode policy and the serving tier (the resident planes' block index
-and the admission window) read. Names, defaults and parsing are the reference's:
+Counterpart of `kubernetes_tpu/utils/flags.py`, cut to the flags this
+package reads: the batch solve (the greedy wavefront and the Sinkhorn
+optimal mode) and its solve-mode policy, the serving tier (its kill
+switch, the resident planes' block index and the admission window), the
+store (the watch cache, the shard count, the debug freeze), the lock
+check and the trace threshold. Names, defaults and parsing are the reference's:
 every read is a LIVE `os.environ` lookup, and a malformed value degrades
 to the flag's default.
 """
@@ -61,6 +63,10 @@ class Flag:
 
 
 FLAGS: dict[str, Flag] = {f.name: f for f in (
+    Flag("KTPU_SERVING", True, _parse_bool,
+         "Online serving tier (admission window + resident planes + "
+         "single-pod fast path). `0` degrades the dispatch loop "
+         "structurally to the pre-serving shape."),
     Flag("KTPU_CLASS_PLANES", True, _parse_bool,
          "Class-dictionary (C,N) device planes. `0` falls back to "
          "per-pod planes (C == P identity), identical assignments."),
@@ -100,10 +106,31 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "block-sparse index; `0` disables it like KTPU_BLOCK_INDEX=0. "
          "Unset = the AdaptiveTuner's structural policy row picks the "
          "width from the node count."),
+    Flag("KTPU_WATCH_CACHE", True, _parse_bool,
+         "Watch-cache serving tier (store/cacher.py). `0` degrades "
+         "every LIST/watch to the direct-mvcc path."),
+    Flag("KTPU_SHARDS", None, _parse_int,
+         "Control-plane shard count override; `1` is the plain single "
+         "MVCCStore. This package has no sharded store yet: "
+         "new_cluster_store raises for more than one shard."),
     Flag("KTPU_ADMISSION_WINDOW", None, _parse_ms,
          "Serving admission coalesce window in MILLISECONDS (pinned "
          "for sweeps; `0` = always dispatch immediately). Unset = the "
          "AdaptiveTuner policy row sizes it."),
+    Flag("KTPU_TRACE_THRESHOLD_MS", None, _parse_float,
+         "Slow-attempt threshold in ms: root span trees and attempt "
+         "traces slower than this log a step breakdown. Unset = no "
+         "tree dumps; the scheduler's per-attempt logger falls back "
+         "to the reference's 100 ms."),
+    Flag("KTPU_LOCK_CHECK", False, _parse_bool,
+         "Runtime lock-order / dispatch-hygiene detector "
+         "(utils/locking.py): instrumented locks record per-thread "
+         "acquisition order and raise on observed inversions and on "
+         "locks held across device-fetch seams. Off = plain "
+         "`threading.Lock`, zero overhead."),
+    Flag("KTPU_DEBUG_FREEZE", False, _parse_bool,
+         "Recursively freeze stored/watch-delivered objects so a "
+         "mutating handler fails loudly (enabled by the test suite)."),
 )}
 
 

@@ -21,7 +21,9 @@ optimal mode's rounding (`wave_solve` at W=1, poison=False, on -1e30 rows
 with zero live weights) equals its plain version; the serving fast path's
 `solve_one` / `solve_one_fresh` on the card equal the CPU's and wait for
 nothing, and its `SinglePodFastPath` places lone pods where the card's
-`TorchBackend.assign([pi])` does.
+`TorchBackend.assign([pi])` does; and the scheduler loop
+(`Scheduler.run` with the serving tier) on the card binds a pre-created
+heterogeneous workload exactly as on the CPU.
 """
 
 import numpy as np
@@ -428,3 +430,30 @@ def test_fast_path_on_card_matches_batch_path(cuda):
     ct = backend._tensors(snap)
     assert torch.equal(fp.resident.used_pack(ct, snap).cpu(),
                        fresh_pack(torch, ct))
+
+
+@pytest.mark.cuda
+def test_scheduler_loop_on_card_matches_cpu(cuda, monkeypatch):
+    """Phase 9(a)'s pre-created shape (64 heterogeneous nodes, 300 pods,
+    some that fit nowhere) through the port's `Scheduler.run` with serving
+    on: `TorchBackend()` on the card binds every pod where
+    `TorchBackend(device="cpu")` does, with the same FailedScheduling
+    messages, and no node goes over capacity."""
+    import asyncio
+
+    from chip_smoke import (LOOP_BATCH, N_LOOP_NODES, N_LOOP_PODS,
+                            loop_cluster, over_capacity, port_loop_api,
+                            run_loop)
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    monkeypatch.setenv("KTPU_SERVING", "1")
+    monkeypatch.delenv("KTPU_SOLVE_MODE", raising=False)
+    api = port_loop_api()
+    nodes, pods = loop_cluster(8, N_LOOP_NODES, N_LOOP_PODS)
+    card = asyncio.run(run_loop(api, nodes, pods, TorchBackend(device=cuda),
+                                LOOP_BATCH))
+    cpu = asyncio.run(run_loop(api, nodes, pods, TorchBackend(device="cpu"),
+                               LOOP_BATCH))
+    assert card["assignments"] == cpu["assignments"]
+    assert card["failed"] == cpu["failed"] != {}
+    assert not over_capacity(card["nodes"], card["pods"])
