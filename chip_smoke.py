@@ -128,11 +128,38 @@ Phases (any failure raises and the script exits non-zero with no result):
      torch.profiler the device's busy time and idle share, and over a
      repeat under cProfile the host's own time by area, the busiest
      functions and the cumulative time of the loop's stages;
- 10. the result lines: a `kernels` JSON line (wave_solve's entry also
+ 10. the constraint families (InterPodAffinity and PodTopologySpread),
+     under a scoped KTPU_SOLVE_MODE=auto with serving on: (a) the spread
+     scans (W=1 and W=32, two strategies, 600 nodes, 256 pods, three
+     union-table constraints with keyless and ineligible nodes, a
+     minDomains deficit and exception pins) on the card under sync debug
+     "error" against CPU torch; one chunk of each constraint shape
+     (hostname anti-affinity flagless and greedy, zone affinity and
+     preferred terms, hard spread, every template together) through
+     `TorchBackend()` against `TorchBackend(device="cpu")` on a 96-node
+     cluster in three zones with keyless and tainted nodes and resident
+     pods carrying terms: identical assignments, reasons, counters and
+     spread domain counts; and every template pre-created through
+     `Scheduler.run` on the card and on the CPU: identical bindings and
+     FailedScheduling messages; (b) a one-assign flagless probe of 1024
+     anti-affinity pods on 5000 nodes (the Sinkhorn route's rounding and
+     the verify's rejections), then SchedulingPodAntiAffinity/5000Nodes
+     through `PerfRunner` with greedy pinned: every pod bound, no two
+     `color: blue` pods on one node, wave_solve launched, no node over
+     capacity; (c) TopologySpreading/3000Nodes flagless, every spread scan
+     under sync debug "error": every pod bound, the app=spread-me zone
+     counts within 1, spread chunks in the window; (d)
+     SchedulingPodAffinity/500Nodes: every worker bound in a zone holding
+     a hub. (b) and (c) print what 9(b) prints, with a torch.profiler
+     and a cProfile repeat each (10(c)'s torch.profiler repeat runs
+     TopologySpreading/300Nodes);
+ 11. the result lines: a `kernels` JSON line (wave_solve's entry also
      carries the flagless path's W=1 launches, ms, device ms, plain ms and
-     bound, and the loop's launches in phase 9(b)'s measured window; the
-     probe's, its launches over phase 9(b)'s run), the card's name and
-     power limit from nvidia-smi, and last {"ok": true, "device": {...}}.
+     bound, the loop's launches in phase 9(b)'s measured window, and
+     `constraint_launches`, those of 10(b)'s probe and the measured
+     windows of 10(b) and 10(d); the probe's, its launches over phase
+     9(b)'s run and over 10(b)'s), the card's name and power limit from
+     nvidia-smi, and last {"ok": true, "device": {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. It needs
 one CUDA device; without one, or outside a checkout of the repository, it
@@ -451,24 +478,33 @@ def hetero_chunk(seed: int, n: int, p: int = 1024, r: int = 2,
 @contextlib.contextmanager
 def no_host_sync_in_wave_loop(torch):
     """Run every wave loop of the sharded route
-    (`parallel.sharded._wave_body`) under
+    (`parallel.sharded._wave_body`) and every spread scan
+    (`solver.greedy_assign_rescoring_spread` and its wave form) under
     `torch.cuda.set_sync_debug_mode("error")`: a torch operation that
-    synchronises the host with the card inside the loop raises."""
+    synchronises the host with the card inside one raises."""
+    from kubernetes_tpu_torch.ops import solver
     from kubernetes_tpu_torch.parallel import sharded
 
-    body = sharded._wave_body
+    def guard(fn):
+        def guarded(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return guarded
 
-    def guarded(*args, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return body(*args, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    sharded._wave_body = guarded
+    targets = ((sharded, "_wave_body"),
+               (solver, "greedy_assign_rescoring_spread"),
+               (solver, "greedy_assign_rescoring_spread_wave"))
+    saved = [getattr(mod, name) for mod, name in targets]
+    for (mod, name), fn in zip(targets, saved):
+        setattr(mod, name, guard(fn))
     try:
         yield
     finally:
-        sharded._wave_body = body
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, fn)
 
 
 def sharded_phase(torch, dev, fwk, init_pods, init_assign, measured,
@@ -1805,17 +1841,24 @@ class LoopRun:
 
 
 async def run_loop(api, nodes, pods, backend, batch_size: int,
-                   trickle: bool = False) -> dict:
+                   trickle: bool = False, residents=()) -> dict:
     """Schedule `pods` on `nodes` through `api`'s Scheduler and `backend`.
-    Pre-created (trickle False): every pod is created and queued before
-    `run` opens the loop. Trickle: each pod is created once the one
-    before it is bound or parked unschedulable. Returns the assignments,
-    the FailedScheduling messages per pod, the store's objects, the
-    metrics and the serving tier."""
+    `residents` (pods with a node_name) are created first, and the loop
+    waits until the scheduler's cache holds them. Pre-created (trickle
+    False): every pod is created and queued before `run` opens the loop.
+    Trickle: each pod is created once the one before it is bound or
+    parked unschedulable. Returns the assignments, the FailedScheduling
+    messages per pod, the store's objects, the metrics and the serving
+    tier."""
     lr = LoopRun(api, backend, batch_size)
     await lr.start(nodes)
     names = [name for name, _ in pods]
     try:
+        if residents:
+            await lr.create(residents)
+            await lr.wait(lambda: sum(
+                len(ni.pods) for ni in lr.sched.cache.update_snapshot().nodes)
+                == len(residents), "residents cached")
         if not trickle:
             await lr.create(pods)
             await lr.wait(lambda: lr.queued() == len(pods), "pods queued")
@@ -1941,21 +1984,15 @@ def host_breakdown(prof) -> tuple[dict, list, dict]:
         dict(sorted(cum.items(), key=lambda kv: -kv[1]))
 
 
-def scheduler_perf_phase(torch) -> dict:
-    """Phase 9(b): SchedulingBasic/5000Nodes through the port's PerfRunner
-    and `Scheduler.run`; returns the kernels line's loop entries."""
+def counting_runner_cls(torch):
+    """PerfRunner that counts each route's pods over the measured window,
+    sets the launch counters to 0 just before the measured createPods and
+    reads them just after, and, when asked, profiles that window:
+    `profile` "device" (torch.profiler) or "host" (cProfile)."""
     from kubernetes_tpu_torch.ops import wave_kernel
-    from kubernetes_tpu_torch.ops.backend import TorchBackend
-    from kubernetes_tpu_torch.perf.scheduler_perf import (PerfRunner,
-                                                         SCHEDULING_BASIC)
+    from kubernetes_tpu_torch.perf.scheduler_perf import PerfRunner
 
     class CountingRunner(PerfRunner):
-        """PerfRunner that counts each route's pods over the measured
-        window, sets the launch counters to 0 just before the measured
-        createPods and reads them just after, and, when asked, profiles
-        that window: `profile` "device" (torch.profiler) or "host"
-        (cProfile)."""
-
         def __init__(self, backend, profile: str | None):
             super().__init__(backend=backend, batch_size=LOOP_BATCH)
             self.profile = profile
@@ -2017,76 +2054,622 @@ def scheduler_perf_phase(torch) -> dict:
                              for k, v in self.backend.counters.items()
                              if k != "sinkhorn_iterations"}
 
-    template = SCHEDULING_BASIC["workloadTemplate"]
-    params = next(w["params"] for w in SCHEDULING_BASIC["workloads"]
-                  if w["name"] == "5000Nodes")
-    want = params["initPods"] + params["measurePods"]
+    return CountingRunner
 
-    def one_run(profile: str | None):
-        wave_kernel.probe.launches = 0
-        runner = CountingRunner(TorchBackend(), profile)
-        result = asyncio.run(runner.run(template, params, timeout=900.0))
-        pods = asyncio.run(runner.store.list("pods")).items
-        nodes = asyncio.run(runner.store.list("nodes")).items
-        bound = sum(bool((p.get("spec") or {}).get("nodeName")) for p in pods)
-        bad = over_capacity(nodes, pods)
-        if bound != want or len(pods) != want or bad:
-            raise RuntimeError(f"SchedulingBasic/5000Nodes: {bound}/{want} "
-                               f"bound, nodes over capacity: {bad[:5]}")
-        return runner, result, wave_kernel.probe.launches
 
-    t0 = time.perf_counter()
-    runner, result, probe_launches = one_run(profile=None)
+def perf_run(torch, family: dict, workload: str, profile: str | None):
+    """One run of `family`'s `workload` through the port's PerfRunner and
+    `Scheduler.run` with `TorchBackend()`: every created pod must be bound
+    and no node over capacity on an exact host re-check of the store.
+    Returns (runner, result, probe launches over the run, pod objects)."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    template = family["workloadTemplate"]
+    params = next(w["params"] for w in family["workloads"]
+                  if w["name"] == workload)
+    want = sum(params[op["countParam"][1:]] for op in template
+               if op["opcode"] == "createPods")
+    wave_kernel.probe.launches = 0
+    runner = counting_runner_cls(torch)(TorchBackend(), profile)
+    result = asyncio.run(runner.run(template, params, timeout=900.0))
+    pods = asyncio.run(runner.store.list("pods")).items
+    nodes = asyncio.run(runner.store.list("nodes")).items
+    bound = sum(bool((p.get("spec") or {}).get("nodeName")) for p in pods)
+    bad = over_capacity(nodes, pods)
+    if bound != want or len(pods) != want or bad:
+        raise RuntimeError(f"{family['name']}/{workload}: {bound}/{want} "
+                           f"bound, nodes over capacity: {bad[:5]}")
+    return runner, result, wave_kernel.probe.launches, pods
+
+
+def report_perf(torch, label: str, family: dict, workload: str, first,
+                phase: str, t0: float, device_workload: str | None = None
+                ) -> None:
+    """Print a family run's numbers (`first` from perf_run), then repeat
+    it under torch.profiler (the device's busy time and idle share; of
+    `device_workload` where given, a smaller workload of the family whose
+    trace the profiler processes in seconds) and under cProfile (the
+    host's own time by area, the busiest functions and the cumulative time
+    of the loop's stages)."""
+    runner, result, probe_launches, _ = first
     w, r = runner.window, result.as_dict()
     routes = w["routes"]
-    card_pods = routes["backend_pods"] + r["serving_fast_path_pods_total"]
-    print(f"scheduler loop SchedulingBasic/5000Nodes (PerfRunner, "
-          f"Scheduler.run, TorchBackend(), batch_size {LOOP_BATCH}): "
-          f"SchedulingThroughput {r['throughput_pods_per_sec']} pods/s, "
-          f"measured_seconds {result.measured_seconds:.6f}, attempt ms "
-          f"p50 {r['attempt_p50_ms']} p90 {r['attempt_p90_ms']} p99 "
+    print(f"{label} {family['name']}/{workload} (PerfRunner, Scheduler.run, "
+          f"TorchBackend(), batch_size {LOOP_BATCH}): SchedulingThroughput "
+          f"{r['throughput_pods_per_sec']} pods/s, measured_seconds "
+          f"{result.measured_seconds:.6f}, attempt ms p50 "
+          f"{r['attempt_p50_ms']} p90 {r['attempt_p90_ms']} p99 "
           f"{r['attempt_p99_ms']} p999 {r['attempt_p999_ms']} (exact "
           f"{r['attempt_percentiles_exact']}), fragmentation_pct "
           f"{r['fragmentation_pct']}, fragmentation_occupied_pct "
-          f"{r['fragmentation_occupied_pct']}; {want} pods bound, no node "
-          f"over capacity")
-    print(f"scheduler loop routes over the measured window: fast-path pods "
+          f"{r['fragmentation_occupied_pct']}; every pod bound, no node over "
+          f"capacity")
+    print(f"{label} routes over the measured window: fast-path pods "
           f"{r['serving_fast_path_pods_total']}, backend dispatches "
           f"{routes['backend_dispatches']} with {routes['backend_pods']} "
-          f"pods, host-path pods {routes['host_path_pods']}, optimal_solves "
-          f"{w['counters']['optimal_solves']}, chunks "
-          f"{w['counters']['chunks']}, wave_solve launches {w['launches']}; "
-          f"probe launches over the run {probe_launches}")
-    print(f"scheduler loop TorchBackend.timings over the measured window: "
-          f"{json.dumps(w['timings'])}; window wall {w['wall']:.6f} s")
-    print(f"scheduler loop events: emitted {result.events_emitted_total}, "
-          f"dropped {result.events_dropped_total}")
-    if card_pods <= routes["host_path_pods"] or w["launches"] == 0 \
-            or probe_launches == 0:
+          f"pods, host-path pods {routes['host_path_pods']}, unschedulable "
+          f"attempts (requeued) {r['unschedulable_total']}; "
+          f"TorchBackend.counters {json.dumps(w['counters'])}, wave_solve "
+          f"launches {w['launches']}; probe launches over the run "
+          f"{probe_launches}")
+    print(f"{label} TorchBackend.timings over the measured window: "
+          f"{json.dumps(w['timings'])}; window wall {w['wall']:.6f} s, "
+          f"assign share {w['timings']['assign_s'] / w['wall']:.4f}; events "
+          f"emitted {result.events_emitted_total}, dropped "
+          f"{result.events_dropped_total}")
+    card_pods = routes["backend_pods"] + r["serving_fast_path_pods_total"]
+    if card_pods <= routes["host_path_pods"] or probe_launches == 0:
         raise RuntimeError(f"the measured window did not run on the card: "
                            f"routes {routes}, fast-path pods "
-                           f"{r['serving_fast_path_pods_total']}, wave_solve "
-                           f"launches {w['launches']}, probe launches "
-                           f"{probe_launches}")
-    prof_runner, prof_result, _ = one_run(profile="device")
+                           f"{r['serving_fast_path_pods_total']}, probe "
+                           f"launches {probe_launches}")
+    prof_workload = device_workload or workload
+    prof_runner, prof_result, _, _ = perf_run(torch, family, prof_workload,
+                                              "device")
     pw = prof_runner.window
     busy_us = sum(device_us(e) for e in prof_runner.prof.key_averages())
-    print(f"profiled scheduler loop measured window: wall {pw['wall']:.6f} "
-          f"s, throughput {prof_result.throughput:.1f} pods/s, device busy "
+    print(f"profiled {label} measured window ({family['name']}/"
+          f"{prof_workload}): wall {pw['wall']:.6f} s, "
+          f"throughput {prof_result.throughput:.1f} pods/s, device busy "
           f"{busy_us / 1e6:.6f} s" + (
               f", idle share {1 - busy_us / 1e6 / pw['wall']:.4f}"
               if busy_us else ", device time not measured by the profiler")
           )
-    host_runner, host_result, _ = one_run(profile="host")
+    host_runner, host_result, _, _ = perf_run(torch, family, workload,
+                                              "host")
     areas, top, cum = host_breakdown(host_runner.prof)
-    print(f"host profile of the scheduler loop measured window (cProfile, "
-          f"wall {host_runner.window['wall']:.6f} s, throughput "
+    print(f"host profile of the {label} measured window (cProfile, wall "
+          f"{host_runner.window['wall']:.6f} s, throughput "
           f"{host_result.throughput:.1f} pods/s): own seconds by area "
           f"{json.dumps(areas)}; cumulative seconds {json.dumps(cum)}")
     print(f"host profile top functions by own seconds: {json.dumps(top)}; "
-          f"phase 9(b) {time.perf_counter() - t0:.1f} s")
-    return {"loop_launches": w["launches"],
-            "loop_probe_launches": probe_launches}
+          f"phase {phase} {time.perf_counter() - t0:.1f} s")
+
+
+def scheduler_perf_phase(torch) -> dict:
+    """Phase 9(b): SchedulingBasic/5000Nodes through the port's PerfRunner
+    and `Scheduler.run`; returns the kernels line's loop entries."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_BASIC
+
+    t0 = time.perf_counter()
+    first = perf_run(torch, SCHEDULING_BASIC, "5000Nodes", None)
+    launches = first[0].window["launches"]
+    if launches == 0:
+        raise RuntimeError("phase 9(b): no wave_solve launch in the "
+                           "measured window")
+    report_perf(torch, "scheduler loop", SCHEDULING_BASIC, "5000Nodes",
+                first, "9(b)", t0)
+    return {"loop_launches": launches, "loop_probe_launches": first[2]}
+
+
+# -- phase 10: the constraint families -------------------------------------
+
+HOSTNAME_KEY = "kubernetes.io/hostname"
+ZONE_KEY = "topology.kubernetes.io/zone"
+ZONES = ("zone-a", "zone-b", "zone-c")
+#: Hostname anti-affinity among `color: blue` pods (SchedulingPodAntiAffinity).
+ANTI_BLUE = {"podAntiAffinity": {
+    "requiredDuringSchedulingIgnoredDuringExecution": [{
+        "labelSelector": {"matchLabels": {"color": "blue"}},
+        "topologyKey": HOSTNAME_KEY}]}}
+#: Phase 10(a)'s pod templates (see `constraint_pod`).
+CONSTRAINT_KINDS = ("anti", "worker", "pref", "spread", "md", "plain",
+                    "zonal")
+N_CONSTRAINT_NODES, N_CONSTRAINT_PODS = 96, 288
+
+
+def _term(sel: dict, key: str, ns_sel=None) -> dict:
+    t = {"labelSelector": {"matchLabels": sel}, "topologyKey": key}
+    if ns_sel is not None:
+        t["namespaceSelector"] = ns_sel
+    return t
+
+
+def constraint_cluster(seed: int, n_nodes: int) -> tuple[list, list]:
+    """A seeded cluster for the constraint families, as (name, make_node
+    kwargs) and resident (name, make_pod kwargs) pairs, so each package
+    builds its own objects: nodes of cpu 8 / memory 32Gi / pods 20 in
+    three zones, every 11th from the 6th without the zone key, a
+    NoSchedule taint on every 9th from the 5th; 0-2 resident pods per node
+    in two namespaces, labeled web / db / hub (tier: hub) / batch, half the
+    db pods with hostname anti-affinity to `color: blue`, half the batch
+    pods preferring zones with web pods."""
+    rng = np.random.default_rng(seed)
+    nodes, residents = [], []
+    for i in range(n_nodes):
+        name = f"node-{i}"
+        kw = {"allocatable": {"cpu": "8", "memory": "32Gi", "pods": "20"}}
+        if i % 11 != 5:
+            kw["labels"] = {ZONE_KEY: ZONES[i % 3]}
+        if i % 9 == 4:
+            kw["taints"] = [{"key": "dedicated", "value": "infra",
+                             "effect": "NoSchedule"}]
+        nodes.append((name, kw))
+        for k in range(int(rng.integers(0, 3))):
+            kind = int(rng.integers(0, 4))
+            labels = {"app": ("web", "db", "hub", "batch")[kind]}
+            pkw = {"requests": {"cpu": "500m", "memory": "1Gi"},
+                   "node_name": name, "namespace": ("default", "other")[k % 2]}
+            if kind == 1 and rng.random() < 0.5:
+                pkw["affinity"] = ANTI_BLUE
+            elif kind == 3 and rng.random() < 0.5:
+                pkw["affinity"] = {"podAffinity": {
+                    "preferredDuringSchedulingIgnoredDuringExecution": [{
+                        "weight": 10,
+                        "podAffinityTerm": _term({"app": "web"}, ZONE_KEY)}]}}
+            if kind == 2:
+                labels["tier"] = "hub"
+            pkw["labels"] = labels
+            residents.append((f"res-{i}-{k}", pkw))
+    return nodes, residents
+
+
+def constraint_pod(kind: str, i: int) -> tuple[str, dict]:
+    """One pending pod of a phase 10(a) template, as (name, make_pod
+    kwargs): `anti` hostname anti-affinity to `color: blue` (and blue
+    itself); `worker` required zone affinity to hubs; `pref` preferred zone
+    affinity to db pods and preferred hostname anti-affinity to its own
+    template under a `{}` namespace selector; `spread` a hard zone spread
+    (maxSkew 1) with a soft hostname spread (maxSkew 5); `md` a hard zone
+    spread whose minDomains (5) exceeds the zone count; `plain` a labeled
+    pod (PodTopologySpread's default constraints score it); `zonal` a
+    `spread` pod that is also blue and requires zone anti-affinity to
+    blue pods (the verify rejects it once a blue pod of the same batch
+    holds its zone, and its count folds out of the chained spread
+    counts)."""
+    small = {"cpu": "100m", "memory": "250Mi"}
+    if kind == "anti":
+        return f"anti-{i}", {"labels": {"app": "anti", "color": "blue"},
+                             "requests": small, "affinity": ANTI_BLUE}
+    if kind == "worker":
+        return f"worker-{i}", {
+            "labels": {"tier": "worker"},
+            "requests": {"cpu": "200m", "memory": "500Mi"},
+            "affinity": {"podAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [
+                    _term({"tier": "hub"}, ZONE_KEY)]}}}
+    if kind == "pref":
+        return f"pref-{i}", {
+            "labels": {"app": "pref"},
+            "requests": {"cpu": "300m", "memory": "500Mi"},
+            "affinity": {
+                "podAffinity": {
+                    "preferredDuringSchedulingIgnoredDuringExecution": [{
+                        "weight": 50,
+                        "podAffinityTerm": _term({"app": "db"}, ZONE_KEY)}]},
+                "podAntiAffinity": {
+                    "preferredDuringSchedulingIgnoredDuringExecution": [{
+                        "weight": 20, "podAffinityTerm":
+                        _term({"app": "pref"}, HOSTNAME_KEY, {})}]}}}
+    if kind == "spread":
+        sel = {"matchLabels": {"app": "spread-me"}}
+        return f"spread-{i}", {
+            "labels": {"app": "spread-me"}, "requests": small,
+            "topology_spread_constraints": [
+                {"maxSkew": 1, "topologyKey": ZONE_KEY,
+                 "whenUnsatisfiable": "DoNotSchedule", "labelSelector": sel},
+                {"maxSkew": 5, "topologyKey": HOSTNAME_KEY,
+                 "whenUnsatisfiable": "ScheduleAnyway",
+                 "labelSelector": sel}]}
+    if kind == "zonal":
+        name, kw = constraint_pod("spread", i)
+        kw["labels"] = {"app": "spread-me", "color": "blue"}
+        kw["affinity"] = {"podAntiAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": [
+                _term({"color": "blue"}, ZONE_KEY)]}}
+        return f"zonal-{i}", kw
+    if kind == "md":
+        return f"md-{i}", {
+            "labels": {"app": "md"}, "requests": small,
+            "topology_spread_constraints": [
+                {"maxSkew": 2, "topologyKey": ZONE_KEY, "minDomains": 5,
+                 "whenUnsatisfiable": "DoNotSchedule",
+                 "labelSelector": {"matchLabels": {"app": "md"}}}]}
+    return f"plain-{i}", {"labels": {"app": "web"},
+                          "requests": {"cpu": "250m", "memory": "500Mi"}}
+
+
+def constraint_pods(kinds, count: int) -> list[tuple[str, dict]]:
+    return [constraint_pod(kinds[i % len(kinds)], i) for i in range(count)]
+
+
+def constraint_snapshot(types_mod, make_node, make_pod, nodes, residents,
+                        generation: int = 1):
+    """A Snapshot of `types_mod`'s package over `constraint_cluster`'s
+    nodes and residents."""
+    by_node: dict[str, list] = {}
+    for name, kw in residents:
+        by_node.setdefault(kw["node_name"], []).append(make_pod(name, **kw))
+    infos = []
+    for name, kw in nodes:
+        ni = types_mod.NodeInfo(make_node(name, **kw))
+        for pd in by_node.get(name, ()):
+            ni.add_pod(types_mod.PodInfo(pd))
+        infos.append(ni)
+    return types_mod.Snapshot(infos, generation)
+
+
+def spread_case(seed: int, n: int = 40, p: int = 56, r: int = 2):
+    """A seeded chunk and union spread table for the spread scans: uniform
+    and half-size nodes, five class rows (tied static scores) and the empty
+    class, ~10% exception pins; three constraints over a zone key (3
+    values, ~10% keyless) and a rack key (5 values, ~15% keyless), the
+    second constraint eligible on ~70% of the nodes and under a minDomains
+    deficit; pods of no template, of the first constraint's, or of the
+    other two's, a template's pods counted by it ~85% of the time
+    (non-self-matching selectors otherwise), and ~10% of the template-free
+    pods counted by the first. Returns (solve arrays, table arrays in
+    index form, counts, applies, contrib, rows, exc), all numpy."""
+    rng = np.random.default_rng(seed)
+    alloc = np.tile(np.array([[8000, 16000]], np.int32), (n, 1))
+    alloc[rng.random(n) < 0.3] = [4000, 8000]
+    used = (alloc * rng.choice([0.0, 0.25, 0.5], (n, 1))).astype(np.int32)
+    free_pods = rng.integers(2, 9, n).astype(np.int32)
+    classes = 6
+    mask = rng.random((classes, n)) < 0.9
+    mask[0] = False
+    static = rng.choice([0.0, 10.0, 20.0], (classes, n)).astype(np.float32)
+    req_rows = np.array([[0, 0], [500, 1000], [1000, 2000], [250, 500],
+                         [2000, 1000], [500, 4000]], np.int32)
+    rows = (1 + rng.integers(0, classes - 1, p)).astype(np.int32)
+    rows[rng.random(p) < 0.05] = 0      # the empty class: fits nowhere
+    exc = np.full((p,), -1, np.int32)
+    pinned = rng.random(p) < 0.1
+    exc[pinned] = rng.integers(0, n, int(pinned.sum()))
+    zone = rng.integers(0, 3, n)
+    zone[rng.random(n) < 0.1] = -1
+    rack = rng.integers(0, 5, n)
+    rack[rng.random(n) < 0.15] = -1
+    keys = (zone, zone, rack)
+    elig = np.ones((3, n), bool)
+    elig[1] = rng.random(n) < 0.7
+    C = 3
+    node_dom = np.full((n, C), -1, np.int64)
+    has_key = np.zeros((n, C), bool)
+    dom_cid = []
+    for c, key in enumerate(keys):
+        has_key[:, c] = key >= 0
+        for v in np.unique(key[(key >= 0) & elig[c]]):
+            node_dom[(key == v) & elig[c], c] = len(dom_cid)
+            dom_cid.append(c)
+    dom_cid = np.asarray(dom_cid, np.int64)
+    counts = rng.integers(0, 4, len(dom_cid)).astype(np.int32)
+    tpl = rng.integers(0, 3, p)          # 0: none, 1: cons 0, 2: cons 1+2
+    applies = np.zeros((p, C), bool)
+    applies[tpl == 1, 0] = True
+    applies[tpl == 2, 1:] = True
+    contrib = (applies & (rng.random((p, C)) < 0.85)).astype(np.int32)
+    contrib[(tpl == 0) & (rng.random(p) < 0.3), 0] = 1
+    arrays = dict(
+        req_q=req_rows[rows], req_nz_q=req_rows[rows],
+        free_q=alloc - used, free_pods=free_pods, used_nz_q=used,
+        alloc_q=alloc, mask=mask, static_scores=static,
+        fit_col_w=np.ones((r,), np.float32),
+        bal_col_mask=np.ones((r,), np.bool_),
+        shape_u=np.array([0.0, 100.0], np.float32),
+        shape_s=np.array([0.0, 10.0], np.float32),
+        w_fit=np.float32(1.0), w_bal=np.float32(1.0))
+    table = dict(node_dom=node_dom, dom_cid=dom_cid,
+                 max_skew=np.array([1, 2, 1], np.int32),
+                 min_ok=np.array([True, False, True]), has_key=has_key)
+    return arrays, table, counts, applies, contrib, rows, exc
+
+
+#: the order of the solve arrays in the scans' signatures.
+SOLVE_ORDER = ("req_q", "req_nz_q", "free_q", "free_pods", "used_nz_q",
+               "alloc_q", "mask", "static_scores", "fit_col_w",
+               "bal_col_mask", "shape_u", "shape_s", "w_fit", "w_bal")
+
+
+def run_spread_scan(torch, case, strategy: str, wave_w: int, device):
+    """The port's spread scan (W=1 or its wave form) on `case` on
+    `device`. Returns (assign, counts, (commits, replays) or None), numpy
+    and ints."""
+    from kubernetes_tpu_torch.ops import solver
+
+    arrays, table, counts, applies, contrib, rows, exc = case
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    args = [float(arrays[k]) if k in ("w_fit", "w_bal") else put(arrays[k])
+            for k in SOLVE_ORDER]
+    tab = solver.SpreadTable(*(put(table[k]) for k in (
+        "node_dom", "dom_cid", "max_skew", "min_ok", "has_key")))
+    rest = (put(counts), put(applies), put(contrib))
+    if wave_w == 1:
+        a, c = solver.greedy_assign_rescoring_spread(
+            *args, strategy, tab, *rest, rows=put(rows), exc=put(exc))
+        return a.cpu().numpy(), c.cpu().numpy(), None
+    a, c, com, rep = solver.greedy_assign_rescoring_spread_wave(
+        *args, strategy, wave_w, tab, *rest, rows=put(rows), exc=put(exc))
+    return a.cpu().numpy(), c.cpu().numpy(), (int(com), int(rep))
+
+
+def spread_scan_phase(torch, dev, seed: int) -> None:
+    """Phase 10(a), the spread scans: W=1 and W=32 on the card (under
+    sync debug "error") against CPU torch on the same seeded cases."""
+    for k, strategy in enumerate(("LeastAllocated", "MostAllocated")):
+        case = spread_case(seed + k, n=600, p=256)
+        for w in (1, 32):
+            with no_host_sync_in_wave_loop(torch):
+                card = run_spread_scan(torch, case, strategy, w, dev)
+            cpu = run_spread_scan(torch, case, strategy, w, "cpu")
+            same = (np.array_equal(card[0], cpu[0])
+                    and np.array_equal(card[1], cpu[1])
+                    and card[2] == cpu[2])
+            print(f"compare spread scan W={w} ({strategy}, 600 nodes, 256 "
+                  f"pods, 3 constraints), card vs CPU: "
+                  f"{'identical' if same else 'DIFFER'}; placed "
+                  f"{int((card[0] >= 0).sum())}, commits/replays {card[2]}")
+            if not same:
+                raise RuntimeError("the spread scan on the card differs "
+                                   "from CPU torch")
+
+
+def constraint_assign(backend, snapshot, fwk, pods, mode: str):
+    """`backend`'s assign() over `pods` under KTPU_SOLVE_MODE `mode`,
+    keeping the context (its chained spread counts)."""
+    from kubernetes_tpu_torch.utils import flags
+
+    with flags.scoped_set("KTPU_SOLVE_MODE", mode):
+        backend._check_supported(pods, fwk)
+        ctx = backend._start(pods, snapshot, fwk)
+        backend._run_chunks(ctx)
+    return ctx
+
+
+def constraint_chunks_phase(torch, seed: int) -> None:
+    """Phase 10(a), the backend: one chunk of each constraint shape
+    through `TorchBackend()` on the card and `TorchBackend(device="cpu")`:
+    identical assignments, diagnostics' reasons and spread counts."""
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler import types
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+
+    fwk = Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS)
+    nodes, residents = constraint_cluster(seed, N_CONSTRAINT_NODES)
+    shapes = (("anti-affinity, flagless", ("anti",), 80, "auto"),
+              ("anti-affinity, greedy", ("anti",), 80, "greedy"),
+              ("affinity and preferred terms", ("worker", "pref", "plain"),
+               96, "auto"),
+              ("hard spread", ("spread",), 96, "auto"),
+              ("hetero", CONSTRAINT_KINDS, N_CONSTRAINT_PODS, "auto"))
+    for what, kinds, count, mode in shapes:
+        pods = [types.PodInfo(make_pod(n, **kw))
+                for n, kw in constraint_pods(kinds, count)]
+        out = []
+        for backend in (TorchBackend(), TorchBackend(device="cpu")):
+            snap = constraint_snapshot(types, make_node, make_pod, nodes,
+                                       residents)
+            with no_host_sync_in_wave_loop(torch):
+                ctx = constraint_assign(backend, snap, fwk, pods, mode)
+            counts = None
+            if ctx.spread and ctx.spread["cons"]:
+                counts = ctx.spread["dev_counts"].cpu().numpy()
+            reasons = {k: sorted(getattr(d, "reason_counts", None) or {
+                n: s.reasons for n, s in d.items()}.items())
+                for k, d in ctx.diagnostics.items()}
+            out.append((ctx.assignments, reasons, counts,
+                        dict(backend.counters)))
+        card, cpu = out
+        same = card[0] == cpu[0] and card[1] == cpu[1] and (
+            (card[2] is None and cpu[2] is None)
+            or np.array_equal(card[2], cpu[2])) and card[3] == cpu[3]
+        placed = sum(v is not None for v in card[0].values())
+        print(f"compare TorchBackend chunk, {what} ({count} pods on "
+              f"{N_CONSTRAINT_NODES} nodes, KTPU_SOLVE_MODE={mode}), card vs "
+              f"CPU: {'identical' if same else 'DIFFER'}; placed {placed}, "
+              f"counters {json.dumps(card[3])}, spread domain counts "
+              f"{None if card[2] is None else card[2].tolist()}")
+        if not same:
+            raise RuntimeError(f"TorchBackend on the card differs from the "
+                               f"CPU on the {what} chunk")
+
+
+def constraint_loop_phase(torch, seed: int) -> None:
+    """Phase 10(a), the loop: the phase's cluster with its residents and
+    every template pre-created, through `Scheduler.run` on the card and
+    on the CPU: identical bindings and FailedScheduling messages."""
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    api = port_loop_api()
+    nodes, residents = constraint_cluster(seed, N_CONSTRAINT_NODES)
+    pods = constraint_pods(CONSTRAINT_KINDS, N_CONSTRAINT_PODS)
+    t0 = time.perf_counter()
+    with no_host_sync_in_wave_loop(torch):
+        card = asyncio.run(run_loop(api, nodes, pods, TorchBackend(),
+                                    LOOP_BATCH, residents=residents))
+    cpu = asyncio.run(run_loop(api, nodes, pods, TorchBackend(device="cpu"),
+                               LOOP_BATCH, residents=residents))
+    same = (card["assignments"] == cpu["assignments"],
+            card["failed"] == cpu["failed"])
+    pending = {name for name, _ in pods}
+    placed = sum(v is not None for k, v in card["assignments"].items()
+                 if k in pending)
+    print(f"compare scheduler loop, constraint templates pre-created "
+          f"({N_CONSTRAINT_NODES} nodes, {len(residents)} residents, "
+          f"{N_CONSTRAINT_PODS} pods), card vs CPU: nodeName "
+          f"{'identical' if same[0] else 'DIFFER'}, FailedScheduling "
+          f"messages {'identical' if same[1] else 'DIFFER'}; {placed} bound, "
+          f"{len(card['failed'])} with FailedScheduling events; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(same):
+        raise RuntimeError("the constraint loop on the card placed pods "
+                           "differently from the CPU")
+    bad = over_capacity(card["nodes"], card["pods"])
+    if bad:
+        raise RuntimeError(f"nodes over capacity: {bad}")
+
+
+def blue_pods_share_a_node(pods) -> list[str]:
+    seen: dict[str, str] = {}
+    clash = []
+    for p in pods:
+        node = (p.get("spec") or {}).get("nodeName")
+        labels = p["metadata"].get("labels") or {}
+        if node and labels.get("color") == "blue":
+            if node in seen:
+                clash.append(node)
+            seen[node] = p["metadata"]["name"]
+    return clash
+
+
+def flagless_anti_probe(torch, nodes_n: int, pods_n: int) -> dict:
+    """One flagless assign() of `pods_n` anti-affinity pods at `nodes_n`
+    empty nodes: the Sinkhorn route's rounding and the verify's
+    rejections of pods that share a node."""
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler import types
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+    from kubernetes_tpu_torch.utils import flags
+
+    snap = types.Snapshot([types.NodeInfo(make_node(
+        f"node-{i}", labels={ZONE_KEY: "zone-a"})) for i in range(nodes_n)],
+        1)
+    fwk = Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS)
+    pods = [types.PodInfo(make_pod(f"anti-{i}", **constraint_pod("anti", i)[1]))
+            for i in range(pods_n)]
+    backend = TorchBackend()
+    wave_kernel.wave_solve.launches = 0
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"):
+        got, _ = backend.assign(pods, snap, fwk)
+    return {"placed": sum(v is not None for v in got.values()),
+            "optimal_solves": backend.counters["optimal_solves"],
+            "verify_rejects": backend.counters["verify_rejects"],
+            "wave_solve_launches": wave_kernel.wave_solve.launches}
+
+
+def anti_affinity_phase(torch) -> dict:
+    """Phase 10(b): SchedulingPodAntiAffinity/5000Nodes through the port's
+    PerfRunner and `Scheduler.run` with `TorchBackend()`, greedy pinned.
+    Flagless, every full dispatch takes the Sinkhorn route, whose W=1
+    rounding of one class's plan packs the class onto one node at a time,
+    so the verify rejects all but one pod per node and the rest wait for a
+    requeue event (the reference does the same); a one-assign probe of
+    that route is printed first."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        SCHEDULING_POD_ANTI_AFFINITY)
+    from kubernetes_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    probe = flagless_anti_probe(torch, 5000, 1024)
+    print(f"flagless anti-affinity probe (1024 pods, 5000 empty nodes, one "
+          f"TorchBackend().assign, KTPU_SOLVE_MODE=auto): "
+          f"{json.dumps(probe)}")
+    with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
+        first = perf_run(torch, SCHEDULING_POD_ANTI_AFFINITY, "5000Nodes",
+                         None)
+        clash = blue_pods_share_a_node(first[3])
+        launches = first[0].window["launches"]
+        if clash or launches == 0:
+            raise RuntimeError(f"phase 10(b): blue pods share nodes "
+                               f"{clash[:5]}, wave_solve launches "
+                               f"{launches}")
+        print("SchedulingPodAntiAffinity/5000Nodes: no two color: blue pods "
+              "share a node")
+        report_perf(torch, "constraint loop (greedy pinned)",
+                    SCHEDULING_POD_ANTI_AFFINITY, "5000Nodes", first,
+                    "10(b)", t0)
+    return {"launches": launches + probe["wave_solve_launches"],
+            "probe_launches": first[2]}
+
+
+def topology_spreading_phase(torch) -> None:
+    """Phase 10(c): TopologySpreading/3000Nodes, flagless, every spread
+    scan under sync debug "error": every pod bound, the final zone counts
+    of app=spread-me within 1 of each other. Its torch.profiler repeat
+    runs TopologySpreading/300Nodes (1000 measured pods): the spread
+    scan's ~70 small kernels per pod make a 3000Nodes trace of hundreds of
+    thousands of events, which the profiler takes minutes to process."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import TOPOLOGY_SPREADING
+
+    t0 = time.perf_counter()
+    with no_host_sync_in_wave_loop(torch):
+        first = perf_run(torch, TOPOLOGY_SPREADING, "3000Nodes", None)
+    n = next(w["params"]["initNodes"] for w in TOPOLOGY_SPREADING["workloads"]
+             if w["name"] == "3000Nodes")
+    per_zone = dict.fromkeys(ZONES, 0)
+    for p in first[3]:
+        if (p["metadata"].get("labels") or {}).get("app") == "spread-me":
+            i = int(p["spec"]["nodeName"].rsplit("-", 1)[1])
+            per_zone[ZONES[i // n]] += 1
+    skew = max(per_zone.values()) - min(per_zone.values())
+    counters = first[0].window["counters"]
+    print(f"TopologySpreading/3000Nodes: app=spread-me per zone "
+          f"{json.dumps(per_zone)}, skew {skew}; spread chunks in the window "
+          f"{counters['spread_chunks']}; spread_poisoned 0 (a pod that "
+          f"misses the union table raises)")
+    if skew > 1 or counters["spread_chunks"] == 0:
+        raise RuntimeError(f"phase 10(c): zone skew {skew}, spread chunks "
+                           f"{counters['spread_chunks']}")
+    report_perf(torch, "constraint loop", TOPOLOGY_SPREADING, "3000Nodes",
+                first, "10(c)", t0, device_workload="300Nodes")
+
+
+def pod_affinity_phase(torch) -> int:
+    """Phase 10(d): SchedulingPodAffinity/500Nodes, flagless: every worker
+    bound in a zone that holds a hub. Returns wave_solve's launches in its
+    measured window."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        SCHEDULING_POD_AFFINITY)
+
+    t0 = time.perf_counter()
+    runner, result, _, pods = perf_run(torch, SCHEDULING_POD_AFFINITY,
+                                       "500Nodes", None)
+    n = next(w["params"]["initNodes"]
+             for w in SCHEDULING_POD_AFFINITY["workloads"]
+             if w["name"] == "500Nodes")
+
+    def zone(p):
+        return ZONES[int(p["spec"]["nodeName"].rsplit("-", 1)[1]) // n]
+
+    hub_zones = {zone(p) for p in pods
+                 if p["metadata"]["labels"].get("tier") == "hub"}
+    workers = [p for p in pods
+               if p["metadata"]["labels"].get("tier") == "worker"]
+    stray = [p["metadata"]["name"] for p in workers
+             if zone(p) not in hub_zones]
+    w = runner.window
+    print(f"constraint loop SchedulingPodAffinity/500Nodes: "
+          f"SchedulingThroughput {result.throughput:.2f} pods/s, "
+          f"measured_seconds {result.measured_seconds:.6f}; {len(workers)} "
+          f"workers bound, all in a zone holding a hub ({sorted(hub_zones)}): "
+          f"{not stray}; TorchBackend.counters {json.dumps(w['counters'])}, "
+          f"wave_solve launches {w['launches']}; phase 10(d) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if stray:
+        raise RuntimeError(f"phase 10(d): workers outside hub zones "
+                           f"{stray[:5]}")
+    return w["launches"]
 
 
 def main() -> int:
@@ -2112,7 +2695,7 @@ def main() -> int:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-10 (see the module docstring)."""
+    """Phases 1-11 (see the module docstring)."""
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
@@ -2449,7 +3032,19 @@ def smoke(torch, seed: int) -> int:
         loop_equality_phase(torch, seed)
         loop = scheduler_perf_phase(torch)
 
-    # -- 10. result --------------------------------------------------------
+    # -- 10. the constraint families ---------------------------------------
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        t10 = time.perf_counter()
+        spread_scan_phase(torch, dev, seed)
+        constraint_chunks_phase(torch, seed)
+        constraint_loop_phase(torch, seed)
+        print(f"phase 10(a) {time.perf_counter() - t10:.1f} s")
+        anti = anti_affinity_phase(torch)
+        topology_spreading_phase(torch)
+        affinity_launches = pod_affinity_phase(torch)
+
+    # -- 11. result --------------------------------------------------------
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -2458,13 +3053,15 @@ def smoke(torch, seed: int) -> int:
          "launches": launches["wave_solve"], "max_abs_err": max_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None, **flagless,
-         "loop_launches": loop["loop_launches"]},
+         "loop_launches": loop["loop_launches"],
+         "constraint_launches": anti["launches"] + affinity_launches},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,
          "ms": probe_ms, "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
          "bound_by": "bytes", "library_ms": probe_plain_ms,
-         "loop_launches": loop["loop_probe_launches"]},
+         "loop_launches": loop["loop_probe_launches"],
+         "constraint_launches": anti["probe_launches"]},
         *sharded_entries,
     ]}))
     smi = subprocess.run(

@@ -1,39 +1,55 @@
 """TorchBackend: the batched scheduling backend on one CUDA device.
 
 Counterpart of `kubernetes_tpu/ops/backend.py`'s `TPUBackend`, cut to the
-greedy wavefront route and the Sinkhorn optimal route of its batch cycle:
-`assign(pods, snapshot, fwk)` compiles the snapshot to dense tensors
-(ops/tensorize.py), dedupes each chunk's pods into equivalence classes with
-(C, N) class planes (the host filter and score rows of the plugins without
-device kernels), and runs one device pass per chunk — `mask_solve_update`:
-plugin masks → scores → the solve → the used-state update. The reference's
-solve-mode policy (`AdaptiveTuner.solve_mode`, `KTPU_SOLVE_MODE`) picks
-the solve per chunk:
+greedy wavefront route, the Sinkhorn optimal route and the spread scan of
+its batch cycle: `assign(pods, snapshot, fwk)` compiles the snapshot to
+dense tensors (ops/tensorize.py), dedupes each chunk's pods into
+equivalence classes with (C, N) class planes (the host filter and score
+rows of the plugins without device kernels), and runs one device pass per
+chunk — `mask_solve_update`: plugin masks → scores → the solve → the
+used-state update. The reference's solve-mode policy
+(`AdaptiveTuner.solve_mode`, `KTPU_SOLVE_MODE`) picks the solve per chunk:
 
 - greedy: the multistart wavefront solve through the hand-written kernel
   (ops/wave_kernel.py) at the tuner's width W;
 - optimal (flagless, every chunk of 64 or more real pods with class
-  planes below 32768 nodes): the chunk-start scores are the cost of
-  `solver.sinkhorn_plan` over the class planes, and its log-plan, with
-  the live weights zeroed, is rounded by the W=1 multistart scan — one
-  launch of the same kernel at W=1.
+  planes below 32768 nodes and no spread): the chunk-start scores are the
+  cost of `solver.sinkhorn_plan` over the class planes, and its log-plan,
+  with the live weights zeroed, is rounded by the W=1 multistart scan —
+  one launch of the same kernel at W=1;
+- spread (a chunk with pods gated by hard PodTopologySpread constraints,
+  or counted by them while a later chunk is gated): the spread scan
+  (`solver.greedy_assign_rescoring_spread` and its wave form) in identity
+  order at the tuner's W, the domain counts of one union spread table
+  riding its carry.
+
+The constraint families are host rows, as in the reference:
+InterPodAffinity's filter and score rows and PodTopologySpread's score rows
+compile over interned label signatures (ops/affinity.py) against the
+snapshot, and hard spread constraints ride the spread scan. Pods placed
+earlier in the same assign() are checked by the host verify's delta
+affinity check (a conflict is rejected and requeues).
 
 The (N, 2R+1) used-state pack stays on the device and chains from chunk to
 chunk with no host round trip. It is seeded at each assign() from the
 snapshot, or, when the serving tier's resident planes are attached
 (`resident`, serving/resident.py), from a copy of their refreshed pack.
-Assignments are then verified on the host with exact integer arithmetic,
-and unassigned pods get per-plugin diagnostics. Lone pods have a route of
-their own beside this one: the serving fast path (serving/fastpath.py,
+Chunks are pipelined as in the reference: up to `pipeline_depth` chunks
+are dispatched ahead of the host verify of the oldest. Assignments are
+then verified on the host with exact integer arithmetic, and unassigned
+pods get per-plugin diagnostics. Lone pods have a route of their own
+beside this one: the serving fast path (serving/fastpath.py,
 `solver.solve_one`), which places a pod where this cycle's first scan step
 would.
 
-Not covered by this slice, and refused with NotImplementedError rather than
-scheduled on a partial model: inter-pod affinity, topology spread, resource
-claims, volumes, host ports, gangs, and any plugin at a PreFilter, Filter,
-PreScore or Score point beyond the six of `MODELLED_PLUGINS`
-(NodeResourceTopologyMatch among them). Plugins at none of those points
-(queue sort, gates, bind) are the scheduler loop's and pass.
+Not covered, and refused with NotImplementedError rather than scheduled on
+a partial model: resource claims, volumes, host ports, gangs, and any
+plugin at a PreFilter, Filter, PreScore or Score point beyond the eight of
+`MODELLED_PLUGINS` (NodeResourceTopologyMatch among them). Plugins at none
+of those points (queue sort, gates, bind) are the scheduler loop's and
+pass. Where the reference falls back to host rows and a stateful verify
+for spread pods that miss the union table (`spread_poisoned`), this
+package raises.
 
 When the scheduler attaches its metrics (`metrics`, `tracer`), each chunk
 observes `scheduler_tpu_solve_seconds` (dispatch to fetched) and the
@@ -48,18 +64,24 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Sequence
+from collections import deque
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.api.labels import from_label_selector, ns_contains
 from kubernetes_tpu_torch.ops import kernels, solver, wave_kernel
+from kubernetes_tpu_torch.ops.affinity import AffinityCompiler, _seg_sum
 from kubernetes_tpu_torch.ops.tensorize import ClusterTensors, PodBatch
 from kubernetes_tpu_torch.scheduler.framework import (
     UNSCHEDULABLE_AND_UNRESOLVABLE,
     CycleState,
     Framework,
     Status,
+)
+from kubernetes_tpu_torch.scheduler.plugins.interpodaffinity import (
+    resolve_term_namespaces,
 )
 from kubernetes_tpu_torch.scheduler.plugins.noderesources import (
     insufficient_resources,
@@ -75,7 +97,8 @@ logger = logging.getLogger(__name__)
 #: rows; a plugin at any of `_MODELLED_POINTS` must be one of them.
 MODELLED_PLUGINS = frozenset((
     "NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
-    "NodeName", "NodeUnschedulable", "TaintToleration"))
+    "NodeName", "NodeUnschedulable", "TaintToleration", "InterPodAffinity",
+    "PodTopologySpread"))
 _MODELLED_POINTS = frozenset(("PreFilter", "Filter", "PreScore", "Score"))
 
 #: Plugins with full device kernels.
@@ -87,6 +110,27 @@ DEVICE_SCORE_PLUGINS = {
 #: spec signature while the node set is unchanged.
 STATIC_ROW_PLUGINS = {"NodeAffinity", "NodeName", "NodeUnschedulable"}
 STATIC_SCORE_PLUGINS = {"NodeAffinity", "ImageLocality"}
+
+#: O(1)-per-pod activity gates mirroring each stateful plugin's own
+#: PreFilter/PreScore Skip condition (the reference's, for the plugins
+#: this package has): a gate may only say "inactive" when the plugin would
+#: Skip — PodTopologySpread's asks the plugin for its effective
+#: constraints, since the system default constraints apply to every
+#: labeled pod.
+_FILTER_ACTIVE = {
+    "InterPodAffinity": lambda plugin, pi, snap: bool(
+        pi.required_affinity_terms or pi.required_anti_affinity_terms
+        or snap.have_pods_with_required_anti_affinity),
+    "PodTopologySpread": lambda plugin, pi, snap: bool(
+        plugin._constraints_for(pi, "DoNotSchedule")),
+}
+_SCORE_ACTIVE = {
+    "InterPodAffinity": lambda plugin, pi, snap: bool(
+        pi.preferred_affinity_terms or pi.preferred_anti_affinity_terms
+        or snap.have_pods_with_affinity),
+    "PodTopologySpread": lambda plugin, pi, snap: bool(
+        plugin._constraints_for(pi, "ScheduleAnyway")),
+}
 
 #: Solve chunk when the caller does not pin one.
 _DEFAULT_CHUNK = 1024
@@ -102,6 +146,8 @@ _HOST_REASONS = {
     "NodeAffinity": "node(s) didn't match Pod's node affinity/selector",
     "NodeName": "node didn't match the requested node name",
     "NodeUnschedulable": "node(s) were unschedulable",
+    "InterPodAffinity": "node(s) didn't match pod affinity/anti-affinity rules",
+    "PodTopologySpread": "node(s) didn't match pod topology spread constraints",
 }
 _UNRESOLVABLE = {"NodeAffinity", "NodeName", "NodeUnschedulable"}
 
@@ -138,11 +184,8 @@ def compress_score_wire(host_scores: np.ndarray) -> np.ndarray:
 
 
 def unsupported_feature(pi: PodInfo) -> str | None:
-    """The first feature of this pod the slice does not model, or None."""
-    if pi.has_affinity_constraints:
-        return "inter-pod affinity"
-    if pi.topology_spread_constraints:
-        return "topology spread constraints"
+    """The first feature of this pod the package does not model, or
+    None."""
     if pi.resource_claims:
         return "resource claims (dynamic resource allocation)"
     if pi.pvc_names:
@@ -169,7 +212,11 @@ class AdaptiveTuner:
       fast-path dispatch cap (`fast_path_cap`) and rate limit
       (`fast_path_rate_limit`), pure host policy over measured walls;
     - the block-index width (BLOCK_WIDTH), which the resident planes'
-      block aggregates use."""
+      block aggregates use;
+    - the pipeline depth (`decide`): the reference's local-device rows,
+      4 chunks in flight until WARMUP_CHUNKS chunks were observed (or from
+      the first assign() at LARGE_N nodes or more), then 2. The solve
+      chunk of those rows (1024) is the default `max_batch` already."""
 
     LARGE_N = 32768
     #: a device round trip at or above this is relay-attached.
@@ -180,6 +227,11 @@ class AdaptiveTuner:
     WAVE_WIDTH_LARGE = 64
     WAVE_REPLAY_RATIO = 0.25
     WAVE_MIN_SAMPLE = 512
+    #: chunks observed before the pipeline-depth decision lands.
+    WARMUP_CHUNKS = 8
+    #: pipeline depth before and after the decision (a local device).
+    DEPTH_WARMUP = 4
+    DEPTH_LOCAL = 2
     #: Under `auto`, a non-gang chunk of fewer real pods keeps the greedy
     #: scan (the reference's value).
     OPTIMAL_MIN_PODS = 64
@@ -216,6 +268,11 @@ class AdaptiveTuner:
         self.wave_shrink = 1
         self.wave_commits = 0
         self.wave_replays = 0
+        self.total_chunks = 0
+        self.depth = self.DEPTH_WARMUP
+
+    def observe_chunk(self) -> None:
+        self.total_chunks += 1
 
     def solve_mode(self, p_real: int, has_gang: bool, spread: bool,
                    class_mode: bool) -> tuple[str, bool]:
@@ -291,8 +348,12 @@ class AdaptiveTuner:
             cap = 4.0 * cls.ADMISSION_MAX_WINDOW_S
         return min(cls.ADMISSION_TARGET_PODS / rate_est, cap)
 
-    def decide(self) -> None:
-        """Apply the replay feedback once enough pods were observed."""
+    def decide(self) -> int:
+        """At an assign() boundary: apply the replay feedback once enough
+        pods were observed, and return the pipeline depth."""
+        if self.total_chunks >= self.WARMUP_CHUNKS \
+                or self.n_nodes >= self.LARGE_N:
+            self.depth = self.DEPTH_LOCAL
         total = self.wave_commits + self.wave_replays
         if total >= self.WAVE_MIN_SAMPLE:
             if self.wave_replays > self.WAVE_REPLAY_RATIO * total \
@@ -302,6 +363,7 @@ class AdaptiveTuner:
                             100.0 * self.wave_replays / total,
                             self.wave_shrink)
             self.wave_commits = self.wave_replays = 0
+        return self.depth
 
 
 def _signature(plugin_name: str, pi: PodInfo) -> str:
@@ -388,7 +450,7 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                       shape_s, w_fit, w_bal, w_taint, taint_filter_on,
                       perms, gang_onehot, gang_required, strategy: str,
                       wave_w: int, solve_mode: str, sink_iters: int,
-                      sink_temp: float):
+                      sink_temp: float, spread=None):
     """One device pass per chunk: plugin masks → scores → assignment →
     state (the reference's `_mask_solve_update`, its greedy wavefront,
     W=1 and optimal branches).
@@ -405,12 +467,20 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
     chunk-start scores, becomes the static scores, and the W=1 multistart
     scan rounds it with w_fit = w_bal = 0. wave_w < 2 (and every optimal
     chunk) solves with the W=1 multistart scan, wider waves with the
-    wavefront scan. Nothing here reads a value back from the device.
+    wavefront scan.
+
+    spread: None, or (table, dom_counts, applies, contrib, p_real) — the
+    union spread table (`solver.SpreadTable`), its chained (D,) int32
+    domain counts, the chunk's (P, C) applies / contributes matrices and
+    its real pod count (the padding after it has the empty class row). The
+    chunk then runs the spread scan in identity order (W=1 below wave_w
+    2, its wave form above), as the reference's `use_spread` branch does.
+    Nothing here reads a value back from the device.
 
     Returns (assign (P+5,) — the tail is [shortlist fallbacks (0), wave
     commits, wave replays, blocks scanned (0), blocks pruned (0)] —
-    used_pack', fit0 (C,N), taint_ok (C,N)); the diagnostic planes are
-    class-level.
+    used_pack', fit0 (C,N), taint_ok (C,N), dom_counts' (D,) int32, empty
+    without spread); the diagnostic planes are class-level.
     """
     pl = chunk_planes(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                       taint_f_mat, taint_p_mat, class_mask, class_scores,
@@ -431,7 +501,23 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                   pl["used_nz_q"], alloc_q, pl["mask"], static_scores,
                   fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
                   strategy)
-    if wave_w > 1:
+    dom_counts2 = torch.zeros((0,), dtype=torch.int32, device=dev)
+    if spread is not None:
+        # Spread chunks run the identity order only (domain counts and
+        # permutations do not commute cheaply). Gangs are refused, so the
+        # reference's gang filter and its count fold-back are identities.
+        table, dom_counts, applies, contrib, p_real = spread
+        if wave_w > 1:
+            assign, dom_counts2, wave_com, wave_rep = \
+                solver.greedy_assign_rescoring_spread_wave(
+                    *solve_args, wave_w, table, dom_counts, applies,
+                    contrib, rows=cls_idx, exc=exc_col, n_real=p_real)
+        else:
+            assign, dom_counts2 = solver.greedy_assign_rescoring_spread(
+                *solve_args, table, dom_counts, applies, contrib,
+                rows=cls_idx, exc=exc_col, n_real=p_real)
+            wave_com = wave_rep = 0
+    elif wave_w > 1:
         assign, wave_com, wave_rep = \
             solver.multistart_greedy_assign_wave_kernel(
                 *solve_args, wave_w, perms, gang_onehot, gang_required,
@@ -459,7 +545,7 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
     tail[1].fill_(wave_com)
     tail[2].fill_(wave_rep)
     return (torch.cat([assign, tail]), used_pack2, pl["fit0"],
-            pl["taint_ok"])
+            pl["taint_ok"], dom_counts2)
 
 
 class UsedStateChain(torch.nn.Module):
@@ -524,6 +610,20 @@ class TorchBackend:
         self._fwk_params_cache: dict[tuple, tuple] = {}
         self._dev_perms_cache: dict[tuple, torch.Tensor] = {}
         self._dev_zero_gang: dict[int, tuple] = {}
+        #: ops/affinity.AffinityCompiler of the current snapshot, dropped
+        #: when the resident pods change (a new ClusterTensors) or the
+        #: namespace resolver's epoch moves (a Namespace relabel).
+        self._affinity = None
+        self._affinity_ns_epoch = -1
+        #: the namespace resolver of the framework's InterPodAffinity (or
+        #: PodTopologySpread) plugin, picked at each assign().
+        self._ns_resolver = None
+        #: (snapshot generation, any resident pod contributes
+        #: InterPodAffinity score symmetry).
+        self._ipa_resident_relevant: tuple | None = None
+        #: chunks dispatched ahead of the oldest chunk's host verify (the
+        #: tuner's decision at each assign()).
+        self.pipeline_depth = self._tuner.depth
         self.used = UsedStateChain(self.device)
         #: serving/resident.ResidentPlanes, attached by the caller that
         #: serves lone pods: assign() then seeds the chain from a copy of
@@ -537,9 +637,13 @@ class TorchBackend:
         #: ran greedy (solver_optimal_fallbacks_total); and the Sinkhorn
         #: iterations of the latest optimal chunk, a gauge
         #: (solver_sinkhorn_iterations).
+        #: Spread chunks: chunks solved by the spread scan. Verify
+        #: rejects: placements the host verify rejected (affinity conflicts
+        #: with pods placed earlier in the same assign(), or capacity).
         self.counters = {"chunks": 0, "wave_commits": 0, "wave_replays": 0,
                          "optimal_solves": 0, "optimal_fallbacks": 0,
-                         "sinkhorn_iterations": 0}
+                         "sinkhorn_iterations": 0, "spread_chunks": 0,
+                         "verify_rejects": 0}
         #: cumulative host-clock seconds of assign() and of its per-chunk
         #: phases: host prep, the device pass up to the assignment fetch
         #: (which waits for the device), and host verify + diagnostics.
@@ -556,10 +660,39 @@ class TorchBackend:
     def _tensors(self, snapshot: Snapshot) -> ClusterTensors:
         if self._ct is None or self._ct.generation != snapshot.generation:
             self._ct = ClusterTensors(snapshot, prev=self._ct)
+            self._affinity = None  # resident pods changed: recompile
         if self._row_fp != self._ct._static_fp:
             self._row_cache.clear()
             self._row_fp = self._ct._static_fp
         return self._ct
+
+    def _affinity_compiler(self, snapshot: Snapshot, ct: ClusterTensors):
+        resolver = self._ns_resolver
+        epoch = resolver.epoch if resolver is not None else -1
+        if self._affinity is not None and self._affinity_ns_epoch != epoch:
+            self._affinity = None  # namespace relabel: resolved sets stale
+        if self._affinity is None:
+            self._affinity = AffinityCompiler(snapshot, ct.n_pad,
+                                              ns_resolver=resolver)
+            self._affinity_ns_epoch = epoch
+        return self._affinity
+
+    def _ipa_score_relevant(self, pi: PodInfo, snapshot: Snapshot) -> bool:
+        """InterPodAffinity Score is nonzero only if the pod has preferred
+        terms, or some resident pod contributes symmetry weight (preferred
+        terms, or required affinity terms × hardPodAffinityWeight)."""
+        if pi.preferred_affinity_terms or pi.preferred_anti_affinity_terms:
+            return True
+        cached = self._ipa_resident_relevant
+        if cached is not None and cached[0] == snapshot.generation:
+            return cached[1]
+        relevant = any(
+            e.preferred_affinity_terms or e.preferred_anti_affinity_terms
+            or e.required_affinity_terms
+            for ni in snapshot.have_pods_with_affinity
+            for e in ni.pods_with_affinity)
+        self._ipa_resident_relevant = (snapshot.generation, relevant)
+        return relevant
 
     # -- host rows -----------------------------------------------------------
 
@@ -599,27 +732,49 @@ class TorchBackend:
     def assign(self, pods: Sequence[PodInfo], snapshot: Snapshot,
                fwk: Framework):
         """Schedule `pods` in chunks of max_batch; each chunk's solve reads
-        the used state the previous chunk left on the device."""
+        the used state the previous chunk left on the device. Chunks are
+        pipelined as in the reference: up to `pipeline_depth` chunks are
+        dispatched before the oldest one's assignments are fetched and
+        verified, so a verify rejection folds out of the state that later
+        dispatches read (chunks already in flight saw it consumed)."""
         pods = list(pods)
         self._check_supported(pods, fwk)
         t0 = time.perf_counter()
         ctx = self._start(pods, snapshot, fwk)
+        self._run_chunks(ctx)
+        self.timings["assign_s"] += time.perf_counter() - t0
+        return ctx.assignments, ctx.diagnostics
+
+    def _run_chunks(self, ctx: "_AssignCtx") -> None:
+        """Prep, dispatch and finish every chunk of an assign() context,
+        `pipeline_depth` dispatches ahead of the oldest finish."""
         tm = self.timings
-        for k, chunk in enumerate(ctx.chunks):
+        pending: deque = deque()
+        for chunk in ctx.chunks:
             t1 = time.perf_counter()
             prep = self._prep_chunk(chunk, ctx)
             t2 = time.perf_counter()
-            run = self._dispatch_chunk(prep, ctx)
-            assign_np = self._fetch_assign(run, k)
-            t3 = time.perf_counter()
-            if self.metrics is not None:
-                self.metrics.solve_duration.observe(t3 - t2)
-            self._finalize_chunk(run, assign_np, ctx)
+            pending.append(self._dispatch_chunk(prep, ctx))
+            prep["dispatch_s"] = time.perf_counter() - t2
             tm["prep_s"] += t2 - t1
-            tm["device_s"] += t3 - t2
-            tm["verify_s"] += time.perf_counter() - t3
-        tm["assign_s"] += time.perf_counter() - t0
-        return ctx.assignments, ctx.diagnostics
+            tm["device_s"] += prep["dispatch_s"]
+            if len(pending) > self.pipeline_depth:
+                self._finish_chunk(pending.popleft(), ctx)
+        while pending:
+            self._finish_chunk(pending.popleft(), ctx)
+
+    def _finish_chunk(self, run: dict, ctx: "_AssignCtx") -> None:
+        """Fetch one dispatched chunk's assignments (waiting for its
+        device pass), then verify and finalize it."""
+        tm = self.timings
+        t2 = time.perf_counter()
+        assign_np = self._fetch_assign(run, run["chunk_idx"])
+        t3 = time.perf_counter()
+        if self.metrics is not None:
+            self.metrics.solve_duration.observe(run["dispatch_s"] + t3 - t2)
+        self._finalize_chunk(run, assign_np, ctx)
+        tm["device_s"] += t3 - t2
+        tm["verify_s"] += time.perf_counter() - t3
 
     def _fetch_assign(self, run: dict, chunk_idx: int) -> np.ndarray:
         """Blocking device→host fetch of a chunk's assignments (it waits
@@ -654,15 +809,58 @@ class TorchBackend:
     def _start(self, pods: list[PodInfo], snapshot: Snapshot,
                fwk: Framework) -> "_AssignCtx":
         self._tuner.n_nodes = len(snapshot.nodes)
-        self._tuner.decide()
+        self.pipeline_depth = self._tuner.decide()
         ct = self._tensors(snapshot)
+        # namespaceSelector terms resolve through the framework's
+        # InterPodAffinity plugin (its namespaces informer); spread
+        # constraints share the mechanism, so PodTopologySpread's resolver
+        # backs it when the profile has no InterPodAffinity. Without
+        # either, resolve_term_namespaces' static rule applies.
+        src = next((p for p in fwk.plugins
+                    if p.NAME == "InterPodAffinity"), None) or next(
+            (p for p in fwk.plugins if p.NAME == "PodTopologySpread"), None)
+        self._ns_resolver = getattr(src, "ns_resolver", None)
         ctx = _AssignCtx()
         ctx.snapshot, ctx.fwk, ctx.ct = snapshot, fwk, ct
         ctx.class_pad = class_pad()
         ctx.chunks = [pods[lo:lo + self.max_batch]
                       for lo in range(0, len(pods), self.max_batch)]
         ctx.assignments, ctx.diagnostics = {}, {}
+        # Shared verify state: later chunks are checked against earlier
+        # chunks' accepted placements (working nodes + delta list).
         ctx.working = {}
+        ctx.delta = []
+        ctx.delta_has_terms = False
+        ctx.sel_cache = {}
+        ctx.delta_idx = _DeltaAffinityIndex(ctx.sel_cache, self._ns_resolver)
+        ctx.chunk_seq = -1
+        # The union spread table, built EAGERLY when any pod of the batch
+        # carries spread constraints, so chunks dispatched before the
+        # first spread pod still count their selector-matching placements.
+        ctx.spread = None
+        ctx.spread_last_gated = -1
+        if any(pj.topology_spread_constraints
+               for chunk in ctx.chunks for pj in chunk):
+            sp_plugin = next((p for p in fwk.filter_plugins
+                              if p.NAME == "PodTopologySpread"), None)
+            if sp_plugin is not None:
+                self._build_spread_table(
+                    ctx, snapshot, ct,
+                    self._affinity_compiler(snapshot, ct), sp_plugin)
+                # The last chunk with scan-GATED pods: contribute-only
+                # chunks after it keep the multistart solver (their counts
+                # no longer influence any gating decision).
+                if ctx.spread["cons"]:
+                    cols = ctx.spread["tpl_cols"]
+                    for k, chunk in enumerate(ctx.chunks):
+                        for pj in chunk:
+                            if not pj.topology_spread_constraints:
+                                continue
+                            cs = sp_plugin._constraints_for(
+                                pj, "DoNotSchedule")
+                            if cs and self._spread_tpl_key(cs, pj) in cols:
+                                ctx.spread_last_gated = k
+                                break
         ctx.params = self._fwk_params(fwk, ct)
         if self.resident is not None:
             # The chain is corrected in place (fold_back), so it takes a
@@ -674,6 +872,148 @@ class TorchBackend:
                 [ct.used_q, ct.used_nz_q,
                  ct.used_pods.astype(np.int32)[:, None]], axis=1))
         return ctx
+
+    # -- PodTopologySpread: the union spread table ---------------------------
+
+    @staticmethod
+    def _spread_tpl_key(cs: list, pj: PodInfo) -> str:
+        # EVERY semantic field participates: two templates differing only
+        # in minDomains/namespaceSelector must not collide. The pod's
+        # node-eligibility signature participates too: eligibility folds
+        # into the template's constraint columns.
+        return repr((sorted((c.get("topologyKey", ""),
+                             repr(c.get("labelSelector")),
+                             c.get("maxSkew", 1),
+                             repr(c.get("minDomains")),
+                             repr(c.get("namespaceSelector")))
+                            for c in cs), pj.namespace,
+                     pj.node_selector,
+                     pj.affinity.get("nodeAffinity"), pj.tolerations))
+
+    def _build_spread_table(self, ctx, snapshot, ct, compiler,
+                            plugin) -> None:
+        """The union spread table, built once per assign() from all
+        chunks (the reference's `_build_spread_table`, in the scans' index
+        form — `solver.SpreadTable`).
+
+        Every distinct DoNotSchedule template of the batch contributes its
+        constraints to one union list C; the scan gates each pod on its
+        template's columns (`applies`) and counts every placed pod in the
+        constraints its labels match (`contributes`). namespaceSelector
+        resolves to a namespace set here, minDomains becomes the
+        per-constraint `min_ok`, restricted node eligibility folds into the
+        template's domain membership, and non-self-matching selectors ride
+        the per-pod selfMatch term. A template whose constraints have no
+        eligible domain anywhere takes a static has-key row instead (exact:
+        placements never move its counts)."""
+        templates: dict[str, dict] = {}
+        for chunk in ctx.chunks:
+            for pj in chunk:
+                if not pj.topology_spread_constraints:
+                    continue
+                cs = plugin._constraints_for(pj, "DoNotSchedule")
+                if not cs:
+                    continue
+                key = self._spread_tpl_key(cs, pj)
+                if key not in templates:
+                    templates[key] = {
+                        "cons": cs, "ns": pj.namespace, "rep": pj,
+                        "sels": [from_label_selector(
+                            c.get("labelSelector")) for c in cs],
+                    }
+
+        cons: list[dict] = []      # union constraint list
+        con_ns: list[tuple] = []   # resolved namespace set per constraint
+        con_sels: list = []
+        con_elig: list[np.ndarray] = []
+        tpl_cols: dict[str, list[int]] = {}
+        static_rows: dict[str, np.ndarray] = {}
+        for key, t in templates.items():
+            elig = compiler.eligibility_row(t["rep"])
+            if not any(
+                    (compiler.topo.has_key(c["topologyKey"]) & elig).any()
+                    for c in t["cons"]):
+                row = np.ones((ct.n_real,), dtype=np.bool_)
+                for c in t["cons"]:
+                    row &= compiler.topo.has_key(
+                        c["topologyKey"])[: ct.n_real]
+                static_rows[key] = row
+                continue
+            cols = []
+            for cidx, c in enumerate(t["cons"]):
+                cols.append(len(cons))
+                cons.append(c)
+                con_ns.append(compiler.spread_constraint_ns(c, t["ns"]))
+                con_sels.append(t["sels"][cidx])
+                con_elig.append(elig)
+            tpl_cols[key] = cols
+        ctx.spread = {"cons": cons, "tpl_cols": tpl_cols,
+                      "static_rows": static_rows}
+        if not cons:
+            return
+
+        N, C = ct.n_pad, len(cons)
+        node_dom = np.full((N, C), -1, dtype=np.int64)
+        has_key = np.zeros((N, C), dtype=np.bool_)
+        min_ok = np.ones((C,), dtype=np.bool_)
+        dom_cid: list[int] = []
+        counts0: list[int] = []
+        for cidx, c in enumerate(cons):
+            dom_ids, num = compiler.topo.domains(c["topologyKey"])
+            counts = compiler.counts_for(c.get("labelSelector"),
+                                         con_ns[cidx])
+            elig = con_elig[cidx]
+            active = (dom_ids > 0) & elig
+            d = _seg_sum(np.where(active, counts, 0.0), dom_ids, num)
+            has_key[:, cidx] = dom_ids > 0
+            existing = np.unique(dom_ids[active])
+            md = int(c.get("minDomains") or 0)
+            if md and len(existing) < md:
+                min_ok[cidx] = False  # minDomains deficit: global min 0
+            for k in existing:
+                # Domain membership over ELIGIBLE nodes only: placements
+                # on keyed-but-ineligible nodes neither count nor gate.
+                node_dom[(dom_ids == k) & elig, cidx] = len(dom_cid)
+                dom_cid.append(cidx)
+                counts0.append(int(d[k]))
+        ctx.spread.update({
+            "con_ns": con_ns, "con_sels": con_sels,
+            "node_dom_host": node_dom,
+            "table": solver.SpreadTable(
+                self._put(node_dom), self._put(np.asarray(dom_cid, np.int64)),
+                self._put(np.array([int(c.get("maxSkew", 1)) for c in cons],
+                                   np.int32)),
+                self._put(min_ok), self._put(has_key)),
+            "dev_counts": self._put(np.asarray(counts0, np.int32)),
+        })
+
+    def _process_spread_pods(self, spread_pods, ctx,
+                             apply_row) -> list[int]:
+        """Hard (DoNotSchedule) PodTopologySpread routing: every pod whose
+        template is in the union table rides the spread scan; a
+        zero-domain template's pods take its static has-key row. A pod in
+        neither raises: the reference's host-row escape hatch for pods
+        that miss the table (`spread_poisoned`) is not ported."""
+        sp = ctx.spread   # built at _start: the pods' plugin is in the profile
+        active: list[int] = []
+        missed: list[str] = []
+        for i, pi, cs in spread_pods:
+            key = self._spread_tpl_key(cs, pi)
+            if key in sp["tpl_cols"]:
+                active.append(i)
+                continue
+            srow = sp["static_rows"].get(key)
+            if srow is not None:
+                if not srow.all():
+                    apply_row("PodTopologySpread", i, srow)
+                continue
+            missed.append(pi.key)
+        if missed:
+            raise RuntimeError(
+                f"pods {missed} missed the union spread table built at "
+                f"assign() start; the reference's host-row fallback "
+                f"(spread_poisoned) is not ported")
+        return active
 
     def _fwk_params(self, fwk: Framework, ct: ClusterTensors) -> dict:
         """Score-plugin parameters as device tensors and float32-valued
@@ -728,10 +1068,13 @@ class TorchBackend:
         return params
 
     def _prep_chunk(self, pods: list[PodInfo], ctx: "_AssignCtx") -> dict:
-        """Host side of one chunk: the class dictionary and its planes,
-        the multistart permutations, the solve mode and the wavefront
-        width."""
+        """Host side of one chunk: the host filter and score rows (the
+        constraint families' among them), the class dictionary and its
+        planes, the spread matrices, the multistart permutations, the
+        solve mode and the wavefront width."""
         ct, snapshot, fwk = ctx.ct, ctx.snapshot, ctx.fwk
+        ctx.chunk_seq += 1
+        chunk_idx = ctx.chunk_seq
         P = self.max_batch
         batch = PodBatch(pods, ct, P)
         N = ct.n_pad
@@ -776,6 +1119,8 @@ class TorchBackend:
 
         #: plugin -> {pod -> its (n_real,) ok row} for the diagnostics.
         host_filter_fail: dict[str, dict[int, np.ndarray]] = {}
+        #: hard-spread pods: (chunk index, PodInfo, constraints).
+        spread_pods: list[tuple[int, PodInfo, list[dict]]] = []
 
         def _apply_interned(i: int, cid: int, nnz: int, col: int) -> None:
             if nnz == 0:
@@ -799,16 +1144,88 @@ class TorchBackend:
             fmap[i] = row if prev is None else (prev & row)
             _apply_interned(i, *_intern_row(row))
 
+        #: shared-row groups of the InterPodAffinity rows: template batches
+        #: produce ONE row object per signature (the compiler's cache), so
+        #: each distinct row is interned once (id-keyed).
+        ipa_groups: dict[int, tuple[np.ndarray, list[int]]] = {}
+        compiler = None
+
         for plugin in fwk.filter_plugins:
             if plugin.NAME in DEVICE_FILTER_PLUGINS:
                 continue
+            if plugin.NAME in STATIC_ROW_PLUGINS:
+                for i, pi in enumerate(pods):
+                    if i in unknown_res:
+                        continue
+                    row, all_true = self._static_filter_row(
+                        plugin, pi, snapshot, ct)
+                    if not all_true:
+                        apply_row(plugin.NAME, i, row)
+                continue
+            # The constraint families (_check_supported admits no other).
+            gate = _FILTER_ACTIVE[plugin.NAME]
             for i, pi in enumerate(pods):
-                if i in unknown_res:
+                if i in unknown_res or not gate(plugin, pi, snapshot):
                     continue
-                row, all_true = self._static_filter_row(
-                    plugin, pi, snapshot, ct)
-                if not all_true:
-                    apply_row(plugin.NAME, i, row)
+                if plugin.NAME == "InterPodAffinity":
+                    if compiler is None:
+                        compiler = self._affinity_compiler(snapshot, ct)
+                    row_full = compiler.filter_row(pi)
+                    grp = ipa_groups.get(id(row_full))
+                    if grp is None:
+                        grp = ipa_groups[id(row_full)] = (row_full, [])
+                    grp[1].append(i)
+                else:
+                    constraints = plugin._constraints_for(
+                        pi, "DoNotSchedule")
+                    if constraints:
+                        spread_pods.append((i, pi, constraints))
+
+        for row_full, idxs in ipa_groups.values():
+            row = row_full[: ct.n_real]
+            if row.all():
+                continue
+            # One interned row per signature group; every member pod
+            # references it.
+            cid, nnz, col = _intern_row(row)
+            fmap = host_filter_fail.setdefault("InterPodAffinity", {})
+            for i in idxs:
+                prev = fmap.get(i)
+                fmap[i] = row if prev is None else (prev & row)
+                _apply_interned(i, cid, nnz, col)
+
+        spread_active_idx = self._process_spread_pods(
+            spread_pods, ctx, apply_row)
+        # Per-pod constraint matrices over the union spread table: applies
+        # gates the pod's own template's columns; contributes marks the
+        # constraints that count the pod when placed — built for EVERY pod
+        # (a pod without constraints can match a template's selector).
+        sp_applies = sp_contrib = None
+        spt = ctx.spread
+        if spt is not None and spt["cons"]:
+            C = len(spt["cons"])
+            sp_applies = np.zeros((P, C), dtype=np.bool_)
+            sp_contrib = np.zeros((P, C), dtype=np.int32)
+            active_set = set(spread_active_idx)
+            for i, pi, cs in spread_pods:
+                if i in active_set:
+                    for c in spt["tpl_cols"][self._spread_tpl_key(cs, pi)]:
+                        sp_applies[i, c] = True
+            memo = spt.setdefault("contrib_memo", {})
+            con_ns, con_sels = spt["con_ns"], spt["con_sels"]
+            for i, pi in enumerate(pods):
+                sig = (pi.namespace,
+                       tuple(sorted(pi.labels.items())) if pi.labels
+                       else ())
+                row = memo.get(sig)
+                if row is None:
+                    row = memo[sig] = np.fromiter(
+                        (1 if (ns_contains(con_ns[c], pi.namespace)
+                               and con_sels[c].matches(pi.labels))
+                         else 0 for c in range(C)),
+                        dtype=np.int32, count=C)
+                if row.any():
+                    sp_contrib[i] = row
 
         # Host score rows: computed over each pod's *feasible* node set only
         # (static rows ∧ taints ∧ exact fit), then the plugin's own
@@ -818,7 +1235,25 @@ class TorchBackend:
         pod_parts: dict[int, list[int]] = {}       # pod -> ordered sids
         fit_np: np.ndarray | None = None
         taint_np: np.ndarray | None = None
+        #: pod FEASIBILITY-CLASS key: (fit class, taint class, the pod's
+        #: host filter-row ids, exception column, infeasible) — pods of one
+        #: template share it, so the per-pod O(N) work below runs once per
+        #: class.
         feas_memo: dict[tuple, np.ndarray] = {}
+        #: the constraint families' normalized score rows, memoized per
+        #: (feasibility class, pod signature): (feasible idx, weighted
+        #: normalized values or None, member pods).
+        norm_memo: dict[tuple, tuple] = {}
+        _pck_memo: dict[int, tuple] = {}
+
+        def pod_class_key(i: int) -> tuple:
+            got = _pck_memo.get(i)
+            if got is None:
+                got = _pck_memo[i] = (
+                    batch.req_class[i], batch.untol_class[i],
+                    tuple(pod_rows.get(i, ())), pod_pin.get(i, -1),
+                    i in infeasible)
+            return got
 
         def _intern_score(row: np.ndarray) -> int:
             b = row.tobytes()
@@ -830,9 +1265,7 @@ class TorchBackend:
 
         def feasible_idx(i: int) -> np.ndarray:
             nonlocal fit_np, taint_np
-            pk = (batch.req_class[i], batch.untol_class[i],
-                  tuple(pod_rows.get(i, ())), pod_pin.get(i, -1),
-                  i in infeasible)
+            pk = pod_class_key(i)
             got = feas_memo.get(pk)
             if got is not None:
                 return got
@@ -875,22 +1308,95 @@ class TorchBackend:
             for i, pi in enumerate(pods):
                 if i in unknown_res:
                     continue
-                if name == "NodeAffinity" and not (
-                        (pi.affinity.get("nodeAffinity") or {})
-                        .get("preferredDuringSchedulingIgnoredDuringExecution")):
+                if name in STATIC_SCORE_PLUGINS:
+                    if name == "NodeAffinity" and not (
+                            (pi.affinity.get("nodeAffinity") or {})
+                            .get("preferredDuringSchedulingIgnoredDuringExecution")):
+                        continue
+                    row, any_nonzero = self._static_score_row(
+                        plugin, pi, snapshot, ct)
+                    if not any_nonzero:
+                        continue
+                    raw = {ct.node_names[j]: float(row[j])
+                           for j in feasible_idx(i)}
+                    plugin.normalize_scores(CycleState(), pi, raw)
+                    if raw:
+                        srow = np.zeros((ct.n_real,), dtype=np.float32)
+                        for nname, sc in raw.items():
+                            srow[ct.name_to_idx[nname]] += w * sc
+                        pod_parts.setdefault(i, []).append(
+                            _intern_score(srow))
                     continue
-                row, any_nonzero = self._static_score_row(
-                    plugin, pi, snapshot, ct)
-                if not any_nonzero:
+                # The constraint families (_check_supported admits no
+                # other): raw rows from the affinity compiler, normalized
+                # over the pod's feasible set as the plugin's
+                # NormalizeScore does, memoized per (feasibility class,
+                # pod signature).
+                if not _SCORE_ACTIVE[name](plugin, pi, snapshot):
                     continue
-                raw = {ct.node_names[j]: float(row[j])
-                       for j in feasible_idx(i)}
-                plugin.normalize_scores(CycleState(), pi, raw)
-                if raw:
-                    srow = np.zeros((ct.n_real,), dtype=np.float32)
-                    for nname, s in raw.items():
-                        srow[ct.name_to_idx[nname]] += w * s
-                    pod_parts.setdefault(i, []).append(_intern_score(srow))
+                if name == "PodTopologySpread":
+                    constraints = plugin._constraints_for(
+                        pi, "ScheduleAnyway")
+                    nk = ("pts", pod_class_key(i), pi.namespace,
+                          tuple(sorted(pi.labels.items())),
+                          repr(constraints), repr(pi.node_selector),
+                          repr(pi.affinity.get("nodeAffinity")),
+                          repr(pi.tolerations))
+                    got = norm_memo.get(nk)
+                    if got is None:
+                        if compiler is None:
+                            compiler = self._affinity_compiler(snapshot, ct)
+                        raw_row = compiler.spread_raw_scores(
+                            pi, constraints)[: ct.n_real]
+                        feas = feasible_idx(i)
+                        wnorm = None
+                        if feas.size:
+                            vals = raw_row[feas]
+                            mx, mn = vals.max(), vals.min()
+                            if mx > mn:
+                                wnorm = w * 100.0 * (mx - vals) / (mx - mn)
+                            else:
+                                wnorm = np.full_like(vals, w * 100.0)
+                        got = norm_memo[nk] = (feas, wnorm, [])
+                    got[2].append(i)
+                    continue
+                # InterPodAffinity: every score is 0 unless the pod has
+                # preferred terms or a resident pod weighs back.
+                if not self._ipa_score_relevant(pi, snapshot):
+                    continue
+                nk = ("ipa", pod_class_key(i), pi.namespace,
+                      tuple(sorted(pi.labels.items())),
+                      repr(pi.preferred_affinity_terms),
+                      repr(pi.preferred_anti_affinity_terms))
+                got = norm_memo.get(nk)
+                if got is None:
+                    if compiler is None:
+                        compiler = self._affinity_compiler(snapshot, ct)
+                    feas = feasible_idx(i)
+                    feas_mask = np.zeros((ct.n_pad,), dtype=np.bool_)
+                    feas_mask[feas] = True
+                    raw_row = compiler.score_row(
+                        pi, float(plugin.hard_pod_affinity_weight),
+                        feas_mask)[: ct.n_real]
+                    wnorm = None
+                    if feas.size:
+                        vals = raw_row[feas]
+                        mx, mn = vals.max(), vals.min()
+                        if mx > mn:
+                            wnorm = w * 100.0 * (vals - mn) / (mx - mn)
+                    got = norm_memo[nk] = (feas, wnorm, [])
+                got[2].append(i)
+
+        # Flush the memoized normalized rows: each group's sparse (feas,
+        # wnorm) densifies once into an interned part shared by its pods.
+        for feas, wnorm, idxs in norm_memo.values():
+            if wnorm is None or not idxs:
+                continue
+            srow = np.zeros((ct.n_real,), dtype=np.float32)
+            srow[feas] = wnorm
+            sid = _intern_score(srow)
+            for i in idxs:
+                pod_parts.setdefault(i, []).append(sid)
 
         # ---- class-dictionary plane build ----------------------------------
         # Pods dedupe into equivalence classes keyed by (request row,
@@ -933,13 +1439,21 @@ class TorchBackend:
                 if pin is not None:
                     exc_np[i] = pin
 
+        # The spread scan runs for any chunk whose pods the table gates,
+        # or whose pods it counts while a later chunk holds gated pods.
+        use_spread = bool(
+            sp_contrib is not None
+            and (spread_active_idx
+                 or (sp_contrib.any()
+                     and chunk_idx < ctx.spread_last_gated)))
         # The solve-mode policy row: an optimal chunk rounds its plan with
-        # the W=1 scan (wave_w 0, as in the reference). Gangs and spread
-        # are refused by _check_supported.
+        # the W=1 scan (wave_w 0, as in the reference); a spread chunk is
+        # not eligible. Gangs are refused by _check_supported.
         mode, fallback = self._tuner.solve_mode(
-            batch.p_real, has_gang=False, spread=False,
+            batch.p_real, has_gang=False, spread=use_spread,
             class_mode=class_reps is not None)
         self.counters["optimal_fallbacks"] += int(fallback)
+        self._tuner.observe_chunk()
 
         if class_reps is not None:
             crows = _class_rows_bucket(len(class_reps))
@@ -1014,7 +1528,9 @@ class TorchBackend:
 
         wave_w = 0 if mode == "optimal" else self._tuner.wave_width(P)
         return {
-            "pods": pods, "batch": batch,
+            "pods": pods, "batch": batch, "chunk_idx": chunk_idx,
+            "spread_used": use_spread,
+            "sp_applies": sp_applies, "sp_contrib": sp_contrib,
             "dev_mask": dev_mask, "dev_scores": dev_scores,
             "dev_cls": self._put(cls_np),
             "dev_exc": self._put(exc_np),
@@ -1110,7 +1626,14 @@ class TorchBackend:
         The Sinkhorn knobs are read here, per chunk, as live flags."""
         p, st = ctx.params, self.ensure_static(ctx.ct)
         prep["sink_iters"] = max(1, flags.get("KTPU_SINKHORN_ITERS"))
-        assign_d, used_pack2, fit0_d, taint_ok_d = mask_solve_update(
+        sp = ctx.spread
+        spread = None
+        if prep["spread_used"]:
+            spread = (sp["table"], sp["dev_counts"],
+                      self._put(prep["sp_applies"]),
+                      self._put(prep["sp_contrib"]), prep["batch"].p_real)
+        assign_d, used_pack2, fit0_d, taint_ok_d, dom_counts2 = \
+            mask_solve_update(
             st["alloc_q"], self.used.pack, st["alloc_pods"],
             prep["dev_pack"], prep["dev_cls"], prep["dev_exc"],
             st["taint_f"], st["taint_p"], prep["dev_mask"],
@@ -1120,8 +1643,11 @@ class TorchBackend:
             *self._gang_zeros(prep["batch"].req_q.shape[0]),
             p["strategy"], prep["wave_w"], prep["solve_mode"],
             prep["sink_iters"],
-            float(np.float32(flags.get("KTPU_SINKHORN_TEMP"))))
+            float(np.float32(flags.get("KTPU_SINKHORN_TEMP"))),
+            spread=spread)
         self.used.advance(used_pack2)
+        if spread is not None:
+            sp["dev_counts"] = dom_counts2
         prep["assign_d"] = assign_d
         prep["fit0_d"] = fit0_d
         prep["taint_ok_d"] = taint_ok_d
@@ -1144,6 +1670,7 @@ class TorchBackend:
         if run["solve_mode"] == "optimal":
             self.counters["optimal_solves"] += 1
             self.counters["sinkhorn_iterations"] = run["sink_iters"]
+        self.counters["spread_chunks"] += int(run["spread_used"])
         m = self.metrics
         if m is not None:
             m.solver_scan_width.set(ctx.ct.n_real)
@@ -1159,8 +1686,12 @@ class TorchBackend:
                 m.solver_optimal_fallbacks.inc()
 
         rejects = self._verify(pods, assign, ctx)
+        self.counters["verify_rejects"] += len(rejects)
         # Fold verify rejections back into the device-chained used state so
-        # later chunks don't see the rejected pods' resources as consumed.
+        # later dispatches don't see the rejected pods' resources as
+        # consumed (chunks already in flight did: conservative only, a
+        # pod there may just requeue). Adds commute, so subtracting from
+        # the current chained state is exact for every later chunk.
         if rejects:
             r = batch.req_q.shape[1]
             idx = np.array([j for _, j in rejects], dtype=np.int64)
@@ -1170,6 +1701,22 @@ class TorchBackend:
                 rows[k, r:2 * r] = batch.req_nz_q[i]
                 rows[k, 2 * r] = 1
             self.used.fold_back(idx, rows)
+            # Rejected pods that counted in the chained spread domain
+            # counts fold out of them too, per constraint they match.
+            contrib = run["sp_contrib"]
+            if run["spread_used"]:
+                node_dom = ctx.spread["node_dom_host"]
+                didx, dval = [], []
+                for i, j in rejects:
+                    doms = node_dom[j]
+                    keep = (doms >= 0) & (contrib[i] > 0)
+                    didx.extend(doms[keep].tolist())
+                    dval.extend((-contrib[i][keep]).tolist())
+                if didx:
+                    counts = ctx.spread["dev_counts"]
+                    counts.index_add_(
+                        0, self._put(np.asarray(didx, np.int64)),
+                        self._put(np.asarray(dval, np.int32)))
 
         need_diag = [i for i, pi in enumerate(pods)
                      if ctx.assignments.get(pi.key) is None
@@ -1188,13 +1735,22 @@ class TorchBackend:
                 ) -> list[tuple[int, int]]:
         """Exact host re-check of every solver placement against a working
         copy of its node that accumulates this assign()'s earlier
-        placements. Returns [(chunk index, node index)] for rejected
-        placements (the caller folds them out of the device state)."""
+        placements: resources by integer arithmetic, and inter-pod
+        affinity (both ways) against the pods placed earlier in the same
+        assign() only — the batch-start rows cover the snapshot exactly.
+        Spread placements need no re-check: the scan counted them.
+        Returns [(chunk index, node index)] for rejected placements (the
+        caller folds them out of the device state)."""
         snapshot, ct = ctx.snapshot, ctx.ct
         working = ctx.working
+        delta = ctx.delta
+        delta_has_terms = ctx.delta_has_terms
         contention = Status.unschedulable(
             "node(s) exhausted by earlier pods in the batch"
         ).with_plugin("NodeResourcesFit")
+        affinity_conflict = Status.unschedulable(
+            "node(s) conflicted with pod affinity/anti-affinity of pods "
+            "placed earlier in the batch").with_plugin("InterPodAffinity")
         rejects: list[tuple[int, int]] = []
         for i, pi in enumerate(pods):
             idx = int(assign[i])
@@ -1210,8 +1766,21 @@ class TorchBackend:
                 ctx.diagnostics[pi.key] = {ni.name: contention}
                 rejects.append((i, idx))
                 continue
+            if (delta_has_terms or pi.has_affinity_constraints) \
+                    and not _delta_affinity_ok(pi, ni, delta, ct,
+                                               self._affinity,
+                                               ctx.delta_idx):
+                ctx.assignments[pi.key] = None
+                ctx.diagnostics[pi.key] = {ni.name: affinity_conflict}
+                rejects.append((i, idx))
+                continue
             ctx.assignments[pi.key] = ni.name
             ni.add_pod(pi)
+            delta.append((pi, ni.labels))
+            ctx.delta_idx.add(pi, ni.labels)
+            if pi.required_affinity_terms or pi.required_anti_affinity_terms:
+                delta_has_terms = True
+        ctx.delta_has_terms = delta_has_terms
         return rejects
 
     # -- explainability ------------------------------------------------------
@@ -1342,7 +1911,147 @@ class DiagMap(dict):
 
 class _AssignCtx:
     """Per-assign()-call state: the chunk list, framework params,
-    accumulated results, and the cross-chunk verify working nodes."""
+    accumulated results, the cross-chunk verify context (working nodes,
+    the delta of accepted placements and its affinity index) and the
+    union spread table."""
 
     __slots__ = ("snapshot", "fwk", "ct", "chunks", "params",
-                 "assignments", "diagnostics", "working", "class_pad")
+                 "assignments", "diagnostics", "working", "delta",
+                 "delta_has_terms", "sel_cache", "delta_idx", "spread",
+                 "spread_last_gated", "chunk_seq", "class_pad")
+
+
+def _cached_matcher(term: dict, owner_ns: str, sel_cache: dict,
+                    resolver=None):
+    """Compiled (namespace set, Selector) per term object: the delta
+    checks are O(batch²) pairs, so per-pair selector parsing would
+    dominate. The set may be the ALL_NAMESPACES wildcard; membership goes
+    through labels.ns_contains."""
+    key = (id(term), owner_ns)
+    got = sel_cache.get(key)
+    if got is None:
+        from kubernetes_tpu_torch.api.labels import from_label_selector
+        nses = frozenset(resolve_term_namespaces(term, owner_ns, resolver))
+        got = sel_cache[key] = (nses, from_label_selector(
+            term.get("labelSelector")))
+    return got
+
+
+def _term_sig(term: dict, owner_ns: str, sel_cache: dict) -> tuple:
+    """CONTENT-keyed term signature: pods stamped from one template carry
+    equal-but-distinct term dicts, so id()-keyed indexes would grow one
+    entry per pod."""
+    key = ("sig", id(term), owner_ns)
+    sig = sel_cache.get(key)
+    if sig is None:
+        sig = sel_cache[key] = (
+            term.get("topologyKey", ""),
+            tuple(sorted(term.get("namespaces") or [owner_ns])),
+            repr(term.get("namespaceSelector")),
+            repr(term.get("labelSelector")))
+    return sig
+
+
+class _DeltaAffinityIndex:
+    """Incremental index over same-assign() placements, answering the
+    three delta-affinity questions in O(terms) per query:
+
+    - fwd[sig]: for a queried term, the count of delta pods matching its
+      selector, by their node's topology value (and the total);
+    - anti[sig]: for required anti-affinity terms CARRIED by delta pods,
+      the same counts (symmetry: they forbid the querier).
+
+    add() is O(registered signatures) per accepted pod — one per distinct
+    template, not one per pod."""
+
+    __slots__ = ("sel_cache", "fwd", "anti", "resolver")
+
+    def __init__(self, sel_cache: dict, resolver=None):
+        self.sel_cache = sel_cache
+        self.resolver = resolver
+        #: sig -> [nses, sel, tk, {node tk value -> count}, total]
+        self.fwd: dict[tuple, list] = {}
+        self.anti: dict[tuple, list] = {}
+
+    def register(self, term: dict, owner_ns: str, delta: list) -> list:
+        sig = _term_sig(term, owner_ns, self.sel_cache)
+        e = self.fwd.get(sig)
+        if e is None:
+            nses, sel = _cached_matcher(term, owner_ns, self.sel_cache,
+                                        self.resolver)
+            tk = term.get("topologyKey", "")
+            counts: dict = {}
+            total = 0
+            for d, labels_m in delta:  # back-fill placements so far
+                if ns_contains(nses, d.namespace) and sel.matches(d.labels):
+                    v = labels_m.get(tk)
+                    counts[v] = counts.get(v, 0) + 1
+                    total += 1
+            e = self.fwd[sig] = [nses, sel, tk, counts, total]
+        return e
+
+    def add(self, d, node_labels: Mapping) -> None:
+        for e in self.fwd.values():
+            nses, sel, tk, counts, _total = e
+            if ns_contains(nses, d.namespace) and sel.matches(d.labels):
+                v = node_labels.get(tk)
+                counts[v] = counts.get(v, 0) + 1
+                e[4] += 1
+        for term in d.required_anti_affinity_terms:
+            sig = _term_sig(term, d.namespace, self.sel_cache)
+            e = self.anti.get(sig)
+            if e is None:
+                nses, sel = _cached_matcher(
+                    term, d.namespace, self.sel_cache, self.resolver)
+                e = self.anti[sig] = [
+                    nses, sel, term.get("topologyKey", ""), {}, 0]
+            v = node_labels.get(e[2])
+            e[3][v] = e[3].get(v, 0) + 1
+            e[4] += 1
+
+
+def _delta_affinity_ok(pi, ni, delta, ct, compiler,
+                       delta_idx: _DeltaAffinityIndex) -> bool:
+    """Inter-pod affinity check of `pi` on node `ni` against only the pods
+    placed earlier in this assign() (the batch-start rows already cover
+    the snapshot exactly), as O(terms) lookups in `delta_idx` — the
+    reference's indexed form of `_delta_affinity_ok`."""
+    labels_n = ni.labels
+    # (1) pi's own anti-affinity vs delta placements.
+    for term in pi.required_anti_affinity_terms:
+        e = delta_idx.register(term, pi.namespace, delta)
+        tv = labels_n.get(e[2])
+        if tv is not None and e[3].get(tv):
+            return False
+    # (2) symmetry: delta pods' anti-affinity vs pi.
+    for e in delta_idx.anti.values():
+        nses, sel, tk, counts, _total = e
+        tv = labels_n.get(tk)
+        if tv is not None and counts.get(tv) \
+                and ns_contains(nses, pi.namespace) \
+                and sel.matches(pi.labels):
+            return False
+    # (3) pi's required affinity: delta pods can only ADD matches; the one
+    # invalidation is the first-pod-in-group escape — once a matching pod
+    # exists (placed in this batch), the term must be satisfied in the
+    # node's domain for real.
+    for term in pi.required_affinity_terms:
+        tk = term.get("topologyKey", "")
+        tv = labels_n.get(tk)
+        if tv is None:
+            return False
+        e = delta_idx.register(term, pi.namespace, delta)
+        if e[3].get(tv):
+            continue  # satisfied by a batch sibling in this domain
+        if compiler is not None:
+            per_node, _, total = compiler.affinity_term_presence(
+                term, pi.namespace)
+            idx = ct.name_to_idx.get(ni.name)
+            if idx is not None and per_node[idx] > 0:
+                continue  # satisfied by the snapshot already
+            if total == 0 and e[4] == 0:
+                continue  # escape still valid: no match anywhere
+            return False
+        if e[4]:
+            return False
+    return True

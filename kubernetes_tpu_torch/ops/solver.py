@@ -2,8 +2,8 @@
 the Sinkhorn optimal mode.
 
 Counterpart of `kubernetes_tpu/ops/solver.py`, cut to the greedy
-multistart wavefront route, the batch-optimal route and the serving fast
-path's single-pod solve. The reference's
+multistart wavefront route, the batch-optimal route, the spread scans and
+the serving fast path's single-pod solve. The reference's
 `lax.scan`s become Python loops over device tensors here; on the CUDA
 device the main paths do not run them: `multistart_greedy_assign_wave_kernel`
 and `multistart_greedy_assign_kernel` hand the whole chunk to the
@@ -30,6 +30,12 @@ Contract (the reference's, unchanged):
   of the W=1 multistart rounding with the live weights zeroed.
 - `solve_one` / `solve_one_fresh` — the serving fast path's lone pod
   against the resident planes: the batch scan's first step, exactly.
+- `greedy_assign_rescoring_spread` and its wave form — the scan with
+  PodTopologySpread's hard constraints gating each step and the domain
+  counts of a union table (`SpreadTable`) in its carry; identity order.
+  These are the card's path too (there is no hand kernel for them, as
+  the reference's is an XLA scan): one CUDA graph replay per pod or
+  wave.
 
 Class-dictionary planes: `mask`/`static_scores` are (C, N) rows addressed
 per pod through `rows`; `exc` is the sparse per-pod exception column
@@ -225,13 +231,16 @@ def _wave_spec_picks(masked, node_of, nbig: int, wave_w: int):
 
 def _wave_conflicts(b, y, nbig, req, req_nz, free_q, free_pods, used_nz,
                     alloc_q, m_pair, stat_pair, fit_col_w, bal_col_mask,
-                    shape_u, shape_s, w_fit, w_bal, strategy):
+                    shape_u, shape_s, w_fit, w_bal, strategy,
+                    extra_ok=None):
     """(W,) conflict bits: member w's speculative pick is invalidated by an
     earlier member's commit in the same wave. For each committed node y_j
     (j < w), re-score it FOR POD w after pod j's debit; member w conflicts
     iff some y_j stays feasible for it and beats its pick under the serial
     order (strictly higher score, or equal score at a lower node index).
-    `m_pair`/`stat_pair` (W, W): pod w's gated mask / static score at y_j.
+    `m_pair`/`stat_pair` (W, W): pod w's gated mask / static score at y_j;
+    `extra_ok` (W, W) optionally folds a variant's gate (spread) into the
+    feasibility.
     """
     W = y.shape[0]
     n = free_q.shape[0]
@@ -246,6 +255,8 @@ def _wave_conflicts(b, y, nbig, req, req_nz, free_q, free_pods, used_nz,
         shape_s, w_fit, w_bal, strategy)                       # (W,W)
     cap = torch.all(req[:, None, :] <= fr_j[None, :, :], dim=-1)
     feas = m_pair & cap & (fp_j >= 1)[None, :] & hit[None, :]
+    if extra_ok is not None:
+        feas = feas & extra_ok
     beats = feas & ((upd > b[:, None])
                     | ((upd == b[:, None]) & (y[None, :] < y[:, None])))
     w_iota = torch.arange(W, device=y.device)
@@ -415,6 +426,288 @@ def multistart_greedy_assign_wave_kernel(req_q, req_nz_q, free_q,
             *args, perms, gang_onehot, gang_required, rows, exc), 0, P
     return _best_of_orders(assigns_p, perms, req_q, gang_onehot,
                            gang_required), P, 0
+
+
+# ---------------------------------------------------------------------------
+# PodTopologySpread's hard constraints inside the scan.
+# ---------------------------------------------------------------------------
+
+#: min over a constraint's domains when it has none (never read: no domain
+#: of that constraint exists to gate).
+_NO_MIN = 1 << 30
+
+
+class SpreadTable:
+    """The union spread table of one assign() in the scans' form — the
+    reference's one-hot planes as indices, with integer counts:
+
+    node_dom: (N, C) int64 — the eligible domain of node n under
+        constraint c, -1 where the node is keyless, ineligible for the
+        constraint's template, or in no eligible domain (the reference's
+        `dom_onehot @ cid_onehot` row, as an index).
+    dom_cid:  (D,) int64 — the constraint owning each domain
+        (`cid_onehot`).
+    max_skew: (C,) int32; min_ok: (C,) bool — False under a minDomains
+        deficit (the global minimum is then 0).
+    has_key:  (N, C) bool — the node has the constraint's topology key,
+        eligible or not (keyless nodes reject the constraint's pods).
+
+    The domain counts ((D,) int32) ride the scans' carry beside it.
+    Counting through gathers and `index_add` keeps every count an exact
+    integer on the card, where a float one-hot product may run in TF32."""
+
+    __slots__ = ("node_dom", "dom_cid", "max_skew", "min_ok", "has_key",
+                 "in_dom", "node_dom_x", "skew_d")
+
+    def __init__(self, node_dom, dom_cid, max_skew, min_ok, has_key):
+        self.node_dom = node_dom
+        self.dom_cid = dom_cid
+        self.max_skew = max_skew
+        self.min_ok = min_ok
+        self.has_key = has_key
+        d = dom_cid.shape[0]
+        self.in_dom = node_dom >= 0
+        #: node_dom with "no domain" mapped to the extra column D.
+        self.node_dom_x = torch.where(self.in_dom, node_dom, d)
+        self.skew_d = max_skew[dom_cid]
+
+    def gate(self, dcounts, contrib, app):
+        """(S, N) DoNotSchedule gate of S pods at the counts given: every
+        constraint a pod carries (`app` (S, C)) needs the node's topology
+        key, and where the node lies in one of the constraint's eligible
+        domains, that domain's count plus the pod's selfMatch (`contrib`
+        (S, C)) less the constraint's global minimum must stay within
+        maxSkew; keyed nodes outside every eligible domain are fresh and
+        pass (the reference's `spread_gate`)."""
+        c = self.max_skew.shape[0]
+        mins = torch.full((c,), _NO_MIN, dtype=dcounts.dtype,
+                          device=dcounts.device).scatter_reduce(
+            0, self.dom_cid, dcounts, "amin")
+        mins = torch.where(self.min_ok, mins, 0)
+        allowed = (dcounts[None, :] + contrib[:, self.dom_cid]
+                   - mins[self.dom_cid][None, :]) <= self.skew_d[None, :]
+        allowed = torch.cat([allowed, allowed.new_zeros(
+            (allowed.shape[0], 1))], dim=1)                    # (S, D+1)
+        in_allowed = allowed[:, self.node_dom_x]               # (S, N, C)
+        node_c_ok = self.has_key[None] & (in_allowed | ~self.in_dom[None])
+        return torch.all(node_c_ok | ~app[:, None, :], dim=2)
+
+    def add(self, dcounts, nodes, hit, contrib):
+        """Count placed pods (`nodes` (S,) safe indices, `hit` (S,)) in
+        the domains of the constraints each matches (`contrib` (S, C))."""
+        doms = self.node_dom[nodes]                            # (S, C)
+        inc = torch.where(hit[:, None] & (doms >= 0), contrib, 0)
+        return dcounts.index_add(0, doms.clamp_min(0).reshape(-1),
+                                 inc.reshape(-1).to(dcounts.dtype))
+
+
+def _spread_step(state, req, req_nz, m, stat, app, con, table, alloc_q,
+                 fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                 strategy):
+    """One pod of the spread scan: gate, fit, live re-score, argmax (ties
+    to the lowest node), debit, count. Returns (state', idx or -1)."""
+    free_q, free_pods, used_nz, dc = state
+    n = free_q.shape[0]
+    fits = m & table.gate(dc, con[None, :], app[None, :])[0] \
+        & torch.all(req[None, :] <= free_q, dim=1) & (free_pods >= 1)
+    sc = kernels.chunk_start_scores(
+        alloc_q, used_nz, req_nz[None, :], stat[None, :], fit_col_w,
+        bal_col_mask, shape_u, shape_s, w_fit, w_bal, strategy)[0]
+    idx = _argmax_low(torch.where(fits, sc, NEG_INF), n)
+    hit = idx < n
+    sf = torch.clamp_max(idx, n - 1).long().reshape(1)
+    free_q = free_q.index_add(0, sf, torch.where(hit, -req, 0)[None, :])
+    free_pods = free_pods.index_add(
+        0, sf, torch.where(hit, -1, 0).to(free_pods.dtype).reshape(1))
+    used_nz = used_nz.index_add(0, sf, torch.where(hit, req_nz, 0)[None, :])
+    dc = table.add(dc, sf, hit.reshape(1), con[None, :])
+    return (free_q, free_pods, used_nz, dc), torch.where(hit, idx, -1)
+
+
+def _run_steps(step, n: int, device: torch.device) -> None:
+    """Call `step()` n times. On the CPU it runs eagerly. On a CUDA device
+    one call is captured in a CUDA graph and the graph is replayed n
+    times: every tensor a step reads or writes across calls is allocated
+    before the capture and updated in place, and the step reads its own
+    index from a device counter it advances, so each replay is the same
+    operations on the next pod (or wave) for one launch instead of one
+    per operation. Neither form reads a value back from the device."""
+    if n <= 0:
+        return
+    if device.type != "cuda":
+        for _ in range(n):
+            step()
+        return
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        step()
+        graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    for _ in range(n):
+        graph.replay()
+
+
+def greedy_assign_rescoring_spread(req_q, req_nz_q, free_q, free_pods,
+                                   used_nz_q, alloc_q, mask, static_scores,
+                                   fit_col_w, bal_col_mask, shape_u, shape_s,
+                                   w_fit, w_bal, strategy: str,
+                                   table: SpreadTable, dom_counts, applies,
+                                   contributes, rows=None, exc=None,
+                                   n_real: int | None = None):
+    """greedy_assign_rescoring with PodTopologySpread's hard constraints
+    inside the scan (the reference's `greedy_assign_rescoring_spread`):
+    the domain counts of the union table (`table`) ride the carry, so a
+    tight maxSkew stays sequential-exact. `applies` (P, C) bool: the
+    constraints of the pod's own template, which gate it; `contributes`
+    (P, C) int32: the constraints whose selector and namespaces match the
+    pod, which count it when placed (its selfMatch term too). One pod per
+    step, identity order (`_run_steps`: a CUDA graph of one step on the
+    card); nothing is read back from the device. `n_real`: pods from
+    this index on are padding that fits nowhere (an empty class row), so
+    their steps, which would change nothing, are not run.
+    Returns (assign (P,) int32, dom_counts' (D,) int32)."""
+    p = req_q.shape[0]
+    n = free_q.shape[0]
+    dev = free_q.device
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    if rows is None:
+        rows = torch.arange(p, dtype=torch.int32, device=dev)
+    rows = rows.long()
+    ex = torch.full((p,), -1, dtype=torch.int32, device=dev) \
+        if exc is None else exc
+    state = (free_q.clone(), free_pods.clone(), used_nz_q.clone(),
+             dom_counts.clone())
+    out = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    i = torch.zeros((1,), dtype=torch.long, device=dev)
+
+    def step():
+        row = rows.index_select(0, i)
+        e = ex.index_select(0, i)
+        m = mask.index_select(0, row)[0] & ((e < 0) | (iota == e))
+        new, idx = _spread_step(
+            state, req_q.index_select(0, i)[0],
+            req_nz_q.index_select(0, i)[0], m,
+            static_scores.index_select(0, row)[0],
+            applies.index_select(0, i)[0], contributes.index_select(0, i)[0],
+            table, alloc_q, fit_col_w, bal_col_mask, shape_u, shape_s,
+            w_fit, w_bal, strategy)
+        for buf, val in zip(state, new):
+            buf.copy_(val)
+        out.index_copy_(0, i, idx.to(torch.int32).reshape(1))
+        i.add_(1)
+
+    _run_steps(step, p if n_real is None else min(p, n_real), dev)
+    return out, state[3]
+
+
+def greedy_assign_rescoring_spread_wave(req_q, req_nz_q, free_q, free_pods,
+                                        used_nz_q, alloc_q, mask,
+                                        static_scores, fit_col_w,
+                                        bal_col_mask, shape_u, shape_s,
+                                        w_fit, w_bal, strategy: str,
+                                        wave_w: int, table: SpreadTable,
+                                        dom_counts, applies, contributes,
+                                        rows=None, exc=None,
+                                        n_real: int | None = None):
+    """greedy_assign_rescoring_spread, W pods per wave (the reference's
+    `greedy_assign_rescoring_spread_wave`): prefix-distinct speculative
+    picks at the wave-start counts, the capacity/score conflict check with
+    the spread gate folded in, and the structural rule — spread gating is
+    non-monotone (a commit that raises a global minimum can open a domain
+    to a later pod), so a gated member replays whenever an earlier member
+    of its wave committed a count-moving placement. A conflicted wave
+    replays one pod at a time from the wave-start state.
+
+    Nothing is read back from the device: both outcomes of each wave are
+    computed and the conflict bit selects one, so the commits, replays,
+    counts and the replay predicate stay tensors (the reference's
+    `lax.cond`); on the card a wave is one CUDA graph replay
+    (`_run_steps`). `n_real` as in the W=1 scan: the waves past it hold
+    only padding, which places nothing and commits, so they are counted
+    as commits without being run. Returns (assign (P,) int32,
+    dom_counts' (D,) int32, commits, replays), the counters 0-d int32
+    tensors."""
+    n = free_q.shape[0]
+    p = req_q.shape[0]
+    dev = free_q.device
+    W = max(1, min(wave_w, p))
+    iota_n = torch.arange(n, dtype=torch.int32, device=dev)
+    if rows is None:
+        rows = torch.arange(p, dtype=torch.int32, device=dev)
+    ex = torch.full((p,), -1, dtype=torch.int32, device=dev) \
+        if exc is None else exc
+    waves, real_w = _wave_split(
+        W, (req_q, req_nz_q, rows.long(), applies, contributes, ex))
+    nreal_w = real_w.sum(dim=1).to(torch.int32)
+    n_waves = real_w.shape[0]
+    state = (free_q.clone(), free_pods.clone(), used_nz_q.clone(),
+             dom_counts.clone())
+    out = torch.full((n_waves, W), -1, dtype=torch.int32, device=dev)
+    ncom = torch.zeros((1,), dtype=torch.int32, device=dev)
+    nrep = torch.zeros((1,), dtype=torch.int32, device=dev)
+    k = torch.zeros((1,), dtype=torch.long, device=dev)
+    score_args = (alloc_q, fit_col_w, bal_col_mask, shape_u, shape_s,
+                  w_fit, w_bal, strategy)
+
+    def wave():
+        req, req_nz, row, app, con, e = (
+            a.index_select(0, k)[0] for a in waves)
+        real = real_w.index_select(0, k)[0]
+        nreal = nreal_w.index_select(0, k)
+        free_q, free_pods, used_nz, dc = state
+        m = mask[row]                                          # (W,N)
+        m = m & ((e < 0)[:, None] | (iota_n[None, :] == e[:, None]))
+        m = m & real[:, None]
+        stat = static_scores[row]
+        sp_ok = table.gate(dc, con, app)                       # (W,N)
+        fits = m & sp_ok \
+            & torch.all(req[:, None, :] <= free_q[None, :, :], dim=-1) \
+            & (free_pods >= 1)[None, :]
+        sc = kernels.chunk_start_scores(
+            alloc_q, used_nz, req_nz, stat, fit_col_w, bal_col_mask,
+            shape_u, shape_s, w_fit, w_bal, strategy)
+        masked = torch.where(fits, sc, NEG_INF)
+        b, y = _wave_spec_picks(masked, iota_n[None, :].expand(masked.shape),
+                                n, W)
+        safe = torch.clamp_max(y, n - 1).long()
+        hit = y < n
+        conflict = _wave_conflicts(
+            b, y, n, req, req_nz, free_q, free_pods, used_nz, alloc_q,
+            m[:, safe], stat[:, safe], fit_col_w, bal_col_mask, shape_u,
+            shape_s, w_fit, w_bal, strategy, extra_ok=sp_ok[:, safe])
+        movers = (hit & torch.any(con > 0, dim=1)).to(torch.int32)
+        earlier_moved = torch.cumsum(movers, dim=0) - movers > 0
+        conflict = conflict | (earlier_moved & torch.any(app, dim=1))
+        replay = torch.any(conflict)
+        # The speculative commit.
+        fast = (
+            free_q.index_add(0, safe, torch.where(hit[:, None], -req, 0)),
+            free_pods.index_add(
+                0, safe, torch.where(hit, -1, 0).to(free_pods.dtype)),
+            used_nz.index_add(0, safe, torch.where(hit[:, None], req_nz, 0)),
+            table.add(dc, safe, hit, con))
+        fast_out = torch.where(hit, y, -1)
+        # The serial replay from the wave-start state.
+        slow, slow_out = state, []
+        for w in range(W):
+            slow, idx = _spread_step(slow, req[w], req_nz[w], m[w], stat[w],
+                                     app[w], con[w], table, *score_args)
+            slow_out.append(idx)
+        for buf, s_val, f_val in zip(state, slow, fast):
+            buf.copy_(torch.where(replay, s_val, f_val))
+        out.index_copy_(0, k, torch.where(
+            replay, torch.stack(slow_out), fast_out).to(torch.int32)[None])
+        ncom.add_(torch.where(replay, 0, nreal))
+        nrep.add_(torch.where(replay, nreal, 0))
+        k.add_(1)
+
+    n_run = n_waves if n_real is None else min(n_waves, -(-n_real // W))
+    _run_steps(wave, n_run, dev)
+    ncom.add_(nreal_w[n_run:].sum().to(torch.int32))
+    return out.reshape(-1)[:p], state[3], ncom[0], nrep[0]
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,9 @@ soon as `Scheduler.run` ends with one (the port has no backend fallback),
 where the reference's would wait out its deadline. SchedulingBasic's
 workload is a constant here (`SCHEDULING_BASIC`, equal to the reference's
 YAML entry), so the harness needs no YAML parser unless `load_config` is
-given a path.
+given a path; so are the constraint families' SchedulingPodAntiAffinity,
+SchedulingPodAffinity and TopologySpreading (`SCHEDULING_POD_ANTI_AFFINITY`,
+`SCHEDULING_POD_AFFINITY`, `TOPOLOGY_SPREADING`).
 
 Metrics over the measured phase: SchedulingThroughput (pods/s),
 scheduling_attempt_duration percentiles (exact order statistics of the
@@ -80,6 +82,112 @@ SCHEDULING_BASIC = {
         {"name": "5000Nodes",
          "params": {"initNodes": 5000, "initPods": 1000,
                     "measurePods": 10000}},
+    ],
+}
+
+_ZONE = "topology.kubernetes.io/zone"
+_ANTI_POD = {
+    "labels": {"app": "anti", "color": "blue"},
+    "requests": {"cpu": "100m", "memory": "250Mi"},
+    "affinity": {"podAntiAffinity": {
+        "requiredDuringSchedulingIgnoredDuringExecution": [{
+            "labelSelector": {"matchLabels": {"color": "blue"}},
+            "topologyKey": "kubernetes.io/hostname"}]}},
+}
+_SPREAD_POD = {
+    "labels": {"app": "spread-me"},
+    "topology_spread_constraints": [
+        {"maxSkew": 1, "topologyKey": _ZONE,
+         "whenUnsatisfiable": "DoNotSchedule",
+         "labelSelector": {"matchLabels": {"app": "spread-me"}}},
+        {"maxSkew": 5, "topologyKey": "kubernetes.io/hostname",
+         "whenUnsatisfiable": "ScheduleAnyway",
+         "labelSelector": {"matchLabels": {"app": "spread-me"}}}],
+}
+
+
+def _zone_nodes(zone: str) -> dict:
+    return {"opcode": "createNodes", "countParam": "$initNodes",
+            "nodeTemplate": {"labels": {_ZONE: zone}}}
+
+
+#: SchedulingPodAntiAffinity of the reference's performance-config.yaml:
+#: hostname anti-affinity among the pods themselves (one per node).
+SCHEDULING_POD_ANTI_AFFINITY = {
+    "name": "SchedulingPodAntiAffinity",
+    "workloadTemplate": [
+        _zone_nodes("zone-a"),
+        {"opcode": "createPods", "countParam": "$warmupPods",
+         "podTemplate": _ANTI_POD},
+        {"opcode": "barrier"},
+        {"opcode": "createPods", "countParam": "$measurePods",
+         "collectMetrics": True, "podTemplate": _ANTI_POD},
+        {"opcode": "barrier"},
+    ],
+    "workloads": [
+        {"name": "500Nodes",
+         "params": {"initNodes": 500, "warmupPods": 50, "measurePods": 450}},
+        {"name": "5000Nodes",
+         "params": {"initNodes": 5000, "warmupPods": 200,
+                    "measurePods": 4800}},
+    ],
+}
+
+#: SchedulingPodAffinity of the reference's performance-config.yaml:
+#: workers require a hub in their zone and prefer one on their node.
+SCHEDULING_POD_AFFINITY = {
+    "name": "SchedulingPodAffinity",
+    "workloadTemplate": [
+        _zone_nodes("zone-a"),
+        _zone_nodes("zone-b"),
+        {"opcode": "createPods", "countParam": "$hubPods",
+         "podTemplate": {"labels": {"tier": "hub"}}},
+        {"opcode": "barrier"},
+        {"opcode": "createPods", "countParam": "$measurePods",
+         "collectMetrics": True,
+         "podTemplate": {
+             "labels": {"tier": "worker"},
+             "affinity": {"podAffinity": {
+                 "requiredDuringSchedulingIgnoredDuringExecution": [{
+                     "labelSelector": {"matchLabels": {"tier": "hub"}},
+                     "topologyKey": _ZONE}],
+                 "preferredDuringSchedulingIgnoredDuringExecution": [{
+                     "weight": 50, "podAffinityTerm": {
+                         "labelSelector": {"matchLabels": {"tier": "hub"}},
+                         "topologyKey": "kubernetes.io/hostname"}}]}}}},
+        {"opcode": "barrier"},
+    ],
+    "workloads": [
+        {"name": "500Nodes",
+         "params": {"initNodes": 250, "hubPods": 50, "measurePods": 1000}},
+        {"name": "5000Nodes",
+         "params": {"initNodes": 2500, "hubPods": 200,
+                    "measurePods": 5000}},
+    ],
+}
+
+#: TopologySpreading of the reference's performance-config.yaml: a hard
+#: maxSkew 1 over three zones and a soft maxSkew 5 over hostnames.
+TOPOLOGY_SPREADING = {
+    "name": "TopologySpreading",
+    "workloadTemplate": [
+        _zone_nodes("zone-a"),
+        _zone_nodes("zone-b"),
+        _zone_nodes("zone-c"),
+        {"opcode": "createPods", "countParam": "$warmupPods",
+         "podTemplate": _SPREAD_POD},
+        {"opcode": "barrier"},
+        {"opcode": "createPods", "countParam": "$measurePods",
+         "collectMetrics": True, "podTemplate": _SPREAD_POD},
+        {"opcode": "barrier"},
+    ],
+    "workloads": [
+        {"name": "300Nodes",
+         "params": {"initNodes": 100, "warmupPods": 150,
+                    "measurePods": 1000}},
+        {"name": "3000Nodes",
+         "params": {"initNodes": 1000, "warmupPods": 300,
+                    "measurePods": 5000}},
     ],
 }
 

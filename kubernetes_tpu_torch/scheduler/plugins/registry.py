@@ -1,7 +1,8 @@
 """Plugin registry (plugins/registry.go `NewInTreeRegistry`), cut to the
-plugins this package models: the six Filter/Score plugins the batched
-backend computes on the device, and the queue-sort, gating and binding
-plugins the scheduler loop runs on the host."""
+plugins this package models: the Filter/Score plugins the batched backend
+computes (the six node plugins and the two constraint families,
+InterPodAffinity and PodTopologySpread), and the queue-sort, gating and
+binding plugins the scheduler loop runs on the host."""
 
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ from kubernetes_tpu_torch.scheduler.plugins.core import (
     PrioritySort,
     SchedulingGates,
 )
+from kubernetes_tpu_torch.scheduler.plugins.interpodaffinity import (
+    InterPodAffinity,
+)
 from kubernetes_tpu_torch.scheduler.plugins.nodeaffinity import (
     NodeAffinity,
     NodeName,
@@ -21,6 +25,9 @@ from kubernetes_tpu_torch.scheduler.plugins.nodeaffinity import (
 from kubernetes_tpu_torch.scheduler.plugins.noderesources import (
     BalancedAllocation,
     NodeResourcesFit,
+)
+from kubernetes_tpu_torch.scheduler.plugins.podtopologyspread import (
+    PodTopologySpread,
 )
 
 #: name -> factory(args) (framework/runtime Registry).
@@ -33,6 +40,8 @@ IN_TREE: dict[str, Callable] = {
     "NodeName": NodeName,
     "NodeUnschedulable": NodeUnschedulable,
     "TaintToleration": TaintToleration,
+    "InterPodAffinity": InterPodAffinity,
+    "PodTopologySpread": PodTopologySpread,
     "DefaultBinder": DefaultBinder,
 }
 
@@ -47,6 +56,8 @@ DEFAULT_PLUGINS = [
     "NodeAffinity",
     "NodeResourcesFit",
     "NodeResourcesBalancedAllocation",
+    "InterPodAffinity",
+    "PodTopologySpread",
     "DefaultBinder",
 ]
 
@@ -55,6 +66,8 @@ DEFAULT_SCORE_WEIGHTS = {
     "NodeResourcesFit": 1,
     "NodeResourcesBalancedAllocation": 1,
     "NodeAffinity": 2,
+    "InterPodAffinity": 2,
+    "PodTopologySpread": 2,
     "TaintToleration": 3,
 }
 

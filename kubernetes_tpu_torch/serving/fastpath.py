@@ -20,16 +20,22 @@ its placement is representable in the resident planes —
   is just a one-column mask here — a lone pod's argmax over ≤1 column
   cannot be moved by score normalization, so the batch path's
   exception-column form is assignment-identical);
+- no live stateful plugin: InterPodAffinity and PodTopologySpread take the
+  pod only when their activity gates (the backend's `_FILTER_ACTIVE` /
+  `_SCORE_ACTIVE`, each the plugin's own Skip condition) say inactive, as
+  in the reference — a plain pod against a term-free cluster stays
+  eligible, while a pod with affinity terms, or a labeled pod under the
+  default profile (whose default spread constraints score it), does not;
 - none of the features this package does not model (`unsupported_feature`:
-  inter-pod affinity, spread, claims, volumes, host ports, gang labels) —
-  the reference's default profile makes each such pod ineligible through
-  its stateful plugins' activity gates or Coscheduling;
+  claims, volumes, host ports, gang labels) — the reference's default
+  profile makes each such pod ineligible through its plugins' activity
+  gates or Coscheduling;
 - no nonzero host score rows (preferred node affinity) — score
   normalization is feasible-set relative and belongs to the chunk prep.
 
 Anything else falls through (None) to the normal path, which also owns
 diagnostics and preemption for no-fit pods. A framework holding a plugin
-at PreFilter, Filter, PreScore or Score that is not one of the six the
+at PreFilter, Filter, PreScore or Score that is not one of the eight the
 backend models (`MODELLED_PLUGINS`) raises NotImplementedError, as
 `TorchBackend.assign` does; plugins at none of those points (PrioritySort,
 SchedulingGates, DefaultBinder) pass. A host verify (exact
@@ -53,6 +59,8 @@ import torch
 
 from kubernetes_tpu_torch.ops import solver
 from kubernetes_tpu_torch.ops.backend import (
+    _FILTER_ACTIVE,
+    _SCORE_ACTIVE,
     DEVICE_FILTER_PLUGINS,
     DEVICE_SCORE_PLUGINS,
     STATIC_ROW_PLUGINS,
@@ -124,9 +132,9 @@ class SinglePodFastPath:
                 if not all_true:
                     rows.append(row)
                 continue
-            # A plugin this path cannot represent: the normal path takes
-            # the pod (no such plugin passes _check_supported today).
-            return None
+            gate = _FILTER_ACTIVE.get(name)
+            if gate is None or gate(plugin, pi, snapshot):
+                return None
         for plugin in fwk.score_plugins:
             name = plugin.NAME
             if name in DEVICE_SCORE_PLUGINS:
@@ -142,7 +150,9 @@ class SinglePodFastPath:
                 if any_nonzero:
                     return None
                 continue
-            return None
+            gate = _SCORE_ACTIVE.get(name)
+            if gate is None or gate(plugin, pi, snapshot):
+                return None
         return rows
 
     # -- device inputs ------------------------------------------------------

@@ -206,22 +206,42 @@ def test_fused_program_matches_reference(runs):
 
 
 def test_unsupported_pods_raise():
+    """Resource claims, volumes, host ports and gangs are not modelled
+    and raise before any placement; inter-pod affinity and topology
+    spread are modelled now and place."""
     nodes, residents, _ = cluster_objects()
     snap = _snapshot(ttypes, nodes, residents)
     fwk = tframework.Framework(tregistry.build_plugins(),
                                tregistry.DEFAULT_SCORE_WEIGHTS)
     tb = tbackend.TorchBackend(device="cpu", max_batch=32)
+    claim = make_pod("claim")
+    claim["spec"]["resourceClaims"] = [{"name": "gpu",
+                                        "resourceClaimName": "c0"}]
+    pvc = make_pod("pvc")
+    pvc["spec"]["volumes"] = [{"name": "data", "persistentVolumeClaim": {
+        "claimName": "data-0"}}]
+    cases = [
+        (claim, "resource claims"),
+        (pvc, "volumes"),
+        (make_pod("ports", host_ports=[8080]), "host ports"),
+        (make_pod("gang", labels={tbackend.POD_GROUP_LABEL: "g1"}),
+         "gang scheduling"),
+    ]
+    for pod, match in cases:
+        with pytest.raises(NotImplementedError, match=match):
+            tb.assign([ttypes.PodInfo(pod)], snap, fwk)
+    assert tb.counters["chunks"] == 0
     spread = make_pod("spread", topology_spread_constraints=[{
         "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
         "whenUnsatisfiable": "DoNotSchedule"}])
-    with pytest.raises(NotImplementedError, match="topology spread"):
-        tb.assign([ttypes.PodInfo(spread)], snap, fwk)
     anti = make_pod("anti", affinity={"podAntiAffinity": {
         "requiredDuringSchedulingIgnoredDuringExecution": [{
             "topologyKey": "kubernetes.io/hostname",
             "labelSelector": {"matchLabels": {"app": "x"}}}]}})
-    with pytest.raises(NotImplementedError, match="inter-pod affinity"):
-        tb.assign([ttypes.PodInfo(anti)], snap, fwk)
+    got, _ = tb.assign([ttypes.PodInfo(spread), ttypes.PodInfo(anti)],
+                       snap, fwk)
+    assert got["default/spread"] is not None
+    assert got["default/anti"] is not None
 
 
 def test_per_pod_planes_match_class_planes(runs):

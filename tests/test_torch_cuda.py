@@ -457,3 +457,57 @@ def test_scheduler_loop_on_card_matches_cpu(cuda, monkeypatch):
     assert card["assignments"] == cpu["assignments"]
     assert card["failed"] == cpu["failed"] != {}
     assert not over_capacity(card["nodes"], card["pods"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave_w", [1, 32])
+def test_spread_scan_on_card_matches_cpu(cuda, wave_w):
+    """The spread scan (W=1, and its wave form at W=32) on the card, under
+    sync debug "error", places, counts, commits and replays exactly as on
+    the CPU on phase 10(a)'s seeded union tables."""
+    from chip_smoke import no_host_sync_in_wave_loop, run_spread_scan, \
+        spread_case
+
+    for seed, strategy in ((10, "LeastAllocated"), (11, "MostAllocated")):
+        case = spread_case(seed, n=300, p=128)
+        with no_host_sync_in_wave_loop(torch):
+            card = run_spread_scan(torch, case, strategy, wave_w, cuda)
+        cpu = run_spread_scan(torch, case, strategy, wave_w, "cpu")
+        np.testing.assert_array_equal(card[0], cpu[0])
+        np.testing.assert_array_equal(card[1], cpu[1])
+        assert card[2] == cpu[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "greedy"])
+def test_constraint_chunk_on_card_matches_cpu(cuda, mode):
+    """One chunk of every constraint template (anti-affinity, zone
+    affinity, preferred terms, two hard spread templates, labeled plain
+    pods) through `TorchBackend()` on the card and on the CPU: identical
+    assignments, diagnostics' reasons, counters and spread counts."""
+    from chip_smoke import (CONSTRAINT_KINDS, constraint_assign,
+                            constraint_cluster, constraint_pods,
+                            constraint_snapshot)
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler import types
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+
+    fwk = Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS)
+    nodes, residents = constraint_cluster(9, 96)
+    pods = [types.PodInfo(make_pod(n, **kw))
+            for n, kw in constraint_pods(CONSTRAINT_KINDS, 192)]
+    out = []
+    for backend in (TorchBackend(device=cuda), TorchBackend(device="cpu")):
+        snap = constraint_snapshot(types, make_node, make_pod, nodes,
+                                   residents)
+        ctx = constraint_assign(backend, snap, fwk, pods, mode)
+        out.append((ctx.assignments,
+                    {k: sorted(getattr(d, "reason_counts", {}).items())
+                     for k, d in ctx.diagnostics.items()},
+                    dict(backend.counters),
+                    ctx.spread["dev_counts"].cpu().numpy().tolist()))
+    assert out[0] == out[1]
+    assert out[0][2]["spread_chunks"] == 1

@@ -75,10 +75,21 @@ def both(nodes, pods, trickle=False):
 
 
 def test_default_profile_is_the_loop_profile():
+    """The port's default profile is the reference's, restricted to the
+    plugins the port has, in the reference's order, with its weights."""
+    from kubernetes_tpu.scheduler.plugins import registry as jregistry
+    from kubernetes_tpu_torch.scheduler.plugins import registry as tregistry
+
     assert DEFAULT_PLUGINS == [
         "PrioritySort", "SchedulingGates", "NodeUnschedulable", "NodeName",
         "TaintToleration", "NodeAffinity", "NodeResourcesFit",
-        "NodeResourcesBalancedAllocation", "DefaultBinder"]
+        "NodeResourcesBalancedAllocation", "InterPodAffinity",
+        "PodTopologySpread", "DefaultBinder"]
+    assert DEFAULT_PLUGINS == [p for p in jregistry.DEFAULT_PLUGINS
+                               if p in tregistry.IN_TREE]
+    assert tregistry.DEFAULT_SCORE_WEIGHTS == {
+        k: v for k, v in jregistry.DEFAULT_SCORE_WEIGHTS.items()
+        if k in tregistry.IN_TREE}
 
 
 @pytest.mark.parametrize("serving", ["1", "0"], ids=["serving", "no-serving"])
