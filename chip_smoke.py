@@ -14,7 +14,9 @@ wave_solve), and the serving fast path (2000 lone pods, one at a time,
 through `SinglePodFastPath.try_schedule` over a `SchedulerCache`), and the
 scheduler loop (`Scheduler.run` through the port's scheduler_perf
 `PerfRunner`, pods created in a store and bound through informers, the
-queue and the serving tier) — after
+queue and the serving tier), with the constraint families, gangs
+(Coscheduling in the batched solve) and preemption (DefaultPreemption
+with the device victim proposal) — after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
 PyTorch version on the card.
@@ -153,13 +155,46 @@ Phases (any failure raises and the script exits non-zero with no result):
      a hub. (b) and (c) print what 9(b) prints, with a torch.profiler
      and a cProfile repeat each (10(c)'s torch.profiler repeat runs
      TopologySpreading/300Nodes);
- 11. the result lines: a `kernels` JSON line (wave_solve's entry also
+ 12. gangs and preemption, under a scoped KTPU_SOLVE_MODE=auto with
+     serving on: (a) the five gang chunk shapes of `gang_chunk` (gangs
+     that fit; a 64-member gang with one member no node holds; a gang
+     whose quota is cut by members already assembled; 18 gangs in one
+     chunk, so the overflow counter fires; a gang of hard-spread pods in
+     a spread chunk, folded out of the domain counts) through
+     `TorchBackend()` with Coscheduling in the profile, flagless and with
+     greedy pinned, every flagless device pass and every spread scan
+     under sync debug "error", against `TorchBackend(device="cpu")`: identical
+     assignments, diagnostics, solver metrics, gang_overflow and spread
+     counts; (b) SchedulingBasic/5000Nodes' cluster and 1000 init pods,
+     then 156 gangs of 64 (9984 pods of cpu 100m / memory 250Mi,
+     minMember 64), a gang held by PreEnqueue (minMember 65) and a gang
+     with one member no node holds, created in 512-pod gathers into
+     `Scheduler(store, backend=TorchBackend()).run` with the default
+     profile plus Coscheduling: every assembling gang bound whole, the
+     two failing gangs unbound after their scheduleTimeoutSeconds (5 s),
+     no partial gang, no node over capacity; pods/s over the window, the
+     optimal solves and wave_solve launches, gang_overflow, `assign`'s
+     share of the window, and over a repeat under torch.profiler the
+     idle share; (c) one `propose_victims` bucket (128 preemptors) on the
+     card under sync debug "error" against the CPU port at N=1000 and
+     N=5000 and on priorities near 2^31 (printed, not required equal),
+     then Preemption/1000Nodes (1000 nodes, 4000 fillers, 100 warm-up and
+     1000 measured preemptors; not cut) through the port's `PerfRunner`:
+     every preemptor bound, victims evicted, none of priority at or above
+     its preemptor's, no node over capacity; SchedulingThroughput,
+     DefaultPreemption's routes (device-primed, ranked host search,
+     per-node host scan, in-flight), `propose_victims` calls, ms per call
+     and graph replays, over a repeat under torch.profiler the idle
+     share, and over a repeat under cProfile the host's top costs;
+ 13. the result lines (phase 11 before phase 12 existed): the whole
+     smoke's wall time, a `kernels` JSON line (wave_solve's entry also
      carries the flagless path's W=1 launches, ms, device ms, plain ms and
-     bound, the loop's launches in phase 9(b)'s measured window, and
+     bound, the loop's launches in phase 9(b)'s measured window,
      `constraint_launches`, those of 10(b)'s probe and the measured
-     windows of 10(b) and 10(d); the probe's, its launches over phase
-     9(b)'s run and over 10(b)'s), the card's name and power limit from
-     nvidia-smi, and last {"ok": true, "device": {...}}.
+     windows of 10(b) and 10(d), `gang_launches`, those of 12(b)'s window,
+     and `gang_chunk_launches`, those of 12(a); the probe's, its launches
+     over phase 9(b)'s run and over 10(b)'s), the card's name and power
+     limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`. It needs
 one CUDA device; without one, or outside a checkout of the repository, it
@@ -170,6 +205,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import copy
 import json
 import math
 import os
@@ -1679,13 +1715,15 @@ def port_loop_api():
     from types import SimpleNamespace
 
     from kubernetes_tpu_torch.api.types import make_node, make_pod
-    from kubernetes_tpu_torch.client import InformerFactory
+    from kubernetes_tpu_torch.client import (InformerFactory,
+                                             ResourceEventHandler)
     from kubernetes_tpu_torch.scheduler import Scheduler
     from kubernetes_tpu_torch.store import (install_core_validation,
                                             new_cluster_store)
     return SimpleNamespace(
         make_node=make_node, make_pod=make_pod,
         InformerFactory=InformerFactory, Scheduler=Scheduler,
+        ResourceEventHandler=ResourceEventHandler,
         install_core_validation=install_core_validation,
         new_cluster_store=new_cluster_store)
 
@@ -1765,14 +1803,17 @@ class LoopRun:
         self.api, self.backend, self.batch_size = api, backend, batch_size
         self.store = self.sched = self.factory = self.task = None
 
-    async def start(self, nodes) -> None:
+    async def start(self, nodes, profiles=None) -> None:
+        """`profiles`: None for the package's default profile, or a
+        callable taking the store and returning the Scheduler's profiles."""
         api = self.api
         self.store = api.new_cluster_store()
         api.install_core_validation(self.store)
         for name, kw in nodes:
             await self.store.create("nodes", api.make_node(name, **kw))
+        kw = {} if profiles is None else {"profiles": profiles(self.store)}
         self.sched, self.factory = await start_scheduler(
-            api, self.store, backend=self.backend)
+            api, self.store, backend=self.backend, **kw)
 
     async def create(self, pods) -> None:
         for name, kw in pods:
@@ -2672,6 +2713,666 @@ def pod_affinity_phase(torch) -> int:
     return w["launches"]
 
 
+# -- phase 12: gangs and preemption ----------------------------------------
+
+#: Coscheduling's pod-group label.
+GANG_LABEL = "scheduling.x-k8s.io/pod-group"
+#: Phase 12(a)'s gang chunk shapes (see `gang_chunk`), its cluster size
+#: (`constraint_cluster`) and chunk.
+GANG_CASES = ("fit", "stranded", "assembled", "overflow", "spread")
+N_GANG_CHUNK_NODES, GANG_CHUNK = 36, 128
+#: Phase 12(b): SchedulingBasic/5000Nodes' cluster and pod template, its
+#: 10000 measured pods as 156 gangs of 64 (minMember 64), plus a gang held
+#: by PreEnqueue (minMember 65) and a gang with one member no node holds.
+N_GANGS, GANG_SIZE, GANG_TIMEOUT_S = 156, 64, 5.0
+
+
+class PodGroupIndex:
+    """A stand-in for Coscheduling's PodGroup informer in direct `assign`
+    calls: the plugin reads `pg_informer.indexer.get(group key)` and
+    nothing else of it."""
+
+    def __init__(self, groups: dict):
+        self.indexer = self
+        self._groups = groups
+
+    def get(self, key: str):
+        return self._groups.get(key)
+
+
+def gang_chunk(kind: str) -> tuple[list, dict, list]:
+    """One pending chunk of a phase 12(a) shape, as (PodGroups [(name,
+    minMember)], members already assembled {group: count}, pods [(name,
+    make_pod kwargs)]); a member "no node can hold" asks for 64 CPUs.
+    `fit`: six gangs of 10 and 16 lone pods, all placeable; `stranded`: a
+    64-member gang with one such member, so none of the 64 places, and 16
+    lone pods; `assembled`: a gang of minMember 12 with 6 members already
+    bound and 8 in the chunk, 2 of them unplaceable (its quota falls to 6,
+    so 6 place), a gang of 8 with one unplaceable member, and 8 lone pods;
+    `overflow`: 18 gangs of 4, three with an unplaceable member: the first
+    16 are masked in the solve (gang 0 places nothing), gangs 16 and 17
+    are left to the Permit barrier (their other members place); `spread`:
+    a gang of 12 hard-zone-spread pods (`constraint_pod`'s `spread`
+    template) with one unplaceable member, between 24 spread pods that are
+    in no gang, and 8 lone pods — the gang's 11 placements are dropped and
+    folded out of the chained domain counts."""
+    small = {"cpu": "500m", "memory": "1Gi"}
+    groups: list = []
+    assembled: dict = {}
+    pods: list = []
+
+    def gang(g: str, members: int, min_member: int, unfit=(),
+             template: str | None = None) -> None:
+        groups.append((g, min_member))
+        for i in range(members):
+            kw = copy.deepcopy(constraint_pod(template, i)[1]) \
+                if template else {"requests": dict(small)}
+            kw["labels"] = {**(kw.get("labels") or {}), GANG_LABEL: g}
+            if i in unfit:
+                kw["requests"] = {"cpu": "64", "memory": "1Gi"}
+            pods.append((f"{g}-{i}", kw))
+
+    def lone(n: int) -> None:
+        pods.extend((f"solo-{i}", {"requests": dict(small)})
+                    for i in range(n))
+
+    if kind == "fit":
+        for g in range(6):
+            gang(f"fit{g}", 10, 10)
+        lone(16)
+    elif kind == "stranded":
+        gang("big", 64, 64, unfit=(31,))
+        lone(16)
+    elif kind == "assembled":
+        gang("half", 8, 12, unfit=(2, 5))
+        assembled["half"] = 6
+        gang("whole", 8, 8, unfit=(7,))
+        lone(8)
+    elif kind == "overflow":
+        for g in range(18):
+            gang(f"ov{g}", 4, 4, unfit=(1,) if g in (0, 16, 17) else ())
+    elif kind == "spread":
+        pods.extend(constraint_pod("spread", i) for i in range(12))
+        gang("sg", 12, 12, unfit=(5,), template="spread")
+        pods.extend(constraint_pod("spread", i) for i in range(12, 24))
+        lone(8)
+    else:
+        raise ValueError(kind)
+    return groups, assembled, pods
+
+
+def gang_framework(registry, framework_mod, make_pod_group, groups,
+                   assembled, store=None):
+    """A Framework of `registry`'s package: the port's default profile plus
+    Coscheduling. With `groups` ([(name, minMember)]) its PodGroup informer
+    is a `PodGroupIndex` over them and `assembled` ({group: count}) members
+    are already bound; with `groups` None the scheduler wires informers."""
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_PLUGINS)
+
+    plugins = registry.build_plugins(list(DEFAULT_PLUGINS) + ["Coscheduling"],
+                                     store=store)
+    if groups is not None:
+        cos = plugins[-1]
+        cos.pg_informer = PodGroupIndex({
+            f"default/{g}": make_pod_group(g, mm) for g, mm in groups})
+        for g, n in assembled.items():
+            cos._bound[f"default/{g}"] = {f"default/{g}-assembled-{k}"
+                                          for k in range(n)}
+    return framework_mod.Framework(plugins, registry.DEFAULT_SCORE_WEIGHTS)
+
+
+def gang_outcome(assignments: dict, pods) -> dict:
+    """{group: (members placed, members)} from `pods`' gang labels;
+    `assignments` keyed by pod key (assign()) or by pod name (the loop)."""
+    out: dict = {}
+    for name, kw in pods:
+        g = (kw.get("labels") or {}).get(GANG_LABEL)
+        if g is None:
+            continue
+        node = assignments.get(f"default/{name}", assignments.get(name))
+        placed, total = out.get(g, (0, 0))
+        out[g] = (placed + (node is not None), total + 1)
+    return out
+
+
+def port_gang_chunk(backend, kind: str, mode: str):
+    """Phase 12(a)'s `kind` chunk through the port's `backend` (with its
+    metrics attached) under KTPU_SOLVE_MODE `mode`: (context, metrics)."""
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
+    from kubernetes_tpu_torch.scheduler import framework, types
+    from kubernetes_tpu_torch.scheduler.plugins import registry
+    from kubernetes_tpu_torch.scheduler.plugins.coscheduling import (
+        make_pod_group)
+
+    nodes, residents = constraint_cluster(3, N_GANG_CHUNK_NODES)
+    groups, assembled, pods = gang_chunk(kind)
+    fwk = gang_framework(registry, framework, make_pod_group, groups,
+                         assembled)
+    backend.metrics = SchedulerMetrics()
+    snap = constraint_snapshot(types, make_node, make_pod, nodes, residents)
+    ctx = constraint_assign(backend, snap, fwk,
+                            [types.PodInfo(make_pod(n, **kw))
+                             for n, kw in pods], mode)
+    return ctx, backend.metrics
+
+
+#: The solver metrics a gang chunk is compared on.
+GANG_METRICS = ("solver_optimal_solves", "solver_optimal_fallbacks",
+                "solver_wave_commits", "solver_wave_replays")
+
+
+def gang_chunk_view(ctx, metrics) -> dict:
+    """What phase 12(a) and the tests compare: assignments, each
+    diagnostic's reasons, plugins and resolvability, the solver metrics,
+    the gang-overflow degradations and the chained spread counts."""
+    diags = {}
+    for key, d in ctx.diagnostics.items():
+        if hasattr(d, "reason_counts"):
+            diags[key] = (sorted(d.reason_counts.items()), sorted(d.plugins),
+                          d.resolvable)
+        else:
+            diags[key] = sorted((n, st.code, list(st.reasons), st.plugin)
+                                for n, st in d.items())
+    counts = None
+    if ctx.spread and ctx.spread.get("cons"):
+        counts = [int(c) for c in np.asarray(
+            ctx.spread["dev_counts"].cpu()
+            if hasattr(ctx.spread["dev_counts"], "cpu")
+            else ctx.spread["dev_counts"])]
+    return {"assignments": dict(ctx.assignments), "diagnostics": diags,
+            "metrics": {m: getattr(metrics, m).value() for m in GANG_METRICS},
+            "gang_overflow": metrics.backend_degradations.value(
+                kind="gang_overflow"),
+            "spread_counts": counts}
+
+
+def gang_chunks_phase(torch) -> int:
+    """Phase 12(a): each gang chunk shape through `TorchBackend()` on the
+    card and `TorchBackend(device="cpu")`, flagless and with greedy pinned:
+    identical assignments, diagnostics, solver metrics, gang-overflow
+    counts and spread counts; every flagless device pass and every spread
+    scan under sync debug "error". Returns wave_solve's launches."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    launches = 0
+    for kind in GANG_CASES:
+        _, _, pods = gang_chunk(kind)
+        for mode in ("auto", "greedy"):
+            wave_kernel.wave_solve.launches = 0
+            # The greedy wave route reads its poison flags back (the W=1
+            # rerun is a host decision), so only flagless passes run under
+            # the device-pass guard.
+            with no_host_sync_in_wave_loop(torch), (
+                    no_host_sync_in_device_pass(torch) if mode == "auto"
+                    else contextlib.nullcontext()):
+                card = gang_chunk_view(*port_gang_chunk(
+                    TorchBackend(max_batch=GANG_CHUNK), kind, mode))
+            launches += wave_kernel.wave_solve.launches
+            cpu = gang_chunk_view(*port_gang_chunk(
+                TorchBackend(device="cpu", max_batch=GANG_CHUNK), kind,
+                mode))
+            same = card == cpu
+            outcome = gang_outcome(card["assignments"], pods)
+            placed = sum(v is not None for v in card["assignments"].values())
+            print(f"compare gang chunk {kind} ({len(pods)} pods on "
+                  f"{N_GANG_CHUNK_NODES} nodes, KTPU_SOLVE_MODE={mode}), "
+                  f"card vs CPU: {'identical' if same else 'DIFFER'}; "
+                  f"placed {placed}, per gang (placed, members) "
+                  f"{json.dumps(outcome)}, metrics "
+                  f"{json.dumps(card['metrics'])}, gang_overflow "
+                  f"{card['gang_overflow']}, spread counts "
+                  f"{card['spread_counts']}")
+            if not same:
+                raise RuntimeError(f"gang chunk {kind} ({mode}) differs on "
+                                   f"the card from the CPU")
+            partial = [g for g, (k, n) in outcome.items()
+                       if 0 < k < n and not g.startswith(("half", "ov1"))]
+            if partial:
+                raise RuntimeError(f"gang chunk {kind}: partial gangs "
+                                   f"{partial}")
+    print(f"phase 12(a) {time.perf_counter() - t0:.1f} s, wave_solve "
+          f"launches {launches}")
+    return launches
+
+
+def victim_case(seed: int, n: int, p: int = 128, k: int = 8, r: int = 2,
+                near_max: bool = False) -> tuple:
+    """One seeded `propose_victims` bucket, as numpy arrays in its argument
+    order: nodes of 4000 / 16384 quantized units (Preemption's cpu 4 /
+    memory 16Gi), most full of 0-4 victims ascending in priority (0, 10,
+    100 or 1000; with `near_max`, priorities within 200 of 2^31 - 1 and
+    preemptors at 2^31 - 2, where the float32 priority sums are no longer
+    exact), a few with free room; preemptors of priority 1000 (a few
+    lower), ~5% of nodes banned per preemptor, the last 8 rows padding
+    (INT32_MIN priority, every node banned) as `prime_wave` pads a bucket;
+    offsets uniform over the nodes."""
+    rng = np.random.default_rng(seed)
+    alloc = np.tile(np.array([[4000, 16384]], np.int32), (n, 1))
+    pods_alloc = np.full((n,), 32, np.int32)
+    vreq = np.zeros((n, k, r), np.int32)
+    vprio = np.full((n, k), 2**31 - 1, np.int32)
+    used = np.zeros((n, r), np.int32)
+    pods_used = np.zeros((n,), np.int32)
+    levels = np.array([2**31 - 200, 2**31 - 100, 2**31 - 3, 2**31 - 2]
+                      if near_max else [0, 10, 100, 1000], np.int64)
+    for i in range(n):
+        m = int(rng.integers(0, 5))
+        pr = np.sort(rng.choice(levels[:3] if near_max else levels,
+                                size=m))
+        vprio[i, :m] = pr
+        vreq[i, :m, 0] = rng.choice([500, 1000, 2000], size=m)
+        vreq[i, :m, 1] = rng.choice([1024, 2048, 4096], size=m)
+        used[i] = vreq[i].sum(axis=0)
+        if rng.random() < 0.9:
+            used[i] = np.maximum(used[i], alloc[i] - rng.choice([0, 250]))
+        pods_used[i] = m
+    req = np.tile(np.array([[1000, 1024]], np.int32), (p, 1))
+    req[rng.random(p) < 0.2] = [2000, 4096]
+    prio = np.full((p,), 2**31 - 2 if near_max else 1000, np.int32)
+    low = rng.random(p) < 0.1
+    prio[low] = int(levels[1]) if near_max else 100
+    banned = rng.random((p, n)) < 0.05
+    prio[p - 8:] = -2**31
+    banned[p - 8:] = True
+    offsets = rng.integers(0, n, size=p).astype(np.int32)
+    return (req, prio, banned, used, alloc, pods_used, pods_alloc, vreq,
+            vprio, offsets)
+
+
+@contextlib.contextmanager
+def no_host_sync_in_victim_scan(torch):
+    """Run every `solver.propose_victims` under
+    `torch.cuda.set_sync_debug_mode("error")`: a torch operation that
+    waits for the card inside the scan raises."""
+    from kubernetes_tpu_torch.ops import solver
+
+    fn = solver.propose_victims
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    solver.propose_victims = guarded
+    try:
+        yield
+    finally:
+        solver.propose_victims = fn
+
+
+def victim_scan_phase(torch) -> None:
+    """Phase 12(c), the scan: one `propose_victims` bucket (128
+    preemptors) on the card under sync debug "error" against the CPU port
+    at N=1000 and N=5000, and on the near-2^31 priorities; each card
+    call's ms (CUDA events) beside the CPU's."""
+    from kubernetes_tpu_torch.ops import solver
+
+    for n, near in ((1000, False), (5000, False), (1000, True)):
+        args = victim_case(11 + n, n, near_max=near)
+        cpu_args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+        dev_args = [a.cuda() for a in cpu_args]
+        with no_host_sync_in_victim_scan(torch):
+            card = solver.propose_victims(*dev_args)
+        want = solver.propose_victims(*cpu_args)
+        same = all(torch.equal(c.cpu(), w) for c, w in zip(card, want))
+        ms = cuda_ms(torch, lambda: solver.propose_victims(*dev_args), 5)
+        t0 = time.perf_counter()
+        solver.propose_victims(*cpu_args)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        found = int((want[0] >= 0).sum())
+        what = "near-2^31 priorities" if near else "priorities 0-1000"
+        print(f"compare propose_victims, N={n}, P=128, K=8, {what}, card "
+              f"(sync debug error) vs CPU: "
+              f"{'identical' if same else 'DIFFER'} (nodes, counts and the "
+              f"carry); {found} proposals; card {ms:.4f} ms per bucket "
+              f"(128 graph replays), CPU {cpu_ms:.1f} ms")
+        if not same and not near:
+            raise RuntimeError(f"propose_victims at N={n} differs on the "
+                               f"card from the CPU")
+
+
+async def gang_loop(api, profiles, make_pod_group, nodes, init, groups, pods,
+                    backend, batch_size: int, precreate: bool,
+                    settle_s: float = 0.0, timeout: float = 600.0,
+                    window_hook=None) -> dict:
+    """A gang workload through `api`'s `Scheduler.run`: the nodes, the
+    `init` pods (bound first), the PodGroups `groups` ([(name, minMember,
+    scheduleTimeoutSeconds)]) and the gang `pods`. Pre-created: every pod
+    is queued (or gated by PreEnqueue) before `run` opens the loop;
+    otherwise pods are created in 512-pod gathers into the running loop.
+    The window runs from the first gang create to the bind of the last
+    pod of every gang that can assemble (its members all placeable and at
+    least minMember of them), as seen by an informer; the loop then runs
+    `settle_s` more seconds. `window_hook(start)` is called at the window's
+    start (True) and end (False). Returns the assignments, the window's
+    seconds, the store's objects, the scheduler and the metrics."""
+    lr = LoopRun(api, backend, batch_size)
+    await lr.start(nodes, profiles=profiles)
+    bound: set = set()
+
+    def track(obj):
+        if (obj.get("spec") or {}).get("nodeName"):
+            bound.add(f"default/{obj['metadata']['name']}")
+
+    lr.factory.informer("pods").add_event_handler(api.ResourceEventHandler(
+        on_add=track, on_update=lambda old, new: track(new)))
+    minm = {g: mm for g, mm, _ in groups}
+    members: dict = {}
+    for name, kw in pods:
+        g = (kw.get("labels") or {}).get(GANG_LABEL)
+        members.setdefault(g, []).append((name, kw))
+    want = {f"default/{name}" for g, ms in members.items()
+            if g is None or (len(ms) >= minm[g] and all(
+                kw["requests"].get("cpu") != "64" for _, kw in ms))
+            for name, _ in ms}
+    try:
+        if init:
+            lr.open()
+            await _create_gathered(lr, api, init)
+            await lr.wait(lambda: len(bound) >= len(init), "init pods bound",
+                          timeout)
+        for g, mm, tmo in groups:
+            await lr.store.create("podgroups", make_pod_group(
+                g, mm, schedule_timeout_seconds=tmo))
+        if window_hook is not None:
+            window_hook(True)
+        t0 = time.perf_counter()
+        if precreate:
+            await _create_gathered(lr, api, pods)
+            await lr.wait(lambda: lr.queued() == len(pods), "pods queued",
+                          timeout)
+            if lr.task is None:
+                lr.open()
+        else:
+            if lr.task is None:
+                lr.open()
+            await _create_gathered(lr, api, pods)
+        await lr.wait(lambda: want <= bound, "gangs bound", timeout)
+        window = time.perf_counter() - t0
+        if window_hook is not None:
+            window_hook(False)
+        await asyncio.sleep(settle_s)
+        assignments, failed, node_objs, pod_objs = await lr.results()
+        return {"assignments": assignments, "failed": failed,
+                "window": window, "nodes": node_objs, "pods": pod_objs,
+                "sched": lr.sched, "metrics": lr.sched.metrics}
+    finally:
+        await lr.close()
+
+
+async def _create_gathered(lr, api, pods) -> None:
+    for lo in range(0, len(pods), 512):
+        await asyncio.gather(*(
+            lr.store.create("pods", api.make_pod(name, **kw))
+            for name, kw in pods[lo:lo + 512]))
+
+
+def gang_groups(n_gangs: int, size: int, timeout_s: float) -> tuple:
+    """Phase 12(b)'s PodGroups and pods: `n_gangs` gangs of `size`
+    (minMember `size`) of SchedulingBasic's pod template, one gang `held`
+    of `size` whose minMember is `size` + 1 (PreEnqueue never admits it),
+    and one gang `stranded` of `size` with one member asking for 64 CPUs
+    (no node holds it), every group's scheduleTimeoutSeconds `timeout_s`.
+    Returns ([(name, minMember, timeout)], [(name, make_pod kwargs)])."""
+    groups, pods = [], []
+    for g in range(n_gangs + 2):
+        name = "held" if g == n_gangs else "stranded" \
+            if g == n_gangs + 1 else f"gang{g}"
+        groups.append((name, size + (name == "held"), timeout_s))
+        for i in range(size):
+            req = {"cpu": "64", "memory": "250Mi"} \
+                if name == "stranded" and i == size // 2 else POD_REQUESTS
+            pods.append((f"{name}-{i}", {
+                "requests": dict(req), "labels": {GANG_LABEL: name}}))
+    return groups, pods
+
+
+def gang_loop_phase(torch) -> int:
+    """Phase 12(b): SchedulingBasic/5000Nodes' cluster and 1000 init pods,
+    then 156 gangs of 64 (9984 pods), a held gang and a stranded gang,
+    through `Scheduler(store, backend=TorchBackend()).run` with the default
+    profile plus Coscheduling: every assembling gang bound whole, the two
+    failing gangs unbound, no partial gang, no node over capacity; pods/s
+    over the window, the routes, the optimal solves and wave_solve
+    launches, gang_overflow, `assign`'s share of the window, and the
+    device's idle share over a repeat under torch.profiler. Returns
+    wave_solve's launches in the window."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler import framework
+    from kubernetes_tpu_torch.scheduler.plugins import registry
+    from kubernetes_tpu_torch.scheduler.plugins.coscheduling import (
+        make_pod_group)
+
+    t0 = time.perf_counter()
+    api = port_loop_api()
+    nodes = [(f"node-{i}", {}) for i in range(N_NODES)]
+    init = [(f"init-{i}", {"requests": dict(POD_REQUESTS)})
+            for i in range(N_INIT)]
+    groups, pods = gang_groups(N_GANGS, GANG_SIZE, GANG_TIMEOUT_S)
+
+    def profiles(store):
+        return {"default-scheduler": gang_framework(
+            registry, framework, make_pod_group, None, {}, store=store)}
+
+    def run(profile: bool) -> tuple:
+        backend = TorchBackend()
+        w: dict = {}
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if profile else None
+
+        def hook(start: bool) -> None:
+            torch.cuda.synchronize()
+            if start:
+                wave_kernel.wave_solve.launches = 0
+                w["timings"] = dict(backend.timings)
+                w["counters"] = dict(backend.counters)
+                if prof is not None:
+                    prof.start()
+                return
+            if prof is not None:
+                prof.stop()
+            w["launches"] = wave_kernel.wave_solve.launches
+            w["timings"] = {k: v - w["timings"][k]
+                            for k, v in backend.timings.items()}
+            w["counters"] = {k: v - w["counters"][k]
+                             for k, v in backend.counters.items()
+                             if k != "sinkhorn_iterations"}
+
+        out = asyncio.run(gang_loop(
+            api, profiles, make_pod_group, nodes, init, groups, pods,
+            backend, LOOP_BATCH, precreate=False,
+            settle_s=GANG_TIMEOUT_S + 1.0, window_hook=hook))
+        return out, w, prof
+
+    out, w, _ = run(False)
+    outcome = gang_outcome(out["assignments"], pods)
+    whole = sum(k == n for k, n in outcome.values())
+    rejected = sorted(g for g, (k, _) in outcome.items() if k == 0)
+    partial = sorted(g for g, (k, n) in outcome.items() if 0 < k < n)
+    bad = over_capacity(out["nodes"], out["pods"])
+    m = out["metrics"]
+    overflow = m.backend_degradations.value(kind="gang_overflow")
+    n_good = N_GANGS * GANG_SIZE
+    print(f"gang loop SchedulingBasic/5000Nodes cluster, {N_INIT} init pods, "
+          f"{N_GANGS} gangs of {GANG_SIZE} + held + stranded "
+          f"(Scheduler.run, TorchBackend(), default profile + "
+          f"Coscheduling): {n_good / out['window']:.2f} pods/s over the "
+          f"window ({out['window']:.6f} s); gangs bound whole {whole}, "
+          f"rejected whole {rejected}, partial {len(partial)}; "
+          f"TorchBackend.counters {json.dumps(w['counters'])}, wave_solve "
+          f"launches {w['launches']}, gang_overflow {overflow}; "
+          f"TorchBackend.timings {json.dumps(w['timings'])}, assign share "
+          f"{w['timings']['assign_s'] / out['window']:.4f}; nodes over "
+          f"capacity {len(bad)}")
+    if partial or bad or whole != N_GANGS \
+            or rejected != ["held", "stranded"]:
+        raise RuntimeError(f"phase 12(b): partial {partial[:5]}, whole "
+                           f"{whole}, rejected {rejected}, over capacity "
+                           f"{bad[:5]}")
+    prof_out, pw, prof = run(True)
+    busy_us = sum(device_us(e) for e in prof.key_averages())
+    print(f"profiled gang loop window: wall {prof_out['window']:.6f} s, "
+          f"{n_good / prof_out['window']:.1f} pods/s, device busy "
+          f"{busy_us / 1e6:.6f} s" + (
+              f", idle share {1 - busy_us / 1e6 / prof_out['window']:.4f}"
+              if busy_us else ", device time not measured by the profiler")
+          + f"; phase 12(b) {time.perf_counter() - t0:.1f} s")
+    return w["launches"]
+
+
+def preemption_counts_cls(torch):
+    """counting_runner_cls's runner that also records, over the measured
+    window, DefaultPreemption's route per preemptor (device-primed,
+    ranked host search, per-node host scan, in-flight re-nomination), the
+    `propose_victims` calls, their host-clock ms and graph replays, and
+    every eviction (preemptor priority, victim keys); the victims'
+    priorities are read from their delete events."""
+    from kubernetes_tpu_torch.ops import solver
+
+    base = counting_runner_cls(torch)
+
+    class PreemptionRunner(base):
+        async def _drive(self, template_ops, params, timeout, store,
+                         metrics, sched, factory):
+            self.evictions: list = []
+            self.victim_prio: dict = {}
+            self.scan = {"calls": 0, "ms": 0.0, "replays": 0}
+            plugin = next(p for p in sched.profiles[
+                "default-scheduler"].post_filter_plugins
+                if p.NAME == "DefaultPreemption")
+            self.plugin = plugin
+            evict = plugin.evict
+
+            def recorded(pod, victim_keys, node):
+                self.evictions.append((pod.priority, list(victim_keys)))
+                return evict(pod, victim_keys, node)
+            plugin.evict = recorded
+
+            def on_delete(obj):
+                self.victim_prio[f"default/{obj['metadata']['name']}"] = \
+                    int((obj.get("spec") or {}).get("priority") or 0)
+            from kubernetes_tpu_torch.client import ResourceEventHandler
+            factory.informer("pods").add_event_handler(
+                ResourceEventHandler(on_delete=on_delete))
+            fn = solver.propose_victims
+
+            def timed(*args, **kw):
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.scan["calls"] += 1
+                self.scan["ms"] += (time.perf_counter() - t) * 1e3
+                self.scan["replays"] += int(args[0].shape[0])
+                return out
+            solver.propose_victims = timed
+            try:
+                return await super()._drive(template_ops, params, timeout,
+                                            store, metrics, sched, factory)
+            finally:
+                solver.propose_victims = fn
+
+        def _begin_measure(self, metrics, backing):
+            self.paths0 = dict(self.plugin.paths)
+            self.scan = dict.fromkeys(self.scan, 0)
+            self.evictions = []
+            return super()._begin_measure(metrics, backing)
+
+        def _end_measure(self, result, metrics, backing, base, count):
+            super()._end_measure(result, metrics, backing, base, count)
+            self.window["paths"] = {k: v - self.paths0[k]
+                                    for k, v in self.plugin.paths.items()}
+            self.window["scan"] = dict(self.scan)
+            self.window["evictions"] = list(self.evictions)
+
+    return PreemptionRunner
+
+
+def preemption_run(torch, workload: str, profile: str | None):
+    """One run of Preemption/`workload` through the port's PerfRunner and
+    `Scheduler.run` with `TorchBackend()`, every propose_victims under sync
+    debug "error": every preemptor bound (the scoped barriers), victims
+    evicted, none of priority at or above its preemptor's, no node over
+    capacity. Returns (runner, result, pod objects)."""
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.perf.scheduler_perf import PREEMPTION
+
+    params = next(w["params"] for w in PREEMPTION["workloads"]
+                  if w["name"] == workload)
+    runner = preemption_counts_cls(torch)(TorchBackend(), profile)
+    with no_host_sync_in_victim_scan(torch):
+        result = asyncio.run(runner.run(PREEMPTION["workloadTemplate"],
+                                        params, timeout=900.0))
+    pods = asyncio.run(runner.store.list("pods")).items
+    nodes = asyncio.run(runner.store.list("nodes")).items
+    high = [p for p in pods if (p["spec"].get("priority") or 0) >= 1000]
+    unbound = [p["metadata"]["name"] for p in high
+               if not p["spec"].get("nodeName")]
+    wrong = [(pp, vk, runner.victim_prio.get(vk))
+             for pp, keys in runner.window["evictions"] for vk in keys
+             if runner.victim_prio.get(vk, pp) >= pp]
+    n_pre = params["warmupPreemptors"] + params["measurePods"]
+    bad = over_capacity(nodes, pods)
+    if unbound or len(high) != n_pre or wrong or bad \
+            or not runner.window["evictions"]:
+        raise RuntimeError(f"Preemption/{workload}: unbound preemptors "
+                           f"{unbound[:5]} of {len(high)}, victims at or "
+                           f"above their preemptor {wrong[:5]}, over "
+                           f"capacity {bad[:5]}")
+    return runner, result, pods
+
+
+def preemption_phase(torch) -> None:
+    """Phase 12(c): Preemption/1000Nodes (1000 nodes, 4000 fillers, 100
+    warm-up and 1000 measured preemptors; not cut) through the port's
+    PerfRunner, then repeats under torch.profiler and cProfile."""
+    t0 = time.perf_counter()
+    runner, result, pods = preemption_run(torch, "1000Nodes", None)
+    w, r = runner.window, result.as_dict()
+    victims = sum(len(keys) for _, keys in w["evictions"])
+    scan = w["scan"]
+    print(f"Preemption/1000Nodes (PerfRunner, Scheduler.run, TorchBackend(), "
+          f"batch_size {LOOP_BATCH}): SchedulingThroughput "
+          f"{r['throughput_pods_per_sec']} pods/s, measured_seconds "
+          f"{result.measured_seconds:.6f}; every preemptor bound, victims "
+          f"evicted in the window {victims} (by {len(w['evictions'])} "
+          f"preemptions), none of priority at or above its preemptor; "
+          f"{len(pods)} pods left; DefaultPreemption routes in the window "
+          f"{json.dumps(w['paths'])}; propose_victims calls {scan['calls']}, "
+          f"{scan['ms'] / max(scan['calls'], 1):.3f} ms per call "
+          f"(host clock to results), graph replays {scan['replays']}; "
+          f"backend dispatches {w['routes']['backend_dispatches']} with "
+          f"{w['routes']['backend_pods']} pods, host-path pods "
+          f"{w['routes']['host_path_pods']}, unschedulable attempts "
+          f"{r['unschedulable_total']}; TorchBackend.timings "
+          f"{json.dumps(w['timings'])}, window wall {w['wall']:.6f} s")
+    if scan["calls"] == 0 or w["paths"]["primed"] == 0:
+        raise RuntimeError("phase 12(c): no device-primed preemption in the "
+                           "measured window")
+    prof_runner, prof_result, _ = preemption_run(torch, "1000Nodes", "device")
+    pw = prof_runner.window
+    busy_us = sum(device_us(e) for e in prof_runner.prof.key_averages())
+    print(f"profiled Preemption/1000Nodes measured window: wall "
+          f"{pw['wall']:.6f} s, throughput {prof_result.throughput:.1f} "
+          f"pods/s, device busy {busy_us / 1e6:.6f} s" + (
+              f", idle share {1 - busy_us / 1e6 / pw['wall']:.4f}"
+              if busy_us else ", device time not measured by the profiler"))
+    host_runner, host_result, _ = preemption_run(torch, "1000Nodes", "host")
+    areas, top, cum = host_breakdown(host_runner.prof)
+    print(f"host profile of the Preemption/1000Nodes measured window "
+          f"(cProfile, wall {host_runner.window['wall']:.6f} s, throughput "
+          f"{host_result.throughput:.1f} pods/s): own seconds by area "
+          f"{json.dumps(areas)}; cumulative seconds {json.dumps(cum)}; top "
+          f"functions by own seconds {json.dumps(top)}; phase 12(c) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import argparse
 
@@ -2695,7 +3396,8 @@ def main() -> int:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-11 (see the module docstring)."""
+    """Phases 1-13 (see the module docstring)."""
+    t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
@@ -3044,7 +3746,18 @@ def smoke(torch, seed: int) -> int:
         topology_spreading_phase(torch)
         affinity_launches = pod_affinity_phase(torch)
 
-    # -- 11. result --------------------------------------------------------
+    # -- 12. gangs and preemption ------------------------------------------
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        t12 = time.perf_counter()
+        gang_chunk_launches = gang_chunks_phase(torch)
+        victim_scan_phase(torch)
+        gang_launches = gang_loop_phase(torch)
+        preemption_phase(torch)
+        print(f"phase 12 {time.perf_counter() - t12:.1f} s")
+
+    # -- 13. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-12)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -3054,7 +3767,9 @@ def smoke(torch, seed: int) -> int:
          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None, **flagless,
          "loop_launches": loop["loop_launches"],
-         "constraint_launches": anti["launches"] + affinity_launches},
+         "constraint_launches": anti["launches"] + affinity_launches,
+         "gang_launches": gang_launches,
+         "gang_chunk_launches": gang_chunk_launches},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,

@@ -23,6 +23,17 @@ used-state update. The reference's solve-mode policy
   order at the tuner's W, the domain counts of one union spread table
   riding its carry.
 
+Gangs (Coscheduling's PodGroups, when the profile holds the plugin and its
+PodGroup informer is wired) are all-or-nothing inside the solve, as in the
+reference: each chunk carries a (P, 16) gang one-hot and the members each
+gang still needs (minMember less the members already bound or parked at
+Permit, at most its members in the chunk); every route drops the
+placements of a gang below its quota (`solver.gang_filter`), the spread
+route folding the dropped pods out of the chained domain counts, and a
+gang chunk takes the optimal route at any node count. Gangs beyond 16 in
+one chunk are left to the Permit barrier alone and counted in
+`backend_degradations{kind="gang_overflow"}`.
+
 The constraint families are host rows, as in the reference:
 InterPodAffinity's filter and score rows and PodTopologySpread's score rows
 compile over interned label signatures (ops/affinity.py) against the
@@ -43,9 +54,10 @@ beside this one: the serving fast path (serving/fastpath.py,
 would.
 
 Not covered, and refused with NotImplementedError rather than scheduled on
-a partial model: resource claims, volumes, host ports, gangs, and any
-plugin at a PreFilter, Filter, PreScore or Score point beyond the eight of
-`MODELLED_PLUGINS` (NodeResourceTopologyMatch among them). Plugins at none
+a partial model: resource claims, volumes, host ports, slice-shaped gangs
+(a PodGroup with `spec.sliceShape`), and any plugin at a PreFilter,
+Filter, PreScore or Score point beyond the eight of `MODELLED_PLUGINS`
+(NodeResourceTopologyMatch among them). Plugins at none
 of those points (queue sort, gates, bind) are the scheduler loop's and
 pass. Where the reference falls back to host rows and a stateful verify
 for spread pods that miss the union table (`spread_poisoned`), this
@@ -79,6 +91,10 @@ from kubernetes_tpu_torch.scheduler.framework import (
     CycleState,
     Framework,
     Status,
+)
+from kubernetes_tpu_torch.scheduler.plugins.coscheduling import (
+    POD_GROUP_LABEL,  # noqa: F401 (the gang label, re-exported)
+    refuse_slice_shape,
 )
 from kubernetes_tpu_torch.scheduler.plugins.interpodaffinity import (
     resolve_term_namespaces,
@@ -135,12 +151,9 @@ _SCORE_ACTIVE = {
 #: Solve chunk when the caller does not pin one.
 _DEFAULT_CHUNK = 1024
 
-#: Gang slots per chunk in the solver's all-or-nothing masking; gangs are
-#: refused by this slice, so the arrays are all zeros.
+#: Gang (PodGroup) slots per chunk in the solver's all-or-nothing masking;
+#: overflow gangs keep the Permit barrier alone.
 _GANG_PAD = 16
-
-#: Pod-group label of the Coscheduling plugin (gangs).
-POD_GROUP_LABEL = "scheduling.x-k8s.io/pod-group"
 
 _HOST_REASONS = {
     "NodeAffinity": "node(s) didn't match Pod's node affinity/selector",
@@ -192,8 +205,6 @@ def unsupported_feature(pi: PodInfo) -> str | None:
         return "volumes (PersistentVolumeClaims)"
     if pi.host_ports:
         return "host ports"
-    if pi.labels.get(POD_GROUP_LABEL):
-        return "gang scheduling (pod groups with minMember)"
     return None
 
 
@@ -504,19 +515,26 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
     dom_counts2 = torch.zeros((0,), dtype=torch.int32, device=dev)
     if spread is not None:
         # Spread chunks run the identity order only (domain counts and
-        # permutations do not commute cheaply). Gangs are refused, so the
-        # reference's gang filter and its count fold-back are identities.
+        # permutations do not commute cheaply); gang masking still applies.
         table, dom_counts, applies, contrib, p_real = spread
         if wave_w > 1:
-            assign, dom_counts2, wave_com, wave_rep = \
+            a0, dom_counts2, wave_com, wave_rep = \
                 solver.greedy_assign_rescoring_spread_wave(
                     *solve_args, wave_w, table, dom_counts, applies,
                     contrib, rows=cls_idx, exc=exc_col, n_real=p_real)
         else:
-            assign, dom_counts2 = solver.greedy_assign_rescoring_spread(
+            a0, dom_counts2 = solver.greedy_assign_rescoring_spread(
                 *solve_args, table, dom_counts, applies, contrib,
                 rows=cls_idx, exc=exc_col, n_real=p_real)
             wave_com = wave_rep = 0
+        assign = solver.gang_filter(a0, gang_onehot, gang_required)
+        # Gang-dropped pods bumped the chained counts in-scan (for the
+        # constraints they contribute to): fold them back out so later
+        # chunks see the truth, in the table's index form (integer
+        # gathers and index_add, no float product).
+        dropped = (a0 >= 0) & (assign < 0)
+        safe = torch.clamp(a0, 0, alloc_q.shape[0] - 1).long()
+        dom_counts2 = table.add(dom_counts2, safe, dropped, -contrib)
     elif wave_w > 1:
         assign, wave_com, wave_rep = \
             solver.multistart_greedy_assign_wave_kernel(
@@ -1446,12 +1464,13 @@ class TorchBackend:
             and (spread_active_idx
                  or (sp_contrib.any()
                      and chunk_idx < ctx.spread_last_gated)))
+        gang_onehot, gang_required = self._gang_arrays(pods, fwk, P)
         # The solve-mode policy row: an optimal chunk rounds its plan with
         # the W=1 scan (wave_w 0, as in the reference); a spread chunk is
-        # not eligible. Gangs are refused by _check_supported.
+        # not eligible; a gang chunk wants optimal at any node count.
         mode, fallback = self._tuner.solve_mode(
-            batch.p_real, has_gang=False, spread=use_spread,
-            class_mode=class_reps is not None)
+            batch.p_real, has_gang=gang_onehot is not None,
+            spread=use_spread, class_mode=class_reps is not None)
         self.counters["optimal_fallbacks"] += int(fallback)
         self._tuner.observe_chunk()
 
@@ -1542,7 +1561,55 @@ class TorchBackend:
             "wave_w": wave_w,
             "solve_mode": mode,
             "optimal_fallback": fallback,
+            "gang_onehot": gang_onehot, "gang_required": gang_required,
         }
+
+    def _gang_arrays(self, pods: list[PodInfo], fwk: Framework,
+                     P: int) -> tuple:
+        """Gang membership (Coscheduling): all-or-nothing inside the solve,
+        as the reference's `_prep_chunk` builds it. (gang_onehot (P, 16)
+        f32, gang_required (16,) f32), or (None, None) when the profile has
+        no Coscheduling, its PodGroup informer is not wired, or no pod of
+        the chunk is in a gang. The quota is what the gang still NEEDS:
+        minMember minus the members already assembled (bound or parked at
+        Permit), at most its members in the chunk — a fully assembled
+        gang's stragglers place individually, like the Permit path."""
+        cosched = next(
+            (pl for pl in fwk.plugins if pl.NAME == "Coscheduling"), None)
+        if cosched is None or getattr(cosched, "pg_informer", None) is None:
+            return None, None
+        groups: dict[str, list[int]] = {}
+        for i, pi in enumerate(pods):
+            gk = cosched.group_key(pi)
+            if gk:
+                groups.setdefault(gk, []).append(i)
+        if not groups:
+            return None, None
+        gang_onehot = np.zeros((P, _GANG_PAD), dtype=np.float32)
+        gang_required = np.zeros((_GANG_PAD,), dtype=np.float32)
+        if len(groups) > _GANG_PAD:
+            # Overflow gangs lose in-solver all-or-nothing and keep the
+            # Permit barrier alone — weaker atomicity under contention;
+            # observable, not silent.
+            logger.warning(
+                "%d gangs in chunk exceed solver capacity %d; %d gangs "
+                "degrade to Permit-barrier-only atomicity", len(groups),
+                _GANG_PAD, len(groups) - _GANG_PAD)
+            if self.metrics is not None:
+                self.metrics.backend_degradations.inc(
+                    len(groups) - _GANG_PAD, kind="gang_overflow")
+        for g, (gk, idxs) in enumerate(groups.items()):
+            if g >= _GANG_PAD:
+                break  # overflow gangs: Permit barrier only
+            pg = cosched._pod_group(gk)
+            refuse_slice_shape(gk, pg)
+            mm = int(((pg or {}).get("spec") or {}).get("minMember", 1))
+            assembled = len(cosched._bound.get(gk) or ()) + \
+                len(cosched._waiting.get(gk) or ())
+            for i in idxs:
+                gang_onehot[i, g] = 1.0
+            gang_required[g] = min(max(mm - assembled, 0), len(idxs))
+        return gang_onehot, gang_required
 
     def _zero_scores(self, rows: int, n: int) -> torch.Tensor:
         z = self._dev_zero_scores.get((rows, n))
@@ -1596,7 +1663,13 @@ class TorchBackend:
         self._dev_perms_cache[perms_key] = dev_perms
         return dev_perms
 
-    def _gang_zeros(self, P: int) -> tuple:
+    def _gang_args(self, prep: dict) -> tuple:
+        """(gang_onehot, gang_required) device arrays: the chunk's own
+        when it has gangs, else one cached zero pair per batch width."""
+        if prep["gang_onehot"] is not None:
+            return (self._put(prep["gang_onehot"]),
+                    self._put(prep["gang_required"]))
+        P = prep["batch"].req_q.shape[0]
         z = self._dev_zero_gang.get(P)
         if z is None:
             z = self._dev_zero_gang[P] = (
@@ -1640,7 +1713,7 @@ class TorchBackend:
             prep["dev_scores"], p["fit_col_w"], p["bal_col_mask"],
             p["shape_u"], p["shape_s"], p["w_fit"], p["w_bal"],
             p["w_taint"], p["taint_filter_on"], prep["dev_perms"],
-            *self._gang_zeros(prep["batch"].req_q.shape[0]),
+            *self._gang_args(prep),
             p["strategy"], prep["wave_w"], prep["solve_mode"],
             prep["sink_iters"],
             float(np.float32(flags.get("KTPU_SINKHORN_TEMP"))),

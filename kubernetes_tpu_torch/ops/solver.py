@@ -948,3 +948,135 @@ def solve_one_fresh(alloc_q, used_pack, rows, vals, alloc_pods,
         mask_bits, host_scores, req_pack, fit_col_w, bal_col_mask,
         shape_u, shape_s, w_fit, w_bal, w_taint, taint_filter_on, strategy)
     return idx, pack
+
+
+# ---------------------------------------------------------------------------
+# Preemption: the batched victim proposal.
+# ---------------------------------------------------------------------------
+
+#: int32 "no victim" priority padding (k8s priorities are int32 by API).
+PRIO_INF = 2**31 - 1
+
+
+def _first_true(ok: torch.Tensor) -> torch.Tensor:
+    """Per row of a 2-D bool tensor, the index of its first True, 0 when
+    the row has none (`jnp.argmax` over a bool row)."""
+    k = ok.shape[1]
+    karange = torch.arange(k, dtype=torch.int32, device=ok.device)
+    first = torch.where(ok, karange[None, :], k).amin(dim=1)
+    return torch.where(first < k, first, 0)
+
+
+def _min_index(x: torch.Tensor) -> torch.Tensor:
+    """Index of the minimum of a 1-D tensor, ties to the lowest index
+    (`jnp.argmin`), as a (1,) int64 tensor."""
+    iota = torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
+    return torch.where(x == x.amin(), iota, x.shape[0]).amin().reshape(1)
+
+
+def propose_victims(req_q, prio, banned, used, alloc, pods_used, pods_alloc,
+                    vreq, vprio, offsets):
+    """Batched preemption victim proposal (the reference's
+    `propose_victims`): one device program proposes, for every failed
+    preemptor of a wave in order, the cost-minimal (node, victim count),
+    threading in-wave claims through per-node state.
+
+    Per node, victims are the priority-ASCENDING resident prefix (the order
+    `DefaultPreemption`'s wave state builds), so "evict the first k" is the
+    cheapest k-victim set and prefix feasibility is a relaxed-capacity
+    check. A chosen node's victim prefix is shifted out and the preemptor's
+    load charged, so later preemptors of the wave see it.
+
+    req_q:    (P, R) int32 preemptor requests, wave order
+    prio:     (P,)   int32 preemptor priorities
+    banned:   (P, N) bool — UnschedulableAndUnresolvable nodes per preemptor
+    used/alloc:        (N, R) int32 node requested/allocatable
+    pods_used/alloc:   (N,)   int32
+    vreq:     (N, K, R) int32 per-victim requests (ascending priority; 0 pad)
+    vprio:    (N, K)    int32 per-victim priorities (PRIO_INF pad)
+    offsets:  (P,) int32 per-preemptor rotation of the equal-cost tiebreak:
+        ties pick the node minimizing (index - offset) mod N.
+
+    Cost order: lowest max victim priority, then smallest priority sum (a
+    float32 prefix sum, exact below 2^24), then fewest victims. Returns
+    (node (P,) int32 [-1 = no candidate], count (P,) int32, used',
+    pods_used', vreq', vprio'): the post-claim carry, so a caller chunking
+    a wave threads it into the next call.
+
+    One preemptor per step (`_run_steps`: on the card every tensor a step
+    touches is allocated before a CUDA graph captures one step, which is
+    then replayed per preemptor; eager on the CPU). Nothing is read back
+    from the device."""
+    p = req_q.shape[0]
+    n, k, r = vreq.shape
+    dev = used.device
+    iota_n = torch.arange(n, dtype=torch.int32, device=dev)
+    karange = torch.arange(k, dtype=torch.int32, device=dev)
+    big = PRIO_INF
+    state = (used.clone(), pods_used.clone(), vreq.clone(), vprio.clone())
+    node_out = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    count_out = torch.zeros((p,), dtype=torch.int32, device=dev)
+    i = torch.zeros((1,), dtype=torch.long, device=dev)
+
+    def step():
+        used_s, pused_s, vreq_s, vprio_s = state
+        q = req_q.index_select(0, i)[0]                        # (R,)
+        pr = prio.index_select(0, i)                           # (1,)
+        ban = banned.index_select(0, i)[0]                     # (N,)
+        off = offsets.index_select(0, i)                       # (1,)
+        valid = vprio_s < PRIO_INF                             # (N, K)
+        rel = torch.cumsum(vreq_s, dim=1, dtype=torch.int32)   # (N, K, R)
+        prio_m = torch.where(valid, vprio_s, 0)
+        # The priority SUM rides float32, as in the reference: an int32
+        # sum of near-INT32_MAX priorities over a deep prefix overflows.
+        vsum = torch.cumsum(prio_m.to(torch.float32), dim=1)
+        vmax = torch.cummax(prio_m, dim=1).values
+        # Ascending order: vprio[k] < p implies the whole prefix is below.
+        eligible = vprio_s < pr
+        fits = torch.all(used_s[:, None, :] - rel + q[None, None, :]
+                         <= alloc[:, None, :], dim=-1)
+        fits = fits & (pused_s[:, None] - karange[None, :]
+                       <= pods_alloc[:, None])
+        ok = eligible & fits                                   # (N, K)
+        any_ok = torch.any(ok, dim=1) & ~ban
+        kmin = _first_true(ok)                                 # (N,)
+        cmax = vmax.gather(1, kmin.long()[:, None])[:, 0]
+        csum = vsum.gather(1, kmin.long()[:, None])[:, 0]
+        # Staged lexicographic argmin (vmax, vsum, count), then rotation.
+        k1 = torch.where(any_ok, cmax, big)
+        c1 = any_ok & (cmax == k1.amin())
+        k2 = torch.where(c1, csum, float("inf"))
+        c2 = c1 & (csum == k2.amin())
+        k3 = torch.where(c2, kmin, big)
+        c3 = c2 & (kmin == k3.amin())
+        rot = torch.remainder(iota_n - off, n)
+        n_star = _min_index(torch.where(c3, rot, big))         # (1,) long
+        found = torch.any(any_ok)
+        count = kmin.index_select(0, n_star) + 1               # (1,)
+        # Claim: drop the chosen prefix, charge the preemptor, shift the
+        # node's victim rows so later preemptors see the truth. Only row
+        # n_star changes, and only when a candidate was found.
+        freed = rel.index_select(0, n_star)[0].index_select(
+            0, (count - 1).long())[0]                          # (R,)
+        used_s.index_add_(0, n_star, torch.where(
+            found, q - freed, 0)[None, :])
+        pused_s.index_add_(0, n_star, torch.where(found, 1 - count, 0))
+        src = torch.clamp(karange + count, 0, k - 1).long()
+        keep = (karange + count) < k
+        old_vreq = vreq_s.index_select(0, n_star)[0]           # (K, R)
+        old_vprio = vprio_s.index_select(0, n_star)[0]         # (K,)
+        row_vreq = torch.where(keep[:, None], old_vreq.index_select(0, src),
+                               0)
+        row_vprio = torch.where(keep, old_vprio.index_select(0, src),
+                                PRIO_INF)
+        vreq_s.index_copy_(0, n_star, torch.where(
+            found, row_vreq, old_vreq)[None])
+        vprio_s.index_copy_(0, n_star, torch.where(
+            found, row_vprio, old_vprio)[None])
+        node_out.index_copy_(0, i, torch.where(
+            found, n_star.to(torch.int32), -1))
+        count_out.index_copy_(0, i, torch.where(found, count, 0))
+        i.add_(1)
+
+    _run_steps(step, p, dev)
+    return (node_out, count_out) + state

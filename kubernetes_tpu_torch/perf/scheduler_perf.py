@@ -32,7 +32,10 @@ workload is a constant here (`SCHEDULING_BASIC`, equal to the reference's
 YAML entry), so the harness needs no YAML parser unless `load_config` is
 given a path; so are the constraint families' SchedulingPodAntiAffinity,
 SchedulingPodAffinity and TopologySpreading (`SCHEDULING_POD_ANTI_AFFINITY`,
-`SCHEDULING_POD_AFFINITY`, `TOPOLOGY_SPREADING`).
+`SCHEDULING_POD_AFFINITY`, `TOPOLOGY_SPREADING`), and so is Preemption
+(`PREEMPTION`), whose preemptors wait on their own binds only: victims
+being deleted shrink the global bound count, so neither the warm-up nor
+the measured window can end on a global barrier.
 
 Metrics over the measured phase: SchedulingThroughput (pods/s),
 scheduling_attempt_duration percentiles (exact order statistics of the
@@ -188,6 +191,38 @@ TOPOLOGY_SPREADING = {
         {"name": "3000Nodes",
          "params": {"initNodes": 1000, "warmupPods": 300,
                     "measurePods": 5000}},
+    ],
+}
+
+#: Preemption of the reference's performance-config.yaml: a cluster filled
+#: with priority-0 pods, then priority-1000 preemptors that must evict
+#: victims (scoped barriers: see the module docstring).
+PREEMPTION = {
+    "name": "Preemption",
+    "workloadTemplate": [
+        {"opcode": "createNodes", "countParam": "$initNodes",
+         "nodeTemplate": {"allocatable": {
+             "cpu": "4", "memory": "16Gi", "pods": "32"}}},
+        {"opcode": "createPods", "countParam": "$fillerPods",
+         "podTemplate": {"priority": 0,
+                         "requests": {"cpu": "1", "memory": "1Gi"}}},
+        {"opcode": "barrier"},
+        {"opcode": "createPods", "countParam": "$warmupPreemptors",
+         "scopedBarrier": True,
+         "podTemplate": {"priority": 1000,
+                         "requests": {"cpu": "1", "memory": "1Gi"}}},
+        {"opcode": "createPods", "countParam": "$measurePods",
+         "collectMetrics": True,
+         "podTemplate": {"priority": 1000,
+                         "requests": {"cpu": "1", "memory": "1Gi"}}},
+    ],
+    "workloads": [
+        {"name": "100Nodes",
+         "params": {"initNodes": 100, "fillerPods": 400,
+                    "warmupPreemptors": 40, "measurePods": 100}},
+        {"name": "1000Nodes",
+         "params": {"initNodes": 1000, "fillerPods": 4000,
+                    "warmupPreemptors": 100, "measurePods": 1000}},
     ],
 }
 

@@ -1,8 +1,11 @@
 """Plugin registry (plugins/registry.go `NewInTreeRegistry`), cut to the
 plugins this package models: the Filter/Score plugins the batched backend
 computes (the six node plugins and the two constraint families,
-InterPodAffinity and PodTopologySpread), and the queue-sort, gating and
-binding plugins the scheduler loop runs on the host."""
+InterPodAffinity and PodTopologySpread), the queue-sort, gating and
+binding plugins the scheduler loop runs on the host, Coscheduling (gangs:
+registered, not default-enabled, as in the reference) and
+DefaultPreemption (the PostFilter, with its batched device victim
+proposal)."""
 
 from __future__ import annotations
 
@@ -12,6 +15,10 @@ from kubernetes_tpu_torch.scheduler.plugins.core import (
     DefaultBinder,
     PrioritySort,
     SchedulingGates,
+)
+from kubernetes_tpu_torch.scheduler.plugins.coscheduling import Coscheduling
+from kubernetes_tpu_torch.scheduler.plugins.defaultpreemption import (
+    DefaultPreemption,
 )
 from kubernetes_tpu_torch.scheduler.plugins.interpodaffinity import (
     InterPodAffinity,
@@ -30,8 +37,10 @@ from kubernetes_tpu_torch.scheduler.plugins.podtopologyspread import (
     PodTopologySpread,
 )
 
-#: name -> factory(args) (framework/runtime Registry).
+#: name -> factory(args) (framework/runtime Registry). Coscheduling is
+#: registered but not default-enabled (out-of-tree in the reference).
 IN_TREE: dict[str, Callable] = {
+    "Coscheduling": Coscheduling,
     "PrioritySort": PrioritySort,
     "SchedulingGates": SchedulingGates,
     "NodeResourcesFit": NodeResourcesFit,
@@ -42,6 +51,7 @@ IN_TREE: dict[str, Callable] = {
     "TaintToleration": TaintToleration,
     "InterPodAffinity": InterPodAffinity,
     "PodTopologySpread": PodTopologySpread,
+    "DefaultPreemption": DefaultPreemption,
     "DefaultBinder": DefaultBinder,
 }
 
@@ -58,6 +68,7 @@ DEFAULT_PLUGINS = [
     "NodeResourcesBalancedAllocation",
     "InterPodAffinity",
     "PodTopologySpread",
+    "DefaultPreemption",
     "DefaultBinder",
 ]
 

@@ -25,12 +25,16 @@ Copy of `kubernetes_tpu/scheduler/scheduler.py`, with these departures:
   or a kernel must not be hidden), and the `backend_fallback` attempt
   result is never counted. The host path itself is here: a one-pod
   dispatch takes it by design, as in the reference.
+- no fallback for the batched victim proposal either: the reference logs
+  a `DefaultPreemption.prime_wave` failure and goes on with the per-pod
+  candidate search; here it propagates out of `run` like any other
+  failure of the card.
 - the backend's `assign` only: the reference prefers `assign_stream` /
   `assign_async` when the backend has them; TorchBackend has neither.
-- not here yet: preemption eviction (DefaultPreemption, and with it the
-  batched victim proposal `prime_wave` that the reference runs over a
-  backend batch's failures), extenders (`extenders` stays empty), leader
-  election and a remote store's topology probe.
+- the preemptor's device: DefaultPreemption's `prime_wave` runs on the
+  attached backend's device (cuda:0 when the plugin has none set).
+- not here yet: extenders (`extenders` stays empty), leader election and
+  a remote store's topology probe.
 """
 
 from __future__ import annotations
@@ -52,6 +56,9 @@ from kubernetes_tpu_torch.scheduler.framework import (
     Framework,
     Status,
     UNSCHEDULABLE_AND_UNRESOLVABLE,
+)
+from kubernetes_tpu_torch.scheduler.plugins.defaultpreemption import (
+    DefaultPreemption,
 )
 from kubernetes_tpu_torch.scheduler.plugins.registry import (
     DEFAULT_SCORE_WEIGHTS,
@@ -128,6 +135,11 @@ class Scheduler:
                 # allow/reject — e.g. Coscheduling) get the scheduler.
                 if hasattr(p, "set_scheduler"):
                     p.set_scheduler(self)
+            for p in fwk.post_filter_plugins:
+                if isinstance(p, DefaultPreemption):
+                    p.framework = fwk
+                    if p.evict is None:
+                        p.evict = self._preemption_evict
         self.cache = SchedulerCache()
         default_fwk = next(iter(self.profiles.values()))
         self.queue = SchedulingQueue(
@@ -299,6 +311,12 @@ class Scheduler:
         (degradation metrics + tracer, §5.5/§5.1) happens, for both
         constructor injection and config-built schedulers."""
         self.backend = backend
+        if backend is not None:
+            # The batched victim proposal runs where the backend runs.
+            for fwk in self.profiles.values():
+                for p in fwk.post_filter_plugins:
+                    if isinstance(p, DefaultPreemption) and p.device is None:
+                        p.device = backend.device
         if backend is not None and hasattr(backend, "metrics"):
             backend.metrics = self.metrics
         if backend is not None and hasattr(backend, "tracer"):
@@ -576,6 +594,8 @@ class Scheduler:
             else:
                 failed.append(pi)
         live = self.cache.update_snapshot() if failed else None
+        if failed:
+            self._prime_preemption(fwk, failed, live, diagnostics)
         for pi in failed:
             self.metrics.observe_attempt("unschedulable", fwk.profile_name,
                                          elapsed / len(pods))
@@ -591,6 +611,19 @@ class Scheduler:
             await self._handle_failure(
                 fwk, pi, FitError(pi, len(snapshot), statuses),
                 statuses, state=state, snapshot=live)
+
+    def _prime_preemption(self, fwk: Framework, failed: list[PodInfo],
+                          snapshot, diagnostics: Mapping) -> None:
+        """Hand the whole failure wave to preemption's batched device
+        proposal (DefaultPreemption.prime_wave) before the per-pod
+        PostFilter loop. A prime failure propagates (no fallback to the
+        per-pod candidate search; see the module docstring)."""
+        if snapshot is None:
+            return
+        for p in fwk.post_filter_plugins:
+            prime = getattr(p, "prime_wave", None)
+            if prime is not None:
+                prime(failed, snapshot, diagnostics)
 
     def _record_queue_wait(self, pi: PodInfo) -> None:
         """Retroactive queue-wait child span: the informer→queue→cycle
@@ -790,7 +823,29 @@ class Scheduler:
         self.recorder.event(pi.pod, "Warning", "FailedScheduling", st.message())
         await self.queue.add_unschedulable(pi)
 
-    # ------------------------------------------------------------------
+    def _preemption_evict(self, pod: PodInfo, victim_keys: list[str],
+                          node_name: str) -> None:
+        """DefaultPreemption side-effects: API-delete victims + record."""
+        self.metrics.preemption_victims.observe(len(victim_keys))
+
+        async def do():
+            from kubernetes_tpu_torch.store.mvcc import StoreError
+            # A victim already gone (deleted by an earlier eviction or by
+            # its owner) is store semantics, not a failure.
+            for vk in victim_keys:
+                try:
+                    await self.store.delete("pods", vk)
+                except StoreError:
+                    pass
+
+            def set_nominated(p):
+                p.setdefault("status", {})["nominatedNodeName"] = node_name
+                return p
+            try:
+                await self.store.guaranteed_update("pods", pod.key, set_nominated)
+            except StoreError:
+                pass
+        asyncio.ensure_future(do())
 
     # ------------------------------------------------------------------
 

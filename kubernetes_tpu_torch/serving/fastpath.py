@@ -27,9 +27,13 @@ its placement is representable in the resident planes —
   eligible, while a pod with affinity terms, or a labeled pod under the
   default profile (whose default spread constraints score it), does not;
 - none of the features this package does not model (`unsupported_feature`:
-  claims, volumes, host ports, gang labels) — the reference's default
-  profile makes each such pod ineligible through its plugins' activity
-  gates or Coscheduling;
+  claims, volumes, host ports) — the reference's default profile makes
+  each such pod ineligible through its plugins' activity gates;
+- not a gang member under Coscheduling: a pod with a PodGroup label is
+  ineligible when the profile holds Coscheduling (its quota is the batch
+  solve's all-or-nothing mask), as in the reference; without
+  Coscheduling the label means nothing and the pod places like any
+  other;
 - no nonzero host score rows (preferred node affinity) — score
   normalization is feasible-set relative and belongs to the chunk prep.
 
@@ -153,6 +157,10 @@ class SinglePodFastPath:
             gate = _SCORE_ACTIVE.get(name)
             if gate is None or gate(plugin, pi, snapshot):
                 return None
+        cosched = next(
+            (pl for pl in fwk.plugins if pl.NAME == "Coscheduling"), None)
+        if cosched is not None and cosched.group_key(pi):
+            return None
         return rows
 
     # -- device inputs ------------------------------------------------------

@@ -206,9 +206,10 @@ def test_fused_program_matches_reference(runs):
 
 
 def test_unsupported_pods_raise():
-    """Resource claims, volumes, host ports and gangs are not modelled
-    and raise before any placement; inter-pod affinity and topology
-    spread are modelled now and place."""
+    """Resource claims, volumes and host ports are not modelled and raise
+    before any placement; inter-pod affinity, topology spread and gang
+    labels are modelled now and place (a gang label without Coscheduling
+    in the profile means nothing, as in the reference)."""
     nodes, residents, _ = cluster_objects()
     snap = _snapshot(ttypes, nodes, residents)
     fwk = tframework.Framework(tregistry.build_plugins(),
@@ -224,8 +225,6 @@ def test_unsupported_pods_raise():
         (claim, "resource claims"),
         (pvc, "volumes"),
         (make_pod("ports", host_ports=[8080]), "host ports"),
-        (make_pod("gang", labels={tbackend.POD_GROUP_LABEL: "g1"}),
-         "gang scheduling"),
     ]
     for pod, match in cases:
         with pytest.raises(NotImplementedError, match=match):
@@ -238,10 +237,12 @@ def test_unsupported_pods_raise():
         "requiredDuringSchedulingIgnoredDuringExecution": [{
             "topologyKey": "kubernetes.io/hostname",
             "labelSelector": {"matchLabels": {"app": "x"}}}]}})
-    got, _ = tb.assign([ttypes.PodInfo(spread), ttypes.PodInfo(anti)],
-                       snap, fwk)
+    gang = make_pod("gang", labels={tbackend.POD_GROUP_LABEL: "g1"})
+    got, _ = tb.assign([ttypes.PodInfo(spread), ttypes.PodInfo(anti),
+                        ttypes.PodInfo(gang)], snap, fwk)
     assert got["default/spread"] is not None
     assert got["default/anti"] is not None
+    assert got["default/gang"] is not None
 
 
 def test_per_pod_planes_match_class_planes(runs):

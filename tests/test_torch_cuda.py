@@ -23,7 +23,10 @@ with zero live weights) equals its plain version; the serving fast path's
 nothing, and its `SinglePodFastPath` places lone pods where the card's
 `TorchBackend.assign([pi])` does; and the scheduler loop
 (`Scheduler.run` with the serving tier) on the card binds a pre-created
-heterogeneous workload exactly as on the CPU.
+heterogeneous workload exactly as on the CPU; gang chunks (Coscheduling in
+the profile) place on the card exactly as on the CPU, and one bucket of the
+preemption victim proposal (`propose_victims`) on the card, under sync
+debug "error", equals the CPU's.
 """
 
 import numpy as np
@@ -511,3 +514,43 @@ def test_constraint_chunk_on_card_matches_cpu(cuda, mode):
                     ctx.spread["dev_counts"].cpu().numpy().tolist()))
     assert out[0] == out[1]
     assert out[0][2]["spread_chunks"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "greedy"])
+@pytest.mark.parametrize("kind", ["stranded", "assembled", "overflow",
+                                  "spread"])
+def test_gang_chunk_on_card_matches_cpu(cuda, kind, mode):
+    """A gang chunk (`chip_smoke.gang_chunk`) through `TorchBackend()` on
+    the card and on the CPU, Coscheduling in the profile: identical
+    assignments, diagnostics, solver metrics, gang-overflow counts and
+    spread counts."""
+    from chip_smoke import (GANG_CHUNK, gang_chunk_view, port_gang_chunk)
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    card = gang_chunk_view(*port_gang_chunk(
+        TorchBackend(device=cuda, max_batch=GANG_CHUNK), kind, mode))
+    cpu = gang_chunk_view(*port_gang_chunk(
+        TorchBackend(device="cpu", max_batch=GANG_CHUNK), kind, mode))
+    assert card == cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 5000])
+def test_propose_victims_on_card_matches_cpu(cuda, n):
+    """One 128-preemptor `propose_victims` bucket on the card, under sync
+    debug "error", equals the CPU port's: nodes, counts and the carry."""
+    from chip_smoke import victim_case
+
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in victim_case(n, n)]
+    dev_args = [a.to(cuda) for a in args]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = solver.propose_victims(*dev_args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = solver.propose_victims(*args)
+    for c, w in zip(card, want):
+        assert torch.equal(c.cpu(), w)
+    assert int((want[0] >= 0).sum()) > 0

@@ -562,12 +562,13 @@ def test_flagless_iterations_knob_is_read_per_chunk(flagless):
 @pytest.mark.parametrize("feature", ["gang", "spread"])
 def test_gangs_and_spread_still_raise_flagless(flagless, feature):
     """The Sinkhorn route opens only eligible chunks. A chunk of 64 or
-    more pods, one of them in a gang (Coscheduling's pod group, not
-    ported), still raises before any placement. One of them with a hard
-    topology spread constraint makes the chunk ineligible for the plan
-    (structurally greedy in the reference): it runs the spread scan with
-    the optimal-fallback bit set and places every pod as the reference
-    does."""
+    more pods, one of them gang-labelled, places as the reference does:
+    the default profile has no Coscheduling, so the label builds no gang
+    arrays and the chunk takes the optimal route like any other. One of
+    them with a hard topology spread constraint makes the chunk
+    ineligible for the plan (structurally greedy in the reference): it
+    runs the spread scan with the optimal-fallback bit set and places
+    every pod as the reference does."""
     from kubernetes_tpu_torch.api.types import make_pod
 
     snap, fwk, pods = _torch_backend_inputs()
@@ -575,9 +576,13 @@ def test_gangs_and_spread_still_raise_flagless(flagless, feature):
     if feature == "gang":
         odd = make_pod("gang-0", requests={"cpu": "1"},
                        labels={tbackend.POD_GROUP_LABEL: "pg"})
-        with pytest.raises(NotImplementedError, match="gang scheduling"):
-            tb.assign(pods + [ttypes.PodInfo(odd)], snap, fwk)
-        assert tb.counters["chunks"] == 0
+        jb, jsnap, jfwk, jpods = _jax_backend_inputs(128)
+        want, _ = jb.assign(jpods + [jtypes.PodInfo(odd)], jsnap, jfwk)
+        got, _ = tb.assign(pods + [ttypes.PodInfo(odd)], snap, fwk)
+        assert got == want
+        assert got["default/gang-0"] is not None
+        assert tb.counters["chunks"] == tb.counters["optimal_solves"] == 1
+        assert tb.counters["optimal_fallbacks"] == 0
         return
     odd = make_pod("spread-0", requests={"cpu": "1"},
                    topology_spread_constraints=[{

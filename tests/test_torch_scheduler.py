@@ -76,7 +76,9 @@ def both(nodes, pods, trickle=False):
 
 def test_default_profile_is_the_loop_profile():
     """The port's default profile is the reference's, restricted to the
-    plugins the port has, in the reference's order, with its weights."""
+    plugins the port has, in the reference's order, with its weights:
+    DefaultPreemption just before DefaultBinder, Coscheduling registered
+    but not enabled."""
     from kubernetes_tpu.scheduler.plugins import registry as jregistry
     from kubernetes_tpu_torch.scheduler.plugins import registry as tregistry
 
@@ -84,7 +86,9 @@ def test_default_profile_is_the_loop_profile():
         "PrioritySort", "SchedulingGates", "NodeUnschedulable", "NodeName",
         "TaintToleration", "NodeAffinity", "NodeResourcesFit",
         "NodeResourcesBalancedAllocation", "InterPodAffinity",
-        "PodTopologySpread", "DefaultBinder"]
+        "PodTopologySpread", "DefaultPreemption", "DefaultBinder"]
+    assert "Coscheduling" in tregistry.IN_TREE
+    assert "Coscheduling" not in DEFAULT_PLUGINS
     assert DEFAULT_PLUGINS == [p for p in jregistry.DEFAULT_PLUGINS
                                if p in tregistry.IN_TREE]
     assert tregistry.DEFAULT_SCORE_WEIGHTS == {
