@@ -16,7 +16,11 @@ scheduler loop (`Scheduler.run` through the port's scheduler_perf
 `PerfRunner`, pods created in a store and bound through informers, the
 queue and the serving tier), with the constraint families, gangs
 (Coscheduling in the batched solve) and preemption (DefaultPreemption
-with the device victim proposal) — after
+with the device victim proposal); and bench.py's 50k-node preset (50000
+nodes, 500 + 5000 pods) through `TorchBackend.assign` and the loop (the
+card's full-width wave_solve), with the shortlist-pruned solve and its
+block prefilter forced and held to it —
+after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
 PyTorch version on the card.
@@ -186,19 +190,80 @@ Phases (any failure raises and the script exits non-zero with no result):
      per-node host scan, in-flight), `propose_victims` calls, ms per call
      and graph replays, over a repeat under torch.profiler the idle
      share, and over a repeat under cProfile the host's top costs;
- 13. the result lines (phase 11 before phase 12 existed): the whole
-     smoke's wall time, a `kernels` JSON line (wave_solve's entry also
-     carries the flagless path's W=1 launches, ms, device ms, plain ms and
-     bound, the loop's launches in phase 9(b)'s measured window,
-     `constraint_launches`, those of 10(b)'s probe and the measured
-     windows of 10(b) and 10(d), `gang_launches`, those of 12(b)'s window,
-     and `gang_chunk_launches`, those of 12(a); the probe's, its launches
-     over phase 9(b)'s run and over 10(b)'s), the card's name and power
-     limit from nvidia-smi, and last {"ok": true, "device": {...}}.
+ 13. large clusters (the shortlist and the block index), under a scoped
+     KTPU_SOLVE_MODE=auto with serving on: (a) the shortlist route on the
+     card against the CPU port on the eight `shortlist_case` fixtures
+     (N=8257, so a ragged last block of 65 columns; 128 pods, K=64, block
+     width 128, waves of 32): bound-check fallbacks on a tight cluster,
+     ties at the K boundary, a uniform fleet the uniform arm prunes, a
+     uniform block before the selection (the full-width pass), a drain
+     frontier, padding columns, exception columns and a storm that
+     poisons the multistart orders and reruns the chunk — the block
+     prefilter (the full-width one too on the uniform fleet), then the
+     identity and multistart scans at W=1 and in waves: cand, thresh, sc0
+     at the candidates, assignments, fallbacks, commits/replays and blocks
+     scanned/pruned identical, every scan under sync debug "error" but
+     the counted host reads (`solver._any_flag`: one per block
+     prefilter, per single-order scan and per multistart chunk); the five
+     block kernels on three strategies; and the spread shortlist scan
+     with its domain counts (600 nodes, 256 pods); (b)
+     `TorchBackend.assign` at bench.py's 50k preset (50000 nodes of cpu 8
+     / memory 32Gi / pods 110, 500 + 5000 pods of cpu 100m / memory
+     250Mi, every device pass under sync debug "error" but the host
+     reads), three times: flagless (the card's tuner keeps the full-width
+     wave_solve at W=64: shortlist pods 0, scan width 50000, at least one
+     launch per measured chunk), with KTPU_SHORTLIST_K=1024 (shortlist
+     pods = pods solved, scan width 2048, W=64, the full-width
+     prefilter: no block scanned) and with KTPU_BLOCK_WIDTH=128 as well
+     (the reference's route: blocks scanned and pruned > 0); each run:
+     every pod placed, no node over capacity on an exact
+     host re-check, the same assignments as flagless, wave_solve launches
+     counted over its measured assign alone; the first measured chunk
+     placed identically by `TorchBackend(device="cpu")` (the shortlist
+     and block prefilter, the CPU tuner's route); printed: pods/s and the
+     prep / device / verify split of each run, the block prefilter's, the
+     full-width prefilter's and the narrow scans' ms per chunk and the
+     full-width wave_solve's against its bound (CUDA events), the busy
+     and idle share over a profiled repeat of the first measured chunk on
+     each route, fallbacks and host reads; (c) the same preset through
+     the port's `PerfRunner` (`Scheduler.run`, `TorchBackend()`,
+     batch_size 16384, bench.py's template: createNodes, createPods
+     (warm-up), barrier, createPods (measured), barrier), flagless: all
+     5500 pods bound, no node over capacity, the full-width route in the
+     window; printed as 9(b), with the node staging seconds; (d) one
+     chunk of 512 hard zone-spread pods on 9000 nodes in three zones
+     through `TorchBackend()` with KTPU_SHORTLIST_K=1024 (the
+     spread-shortlist route, W=1) and `TorchBackend(device="cpu")`:
+     identical assignments, domain counts and counters; and flagless
+     `TorchBackend()` (the spread wave scan): the same assignments and
+     domain counts; (e) the sharded route with shortlist_k=64 and
+     block_w=128 at W=1 on 1- and 4-shard meshes of cuda:0 against the
+     single-device shortlist solve (8192 nodes, 256 pods, two fixtures),
+     as are the sharded serial and W=32 wave routes, each timed at 4
+     shards;
+ 14. the result lines (phase 11 before phase 12 existed, phase 13 before
+     phase 14): the whole smoke's wall time, a `kernels` JSON line
+     (wave_solve's entry also carries the flagless path's W=1 launches,
+     ms, device ms, plain ms and bound, the loop's launches in phase
+     9(b)'s measured window, `constraint_launches`, those of 10(b)'s probe
+     and the measured windows of 10(b) and 10(d), `gang_launches`, those
+     of 12(b)'s window, `gang_chunk_launches`, those of 12(a), and phase
+     13's: `large_scan_launches` (13(a)'s poisoned reruns),
+     `large_launches` (13(b)'s flagless measured assign, full width),
+     `large_shortlist_launches` (its two forced-shortlist measured
+     assigns: poisoned reruns), `large_full_width_ms` per chunk against
+     `large_full_width_bound_ms`, `large_prefilter_ms` (block),
+     `large_plain_prefilter_ms` (full width), `large_narrow_ms` and
+     `large_loop_launches`;
+     the probe's, its
+     launches over phase 9(b)'s run and over 10(b)'s), the card's name
+     and power limit from nvidia-smi, and last {"ok": true, "device":
+     {...}}.
 
-Run from the repository root: `python3 chip_smoke.py [--seed N]`. It needs
-one CUDA device; without one, or outside a checkout of the repository, it
-exits non-zero.
+Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
+`--phase13-only` it builds the kernels and runs phase 13 alone (no result
+lines). It needs one CUDA device; without one, or outside a checkout of the
+repository, it exits non-zero.
 """
 
 from __future__ import annotations
@@ -3373,6 +3438,777 @@ def preemption_phase(torch) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: large clusters (the shortlist and the block index)
+# ---------------------------------------------------------------------------
+
+#: The fixtures of the shortlist phase, each driving one arm: bound-check
+#: fallbacks, ties at the K boundary, the uniform arm, a uniform block
+#: before a selected block (the full-width pass), a drain frontier (the
+#: selection mid-range), padding columns, exception columns, and a storm
+#: that poisons the multistart orders.
+SHORTLIST_CASES = ("tight", "ties", "uniform", "before", "frontier",
+                   "padded", "pinned", "storm")
+
+
+def shortlist_case(kind: str, seed: int, n: int, p: int, block_w: int,
+                   r: int = 2, k_orders: int = 4):
+    """A seeded class-plane chunk for the shortlist prefilters and scans.
+
+    Four class rows (row 0 the reserved empty class), pods of the three
+    others, k_orders pod orders (the identity first). `kind` names the arm
+    it drives (SHORTLIST_CASES); an `n` that is not a multiple of block_w
+    gives every fixture a ragged last block, and "padded" leaves its last
+    columns unreal (alloc 0, mask False), as the backend's node padding
+    is. Returns (arrays in SOLVE_ORDER with w_fit and w_bal, class_req
+    (C, R), rows (P,), exc (P,), perms (k_orders, P), n_real), all
+    numpy."""
+    rng = np.random.default_rng(seed)
+    n_real = n - block_w - 7 if kind == "padded" else n
+    classes = 4
+    alloc = np.tile(np.array([[8000, 32000]], np.int32)[:, :r], (n, 1))
+    used = np.zeros((n, r), np.int32)
+    free_pods = np.full((n,), 110, np.int32)
+    static = np.zeros((classes, n), np.float32)
+    class_req = np.array([[0, 0], [100, 250], [400, 1000], [1000, 4000]],
+                         np.int32)[:, :r]
+    w = 1.0
+    if kind in ("tight", "pinned"):
+        # Heterogeneous nodes: three shapes, random usage, random statics.
+        shape = rng.integers(0, 3, size=(n,))
+        alloc = (np.array([[4000, 16000], [8000, 32000], [16000, 64000]],
+                          np.int32)[:, :r][shape])
+        used = (alloc * rng.uniform(0, 0.6, size=(n, r))).astype(np.int32)
+        static = rng.integers(0, 3, size=(classes, n)).astype(np.float32)
+    if kind == "tight":
+        # Few pod slots and big requests: the winners' columns run out
+        # mid-chunk, and steps cannot prove their winner.
+        free_pods = rng.integers(1, 3, size=(n,)).astype(np.int32)
+        class_req = np.array([[0, 0], [1500, 6000], [2500, 9000],
+                              [3000, 12000]], np.int32)[:, :r]
+    elif kind == "ties":
+        # Quantized statics and no live weights: exact float ties at the
+        # K boundary.
+        static = rng.integers(0, 2, size=(classes, n)).astype(np.float32)
+        w = 0.0
+    elif kind == "before":
+        # Identical nodes, the last half scoring a hair better (under
+        # BLOCK_UB_EPS): the selection sits in the better half, and the
+        # uniform blocks before it can neither lose strictly nor win
+        # their ties, so the chunk takes the full-width pass.
+        static[:, n // 2:] = 0.001
+    elif kind == "frontier":
+        # A drain frontier on identical nodes: the first third full, so
+        # the selection sits mid-range.
+        used[: n // 3] = alloc[: n // 3] - 50
+    elif kind == "storm":
+        # Small identical nodes and two slots each: the orders contend,
+        # waves conflict and the multistart orders poison.
+        alloc[:] = np.array([3000, 6000], np.int32)[:r]
+        used[n // 2:] = alloc[n // 2:] // 4
+        free_pods = rng.integers(1, 3, size=(n,)).astype(np.int32)
+        class_req = np.array([[0, 0], [400, 900], [900, 1800],
+                              [1400, 2500]], np.int32)[:, :r]
+    mask = rng.random((classes, n)) > 0.1 if kind != "uniform" \
+        else np.ones((classes, n), bool)
+    mask[0] = False
+    if n_real < n:
+        alloc[n_real:] = 0
+        used[n_real:] = 0
+        free_pods[n_real:] = 0
+        mask[:, n_real:] = False
+    rows = rng.integers(1, classes, size=(p,)).astype(np.int32)
+    exc = np.full((p,), -1, np.int32)
+    pins = max(1, p // 16) if kind in ("pinned", "storm") else 0
+    if pins:
+        exc[rng.choice(p, size=pins, replace=False)] = rng.integers(
+            0, n_real, size=pins).astype(np.int32)
+    perms = np.stack([np.arange(p, dtype=np.int32)]
+                     + [rng.permutation(p).astype(np.int32)
+                        for _ in range(k_orders - 1)])
+    arrays = dict(
+        req_q=class_req[rows], req_nz_q=class_req[rows],
+        free_q=alloc - used, free_pods=free_pods, used_nz_q=used,
+        alloc_q=alloc, mask=mask, static_scores=static,
+        fit_col_w=np.ones((r,), np.float32),
+        bal_col_mask=np.ones((r,), np.bool_),
+        shape_u=np.array([0.0, 50.0, 100.0], np.float32),
+        shape_s=np.array([0.0, 4.0, 10.0], np.float32),
+        w_fit=np.float32(w), w_bal=np.float32(w))
+    return arrays, class_req, rows, exc, perms, n_real
+
+
+def shortlist_inputs(case):
+    """The class-level prefilter inputs of a `shortlist_case` as the
+    backends build them: (chunk-start feasibility (C, N), has_node (P,)),
+    numpy."""
+    arrays, class_req, rows, exc, _, _ = case
+    fits0 = np.all(class_req[:, None, :] <= arrays["free_q"][None], axis=-1) \
+        & (arrays["free_pods"] >= 1)[None]
+    feasible = arrays["mask"] & fits0
+    has_c = arrays["mask"].any(axis=1)[rows]
+    has_node = np.where(exc >= 0, arrays["mask"][rows, np.maximum(exc, 0)],
+                        has_c)
+    return feasible, has_node
+
+
+def run_shortlist(torch, case, strategy: str, k: int, block_w: int,
+                  wave_w: int, device) -> dict:
+    """The port's shortlist route on one `shortlist_case` on `device`:
+    the prefilter (`block_bound_prefilter` with block_w > 0, else the
+    full-width one), then the identity scans (W=1, and waves of wave_w)
+    and the multistart scans (W=1 and waves) over the case's orders, each
+    from the prefilter's shortlists. Every result comes back as numpy or
+    ints: {"cand", "thresh", "sc0_at_cand", "scanned", "pruned",
+    "identity": (assign, fallbacks), "wave": (assign, fallbacks, commits,
+    replays), "multistart": (assign, fallbacks), "multistart_wave":
+    (assign, fallbacks, commits, replays)}."""
+    from kubernetes_tpu_torch.ops import kernels, solver
+
+    arrays, class_req, rows, exc, perms, n_real = case
+    feasible, has_node = shortlist_inputs(case)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    args = [float(arrays[k_]) if k_ in ("w_fit", "w_bal")
+            else put(arrays[k_]) for k_ in SOLVE_ORDER]
+    score_args = (*args[8:14], strategy)
+    c_req = put(class_req)
+    if block_w:
+        sc0, cand, thresh, scanned, pruned = solver.block_bound_prefilter(
+            args[5], args[4], c_req, args[7], put(feasible), *score_args,
+            n_real, k, block_w)
+        scanned, pruned = int(scanned), int(pruned)
+    else:
+        sc0 = kernels.chunk_start_scores(args[5], args[4], c_req, args[7],
+                                         *score_args)
+        cand, thresh = solver.shortlist_prefilter(put(feasible), sc0, k)
+        scanned = pruned = 0
+    rows_t, exc_t = put(rows), put(exc)
+    rl = rows_t.long()
+    sl = (sc0, rows_t, cand[rl], thresh[rl], put(has_node))
+    p = rows.shape[0]
+    gang = (torch.zeros((p, 16), device=device),
+            torch.zeros((16,), device=device))
+
+    def host(t):
+        return tuple(int(x) if torch.is_tensor(x) and x.numel() == 1
+                     else (x.cpu().numpy() if torch.is_tensor(x) else x)
+                     for x in t)
+
+    out = {"cand": cand.cpu().numpy(), "thresh": thresh.cpu().numpy(),
+           "sc0_at_cand": torch.gather(sc0, 1, cand.long()).cpu().numpy(),
+           "scanned": scanned, "pruned": pruned}
+    out["identity"] = host(solver.greedy_assign_rescoring_shortlist(
+        *args, strategy, *sl, rows=rows_t, exc=exc_t))
+    out["wave"] = host(solver.greedy_assign_rescoring_shortlist_wave(
+        *args, strategy, wave_w, *sl, rows=rows_t, exc=exc_t))
+    out["multistart"] = host(solver.multistart_greedy_assign_shortlist(
+        *args, strategy, put(perms), *gang, *sl, rows=rows_t, exc=exc_t))
+    out["multistart_wave"] = host(
+        solver.multistart_greedy_assign_shortlist_wave(
+            *args, strategy, wave_w, put(perms), *gang, *sl, rows=rows_t,
+            exc=exc_t))
+    return out
+
+
+@contextlib.contextmanager
+def no_host_sync_in_shortlist(torch):
+    """Run the shortlist prefilters and scans under
+    `torch.cuda.set_sync_debug_mode("error")`, except the route's host
+    reads (`solver._any_flag`: the block prefilter's exactness predicate,
+    one per block prefilter, and the scans' poison bits, one per scan of a
+    single order and one per multistart chunk), which run in the default
+    mode and are counted. Yields the count as a one-element list. Each
+    guard restores the mode it found, so it nests inside
+    `no_host_sync_in_device_pass`."""
+    from kubernetes_tpu_torch.ops import solver
+
+    def guard(fn, mode):
+        def guarded(*args, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(mode)
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return guarded
+
+    reads = [0]
+    read = solver._any_flag
+
+    def counted_read(bits):
+        reads[0] += 1
+        return read(bits)
+
+    targets = {name: "error" for name in (
+        "shortlist_prefilter", "block_bound_prefilter",
+        "greedy_assign_rescoring_shortlist",
+        "greedy_assign_rescoring_shortlist_wave",
+        "multistart_greedy_assign_shortlist",
+        "multistart_greedy_assign_shortlist_wave",
+        "greedy_assign_rescoring_spread_shortlist")}
+    saved = {name: getattr(solver, name) for name in targets}
+    for name, mode in targets.items():
+        setattr(solver, name, guard(saved[name], mode))
+    solver._any_flag = guard(counted_read, "default")
+    try:
+        yield reads
+    finally:
+        for name, fn in saved.items():
+            setattr(solver, name, fn)
+        solver._any_flag = read
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and np.array_equal(a, b)
+    return a == b
+
+
+def block_kernels_on(torch, case, block_w: int, strategy: str,
+                     device) -> list[np.ndarray]:
+    """The five block kernels (`_block_fold`, `block_capacity_aggregates`,
+    `block_feasible_stat`, `block_score_upper_bound`,
+    `gathered_start_scores`) on a `shortlist_case`'s class rows on
+    `device`, as numpy."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    arrays, class_req, _, _, _, n_real = case
+    feasible, _ = shortlist_inputs(case)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    alloc, used, static = (put(arrays[k]) for k in (
+        "alloc_q", "used_nz_q", "static_scores"))
+    score_args = [put(arrays[k]) for k in (
+        "fit_col_w", "bal_col_mask", "shape_u", "shape_s")] + [
+        float(arrays["w_fit"]), float(arrays["w_bal"]), strategy]
+    n = alloc.shape[0]
+    agg = kernels.block_capacity_aggregates(
+        alloc, used, torch.arange(n, device=device) < n_real, block_w)
+    stat = kernels.block_feasible_stat(put(feasible), static, block_w)
+    ub = kernels.block_score_upper_bound(
+        stat[0], stat[2], agg[0], agg[2], agg[3], agg[4], put(class_req),
+        *score_args)
+    cols = torch.arange(0, n, 7, device=device)[None, :].expand(
+        class_req.shape[0], -1)
+    gathered = kernels.gathered_start_scores(
+        alloc[cols], used[cols], put(class_req),
+        torch.gather(static, 1, cols), *score_args)
+    fold = kernels._block_fold(alloc, block_w, kernels._BLOCK_BIG)
+    return [t.cpu().numpy() for t in (fold, *agg, *stat, ub, gathered)]
+
+
+def shortlist_scan_phase(torch, dev) -> int:
+    """Phase 13(a): the shortlist route on the card against the CPU port
+    on the eight `shortlist_case` fixtures (N = 8257, a ragged last block
+    of 65 columns, 128 pods, K=64, block width 128, waves of 32), the
+    full-width prefilter on the uniform fleet, the five block kernels, and
+    the spread shortlist scan; the card's scans under sync debug "error"
+    except the counted host reads. Returns the wave_solve launches (the poisoned
+    chunks' reruns)."""
+    from kubernetes_tpu_torch.ops import kernels, solver, wave_kernel
+
+    t0 = time.perf_counter()
+    launches0 = wave_kernel.wave_solve.launches
+    n, p, k, bw, w = 8257, 128, 64, 128, 32
+    strategies = ("LeastAllocated", "MostAllocated",
+                  "RequestedToCapacityRatio")
+    reads = 0
+    for i, kind in enumerate(SHORTLIST_CASES):
+        strategy = strategies[i % 3]
+        case = shortlist_case(kind, 70 + i, n, p, bw)
+        for width in ((bw, 0) if kind == "uniform" else (bw,)):
+            with no_host_sync_in_shortlist(torch) as r:
+                card = run_shortlist(torch, case, strategy, k, width, w, dev)
+            reads += r[0]
+            cpu = run_shortlist(torch, case, strategy, k, width, w, "cpu")
+            differ = [key for key in card if not _same(card[key], cpu[key])]
+            print(f"compare shortlist route, {kind} ({strategy}, N={n}, "
+                  f"{p} pods, K={k}, block width {width}), card vs CPU: "
+                  f"{'identical' if not differ else 'DIFFER ' + str(differ)}"
+                  f"; blocks scanned/pruned {card['scanned']}/"
+                  f"{card['pruned']}, fallbacks identity "
+                  f"{card['identity'][1]}, waves (fallbacks, commits, "
+                  f"replays) {card['wave'][1:]}, multistart "
+                  f"{card['multistart'][1]}, multistart waves "
+                  f"{card['multistart_wave'][1:]}, placed "
+                  f"{int((card['identity'][0] >= 0).sum())}; host reads "
+                  f"{r[0]}")
+            if differ:
+                raise RuntimeError(f"the shortlist route on the card "
+                                   f"differs from the CPU on {kind}")
+        if kind == "uniform":
+            got = [block_kernels_on(torch, case, bw, s, dev)
+                   for s in strategies]
+            want = [block_kernels_on(torch, case, bw, s, "cpu")
+                    for s in strategies]
+            same = all(_same(tuple(g), tuple(c)) for g, c in zip(got, want))
+            print(f"compare block kernels (fold, aggregates, feasible "
+                  f"stat, upper bound, gathered scores; 3 strategies), card "
+                  f"vs CPU: {'identical' if same else 'DIFFER'}")
+            if not same:
+                raise RuntimeError("a block kernel differs on the card")
+    # The spread shortlist scan, per-pod shortlists over a spread case.
+    case = spread_case(seed=13, n=600, p=256)
+    arrays, table, counts, applies, contrib, rows, exc = case
+    out = []
+    for device in (dev, "cpu"):
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        args = [float(arrays[k_]) if k_ in ("w_fit", "w_bal")
+                else put(arrays[k_]) for k_ in SOLVE_ORDER]
+        rl = put(rows).long()
+        fits0 = torch.all(args[0][:, None, :] <= args[2][None], dim=-1) \
+            & (args[3] >= 1)[None]
+        sc0 = kernels.chunk_start_scores(
+            args[5], args[4], args[1], args[7][rl], *args[8:14],
+            "LeastAllocated")
+        ctx = no_host_sync_in_shortlist(torch) if device != "cpu" \
+            else contextlib.nullcontext()
+        with ctx:
+            cand, thresh = solver.shortlist_prefilter(
+                args[6][rl] & fits0, sc0, 16)
+            tab = solver.SpreadTable(*(put(table[k_]) for k_ in (
+                "node_dom", "dom_cid", "max_skew", "min_ok", "has_key")))
+            got = solver.greedy_assign_rescoring_spread_shortlist(
+                *args, "LeastAllocated", tab, put(counts), put(applies),
+                put(contrib), sc0,
+                torch.arange(rows.shape[0], dtype=torch.int32,
+                             device=device), cand,
+                thresh, args[6][rl].any(dim=1), rows=put(rows),
+                exc=put(exc))
+        out.append(tuple(t.cpu().numpy() for t in got))
+    same = _same(out[0], out[1])
+    print(f"compare spread shortlist scan (600 nodes, 256 pods, K=16), "
+          f"card vs CPU: {'identical' if same else 'DIFFER'}; placed "
+          f"{int((out[0][0] >= 0).sum())}, fallbacks {int(out[0][2][0])}")
+    if not same:
+        raise RuntimeError("the spread shortlist scan differs on the card")
+    launches = wave_kernel.wave_solve.launches - launches0
+    print(f"phase 13(a) {time.perf_counter() - t0:.1f} s, host reads "
+          f"{reads} (one per block prefilter, per single-order scan and "
+          f"per multistart chunk), wave_solve launches {launches} (the "
+          f"poisoned chunks' W=1 reruns)")
+    return launches
+
+
+#: bench.py's 50k preset (`PRESETS["50k"]`): nodes, warm-up pods, measured
+#: pods, SchedulingBasic's node and pod templates.
+LARGE_NODES, LARGE_WARMUP, LARGE_MEASURED = 50000, 500, 5000
+BENCH_50K = {
+    "name": "bench-50k",
+    "workloadTemplate": [
+        {"opcode": "createNodes", "countParam": "$nodes"},
+        {"opcode": "createPods", "countParam": "$warmup"},
+        {"opcode": "barrier"},
+        {"opcode": "createPods", "countParam": "$measured",
+         "collectMetrics": True},
+        {"opcode": "barrier"},
+    ],
+    "workloads": [{"name": "50000Nodes", "params": {
+        "nodes": LARGE_NODES, "warmup": LARGE_WARMUP,
+        "measured": LARGE_MEASURED}}],
+}
+
+
+def large_assign(torch, backend, fwk, warm, measured, guard: bool = False,
+                 profile: bool = False) -> dict:
+    """bench.py's 50k preset through `backend.assign`: fresh nodes, the
+    warm-up pods, then the measured pods on the snapshot they leave. Every
+    pod must be placed and no node over capacity on an exact host
+    re-check. Returns {"warm", "assign": the warm-up and measured
+    assignments, "wall": s, "timings", "counters": over the measured
+    assign, "launches": wave_solve launches of the measured assign alone,
+    "reads": the solver's host reads under `guard`, "prof": the profiler
+    or None}."""
+    from kubernetes_tpu_torch.api.types import make_node
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.scheduler.types import NodeInfo
+
+    nodes = [NodeInfo(make_node(f"node-{i}")) for i in range(LARGE_NODES)]
+    by_name = {ni.name: ni for ni in nodes}
+    warm_assign, _ = backend.assign(warm, stamped_snapshot(nodes, 1), fwk)
+    for pi in warm:
+        by_name[warm_assign[pi.key]].add_pod(pi)
+    snap = stamped_snapshot(nodes, 2)
+    torch.cuda.synchronize()
+    before_t, before_c = dict(backend.timings), dict(backend.counters)
+    prof = None
+    with contextlib.ExitStack() as stack:
+        reads = [0]
+        if guard:
+            stack.enter_context(no_host_sync_in_device_pass(torch))
+            reads = stack.enter_context(no_host_sync_in_shortlist(torch))
+        if profile:
+            prof = stack.enter_context(torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]))
+        launches0 = wave_kernel.wave_solve.launches
+        t0 = time.perf_counter()
+        assignments, _ = backend.assign(measured, snap, fwk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = wave_kernel.wave_solve.launches - launches0
+    unplaced = [k for k, v in {**warm_assign, **assignments}.items()
+                if v is None]
+    if unplaced or len(assignments) != len(measured):
+        raise RuntimeError(f"{len(unplaced)} pods unplaced at 50k nodes")
+    for pi in measured:
+        by_name[assignments[pi.key]].add_pod(pi)
+    over = [ni.name for ni in nodes
+            if ni.requested.pods > ni.allocatable.pods
+            or any(v > ni.allocatable.get(r)
+                   for r, v in ni.requested.res.items())]
+    if over:
+        raise RuntimeError(f"nodes over capacity at 50k: {over[:5]}")
+    timings = {k: round(v - before_t[k], 6)
+               for k, v in backend.timings.items()}
+    counters = {k: v - before_c[k] for k, v in backend.counters.items()
+                if k != "sinkhorn_iterations"}
+    return {"warm": warm_assign, "assign": assignments, "wall": wall,
+            "timings": timings, "counters": counters, "launches": launches,
+            "reads": reads[0], "prof": prof}
+
+
+#: The shortlist width 13(b)-(d) force on the card (the reference's K at
+#: the 1024-pod chunk).
+LARGE_K = 1024
+
+
+def large_assign_phase(torch, dev, fwk) -> dict:
+    """Phase 13(b): bench.py's 50k preset through `TorchBackend.assign`,
+    flagless (every chunk greedy at that size; the card's tuner keeps the
+    full-width wave_solve at W=64), then with the shortlist forced
+    (KTPU_SHORTLIST_K=1024: the full-width prefilter and the narrow
+    scans) and with the block prefilter forced too (KTPU_BLOCK_WIDTH=128:
+    the reference's route at this size); the identity checks, the
+    per-chunk times of both prefilters, the narrow scans and the
+    full-width kernel, and the busy share of one chunk of each route.
+    Returns the kernels line's phase 13 entries for wave_solve."""
+    from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
+    from kubernetes_tpu_torch.ops import kernels, solver, wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend, chunk_planes
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.scheduler.types import NodeInfo
+    from kubernetes_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    warm = [PodInfo(make_pod(f"warm-{i}", requests=POD_REQUESTS))
+            for i in range(LARGE_WARMUP)]
+    measured = [PodInfo(make_pod(f"pod-{i}", requests=POD_REQUESTS))
+                for i in range(LARGE_MEASURED)]
+    chunks = -(-LARGE_MEASURED // 1024)
+    forced = (("KTPU_SHORTLIST_K", LARGE_K),)
+    blocks = forced + (("KTPU_BLOCK_WIDTH", 128),)
+    routes = (("flagless", ()),
+              (f"KTPU_SHORTLIST_K={LARGE_K}", forced),
+              (f"KTPU_SHORTLIST_K={LARGE_K} KTPU_BLOCK_WIDTH=128", blocks))
+    runs = {}
+    for label, env in routes:
+        with contextlib.ExitStack() as stack:
+            for flag, value in env:
+                stack.enter_context(flags.scoped_set(flag, value))
+            backend = TorchBackend()
+            backend.metrics = SchedulerMetrics()
+            t_build = time.perf_counter()
+            run = large_assign(torch, backend, fwk, warm, measured,
+                               guard=True)
+        run["scan_width"] = backend.metrics.solver_scan_width.value()
+        run["wave_width"] = backend.metrics.solver_wave_width.value()
+        runs[label] = run
+        c = run["counters"]
+        same = run["warm"] == runs["flagless"]["warm"] \
+            and run["assign"] == runs["flagless"]["assign"]
+        print(f"50k assign, {label} (bench.py preset: {LARGE_NODES} nodes, "
+              f"{LARGE_WARMUP} + {LARGE_MEASURED} pods of cpu 100m / memory "
+              f"250Mi): {LARGE_MEASURED} measured pods in "
+              f"{run['wall']:.6f} s = {LARGE_MEASURED / run['wall']:.1f} "
+              f"pods/s; measured phase timings {json.dumps(run['timings'])}"
+              f"; counters {json.dumps(c)}; scan width {run['scan_width']}, "
+              f"wave width {run['wave_width']}; wave_solve launches in the "
+              f"measured assign {run['launches']}, host reads "
+              f"{run['reads']}; every device pass under sync debug "
+              f"\"error\" but the host reads; "
+              + ("" if label == "flagless" else
+                 f"{'identical' if same else 'DIFFER'} to flagless; ")
+              + f"build + warm-up + measured "
+              f"{time.perf_counter() - t_build:.1f} s")
+        if not same:
+            raise RuntimeError(f"the 50k assign differs with {label}")
+        if label == "flagless":
+            ok = (c["shortlist_pods"] == 0
+                  and run["scan_width"] == LARGE_NODES
+                  and run["launches"] >= chunks)
+        else:
+            ok = (c["shortlist_pods"] == LARGE_MEASURED
+                  and run["scan_width"] == LARGE_K + 1024
+                  and ((c["blocks_scanned"] > 0 and c["blocks_pruned"] > 0)
+                       if env == blocks else c["blocks_scanned"] == 0))
+        if not ok or run["wave_width"] != 64:
+            raise RuntimeError(f"the 50k assign, {label}, missed its route: "
+                               f"{c}, scan width {run['scan_width']}, wave "
+                               f"width {run['wave_width']}, launches "
+                               f"{run['launches']}")
+    ma = runs["flagless"]["assign"]
+    # The first measured chunk on the CPU port (the reference's route
+    # there: the shortlist and the block prefilter) from the same snapshot.
+    nodes = [NodeInfo(make_node(f"node-{i}")) for i in range(LARGE_NODES)]
+    by_name = {ni.name: ni for ni in nodes}
+    for pi in warm:
+        by_name[runs["flagless"]["warm"][pi.key]].add_pod(pi)
+    first = measured[:1024]
+    t1 = time.perf_counter()
+    cpu = TorchBackend(device="cpu")
+    cpu_first, _ = cpu.assign(first, stamped_snapshot(nodes, 2), fwk)
+    cpu_s = time.perf_counter() - t1
+    same = all(cpu_first[pi.key] == ma[pi.key] for pi in first)
+    print(f"compare first measured chunk, TorchBackend(device=\"cpu\") from "
+          f"the same snapshot: {'identical' if same else 'DIFFER'} "
+          f"({cpu_s:.1f} s on the CPU; counters "
+          f"{json.dumps(cpu.counters)})")
+    if not same or cpu.counters["shortlist_pods"] != len(first):
+        raise RuntimeError("the 50k first chunk differs on the CPU port or "
+                           "missed the shortlist there")
+    # Per-chunk device times on the first measured chunk's planes.
+    with flags.scoped_set("KTPU_SHORTLIST_K", LARGE_K), \
+            flags.scoped_set("KTPU_BLOCK_WIDTH", 128):
+        b2 = TorchBackend()
+        snap = stamped_snapshot(nodes, 3)
+        ctx = b2._start(first, snap, fwk)
+        prep = b2._prep_chunk(ctx.chunks[0], ctx)
+    st, prm = b2.ensure_static(ctx.ct), ctx.params
+    pl = chunk_planes(st["alloc_q"], b2.used.pack, st["alloc_pods"],
+                      prep["dev_pack"], prep["dev_cls"], st["taint_f"],
+                      st["taint_p"], prep["dev_mask"], prep["dev_scores"],
+                      prm["w_taint"], prm["taint_filter_on"])
+    r = st["alloc_q"].shape[1]
+    score_args = (prm["fit_col_w"], prm["bal_col_mask"], prm["shape_u"],
+                  prm["shape_s"], prm["w_fit"], prm["w_bal"],
+                  prm["strategy"])
+    feasible = pl["mask"] & pl["fit0"]
+    c_req_nz = prep["dev_pack"][:, r:2 * r]
+    k_sl, bw = prep["shortlist_k"], prep["block_w"]
+
+    def prefilter():
+        return solver.block_bound_prefilter(
+            st["alloc_q"], pl["used_nz_q"], c_req_nz, pl["static_scores"],
+            feasible, *score_args, ctx.ct.n_real, k_sl, bw)
+
+    def plain_prefilter():
+        sc = kernels.chunk_start_scores(
+            st["alloc_q"], pl["used_nz_q"], c_req_nz, pl["static_scores"],
+            *score_args)
+        return solver.shortlist_prefilter(feasible, sc, k_sl)
+    sc0, cand, thresh, scanned, pruned = prefilter()
+    cand_p, thresh_p = plain_prefilter()
+    if not (torch.equal(cand, cand_p) and torch.equal(thresh, thresh_p)):
+        raise RuntimeError("the 50k block prefilter differs from the "
+                           "full-width one")
+    cls = prep["dev_cls"].long()
+    has_node = pl["mask"].any(dim=1)[cls]
+    solve_args = (pl["req_q"], pl["req_nz_q"], pl["free_q"],
+                  pl["free_pods"], pl["used_nz_q"], st["alloc_q"],
+                  pl["mask"], pl["static_scores"], *score_args)
+    gang = (torch.zeros((1024, 16), device=dev),
+            torch.zeros((16,), device=dev))
+
+    def narrow():
+        return solver.multistart_greedy_assign_shortlist_wave(
+            *solve_args, prep["wave_w"], prep["dev_perms"], *gang, sc0,
+            prep["dev_cls"], cand[cls], thresh[cls], has_node,
+            rows=prep["dev_cls"], exc=prep["dev_exc"],
+            n_real=prep["batch"].p_real)
+
+    kw = dict(wave_w=prep["wave_w"], rows=prep["dev_cls"],
+              exc=prep["dev_exc"], poison=True, perms=prep["dev_perms"])
+    pre_ms = cuda_ms(torch, prefilter, 10)
+    plain_pre_ms = cuda_ms(torch, plain_prefilter, 10)
+    narrow_ms = cuda_ms(torch, narrow, 3)
+    n_pois = narrow()[1]
+    full_ms = cuda_ms(torch, lambda: wave_kernel.wave_solve(
+        *solve_args, **kw), 5)
+    p, n = pl["req_q"].shape[0], pl["free_q"].shape[0]
+    fits = feasible[cls].sum(dim=1)
+    evals = kw["perms"].shape[0] * int(fits.sum())
+    full_bound, full_by = wave_bound_ms(
+        p, n, r, pl["mask"].shape[0], kw["perms"].shape[0],
+        prm["shape_u"].shape[0], evals)
+    print(f"50k chunk (first measured, {p} pods, N={n}, K={k_sl}, block "
+          f"width {bw}, W={prep['wave_w']}): block prefilter "
+          f"{pre_ms:.5f} ms per chunk (blocks scanned/pruned "
+          f"{scanned}/{pruned}, candidates and thresholds identical to the "
+          f"full-width prefilter), full-width prefilter "
+          f"{plain_pre_ms:.5f} ms per chunk, narrow scans (4 orders, "
+          f"multistart waves) {narrow_ms:.5f} ms per chunk (fallback pods "
+          f"{n_pois}); full-width wave_solve W={prep['wave_w']} over {n} "
+          f"nodes {full_ms:.5f} ms per chunk, bound {full_bound:.6f} ms "
+          f"({full_by})")
+    # Busy and idle share: the first measured chunk's assign again under
+    # the profiler, on each route (a whole measured assign's trace takes a
+    # minute to read).
+    for label, env in routes:
+        with contextlib.ExitStack() as stack:
+            for flag, value in env:
+                stack.enter_context(flags.scoped_set(flag, value))
+            again = large_assign(torch, TorchBackend(), fwk, warm, first,
+                                 profile=True)
+        if any(again["assign"][pi.key] != ma[pi.key] for pi in first):
+            raise RuntimeError("a repeated 50k chunk placed pods "
+                               "differently")
+        busy_us = sum(device_us(e) for e in again["prof"].key_averages())
+        pwall = again["wall"]
+        print(f"profiled 50k first measured chunk, {label} (assign of "
+              f"{len(first)} pods): wall {pwall:.6f} s, device busy "
+              f"{busy_us / 1e6:.6f} s" + (
+                  f", busy share {busy_us / 1e6 / pwall:.4f}, idle share "
+                  f"{1 - busy_us / 1e6 / pwall:.4f}" if busy_us
+                  else ", device time not measured by the profiler"))
+    print(f"phase 13(b) {time.perf_counter() - t0:.1f} s")
+    return {"large_launches": runs["flagless"]["launches"],
+            "large_shortlist_launches": [runs[label]["launches"]
+                                         for label, _ in routes[1:]],
+            "large_full_width_ms": full_ms,
+            "large_full_width_bound_ms": full_bound,
+            "large_full_width_bound_by": full_by,
+            "large_prefilter_ms": pre_ms,
+            "large_plain_prefilter_ms": plain_pre_ms,
+            "large_narrow_ms": narrow_ms}
+
+
+def large_loop_phase(torch) -> int:
+    """Phase 13(c): bench.py's 50k preset through the port's PerfRunner
+    (`Scheduler.run`, `TorchBackend()`, batch_size 16384), flagless: the
+    card's full-width route. Returns the measured window's wave_solve
+    launches."""
+    t0 = time.perf_counter()
+    first = perf_run(torch, BENCH_50K, "50000Nodes", None)
+    runner, result = first[0], first[1]
+    c = runner.window["counters"]
+    print(f"50k loop node staging {result.staging_seconds:.3f} s; shortlist "
+          f"pods in the window {c['shortlist_pods']} (the card's tuner "
+          f"keeps the full-width wave_solve), wave_solve launches "
+          f"{runner.window['launches']}")
+    if c["shortlist_pods"] or not runner.window["launches"]:
+        raise RuntimeError("the 50k loop's window missed the card's "
+                           "full-width route")
+    report_perf(torch, "50k loop", BENCH_50K, "50000Nodes", first, "13(c)",
+                t0)
+    return runner.window["launches"]
+
+
+def large_spread_phase(torch) -> None:
+    """Phase 13(d): one chunk of 512 hard zone-spread pods on 9000 nodes in
+    three zones (above the shortlist threshold: the spread∩shortlist
+    route, the W=1 spread shortlist scan) through `TorchBackend()` with
+    KTPU_SHORTLIST_K=1024 and `TorchBackend(device="cpu")` flagless (the
+    route is the CPU tuner's own there), and through flagless
+    `TorchBackend()` (the card's spread wave scan)."""
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler import types
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+    from kubernetes_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    fwk = Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS)
+    nodes = [(f"node-{i}", {"labels": {ZONE_KEY: ZONES[i % 3]}})
+             for i in range(9000)]
+    pods = [types.PodInfo(make_pod(nm, **kw))
+            for nm, kw in constraint_pods(("spread",), 512)]
+    out = []
+    for device, k in ((None, LARGE_K), ("cpu", None), (None, None)):
+        backend = TorchBackend(device=device)
+        snap = constraint_snapshot(types, make_node, make_pod, nodes, [])
+        with contextlib.ExitStack() as stack:
+            if k is not None:
+                stack.enter_context(flags.scoped_set("KTPU_SHORTLIST_K", k))
+            stack.enter_context(no_host_sync_in_shortlist(torch))
+            ctx = constraint_assign(backend, snap, fwk, pods, "auto")
+        out.append((ctx.assignments, ctx.spread["dev_counts"].cpu().numpy(),
+                    dict(backend.counters)))
+    card, cpu, flagless = out
+    same = card[0] == cpu[0] and np.array_equal(card[1], cpu[1]) \
+        and card[2] == cpu[2]
+    same_flagless = flagless[0] == cpu[0] \
+        and np.array_equal(flagless[1], cpu[1])
+    c = card[2]
+    print(f"compare spread chunk at 9000 nodes (512 hard zone-spread pods), "
+          f"card (KTPU_SHORTLIST_K={LARGE_K}) vs CPU: "
+          f"{'identical' if same else 'DIFFER'}; placed "
+          f"{sum(v is not None for v in card[0].values())}, domain counts "
+          f"{card[1].tolist()}, counters {json.dumps(c)}; card flagless "
+          f"(spread wave scan): assignments and domain counts "
+          f"{'identical' if same_flagless else 'DIFFER'}, counters "
+          f"{json.dumps(flagless[2])}; phase 13(d) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not same or c["spread_chunks"] != 1 or c["shortlist_pods"] != 512 \
+            or c["wave_commits"] + c["wave_replays"] or not same_flagless \
+            or flagless[2]["shortlist_pods"]:
+        raise RuntimeError("the spread chunk above the shortlist threshold "
+                           "differs on the card or missed its route")
+
+
+def large_sharded_phase(torch, dev) -> None:
+    """Phase 13(e): the sharded route with shortlist_k and block_w (W=1:
+    a wave width above 1 keeps the wave form) on 1- and 4-shard meshes of
+    cuda:0 against the single-device shortlist solve (the class rows and
+    exceptions of two `shortlist_case` fixtures, 8192 nodes, 256 pods,
+    K=64, block width 128), each timed at 4 shards against the sharded
+    serial route (no shortlist) and the wave route (W=32, the wave_eval
+    kernels) on the same inputs."""
+    from kubernetes_tpu_torch.parallel import build_mesh, sharded
+
+    t0 = time.perf_counter()
+    for kind in ("tight", "uniform"):
+        case = shortlist_case(kind, 90, 8192, 256, 128)
+        arrays, class_req, rows, exc, _, _ = case
+        single = run_shortlist(torch, case, "LeastAllocated", 64, 128, 32,
+                               dev)["identity"][0]
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        args = [float(arrays[k]) if k in ("w_fit", "w_bal")
+                else put(arrays[k]) for k in SOLVE_ORDER]
+        kw = dict(rows=put(rows), exc=put(exc), row_req_q=put(class_req),
+                  row_req_nz_q=put(class_req))
+        for shards in (1, 4):
+            mesh = build_mesh(shards)
+            routes = {"shortlist": dict(shortlist_k=64, block_w=128),
+                      "serial": {}, "wave W=32": dict(wave_w=32)}
+            walls = {}
+            for name, opt in routes.items():
+                def solve():
+                    return sharded.sharded_greedy_assign(
+                        mesh, *args, "LeastAllocated", **kw, **opt)
+                got = solve().cpu().numpy()
+                if not np.array_equal(got, single):
+                    raise RuntimeError(f"the sharded {name} route differs "
+                                       f"on {kind} at {shards} shard(s)")
+                if shards == 4:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    solve()
+                    torch.cuda.synchronize()
+                    walls[name] = time.perf_counter() - t1
+            print(f"compare sharded shortlist route, {kind}, {shards} "
+                  f"shard(s) of cuda:0 (K=64, block width 128): identical "
+                  f"to the single-device shortlist solve, as are the serial "
+                  f"and W=32 wave routes; placed {int((got >= 0).sum())}"
+                  + ("; wall per 256-pod solve " + ", ".join(
+                      f"{name} {s:.6f} s" for name, s in walls.items())
+                     if walls else ""))
+    print(f"phase 13(e) {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import argparse
 
@@ -3381,7 +4217,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=8,
                         help="seed of phase 8(a)'s cluster and lone pods")
-    seed = parser.parse_args().seed
+    parser.add_argument("--phase13-only", action="store_true",
+                        help="build the kernels and run phase 13 alone "
+                        "(prints no result lines)")
+    cli = parser.parse_args()
+    seed = cli.seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3391,12 +4231,62 @@ def main() -> int:
     # Phases 1-6 run the reference's documented greedy configuration,
     # pinned: with no flag the solve-mode policy sends every chunk of 64
     # or more pods to the Sinkhorn route, which phase 7 drives.
+    if cli.phase13_only:
+        return large_cluster_phases(torch)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
 
+def large_cluster_run(torch, dev, fwk) -> dict:
+    """Phase 13 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on. Returns the kernels line's phase
+    13 entries: wave_solve's launches in 13(a) (the poisoned chunks'
+    reruns), in 13(b)'s flagless and forced-shortlist measured assigns,
+    and in 13(c)'s measured window, with the timings of 13(b)'s first
+    chunk."""
+    from kubernetes_tpu_torch.utils import flags
+
+    t13 = time.perf_counter()
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        scan_launches = shortlist_scan_phase(torch, dev)
+        out = large_assign_phase(torch, dev, fwk)
+        out["large_scan_launches"] = scan_launches
+        out["large_loop_launches"] = large_loop_phase(torch)
+        large_spread_phase(torch)
+        large_sharded_phase(torch, dev)
+    print(f"phase 13 {time.perf_counter() - t13:.1f} s")
+    return out
+
+
+def large_cluster_phases(torch) -> int:
+    """`--phase13-only`: build the kernels (phase 1), then phase 13."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    out = large_cluster_run(torch, torch.device("cuda:0"),
+                            Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS))
+    print(json.dumps(out))
+    print_card()
+    return 0
+
+
+def print_card() -> None:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+
+
 def smoke(torch, seed: int) -> int:
-    """Phases 1-13 (see the module docstring)."""
+    """Phases 1-14 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -3756,8 +4646,11 @@ def smoke(torch, seed: int) -> int:
         preemption_phase(torch)
         print(f"phase 12 {time.perf_counter() - t12:.1f} s")
 
-    # -- 13. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-12)")
+    # -- 13. large clusters -------------------------------------------------
+    large = large_cluster_run(torch, dev, fwk)
+
+    # -- 14. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-13)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -3769,7 +4662,7 @@ def smoke(torch, seed: int) -> int:
          "loop_launches": loop["loop_launches"],
          "constraint_launches": anti["launches"] + affinity_launches,
          "gang_launches": gang_launches,
-         "gang_chunk_launches": gang_chunk_launches},
+         "gang_chunk_launches": gang_chunk_launches, **large},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,
@@ -3779,11 +4672,7 @@ def smoke(torch, seed: int) -> int:
          "constraint_launches": anti["probe_launches"]},
         *sharded_entries,
     ]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print_card()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,17 +1,31 @@
 """TorchBackend: the batched scheduling backend on one CUDA device.
 
 Counterpart of `kubernetes_tpu/ops/backend.py`'s `TPUBackend`, cut to the
-greedy wavefront route, the Sinkhorn optimal route and the spread scan of
-its batch cycle: `assign(pods, snapshot, fwk)` compiles the snapshot to
-dense tensors (ops/tensorize.py), dedupes each chunk's pods into
-equivalence classes with (C, N) class planes (the host filter and score
-rows of the plugins without device kernels), and runs one device pass per
-chunk — `mask_solve_update`: plugin masks → scores → the solve → the
-used-state update. The reference's solve-mode policy
-(`AdaptiveTuner.solve_mode`, `KTPU_SOLVE_MODE`) picks the solve per chunk:
+greedy wavefront route, the shortlist-pruned solve, the Sinkhorn optimal
+route and the spread scan of its batch cycle: `assign(pods, snapshot,
+fwk)` compiles the snapshot to dense tensors (ops/tensorize.py), dedupes
+each chunk's pods into equivalence classes with (C, N) class planes (the
+host filter and score rows of the plugins without device kernels), and
+runs one device pass per chunk — `mask_solve_update`: plugin masks →
+scores → the solve → the used-state update. The reference's solve-mode
+policy (`AdaptiveTuner.solve_mode`, `KTPU_SOLVE_MODE`) picks the solve per
+chunk:
 
 - greedy: the multistart wavefront solve through the hand-written kernel
-  (ops/wave_kernel.py) at the tuner's width W;
+  (ops/wave_kernel.py) at the tuner's width W. On the CPU, from 8192
+  real nodes on (n_real >= 4 x (K + chunk), `AdaptiveTuner.shortlist_k`)
+  a class-mode chunk takes the shortlist-pruned solve instead, as in the
+  reference: a prefilter keeps each class's top K = 1024 columns and the
+  (K+1)-th score (from LARGE_N = 32768 nodes through the two-pass block
+  prefilter, `solver.block_bound_prefilter`), the multistart narrow
+  scans re-score only those columns and the nodes debited so far, and a
+  chunk with a step they cannot prove exact reruns whole through the
+  kernel at W=1. On the card the same route runs only when
+  KTPU_SHORTLIST_K sets K, and its block prefilter only when
+  KTPU_BLOCK_WIDTH sets the width (PyTorch ops, one CUDA graph replay per
+  wave, as the reference's are XLA scans outside its Pallas kernel): at
+  50000 nodes each is slower than its full-width form, which the card
+  keeps;
 - optimal (flagless, every chunk of 64 or more real pods with class
   planes below 32768 nodes and no spread): the chunk-start scores are the
   cost of `solver.sinkhorn_plan` over the class planes, and its log-plan,
@@ -66,9 +80,8 @@ package raises.
 When the scheduler attaches its metrics (`metrics`, `tracer`), each chunk
 observes `scheduler_tpu_solve_seconds` (dispatch to fetched) and the
 solver_* counters the reference's chunk finalization updates, for the
-counters this backend keeps. The shortlist and block index and
-multi-device sharding are later slices; the greedy route is the
-reference's configuration with the shortlist off.
+counters this backend keeps, the shortlist's and the block index's
+among them. Multi-device sharding of the node axis is a later slice.
 """
 
 from __future__ import annotations
@@ -222,14 +235,32 @@ class AdaptiveTuner:
     - the serving rows: the admission window (`admission_window`), the
       fast-path dispatch cap (`fast_path_cap`) and rate limit
       (`fast_path_rate_limit`), pure host policy over measured walls;
-    - the block-index width (BLOCK_WIDTH), which the resident planes'
-      block aggregates use;
+    - the shortlist width (`shortlist_k`): K = chunk x boost for a
+      class-mode chunk once n_real >= SHORTLIST_FACTOR x (K + chunk),
+      the boost doubling (to SHORTLIST_MAX_BOOST) at assign() boundaries
+      while the observed fallback rate exceeds SHORTLIST_FALLBACK_RATIO;
+      KTPU_SHORTLIST_K overrides it (0 disables);
+    - the block-index width (`block_width`, BLOCK_WIDTH), which the
+      two-pass block prefilter and the resident planes' block aggregates
+      use. With `prune_auto` False (a CUDA backend) neither engages on
+      its own: on the card the narrow scans ran slower than the
+      full-width wave_solve kernel at 50000 nodes, and the block
+      prefilter slower than the full-width prefilter (chip_smoke.py
+      phase 13(b)), so only KTPU_SHORTLIST_K and KTPU_BLOCK_WIDTH engage
+      them there;
     - the pipeline depth (`decide`): the reference's local-device rows,
       4 chunks in flight until WARMUP_CHUNKS chunks were observed (or from
       the first assign() at LARGE_N nodes or more), then 2. The solve
       chunk of those rows (1024) is the default `max_batch` already."""
 
     LARGE_N = 32768
+    #: The shortlist engages when n_real >= FACTOR x (K + chunk): with
+    #: K = chunk = 1024 that is 8192 nodes (the reference's values).
+    SHORTLIST_FACTOR = 4
+    SHORTLIST_MAX_BOOST = 8
+    SHORTLIST_FALLBACK_RATIO = 0.25
+    #: minimum solved pods before the fallback rate is trusted.
+    SHORTLIST_MIN_SAMPLE = 512
     #: a device round trip at or above this is relay-attached.
     LATENCY_BOUND_S = 5e-3
     #: node columns per aggregate block of the block index.
@@ -270,13 +301,18 @@ class AdaptiveTuner:
     #: the offered rate may take before the batch path takes over.
     FAST_PATH_UTILIZATION = 0.5
 
-    def __init__(self):
+    def __init__(self, prune_auto: bool = True):
+        #: whether `shortlist_k` and `block_width` engage on their own.
+        self.prune_auto = prune_auto
         #: the device's put+fetch round trip, seconds. The reference
         #: measures it with a probe transfer; this package has no probe
         #: yet, so the admission window reads None as a local device (0).
         self.latency_s: float | None = None
         self.n_nodes = 0
         self.wave_shrink = 1
+        self.shortlist_boost = 1
+        self.solve_pods = 0
+        self.solve_fallbacks = 0
         self.wave_commits = 0
         self.wave_replays = 0
         self.total_chunks = 0
@@ -305,10 +341,45 @@ class AdaptiveTuner:
             return "greedy", False
         return ("optimal", False) if eligible else ("greedy", True)
 
+    def observe_solve(self, pods: int, fallbacks: int) -> None:
+        """Shortlist hit-rate sample from one finalized chunk."""
+        self.solve_pods += pods
+        self.solve_fallbacks += fallbacks
+
     def observe_wave(self, commits: int, replays: int) -> None:
         """Wavefront commit/replay sample from one finalized chunk."""
         self.wave_commits += commits
         self.wave_replays += replays
+
+    def shortlist_k(self, chunk: int, n_real: int) -> int:
+        """Shortlist width for a chunk, 0 = keep the full N-wide scan."""
+        override = flags.get("KTPU_SHORTLIST_K")
+        if override is not None:
+            return override if 0 < override < n_real else 0
+        if not self.prune_auto:
+            return 0
+        k = chunk * self.shortlist_boost
+        if n_real < self.SHORTLIST_FACTOR * (k + chunk):
+            return 0
+        return k
+
+    def block_width(self, n_pad: int, n_real: int, shortlist_k: int) -> int:
+        """Block width of the two-pass block prefilter, 0 = the full-width
+        prefilter. Only with a shortlist and from LARGE_N real nodes (the
+        structural row), and only where the selection leaves a block
+        unselected (M + 1 <= B); KTPU_BLOCK_INDEX=0 or KTPU_BLOCK_WIDTH=0
+        disables it, and KTPU_BLOCK_WIDTH overrides the width (without
+        `prune_auto`, only a set KTPU_BLOCK_WIDTH engages it)."""
+        if not flags.get("KTPU_BLOCK_INDEX"):
+            return 0
+        override = flags.get("KTPU_BLOCK_WIDTH")
+        if override is None and not self.prune_auto:
+            return 0
+        bw = self.BLOCK_WIDTH if override is None else override
+        if bw <= 0 or shortlist_k <= 0 or n_real < self.LARGE_N:
+            return 0
+        return bw if solver.block_selection_fits(n_pad, shortlist_k, bw) \
+            else 0
 
     def wave_width(self, chunk: int) -> int:
         override = flags.get("KTPU_WAVE_WIDTH")
@@ -360,11 +431,20 @@ class AdaptiveTuner:
         return min(cls.ADMISSION_TARGET_PODS / rate_est, cap)
 
     def decide(self) -> int:
-        """At an assign() boundary: apply the replay feedback once enough
-        pods were observed, and return the pipeline depth."""
+        """At an assign() boundary: apply the shortlist and replay feedback
+        once enough pods were observed, and return the pipeline depth."""
         if self.total_chunks >= self.WARMUP_CHUNKS \
                 or self.n_nodes >= self.LARGE_N:
             self.depth = self.DEPTH_LOCAL
+        if self.solve_pods >= self.SHORTLIST_MIN_SAMPLE:
+            if self.solve_fallbacks > self.SHORTLIST_FALLBACK_RATIO \
+                    * self.solve_pods \
+                    and self.shortlist_boost < self.SHORTLIST_MAX_BOOST:
+                self.shortlist_boost *= 2
+                logger.info("shortlist fallback rate %.0f%% -> boost x%d",
+                            100.0 * self.solve_fallbacks / self.solve_pods,
+                            self.shortlist_boost)
+            self.solve_pods = self.solve_fallbacks = 0
         total = self.wave_commits + self.wave_replays
         if total >= self.WAVE_MIN_SAMPLE:
             if self.wave_replays > self.WAVE_REPLAY_RATIO * total \
@@ -461,10 +541,12 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                       shape_s, w_fit, w_bal, w_taint, taint_filter_on,
                       perms, gang_onehot, gang_required, strategy: str,
                       wave_w: int, solve_mode: str, sink_iters: int,
-                      sink_temp: float, spread=None):
+                      sink_temp: float, spread=None, shortlist_k: int = 0,
+                      block_w: int = 0, n_real: int = 0,
+                      p_real: int | None = None):
     """One device pass per chunk: plugin masks → scores → assignment →
     state (the reference's `_mask_solve_update`, its greedy wavefront,
-    W=1 and optimal branches).
+    W=1, shortlist and optimal branches).
 
     class_mask: (C, N/8) uint8 bit-packed host filter rows per class (row
     0 = the reserved empty class); class_scores: (C, N) f16/f32 host score
@@ -480,18 +562,30 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
     chunk) solves with the W=1 multistart scan, wider waves with the
     wavefront scan.
 
-    spread: None, or (table, dom_counts, applies, contrib, p_real) — the
-    union spread table (`solver.SpreadTable`), its chained (D,) int32
-    domain counts, the chunk's (P, C) applies / contributes matrices and
-    its real pod count (the padding after it has the empty class row). The
+    spread: None, or (table, dom_counts, applies, contrib) — the union
+    spread table (`solver.SpreadTable`), its chained (D,) int32 domain
+    counts and the chunk's (P, C) applies / contributes matrices. The
     chunk then runs the spread scan in identity order (W=1 below wave_w
     2, its wave form above), as the reference's `use_spread` branch does.
-    Nothing here reads a value back from the device.
 
-    Returns (assign (P+5,) — the tail is [shortlist fallbacks (0), wave
-    commits, wave replays, blocks scanned (0), blocks pruned (0)] —
-    used_pack', fit0 (C,N), taint_ok (C,N), dom_counts' (D,) int32, empty
-    without spread); the diagnostic planes are class-level.
+    shortlist_k > 0 prunes the solve to each class's top-K columns
+    (`solver.shortlist_prefilter` over the chunk-start scores, or with
+    block_w > 0 the two-pass `solver.block_bound_prefilter`, whose block
+    aggregates exclude the padding columns from `n_real` on): the
+    multistart shortlist scans (W=1, or waves of W), or with spread the
+    spread shortlist scan at W=1. `p_real`: the chunk's real pods; the
+    spread and shortlist scans do not run the padding after them (its
+    class row is empty). Nothing here reads a value back from the device,
+    except on a shortlist chunk: one read of the block prefilter's
+    exactness predicate (the full-width prefilter runs only when it
+    fails) and one of the scans' poison bits (a poisoned multistart chunk
+    reruns whole through the W=1 kernel, a poisoned spread scan reruns
+    with the full row at the steps it could not prove).
+
+    Returns (assign (P+5,) — the tail is [shortlist fallbacks, wave
+    commits, wave replays, blocks scanned, blocks pruned] — used_pack',
+    fit0 (C,N), taint_ok (C,N), dom_counts' (D,) int32, empty without
+    spread); the diagnostic planes are class-level.
     """
     pl = chunk_planes(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                       taint_f_mat, taint_p_mat, class_mask, class_scores,
@@ -512,12 +606,50 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
                   pl["used_nz_q"], alloc_q, pl["mask"], static_scores,
                   fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
                   strategy)
+    n = alloc_q.shape[0]
+    nfall = blk_scanned = blk_pruned = 0
+    if shortlist_k:
+        # The shortlist prefilter over the class rows: chunk-start live
+        # scores, top-K columns and the (K+1)-th value per class, with
+        # chunk-start capacity folded into feasibility (spread gating is
+        # not: it is non-monotone and checked in the scan).
+        r = alloc_q.shape[1]
+        c_req_nz = class_pack[:, r:2 * r]
+        feasible = pl["mask"] & pl["fit0"]
+        score_args = (fit_col_w, bal_col_mask, shape_u, shape_s, w_fit,
+                      w_bal, strategy)
+        if block_w > 0:
+            sc0, cand_s, thresh_s, blk_scanned, blk_pruned = \
+                solver.block_bound_prefilter(
+                    alloc_q, pl["used_nz_q"], c_req_nz, static_scores,
+                    feasible, *score_args, n_real, shortlist_k, block_w)
+        else:
+            sc0 = kernels.chunk_start_scores(
+                alloc_q, pl["used_nz_q"], c_req_nz, static_scores,
+                *score_args)
+            cand_s, thresh_s = solver.shortlist_prefilter(feasible, sc0,
+                                                          shortlist_k)
+        cls_long = cls_idx.long()
+        # has_node: the class row has a column, or for a pinned pod its
+        # one column is in its class row.
+        has_node = torch.where(
+            exc_col >= 0,
+            pl["mask"][cls_long, torch.clamp(exc_col, 0, n - 1).long()],
+            pl["mask"].any(dim=1)[cls_long])
+        sl_args = (sc0, cls_idx, cand_s[cls_long], thresh_s[cls_long],
+                   has_node)
     dom_counts2 = torch.zeros((0,), dtype=torch.int32, device=dev)
     if spread is not None:
         # Spread chunks run the identity order only (domain counts and
         # permutations do not commute cheaply); gang masking still applies.
-        table, dom_counts, applies, contrib, p_real = spread
-        if wave_w > 1:
+        table, dom_counts, applies, contrib = spread
+        if shortlist_k:
+            a0, dom_counts2, nfall = \
+                solver.greedy_assign_rescoring_spread_shortlist(
+                    *solve_args, table, dom_counts, applies, contrib,
+                    *sl_args, rows=cls_idx, exc=exc_col, n_real=p_real)
+            wave_com = wave_rep = 0
+        elif wave_w > 1:
             a0, dom_counts2, wave_com, wave_rep = \
                 solver.greedy_assign_rescoring_spread_wave(
                     *solve_args, wave_w, table, dom_counts, applies,
@@ -535,6 +667,16 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
         dropped = (a0 >= 0) & (assign < 0)
         safe = torch.clamp(a0, 0, alloc_q.shape[0] - 1).long()
         dom_counts2 = table.add(dom_counts2, safe, dropped, -contrib)
+    elif shortlist_k and wave_w > 1:
+        assign, nfall, wave_com, wave_rep = \
+            solver.multistart_greedy_assign_shortlist_wave(
+                *solve_args, wave_w, perms, gang_onehot, gang_required,
+                *sl_args, rows=cls_idx, exc=exc_col, n_real=p_real)
+    elif shortlist_k:
+        assign, nfall = solver.multistart_greedy_assign_shortlist(
+            *solve_args, perms, gang_onehot, gang_required, *sl_args,
+            rows=cls_idx, exc=exc_col, n_real=p_real)
+        wave_com = wave_rep = 0
     elif wave_w > 1:
         assign, wave_com, wave_rep = \
             solver.multistart_greedy_assign_wave_kernel(
@@ -548,7 +690,6 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
 
     # Post-assignment state update (scatter-add of assigned requests);
     # unassigned rows scatter to a dummy row N, dropped.
-    n = alloc_q.shape[0]
     hit = assign >= 0
     tgt = torch.where(hit, assign, n).long()
     inc = torch.cat([pl["req_q"], pl["req_nz_q"],
@@ -560,8 +701,9 @@ def mask_solve_update(alloc_q, used_pack, alloc_pods, class_pack, cls_idx,
     # Filled on the device: a tensor built from a host list is a copy that
     # waits for the card.
     tail = torch.zeros((5,), dtype=torch.int32, device=dev)
-    tail[1].fill_(wave_com)
-    tail[2].fill_(wave_rep)
+    for slot, v in enumerate((nfall, wave_com, wave_rep, blk_scanned,
+                              blk_pruned)):
+        tail[slot].fill_(v.reshape(()) if torch.is_tensor(v) else v)
     return (torch.cat([assign, tail]), used_pack2, pl["fit0"],
             pl["taint_ok"], dom_counts2)
 
@@ -614,7 +756,7 @@ class TorchBackend:
             else _DEFAULT_CHUNK
         #: parallel permuted-order solves per chunk (1 = queue order only).
         self.multistart = max(1, int(multistart))
-        self._tuner = AdaptiveTuner()
+        self._tuner = AdaptiveTuner(prune_auto=self.device.type != "cuda")
         self._ct: ClusterTensors | None = None
         # (plugin, sig) -> host row; valid while _row_fp matches.
         self._row_cache: dict[tuple[str, str], tuple[np.ndarray, bool]] = {}
@@ -658,10 +800,16 @@ class TorchBackend:
         #: Spread chunks: chunks solved by the spread scan. Verify
         #: rejects: placements the host verify rejected (affinity conflicts
         #: with pods placed earlier in the same assign(), or capacity).
+        #: Shortlist pods and fallbacks: real pods of shortlist chunks and
+        #: those the exactness check sent to a full row (a poisoned
+        #: multistart chunk counts all of them); blocks scanned and pruned:
+        #: (class, block) pairs of the block prefilter's chunks.
         self.counters = {"chunks": 0, "wave_commits": 0, "wave_replays": 0,
                          "optimal_solves": 0, "optimal_fallbacks": 0,
                          "sinkhorn_iterations": 0, "spread_chunks": 0,
-                         "verify_rejects": 0}
+                         "verify_rejects": 0, "shortlist_pods": 0,
+                         "shortlist_fallbacks": 0, "blocks_scanned": 0,
+                         "blocks_pruned": 0}
         #: cumulative host-clock seconds of assign() and of its per-chunk
         #: phases: host prep, the device pass up to the assignment fetch
         #: (which waits for the device), and host verify + diagnostics.
@@ -1545,7 +1693,22 @@ class TorchBackend:
             else:
                 dev_scores = self._zero_scores(P, N)
 
-        wave_w = 0 if mode == "optimal" else self._tuner.wave_width(P)
+        # The reference's order of decisions: K only for class-mode chunks,
+        # W unless the KTPU_WAVEFRONT kill switch is off, the block width
+        # only with K; a spread chunk with a shortlist keeps the W=1 scan,
+        # an optimal chunk drops K and W, and no K means no block width.
+        shortlist_k = self._tuner.shortlist_k(P, ct.n_real) \
+            if class_reps is not None else 0
+        wave_w = self._tuner.wave_width(P) if flags.get("KTPU_WAVEFRONT") \
+            else 0
+        block_w = self._tuner.block_width(ct.n_pad, ct.n_real, shortlist_k) \
+            if shortlist_k else 0
+        if use_spread and shortlist_k:
+            wave_w = 0
+        if mode == "optimal":
+            shortlist_k = wave_w = 0
+        if not shortlist_k:
+            block_w = 0
         return {
             "pods": pods, "batch": batch, "chunk_idx": chunk_idx,
             "spread_used": use_spread,
@@ -1559,6 +1722,9 @@ class TorchBackend:
             "unknown_res": unknown_res,
             "dev_perms": self._perms(pods, batch, P),
             "wave_w": wave_w,
+            "shortlist_k": shortlist_k,
+            "block_w": block_w,
+            "scan_width": shortlist_k + P if shortlist_k else ct.n_real,
             "solve_mode": mode,
             "optimal_fallback": fallback,
             "gang_onehot": gang_onehot, "gang_required": gang_required,
@@ -1704,7 +1870,7 @@ class TorchBackend:
         if prep["spread_used"]:
             spread = (sp["table"], sp["dev_counts"],
                       self._put(prep["sp_applies"]),
-                      self._put(prep["sp_contrib"]), prep["batch"].p_real)
+                      self._put(prep["sp_contrib"]))
         assign_d, used_pack2, fit0_d, taint_ok_d, dom_counts2 = \
             mask_solve_update(
             st["alloc_q"], self.used.pack, st["alloc_pods"],
@@ -1717,7 +1883,9 @@ class TorchBackend:
             p["strategy"], prep["wave_w"], prep["solve_mode"],
             prep["sink_iters"],
             float(np.float32(flags.get("KTPU_SINKHORN_TEMP"))),
-            spread=spread)
+            spread=spread, shortlist_k=prep["shortlist_k"],
+            block_w=prep["block_w"], n_real=ctx.ct.n_real,
+            p_real=prep["batch"].p_real)
         self.used.advance(used_pack2)
         if spread is not None:
             sp["dev_counts"] = dom_counts2
@@ -1732,26 +1900,50 @@ class TorchBackend:
         assign = assign_np[: batch.p_real]
         # The device pass appends [shortlist fallbacks, wave commits, wave
         # replays, blocks scanned, blocks pruned]; a poisoned chunk reports
-        # the padded width, clamped to the real pods here.
+        # the padded width, clamped to the real pods here. The block
+        # counters count (class, block) pairs, not pods: no clamp.
+        nfall = min(int(assign_np[-5]), batch.p_real)
         wave_com = min(int(assign_np[-4]), batch.p_real)
         wave_rep = min(int(assign_np[-3]), batch.p_real)
+        blk_scanned = int(assign_np[-2])
+        blk_pruned = int(assign_np[-1])
+        if run["shortlist_k"]:
+            self._tuner.observe_solve(batch.p_real, nfall)
         if run["wave_w"] > 1:
             self._tuner.observe_wave(wave_com, wave_rep)
-        self.counters["chunks"] += 1
-        self.counters["wave_commits"] += wave_com
-        self.counters["wave_replays"] += wave_rep
+        c = self.counters
+        c["chunks"] += 1
+        c["wave_commits"] += wave_com
+        c["wave_replays"] += wave_rep
+        if run["shortlist_k"]:
+            c["shortlist_pods"] += batch.p_real
+            c["shortlist_fallbacks"] += nfall
+        if run["block_w"]:
+            c["blocks_scanned"] += blk_scanned
+            c["blocks_pruned"] += blk_pruned
         if run["solve_mode"] == "optimal":
             self.counters["optimal_solves"] += 1
             self.counters["sinkhorn_iterations"] = run["sink_iters"]
         self.counters["spread_chunks"] += int(run["spread_used"])
         m = self.metrics
         if m is not None:
-            m.solver_scan_width.set(ctx.ct.n_real)
+            m.solver_scan_width.set(run["scan_width"])
             m.solver_wave_width.set(max(1, run["wave_w"]))
             if wave_com:
                 m.solver_wave_commits.inc(wave_com)
             if wave_rep:
                 m.solver_wave_replays.inc(wave_rep)
+            if run["shortlist_k"]:
+                m.solver_shortlist_pods.inc(batch.p_real)
+                if nfall:
+                    m.solver_shortlist_fallbacks.inc(nfall)
+            # Block accounting: chunks routed with block_w > 0 only; a
+            # chunk whose predicate took the full-width pass prunes 0.
+            if run["block_w"]:
+                if blk_scanned:
+                    m.solver_blocks_scanned.inc(blk_scanned)
+                if blk_pruned:
+                    m.solver_blocks_pruned.inc(blk_pruned)
             if run["solve_mode"] == "optimal":
                 m.solver_optimal_solves.inc()
                 m.solver_sinkhorn_iterations.set(run["sink_iters"])

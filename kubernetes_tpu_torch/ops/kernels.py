@@ -19,6 +19,17 @@ import torch
 
 MAX_NODE_SCORE = 100.0
 
+#: Absolute slack folded into every block score upper bound (the
+#: reference's value): the bound evaluates the score formulas at per-block
+#: interval corners, and the slack absorbs the f32 rounding between that
+#: corner evaluation and the per-column ones. A bound padded up can only
+#: lose pruning, never exactness.
+BLOCK_UB_EPS = 0.125
+
+#: Sentinel for masked-out columns in per-block minima: never a real
+#: minimum, and +req never overflows int32.
+_BLOCK_BIG = 2 ** 30
+
 
 def _sum_last(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis in index order (x[..., 0] + x[..., 1] + ...)."""
@@ -146,6 +157,120 @@ def chunk_start_scores(alloc_q, used_nz_q, req_nz_q, static_scores,
         alloc_q, used_nz_q, req_nz_q, fit_col_w, strategy, shape_u, shape_s)
     return sc + w_bal * balanced_allocation_score(
         alloc_q, used_nz_q, req_nz_q, bal_col_mask)
+
+
+# --- block-sparse node index: aggregates + bounds ---------------------------
+
+def _block_fold(x: torch.Tensor, block_w: int, fill) -> torch.Tensor:
+    """Reshape the leading N axis into (B, block_w, ...) blocks, padding the
+    tail block with `fill` (the N % block_w != 0 case)."""
+    n = x.shape[0]
+    b = -(-n // block_w)
+    pad = b * block_w - n
+    if pad:
+        x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+    return x.reshape((b, block_w) + tuple(x.shape[1:]))
+
+
+def block_capacity_aggregates(alloc_q, used_nz_q, col_real, block_w: int):
+    """Per-block capacity interval planes over the REAL node columns:
+    (amin_pos, amin, amax, umin, umax), each (B, R) int32.
+
+    amin/amax/umin/umax are the real columns' min/max of allocatable and
+    scoring-used; amin_pos is the min over columns with alloc > 0 (the
+    denominator corner of the fit bound), while the plain amin serves the
+    uniform-block arm of the exactness predicate (amin == amax certifies
+    one alloc vector for every real column). Masked-out columns fold in as
+    inert sentinels, so a pad-only block has min > max."""
+    rmask = col_real[:, None]
+    big = _BLOCK_BIG
+    amax = torch.amax(_block_fold(
+        torch.where(rmask, alloc_q, 0), block_w, 0), dim=1)
+    amin = torch.amin(_block_fold(
+        torch.where(rmask, alloc_q, big), block_w, big), dim=1)
+    amin_pos = torch.amin(_block_fold(
+        torch.where(rmask & (alloc_q > 0), alloc_q, big), block_w, big),
+        dim=1)
+    umax = torch.amax(_block_fold(
+        torch.where(rmask, used_nz_q, 0), block_w, 0), dim=1)
+    umin = torch.amin(_block_fold(
+        torch.where(rmask, used_nz_q, big), block_w, big), dim=1)
+    return amin_pos, amin, amax, umin, umax
+
+
+def block_feasible_stat(feasible, static_scores, block_w: int):
+    """Per-(class, block) planes of the capacity-independent score over the
+    FEASIBLE columns: (stat_max, stat_min, feas_cnt), each (C, B); a block
+    with no feasible column has stat_max -inf. feas_cnt is int32."""
+    inf = float("inf")
+    masked_max = _block_fold(
+        torch.where(feasible, static_scores, -inf).T, block_w, -inf)
+    masked_min = _block_fold(
+        torch.where(feasible, static_scores, inf).T, block_w, inf)
+    cnt = _block_fold(feasible.T.to(torch.int32), block_w, 0)
+    return (torch.amax(masked_max, dim=1).T,
+            torch.amin(masked_min, dim=1).T,
+            cnt.sum(dim=1, dtype=torch.int32).T)
+
+
+def block_score_upper_bound(stat_max, feas_cnt, amin_pos, amax, umin, umax,
+                            req_nz_q, fit_col_w, bal_col_mask, shape_u,
+                            shape_s, w_fit, w_bal, strategy: str):
+    """(C, B) upper bound on the chunk-start live score of any feasible
+    column of each block: the block-bound scan of the two-pass prefilter.
+
+    Per resource the strategy score is evaluated at the interval corner
+    that maximizes it (RequestedToCapacityRatio also checks its
+    breakpoints inside the utilization interval); the weighted mean over
+    scoring resources is bounded by the largest per-resource bound, the
+    balanced term by its cap, and BLOCK_UB_EPS absorbs f32 corner
+    rounding. Blocks with no feasible column are -inf. The element
+    arithmetic is the reference's, op for op."""
+    af_min = amin_pos.to(torch.float32)[None, :, :]          # (1,B,R)
+    af_max = amax.to(torch.float32)[None, :, :]
+    r_lo = (umin[None, :, :] + req_nz_q[:, None, :]).to(torch.float32)
+    r_hi = (umax[None, :, :] + req_nz_q[:, None, :]).to(torch.float32)
+    safe_max = torch.where(af_max > 0, af_max, 1.0)
+    safe_min = torch.where(af_min > 0, af_min, 1.0)
+    if strategy == "MostAllocated":
+        s_ub = torch.clamp(MAX_NODE_SCORE * r_hi / safe_min,
+                           0.0, MAX_NODE_SCORE)
+    elif strategy == "RequestedToCapacityRatio":
+        # Utilization corners widened a hair so rounding cannot shrink the
+        # interval past a column's true utilization; no 100-cap, as
+        # fit_score leaves the scaled piecewise value uncapped.
+        u_lo = MAX_NODE_SCORE * r_lo / safe_max - 0.01
+        u_hi = MAX_NODE_SCORE * r_hi / safe_min + 0.01
+        ends = torch.maximum(_piecewise(u_lo, shape_u, shape_s),
+                             _piecewise(u_hi, shape_u, shape_s))
+        inside = (shape_u >= u_lo[..., None]) & (shape_u <= u_hi[..., None])
+        bps = torch.amax(torch.where(inside, shape_s, float("-inf")),
+                         dim=-1)
+        s_ub = torch.clamp_min(torch.maximum(ends, bps)
+                               * (MAX_NODE_SCORE / 10.0), 0.0)
+    else:  # LeastAllocated
+        s_ub = torch.clamp(MAX_NODE_SCORE * (af_max - r_lo) / safe_max,
+                           0.0, MAX_NODE_SCORE)
+    scored = (fit_col_w[None, None, :] > 0) & (af_max > 0)
+    fit_ub = torch.amax(torch.where(scored, s_ub, 0.0), dim=-1)  # (C,B)
+    # A tensor, so that w_bal · bal_ub rounds in f32 as the reference's.
+    bal_ub = torch.full_like(fit_ub,
+                             MAX_NODE_SCORE if float(w_bal) > 0 else 0.0)
+    ub = stat_max + w_fit * fit_ub + w_bal * bal_ub + BLOCK_UB_EPS
+    return torch.where(feas_cnt > 0, ub, float("-inf"))
+
+
+def gathered_start_scores(alloc_g, used_nz_g, req_nz_q, static_g, fit_col_w,
+                          bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                          strategy: str):
+    """`chunk_start_scores` over per-row GATHERED columns: alloc_g and
+    used_nz_g (S, G, R) gathers of the capacity planes, req_nz_q (S, R) and
+    static_g (S, G) the matching rows → (S, G) f32. The score functions
+    are elementwise over columns with sums only over R, so a gathered
+    column's value is the full-width pass's, bit for bit."""
+    return chunk_start_scores(alloc_g, used_nz_g, req_nz_q, static_g,
+                              fit_col_w, bal_col_mask, shape_u, shape_s,
+                              w_fit, w_bal, strategy)[0]
 
 
 # --- TaintToleration: Score --------------------------------------------------

@@ -2,8 +2,9 @@
 the Sinkhorn optimal mode.
 
 Counterpart of `kubernetes_tpu/ops/solver.py`, cut to the greedy
-multistart wavefront route, the batch-optimal route, the spread scans and
-the serving fast path's single-pod solve. The reference's
+multistart wavefront route, the shortlist-pruned solve and its block
+prefilter, the batch-optimal route, the spread scans and the serving fast
+path's single-pod solve. The reference's
 `lax.scan`s become Python loops over device tensors here; on the CUDA
 device the main paths do not run them: `multistart_greedy_assign_wave_kernel`
 and `multistart_greedy_assign_kernel` hand the whole chunk to the
@@ -30,6 +31,13 @@ Contract (the reference's, unchanged):
   of the W=1 multistart rounding with the live weights zeroed.
 - `solve_one` / `solve_one_fresh` — the serving fast path's lone pod
   against the resident planes: the batch scan's first step, exactly.
+- the shortlist-pruned scans (`greedy_assign_rescoring_shortlist`, its
+  wave, multistart and spread forms) — the same assignments from each
+  class's top-K columns and the nodes debited so far, with a fallback to
+  the full row (or a whole-chunk rerun) where a step cannot prove its
+  winner; `shortlist_prefilter` / `block_bound_prefilter` build the
+  shortlists. PyTorch ops on the card too, one CUDA graph replay per pod
+  or wave.
 - `greedy_assign_rescoring_spread` and its wave form — the scan with
   PodTopologySpread's hard constraints gating each step and the domain
   counts of a union table (`SpreadTable`) in its carry; identity order.
@@ -220,8 +228,11 @@ def _wave_spec_picks(masked, node_of, nbig: int, wave_w: int):
     bs, ys = [], []
     for w in range(wave_w):
         row = masked[w]
-        for yp in ys:
-            row = torch.where(node_of[w] == yp, NEG_INF, row)
+        if ys:
+            # The earlier picks masked out in one compare, not one per pick.
+            taken = torch.any(node_of[w][..., None] == torch.stack(ys),
+                              dim=-1)
+            row = torch.where(taken, NEG_INF, row)
         b = torch.amax(row)
         y = torch.amin(torch.where(row == b, node_of[w], nbig))
         ys.append(torch.where(b > NEG_INF, y, nbig).to(torch.int32))
@@ -396,6 +407,14 @@ def multistart_greedy_assign_wave(req_q, req_nz_q, free_q, free_pods,
                         gang_required), P, 0
 
 
+def _any_flag(flags: list[torch.Tensor]) -> bool:
+    """The batch solve's host read: whether any of these bool tensors holds
+    True (the kernel's or the narrow scans' poison bits, or a block
+    prefilter that cannot prove its pruning). At most one per prefilter
+    and one per solve of a chunk, never inside a scan."""
+    return bool(torch.cat(flags).any())
+
+
 def multistart_greedy_assign_wave_kernel(req_q, req_nz_q, free_q,
                                          free_pods, used_nz_q, alloc_q,
                                          mask, static_scores, fit_col_w,
@@ -421,7 +440,7 @@ def multistart_greedy_assign_wave_kernel(req_q, req_nz_q, free_q,
             w_fit, w_bal, strategy)
     assigns_p, _, _, pois = wave_kernel.wave_solve(
         *args, wave_w, rows, exc, poison=True, perms=perms)
-    if bool(pois.any()):
+    if _any_flag([pois.reshape(-1)]):
         return multistart_greedy_assign_kernel(
             *args, perms, gang_onehot, gang_required, rows, exc), 0, P
     return _best_of_orders(assigns_p, perms, req_q, gang_onehot,
@@ -708,6 +727,595 @@ def greedy_assign_rescoring_spread_wave(req_q, req_nz_q, free_q, free_pods,
     _run_steps(wave, n_run, dev)
     ncom.add_(nreal_w[n_run:].sum().to(torch.int32))
     return out.reshape(-1)[:p], state[3], ncom[0], nrep[0]
+
+
+# ---------------------------------------------------------------------------
+# Shortlist-pruned solve: per-class top-K candidate columns with an
+# exactness fallback — the O(P·(K+P) + fallbacks·N) form of the scans for
+# large N — and its two-pass block-sparse prefilter.
+# ---------------------------------------------------------------------------
+
+def _top_desc(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of each row of x, ordered
+    value descending, then index ascending among equal values: the tie
+    rule of the reference's `lax.top_k`, on which the scans' exactness
+    argument and the block selection depend. `torch.topk` promises no
+    order among equal values, so this is a stable descending sort."""
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def shortlist_prefilter(feas0, sc0, k: int):
+    """Per-row top-K candidate columns and the exactness threshold.
+
+    feas0: (S, N) bool chunk-start feasibility (static mask ∧ capacity fit:
+    capacity only decreases within a chunk; spread gating is not folded in,
+    it is non-monotone and checked in the scan); sc0: (S, N) f32
+    chunk-start live scores (kernels.chunk_start_scores).
+
+    Returns (cand (S, K) int32, thresh (S,)): the K best columns per row and
+    the (K+1)-th value, the most any column outside the shortlist can score
+    during the chunk (an untouched node keeps its sc0; a debited one joins
+    the scans' candidate set). -inf ⇔ the shortlist holds every feasible
+    column. Ties go to the LOWER index (`_top_desc`), so every column
+    outside the list that ties the threshold has a higher index than every
+    listed column at that value."""
+    vals, cand = _top_desc(torch.where(feas0, sc0, NEG_INF), k + 1)
+    return cand[:, :k].to(torch.int32), vals[:, k]
+
+
+def block_selection_fits(n: int, k: int, block_w: int) -> bool:
+    """The block prefilter's shape guard: N columns in blocks of block_w
+    leave at least one block unselected by its M = 2·⌈(K+1)/block_w⌉
+    selection (M + 1 <= B)."""
+    return 2 * (-(-(k + 1) // block_w)) + 1 <= -(-n // block_w)
+
+
+def block_bound_prefilter(alloc_q, used_nz_q, req_nz_q, static_scores,
+                          feasible, fit_col_w, bal_col_mask, shape_u,
+                          shape_s, w_fit, w_bal, strategy: str, n_real: int,
+                          k: int, block_w: int):
+    """Two-pass block-sparse form of the shortlist prefilter (the
+    reference's `block_bound_prefilter`).
+
+    Pass 1, O(C·B): fold the N columns into B = ⌈N/block_w⌉ blocks, derive
+    per-block aggregates from the live capacity planes, bound each (class,
+    block) score (kernels.block_score_upper_bound) and select the
+    M = 2·⌈(K+1)/block_w⌉ highest-bound blocks per class. Pass 2,
+    O(C·M·block_w): gather the selected blocks' columns in ascending order,
+    score them (kernels.gathered_start_scores, the full pass's values bit
+    for bit) and take the top K and the threshold as `shortlist_prefilter`
+    would.
+
+    The result stands only when every non-selected block of every class
+    passes one arm: strict (its bound loses to the gathered threshold),
+    empty (no feasible column), or uniform (it lies after the last
+    selected block, it and that block are capacity-uniform with one
+    static score and equal aggregates, and that block's best gathered
+    value is at most the threshold: its columns then score that value at
+    higher indices, and lose every tie). Otherwise the chunk takes the
+    full-width pass. The reference branches with `lax.cond`; here the
+    predicate is read back once (`_any_flag`) and the full-width pass runs
+    only when it fails, so a pruned block's columns are never scored.
+
+    n_real: the real (unpadded) column count; padding columns join no
+    aggregate. Raises ValueError when M + 1 > B (the tuner routes
+    block_w = 0 for such shapes).
+
+    Returns (sc0 (C, N): exact chunk-start values at the gathered columns
+    and 0.0 elsewhere, read only through the candidate set — or the full
+    pass's; cand (C, K) int32; thresh (C,); blocks_scanned, blocks_pruned:
+    ints, pruned 0 when the full pass was taken)."""
+    n = alloc_q.shape[0]
+    c = static_scores.shape[0]
+    dev = alloc_q.device
+    bw = block_w
+    b = -(-n // bw)
+    m = 2 * (-(-(k + 1) // bw))
+    if not block_selection_fits(n, k, bw):
+        raise ValueError(
+            f"block prefilter needs M+1={m + 1} <= B={b}; route block_w=0 "
+            "for this shape (see AdaptiveTuner.block_width)")
+    score_args = (fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                  strategy)
+    col_real = torch.arange(n, device=dev) < n_real
+    amin_pos, amin, amax, umin, umax = kernels.block_capacity_aggregates(
+        alloc_q, used_nz_q, col_real, bw)
+    stat_max, stat_min, feas_cnt = kernels.block_feasible_stat(
+        feasible, static_scores, bw)
+    ub = kernels.block_score_upper_bound(
+        stat_max, feas_cnt, amin_pos, amax, umin, umax, req_nz_q,
+        *score_args)                                             # (C,B)
+
+    _, sel = _top_desc(ub, m + 1)
+    sel_ids = torch.sort(sel[:, :m], dim=1).values               # (C,M)
+    # The selected blocks' columns in ascending global order, so the tie
+    # rule below means what it means full-width.
+    cols = (sel_ids[:, :, None] * bw
+            + torch.arange(bw, device=dev)[None, None, :]).reshape(c, -1)
+    valid = cols < n                     # the tail fold's padding
+    safe_cols = torch.clamp_max(cols, n - 1)
+    feas_g = torch.gather(feasible, 1, safe_cols) & valid
+    stat_g = torch.gather(static_scores, 1, safe_cols)
+    sc0_g = kernels.gathered_start_scores(
+        alloc_q[safe_cols], used_nz_q[safe_cols], req_nz_q, stat_g,
+        *score_args)                                             # (C,G)
+    masked_g = torch.where(feas_g, sc0_g, NEG_INF)
+    vals, loc = _top_desc(masked_g, k + 1)
+    cand = torch.gather(safe_cols, 1, loc[:, :k]).to(torch.int32)
+    thresh = vals[:, k]
+    # Scatter into an (N+1)-wide buffer: the fold's padding lanes write to
+    # the throwaway column N (a clamp to N-1 would clobber the last one).
+    tgt = torch.where(valid, cols, n)
+    sc0_blk = torch.zeros((c, n + 1), dtype=torch.float32,
+                          device=dev).scatter_(1, tgt, sc0_g)[:, :n]
+
+    # The exactness predicate over the non-selected blocks.
+    is_sel = torch.zeros((c, b), dtype=torch.bool, device=dev).scatter_(
+        1, sel_ids, True)
+    strict = ub < thresh[:, None]
+    empty = feas_cnt == 0
+    ref = sel_ids[:, m - 1:m]                                    # (C,1)
+    unif_cap = (torch.all(amin == amax, dim=1)
+                & torch.all(umin == umax, dim=1))[None, :]       # (1,B)
+    stat_unif = stat_max == stat_min                             # (C,B)
+    eq_cap = (torch.all(amax[None] == amax[ref], dim=-1)
+              & torch.all(amin[None] == amin[ref], dim=-1)
+              & torch.all(umax[None] == umax[ref], dim=-1)
+              & torch.all(umin[None] == umin[ref], dim=-1))
+    eq_stat = ((stat_max == torch.gather(stat_max, 1, ref))
+               & (stat_min == torch.gather(stat_min, 1, ref)))
+    after_ref = torch.arange(b, device=dev)[None, :] > ref
+    v_ref = torch.amax(masked_g.reshape(c, m, bw)[:, m - 1, :], dim=-1)
+    uniform = (after_ref & unif_cap & stat_unif & eq_cap & eq_stat
+               & (v_ref <= thresh)[:, None])
+    inexact = ~torch.all(is_sel | strict | empty | uniform)
+    if not _any_flag([inexact.reshape(1)]):
+        return sc0_blk, cand, thresh, c * b, c * (b - m)
+    sc0_f = kernels.chunk_start_scores(alloc_q, used_nz_q, req_nz_q,
+                                       static_scores, *score_args)
+    cand_f, thresh_f = shortlist_prefilter(feasible, sc0_f, k)
+    return sc0_f, cand_f, thresh_f, c * b, 0
+
+
+def _shortlist_scan(req_q, req_nz_q, rows, free_q, free_pods, used_nz_q,
+                    alloc_q, mask, static_scores, fit_col_w, bal_col_mask,
+                    shape_u, shape_s, w_fit, w_bal, strategy: str, sc0,
+                    sl_class, sl_cand, sl_thresh, has_node,
+                    inline_fallback: bool, exc=None, spread=None,
+                    n_real: int | None = None):
+    """The narrow sequential-equivalent scan, one pod per step (the
+    reference's `_shortlist_scan`, and with `spread` its
+    `greedy_assign_rescoring_spread_shortlist`): per pod, re-score only its
+    K shortlist columns and every node debited earlier in the chunk, and
+    prove the winner exact against the prefilter threshold.
+
+    Exactness, per step: shortlist candidates and touched nodes are
+    re-scored live; an untouched node outside the shortlist still scores
+    its sc0 ≤ thresh. So a candidate-set winner that beats the threshold,
+    or ties it while untouched, is the full N-wide argmax. Untouched
+    candidates read their score from sc0, so `== thresh` never compares
+    two evaluations of one quantity. A step that cannot prove its winner
+    is a fallback: with `inline_fallback` the full row's winner replaces
+    it (the reference's per-step `lax.cond`; here the full row is computed
+    every step and `trusted` selects, which is exact and reads nothing
+    back), else the scan is poisoned. The single-order forms run the
+    poisoning scan first and this one only when that poisoned
+    (`_narrow_then_exact`): until a step fails the two are the same
+    trajectory, so the full rows are paid only by a chunk that needs
+    them.
+
+    sc0 (S, N) class-level chunk-start scores; sl_class (P,) row of sc0 per
+    pod; sl_cand (P, K); sl_thresh (P,); has_node (P,) bool: pods whose
+    static mask is empty resolve to -1 with no fallback. `rows` (P,) index
+    the unpermuted (C, N) planes; `exc` (P,) is the exception column (a
+    pinned pod whose column misses the shortlist resolves through the
+    fallback). `spread`: None, or (table, dom_counts, applies,
+    contributes) — the spread gate applies to candidates and to the full
+    row, and the domain counts ride the carry. `n_real`: pods from this
+    index on are padding, whose steps (trusted, placing nothing) are not
+    run.
+
+    One pod per step through `_run_steps` (a CUDA graph replay per pod on
+    the card); nothing is read back. Returns (assign (P,) int32, fallbacks
+    (1,) int32, poisoned (1,) bool, dom_counts' or None)."""
+    n = free_q.shape[0]
+    p = req_q.shape[0]
+    dev = free_q.device
+    iota_n = torch.arange(n, device=dev)
+    ex = torch.full((p,), -1, dtype=torch.int32, device=dev) \
+        if exc is None else exc
+    rows_l, cls_l, cand_l = rows.long(), sl_class.long(), sl_cand.long()
+    state = [free_q.clone(), free_pods.clone(), used_nz_q.clone()]
+    if spread is not None:
+        table, dom_counts, applies, contributes = spread
+        state.append(dom_counts.clone())
+    # touched has a throwaway slot n, written when a step places nothing.
+    touched = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
+    tidx = torch.full((p,), n, dtype=torch.long, device=dev)
+    nfall = torch.zeros((1,), dtype=torch.int32, device=dev)
+    pois = torch.zeros((1,), dtype=torch.bool, device=dev)
+    out = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    i = torch.zeros((1,), dtype=torch.long, device=dev)
+    score_args = (fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                  strategy)
+
+    def step():
+        fq, fp, unz = state[:3]
+        row = rows_l.index_select(0, i)                        # (1,)
+        cls = cls_l.index_select(0, i)
+        req = req_q.index_select(0, i)[0]
+        req_nz = req_nz_q.index_select(0, i)[0]
+        e = ex.index_select(0, i)
+        t = sl_thresh.index_select(0, i)
+        hn = has_node.index_select(0, i)
+        if spread is not None:
+            con = contributes.index_select(0, i)
+            sp_ok = table.gate(state[3], con,
+                               applies.index_select(0, i))[0]  # (N,)
+        cset = torch.cat([cand_l.index_select(0, i)[0], tidx])  # (K+P,)
+        valid = cset < n
+        ci = torch.where(valid, cset, 0)
+        live = kernels.chunk_start_scores(
+            alloc_q[ci], unz[ci], req_nz[None, :],
+            static_scores[row, ci][None, :], *score_args)[0]
+        live = torch.where(touched[ci], live, sc0[cls, ci])
+        fits = mask[row, ci] & valid \
+            & torch.all(req[None, :] <= fq[ci], dim=1) & (fp[ci] >= 1) \
+            & ((e < 0) | (ci == e))
+        if spread is not None:
+            fits = fits & sp_ok[ci]
+        masked = torch.where(fits, live, NEG_INF)
+        best = torch.amax(masked, dim=0, keepdim=True)          # (1,)
+        any_fit = best > NEG_INF
+        widx = torch.amin(torch.where(masked == best, ci, n), dim=0,
+                          keepdim=True)
+        trusted = torch.where(
+            any_fit, (best > t) | ((best == t) & ~touched[widx]),
+            t == NEG_INF) | ~hn
+        idx = torch.where(any_fit, widx, -1)
+        if inline_fallback:
+            fits_n = mask.index_select(0, row)[0] \
+                & ((e < 0) | (iota_n == e)) \
+                & torch.all(req[None, :] <= fq, dim=1) & (fp >= 1)
+            if spread is not None:
+                fits_n = fits_n & sp_ok
+            sc = kernels.chunk_start_scores(
+                alloc_q, unz, req_nz[None, :],
+                static_scores.index_select(0, row), *score_args)[0]
+            full = _argmax_low(torch.where(fits_n, sc, NEG_INF), n)
+            idx = torch.where(trusted, idx, torch.where(full < n, full, -1))
+        else:
+            pois.logical_or_(~trusted)
+        nfall.add_((~trusted).to(torch.int32))
+        hit = idx >= 0
+        safe = torch.clamp(idx, 0, n - 1)
+        fq.index_add_(0, safe, torch.where(hit[:, None], -req[None, :], 0))
+        fp.index_add_(0, safe, torch.where(hit, -1, 0).to(fp.dtype))
+        unz.index_add_(0, safe,
+                       torch.where(hit[:, None], req_nz[None, :], 0))
+        if spread is not None:
+            state[3].copy_(table.add(state[3], safe, hit, con))
+        tgt = torch.where(hit, idx, n)
+        touched.index_put_((tgt,), torch.ones_like(hit))
+        tidx.index_copy_(0, i, tgt)
+        out.index_copy_(0, i, idx.to(torch.int32))
+        i.add_(1)
+
+    _run_steps(step, p if n_real is None else min(p, n_real), dev)
+    return out, nfall, pois, (state[3] if spread is not None else None)
+
+
+def greedy_assign_rescoring_shortlist(req_q, req_nz_q, free_q, free_pods,
+                                      used_nz_q, alloc_q, mask,
+                                      static_scores, fit_col_w, bal_col_mask,
+                                      shape_u, shape_s, w_fit, w_bal,
+                                      strategy: str, sc0, sl_class, sl_cand,
+                                      sl_thresh, has_node, rows=None,
+                                      exc=None, n_real: int | None = None):
+    """greedy_assign_rescoring, shortlist-pruned: the same assignments at
+    O(P·(K+P)), and when a step cannot prove its winner, the scan again
+    with the full row at such steps (`_narrow_then_exact`). Returns
+    (assign (P,) int32, fallbacks (1,) int32)."""
+    if rows is None:
+        rows = torch.arange(req_q.shape[0], dtype=torch.int32,
+                            device=req_q.device)
+    assign, nfall, _, _ = _narrow_then_exact(
+        _shortlist_scan, 2, "inline_fallback", False, True,
+        req_q, req_nz_q, rows, free_q, free_pods, used_nz_q, alloc_q, mask,
+        static_scores, fit_col_w, bal_col_mask, shape_u, shape_s, w_fit,
+        w_bal, strategy, sc0, sl_class, sl_cand, sl_thresh, has_node,
+        exc=exc, n_real=n_real)
+    return assign, nfall
+
+
+def _narrow_then_exact(scan, pois_at: int, switch: str, narrow, exact,
+                       *args, **kw):
+    """A single-order shortlist scan with its per-step fallback: `scan`
+    with `switch=narrow` (re-scores the candidate set only, and poisons
+    on a step it cannot prove), the poison bit at `pois_at` of its result
+    read once, and only when it is set `scan` again with `switch=exact`
+    (the full rows where a step cannot prove its winner). Both start from
+    the same state, and the narrow run equals the exact one when no step
+    failed, so the result and its counters are the exact form's."""
+    out = scan(*args, **{switch: narrow}, **kw)
+    if not _any_flag([out[pois_at]]):
+        return out
+    return scan(*args, **{switch: exact}, **kw)
+
+
+def _rerun_poisoned(pois, args, perms, gang_onehot, gang_required, rows,
+                    exc) -> torch.Tensor | None:
+    """The multistart shortlist forms' whole-chunk fallback: the poison
+    read (`_any_flag`, the reference's outer `lax.cond`), and when any
+    order was poisoned, the chunk again through
+    `multistart_greedy_assign_kernel` (the hand-written kernel at W=1 on
+    the card, its plain version on the CPU). None when none was."""
+    if not _any_flag(pois):
+        return None
+    return multistart_greedy_assign_kernel(
+        *args, perms, gang_onehot, gang_required, rows=rows, exc=exc)
+
+
+def multistart_greedy_assign_shortlist(req_q, req_nz_q, free_q, free_pods,
+                                       used_nz_q, alloc_q, mask,
+                                       static_scores, fit_col_w,
+                                       bal_col_mask, shape_u, shape_s,
+                                       w_fit, w_bal, strategy: str, perms,
+                                       gang_onehot, gang_required, sc0,
+                                       sl_class, sl_cand, sl_thresh,
+                                       has_node, rows=None, exc=None,
+                                       n_real: int | None = None):
+    """multistart_greedy_assign, shortlist-pruned: each order's narrow scan
+    poisons on a step it cannot prove, and a poisoned chunk reruns whole
+    (`_rerun_poisoned`). The shortlist is chunk-start state, so only the
+    per-pod rows permute. Returns (assign (P,) int32, fallback pods: P on
+    a poisoned chunk, else 0)."""
+    P = req_q.shape[0]
+    if rows is None:
+        rows = torch.arange(P, dtype=torch.int32, device=req_q.device)
+    args = (req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q, mask,
+            static_scores, fit_col_w, bal_col_mask, shape_u, shape_s, w_fit,
+            w_bal, strategy)
+    assigns, pois = [], []
+    for perm in perms.long():
+        a, _, po, _ = _shortlist_scan(
+            req_q[perm], req_nz_q[perm], rows[perm], *args[2:], sc0,
+            sl_class[perm], sl_cand[perm], sl_thresh[perm], has_node[perm],
+            inline_fallback=False, exc=None if exc is None else exc[perm],
+            n_real=n_real)
+        assigns.append(_unpermute(a, perm))
+        pois.append(po)
+    rerun = _rerun_poisoned(pois, args, perms, gang_onehot, gang_required,
+                            rows, exc)
+    if rerun is not None:
+        return rerun, P
+    return _select_best(torch.stack(assigns), req_q, gang_onehot,
+                        gang_required), 0
+
+
+def greedy_assign_rescoring_spread_shortlist(
+        req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q, mask,
+        static_scores, fit_col_w, bal_col_mask, shape_u, shape_s, w_fit,
+        w_bal, strategy: str, table: SpreadTable, dom_counts, applies,
+        contributes, sc0, sl_class, sl_cand, sl_thresh, has_node, rows=None,
+        exc=None, n_real: int | None = None):
+    """greedy_assign_rescoring_spread, shortlist-pruned (identity order,
+    the per-step fallback inline). Spread gating is non-monotone, so it
+    plays no part in the prefilter: the in-scan gate applies to the
+    candidates, and a pod whose allowed domains all lie outside its score
+    head falls back to the full row. The counts use the table's index
+    form (integer gathers and `index_add`), equal to the reference's
+    one-hot products. Returns (assign (P,) int32, dom_counts' (D,) int32,
+    fallbacks (1,) int32)."""
+    if rows is None:
+        rows = torch.arange(req_q.shape[0], dtype=torch.int32,
+                            device=req_q.device)
+    assign, nfall, _, counts = _narrow_then_exact(
+        _shortlist_scan, 2, "inline_fallback", False, True,
+        req_q, req_nz_q, rows, free_q, free_pods, used_nz_q, alloc_q, mask,
+        static_scores, fit_col_w, bal_col_mask, shape_u, shape_s, w_fit,
+        w_bal, strategy, sc0, sl_class, sl_cand, sl_thresh, has_node,
+        exc=exc, spread=(table, dom_counts, applies, contributes),
+        n_real=n_real)
+    return assign, counts, nfall
+
+
+def _shortlist_wave_scan(req_q, req_nz_q, rows, free_q, free_pods,
+                         used_nz_q, alloc_q, mask, static_scores, fit_col_w,
+                         bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                         strategy: str, wave_w: int, sc0, sl_class, sl_cand,
+                         sl_thresh, has_node, poison: bool, exc=None,
+                         n_real: int | None = None):
+    """`_shortlist_scan` with W pods per wave (the reference's
+    `_shortlist_wave_scan`): each member's candidate set (its shortlist ∪
+    every node debited this chunk) is evaluated against the same carry,
+    the picks are prefix-distinct, and a pick must clear both the
+    shortlist bound check (the W=1 `trusted` rule) and the pairwise wave
+    check (`_wave_conflicts`). A failing member sends the wave to the
+    serial replay over full N-wide rows, counted as fallbacks (poison=False;
+    both outcomes are computed and the conflict bit selects one), or
+    poisons the scan (poison=True, the multistart form, which always
+    commits).
+
+    One wave per `_run_steps` call (a CUDA graph replay per wave on the
+    card); nothing is read back. `n_real`: the waves past it hold only
+    padding, which places nothing and commits; they are counted as commits
+    without being run. Returns (assign (P,) int32, fallbacks, commits,
+    replays: (1,) int32, poisoned (1,) bool)."""
+    n = free_q.shape[0]
+    p = req_q.shape[0]
+    dev = free_q.device
+    W = max(1, min(wave_w, p))
+    iota_n = torch.arange(n, device=dev)
+    ex = torch.full((p,), -1, dtype=torch.int32, device=dev) \
+        if exc is None else exc
+    waves, real_w = _wave_split(
+        W, (req_q, req_nz_q, rows.long(), sl_cand.long(), sl_thresh,
+            sl_class.long(), has_node, ex))
+    n_waves = real_w.shape[0]
+    p_pad = n_waves * W
+    nreal_w = real_w.sum(dim=1).to(torch.int32)
+    state = (free_q.clone(), free_pods.clone(), used_nz_q.clone())
+    touched = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
+    tidx = torch.full((p_pad,), n, dtype=torch.long, device=dev)
+    nfall, ncom, nrep = (torch.zeros((1,), dtype=torch.int32, device=dev)
+                         for _ in range(3))
+    pois = torch.zeros((1,), dtype=torch.bool, device=dev)
+    out = torch.full((n_waves, W), -1, dtype=torch.int32, device=dev)
+    k = torch.zeros((1,), dtype=torch.long, device=dev)
+    slots = torch.arange(W, device=dev)
+    score_args = (fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
+                  strategy)
+
+    def wave():
+        req, req_nz, row, cand, t, cls, hn, e = (
+            a.index_select(0, k)[0] for a in waves)
+        real = real_w.index_select(0, k)[0]
+        nreal = nreal_w.index_select(0, k)
+        fq, fp, unz = state
+        cset = torch.cat([cand, tidx[None, :].expand(W, p_pad)], dim=1)
+        valid = cset < n
+        ci = torch.where(valid, cset, 0)                       # (W,M)
+        live = kernels.gathered_start_scores(
+            alloc_q[ci], unz[ci], req_nz, static_scores[row[:, None], ci],
+            *score_args)
+        live = torch.where(touched[ci], live, sc0[cls[:, None], ci])
+        gate = ((e < 0)[:, None] | (ci == e[:, None])) & real[:, None]
+        fits = mask[row[:, None], ci] & valid & gate \
+            & torch.all(req[:, None, :] <= fq[ci], dim=-1) & (fp[ci] >= 1)
+        masked = torch.where(fits, live, NEG_INF)
+        b, y = _wave_spec_picks(masked, ci, n, W)
+        safe = torch.clamp_max(y, n - 1).long()
+        hit = y < n
+        # The W=1 trusted rule on each pick (touched as of the wave start;
+        # picks are never same-wave commits).
+        trusted = torch.where(
+            hit, (b > t) | ((b == t) & ~touched[safe]), t == NEG_INF) | ~hn
+        m_pair = mask[row[:, None], safe[None, :]] & (
+            (e < 0)[:, None] | (safe[None, :] == e[:, None])) & real[:, None]
+        conflict = ~trusted | _wave_conflicts(
+            b, y, n, req, req_nz, fq, fp, unz, alloc_q, m_pair,
+            static_scores[row[:, None], safe[None, :]], *score_args)
+        base = k * W
+        fast = (fq.index_add(0, safe, torch.where(hit[:, None], -req, 0)),
+                fp.index_add(0, safe,
+                             torch.where(hit, -1, 0).to(fp.dtype)),
+                unz.index_add(0, safe, torch.where(hit[:, None], req_nz, 0)))
+        tgt = torch.where(hit, y.long(), n)
+        fast_out = torch.where(hit, y, -1)
+        if poison:
+            for buf, val in zip(state, fast):
+                buf.copy_(val)
+            touched.index_put_((tgt,), torch.ones_like(hit))
+            tidx.index_copy_(0, base + slots, tgt)
+            out.index_copy_(0, k, fast_out.to(torch.int32)[None])
+            pois.logical_or_(torch.any(conflict, dim=0, keepdim=True))
+            ncom.add_(nreal)
+            k.add_(1)
+            return
+        # The serial replay from the wave-start state, over full rows.
+        sq, sp, su = fq, fp, unz
+        s_tgt, slow_out = [], []
+        m_full = mask[row] & ((e < 0)[:, None] | (iota_n == e[:, None])) \
+            & real[:, None]
+        stat = static_scores[row]
+        for w in range(W):
+            fits_n = m_full[w] & torch.all(req[w][None, :] <= sq, dim=1) \
+                & (sp >= 1)
+            sc = kernels.chunk_start_scores(
+                alloc_q, su, req_nz[w][None, :], stat[w][None, :],
+                *score_args)[0]
+            idx = _argmax_low(torch.where(fits_n, sc, NEG_INF), n)
+            hitw = idx < n
+            sf = torch.clamp_max(idx, n - 1).long().reshape(1)
+            sq = sq.index_add(0, sf, torch.where(hitw, -req[w], 0)[None, :])
+            sp = sp.index_add(0, sf, torch.where(hitw, -1, 0).to(sp.dtype)
+                              .reshape(1))
+            su = su.index_add(0, sf,
+                              torch.where(hitw, req_nz[w], 0)[None, :])
+            s_tgt.append(torch.where(hitw, idx, n).long())
+            slow_out.append(torch.where(hitw, idx, -1))
+        replay = torch.any(conflict)
+        for buf, s_val, f_val in zip(state, (sq, sp, su), fast):
+            buf.copy_(torch.where(replay, s_val, f_val))
+        tgt = torch.where(replay, torch.stack(s_tgt), tgt)
+        touched.index_put_((tgt,), torch.ones_like(hit))
+        tidx.index_copy_(0, base + slots, tgt)
+        out.index_copy_(0, k, torch.where(
+            replay, torch.stack(slow_out), fast_out).to(torch.int32)[None])
+        nfall.add_(torch.where(replay, nreal, 0))
+        nrep.add_(torch.where(replay, nreal, 0))
+        ncom.add_(torch.where(replay, 0, nreal))
+        k.add_(1)
+
+    n_run = n_waves if n_real is None else min(n_waves, -(-n_real // W))
+    _run_steps(wave, n_run, dev)
+    ncom.add_(nreal_w[n_run:].sum().to(torch.int32))
+    return out.reshape(-1)[:p], nfall, ncom, nrep, pois
+
+
+def greedy_assign_rescoring_shortlist_wave(req_q, req_nz_q, free_q,
+                                           free_pods, used_nz_q, alloc_q,
+                                           mask, static_scores, fit_col_w,
+                                           bal_col_mask, shape_u, shape_s,
+                                           w_fit, w_bal, strategy: str,
+                                           wave_w: int, sc0, sl_class,
+                                           sl_cand, sl_thresh, has_node,
+                                           rows=None, exc=None,
+                                           n_real: int | None = None):
+    """greedy_assign_rescoring_shortlist in waves of W, exact through the
+    serial replay (full rows, counted as fallbacks), which runs only when
+    the speculative pass poisoned (`_narrow_then_exact`). Returns (assign
+    (P,) int32, fallbacks, commits, replays: (1,) int32)."""
+    if rows is None:
+        rows = torch.arange(req_q.shape[0], dtype=torch.int32,
+                            device=req_q.device)
+    assign, nfall, ncom, nrep, _ = _narrow_then_exact(
+        _shortlist_wave_scan, 4, "poison", True, False,
+        req_q, req_nz_q, rows, free_q, free_pods, used_nz_q, alloc_q, mask,
+        static_scores, fit_col_w, bal_col_mask, shape_u, shape_s, w_fit,
+        w_bal, strategy, wave_w, sc0, sl_class, sl_cand, sl_thresh,
+        has_node, exc=exc, n_real=n_real)
+    return assign, nfall, ncom, nrep
+
+
+def multistart_greedy_assign_shortlist_wave(req_q, req_nz_q, free_q,
+                                            free_pods, used_nz_q, alloc_q,
+                                            mask, static_scores, fit_col_w,
+                                            bal_col_mask, shape_u, shape_s,
+                                            w_fit, w_bal, strategy: str,
+                                            wave_w: int, perms, gang_onehot,
+                                            gang_required, sc0, sl_class,
+                                            sl_cand, sl_thresh, has_node,
+                                            rows=None, exc=None,
+                                            n_real: int | None = None):
+    """multistart_greedy_assign_shortlist in waves of W: each order runs
+    speculation only and poisons on its first wave conflict or failed
+    bound check; a poisoned chunk reruns whole (`_rerun_poisoned`).
+    Returns (assign (P,) int32, fallback pods, commits, replays): P, 0, P
+    on a poisoned chunk, else 0, P, 0."""
+    P = req_q.shape[0]
+    if rows is None:
+        rows = torch.arange(P, dtype=torch.int32, device=req_q.device)
+    args = (req_q, req_nz_q, free_q, free_pods, used_nz_q, alloc_q, mask,
+            static_scores, fit_col_w, bal_col_mask, shape_u, shape_s, w_fit,
+            w_bal, strategy)
+    assigns, pois = [], []
+    for perm in perms.long():
+        a, _, _, _, po = _shortlist_wave_scan(
+            req_q[perm], req_nz_q[perm], rows[perm], *args[2:], wave_w,
+            sc0, sl_class[perm], sl_cand[perm], sl_thresh[perm],
+            has_node[perm], poison=True,
+            exc=None if exc is None else exc[perm], n_real=n_real)
+        assigns.append(_unpermute(a, perm))
+        pois.append(po)
+    rerun = _rerun_poisoned(pois, args, perms, gang_onehot, gang_required,
+                            rows, exc)
+    if rerun is not None:
+        return rerun, P, 0, P
+    return _select_best(torch.stack(assigns), req_q, gang_onehot,
+                        gang_required), 0, P, 0
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,16 @@ phases and the same semantics:
    equal the single-device solver's at every shard count. `wave_w > 1` runs
    the speculative wavefront form (W pods per step with exact replay; see
    `_wave_body`), each wave one `ops/wave_eval.wave_step`: on the card two
-   kernel launches and no host sync.
+   kernel launches and no host sync. `shortlist_k > 0` at W <= 1 prunes
+   shard-locally before the winner reduction (`_shortlist_body`): each
+   shard prefilters its own top-K columns per plane row (`block_w > 0`:
+   through the two-pass block prefilter over its own columns) and
+   re-scores only those and its debited nodes per step, with the
+   shortlist bound check; a solve where some step cannot prove its
+   shard's best runs again with the full local row at such steps. W > 1
+   keeps the wave form (the reference lets the shortlist win over W; the
+   wave step's two kernel launches per wave beat the eager narrow step,
+   and the assignments are the same).
 
 How the reference's `shard_map` maps here: every shard of a mesh lies on
 one device (`Mesh.device`), so the S shards are a leading axis of the node
@@ -41,8 +50,6 @@ reach the same (score desc, global id asc) winner.
 4. `resident_row_scatter` — the serving tier's out-of-place row scatter
    into the resident used-state pack.
 
-Not ported yet: the shard-local shortlist and block index (`shortlist_k`,
-`block_w`; ROADMAP queue 1 item 3) — they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -145,8 +152,9 @@ def sharded_greedy_assign(mesh: Mesh, req_q, req_nz_q, free_q, free_pods,
     addressed per pod through `rows` ((P,) int32, default: row i for pod
     i), `exc` ((P,) int32 GLOBAL single-allowed-column exception, -1 =
     none). N must divide by the shard count (`mesh.pad_axis` pads it).
-    `row_req_q`/`row_req_nz_q` feed only the reference's shard-local
-    shortlist prefilter; they are accepted and not read.
+    `row_req_q`/`row_req_nz_q` ((C, R), default req_q / req_nz_q: the
+    per-pod form) are the plane rows' request vectors, which the
+    shard-local shortlist prefilter reads.
 
     wave_w > 1 runs the speculative wavefront form: W pods per step, each
     wave's evaluation shard-local, the W prefix-distinct picks resolved by
@@ -163,12 +171,18 @@ def sharded_greedy_assign(mesh: Mesh, req_q, req_nz_q, free_q, free_pods,
     inline evaluation and the reductions as torch ops (the reference's
     `pallas=False`). The assignments are the same either way.
 
-    shortlist_k > 0 and block_w > 0 (the shard-local shortlist and block
-    index) are not ported yet and raise NotImplementedError."""
+    shortlist_k > 0 with wave_w <= 1 runs the shard-local shortlist
+    (`_shortlist_body`) with K = min(shortlist_k, L - 1) per shard of L
+    columns; a shard of one column keeps the full scan. block_w > 0 routes
+    each shard's prefilter through the block prefilter where its column
+    count passes the M+1 <= B guard (`_block_w_for`), else the full-width
+    local prefilter. wave_w > 1 wins over the shortlist. Assignments equal
+    the serial form's."""
     return _solve(mesh, (NODES_AXIS,), req_q, req_nz_q, free_q, free_pods,
                   used_nz_q, alloc_q, mask, static_scores, fit_col_w,
                   bal_col_mask, shape_u, shape_s, w_fit, w_bal, strategy,
-                  shortlist_k, rows, exc, wave_w, kernel, block_w)
+                  shortlist_k, rows, exc, wave_w, kernel, block_w,
+                  row_req_q, row_req_nz_q)
 
 
 def sharded_greedy_assign_multislice(mesh: Mesh, req_q, req_nz_q, free_q,
@@ -187,18 +201,24 @@ def sharded_greedy_assign_multislice(mesh: Mesh, req_q, req_nz_q, free_q,
     return _solve(mesh, (SLICE_AXIS, NODES_AXIS), req_q, req_nz_q, free_q,
                   free_pods, used_nz_q, alloc_q, mask, static_scores,
                   fit_col_w, bal_col_mask, shape_u, shape_s, w_fit, w_bal,
-                  strategy, shortlist_k, rows, exc, wave_w, kernel, block_w)
+                  strategy, shortlist_k, rows, exc, wave_w, kernel, block_w,
+                  row_req_q, row_req_nz_q)
+
+
+def _block_w_for(block_w: int, shortlist_k: int, local_n: int) -> int:
+    """A requested block width clamped to what a shard of `local_n`
+    columns takes: the block prefilter needs M+1 <= B over the shard's own
+    columns; 0 keeps the full-width local prefilter."""
+    if not (block_w and shortlist_k):
+        return 0
+    return block_w if solver.block_selection_fits(local_n, shortlist_k,
+                                                  block_w) else 0
 
 
 def _solve(mesh, axes, req_q, req_nz_q, free_q, free_pods, used_nz_q,
            alloc_q, mask, static_scores, fit_col_w, bal_col_mask, shape_u,
            shape_s, w_fit, w_bal, strategy, shortlist_k, rows, exc, wave_w,
-           kernel, block_w):
-    if shortlist_k > 0 or block_w > 0:
-        raise NotImplementedError(
-            f"shortlist_k={shortlist_k}, block_w={block_w}: the sharded "
-            "shortlist and block-index routes are not ported yet (ROADMAP "
-            "queue 1 item 3)")
+           kernel, block_w, row_req_q=None, row_req_nz_q=None):
     dev = mesh.device
     sizes = tuple(mesh.shape[a] for a in axes)
     shards = math.prod(sizes)
@@ -229,6 +249,14 @@ def _solve(mesh, axes, req_q, req_nz_q, free_q, free_pods, used_nz_q,
     st = wave_eval.Shards(sizes, free_q, free_pods, used_nz_q, alloc_q, mask,
                           static_scores, fit_col_w, bal_col_mask, shape_u,
                           shape_s, w_fit, w_bal, strategy)
+    k = min(shortlist_k, st.L - 1) if shortlist_k > 0 else 0
+    if k > 0 and wave_w <= 1:
+        row_req_q = req_q if row_req_q is None else row_req_q.to(dev)
+        row_req_nz_q = req_nz_q if row_req_nz_q is None \
+            else row_req_nz_q.to(dev)
+        return _shortlist_body(st, req_q, req_nz_q, rows, exc, row_req_q,
+                               row_req_nz_q, k, _block_w_for(block_w, k,
+                                                             st.L))
     if wave_w > 1:
         return _wave_body(st, req_q, req_nz_q, rows, exc, wave_w, kernel)[0]
     rows_l = rows.long()
@@ -237,6 +265,116 @@ def _solve(mesh, axes, req_q, req_nz_q, free_q, free_pods, used_nz_q,
                           rows_l[i:i + 1])
            for i in range(p)]
     return torch.cat(out).to(torch.int32)
+
+
+def _shortlist_body(st: wave_eval.Shards, req_q, req_nz_q, rows, exc,
+                    row_req_q, row_req_nz_q, k: int, block_w: int):
+    """The shard-local shortlist form of the serial solver (the reference's
+    `shortlist_k` branch of `_solver_fn`).
+
+    Prefilter, shard by shard over its own L columns: chunk-start
+    feasibility of each plane row (its static mask and its request
+    vector's capacity fit), chunk-start scores and the top K columns and
+    (K+1)-th value per row (`solver.shortlist_prefilter`), or with
+    block_w > 0 `solver.block_bound_prefilter` with every local column
+    real (a block holding global padding columns gets a looser bound,
+    which costs pruning, never exactness). Per pod, each shard re-scores
+    its K candidates for the pod's row and the nodes debited on it so far
+    and applies the W=1 bound check; the shards' bests then go through the
+    winner reduction and the owner debits. A step whose check fails on any
+    shard poisons the pass; the poison bit is read once at the end, and a
+    poisoned solve runs again from the chunk-start state with the full
+    local row where the check fails (computed for every shard and
+    selected, as the reference's per-step `lax.cond` picks). Returns (P,)
+    int32 global node ids, -1 = none."""
+    S, L = st.S, st.L
+    fits0 = torch.all(row_req_q[None, :, None, :] <= st.fq[:, None], dim=-1) \
+        & (st.fp >= 1)[:, None, :]                              # (S,C,L)
+    feas = st.mask & fits0
+    sl = []
+    for s in range(S):
+        if block_w:
+            sc0, cand, thresh, _, _ = solver.block_bound_prefilter(
+                st.alloc[s], st.unz[s], row_req_nz_q, st.static[s], feas[s],
+                *st.score_args, L, k, block_w)
+        else:
+            sc0 = kernels.chunk_start_scores(
+                st.alloc[s], st.unz[s], row_req_nz_q, st.static[s],
+                *st.score_args)
+            cand, thresh = solver.shortlist_prefilter(feas[s], sc0, k)
+        sl.append((sc0, cand.long(), thresh))
+    sc0, cand, thresh = (torch.stack(x) for x in zip(*sl))
+    start = [t.clone() for t in (st.fq, st.fp, st.unz)]
+    out, pois = _shortlist_pass(st, req_q, req_nz_q, rows, exc, sc0, cand,
+                                thresh, inline=False)
+    if not solver._any_flag([pois]):
+        return out
+    for buf, val in zip((st.fq, st.fp, st.unz), start):
+        buf.copy_(val)
+    return _shortlist_pass(st, req_q, req_nz_q, rows, exc, sc0, cand,
+                           thresh, inline=True)[0]
+
+
+def _shortlist_pass(st: wave_eval.Shards, req_q, req_nz_q, rows, exc, sc0,
+                    cand, thresh, inline: bool):
+    """One pass of `_shortlist_body` over the pods from the current state:
+    with `inline` the full local row replaces an unproven shard best, else
+    an unproven step sets the poison bit. Returns ((P,) int32 global node
+    ids, (1,) bool poisoned)."""
+    S, L = st.S, st.L
+    p = req_q.shape[0]
+    dev = req_q.device
+    r = req_q.shape[1]
+    # touched has a throwaway slot L, written where a shard debits nothing.
+    touched = torch.zeros((S, L + 1), dtype=torch.bool, device=dev)
+    tidx = torch.full((S, p), L, dtype=torch.long, device=dev)
+    pois = torch.zeros((1,), dtype=torch.bool, device=dev)
+    rows_l = rows.long()
+    out = []
+    for i in range(p):
+        row = rows_l[i:i + 1]
+        e = exc[i:i + 1]
+        req, req_nz = req_q[i], req_nz_q[i]
+        cset = torch.cat([cand.index_select(1, row)[:, 0], tidx], dim=1)
+        valid = cset < L
+        ci = torch.where(valid, cset, 0)                        # (S,M)
+        ci_r = ci[..., None].expand(-1, -1, r)
+        live = st.live_scores(
+            st.alloc.gather(1, ci_r), st.unz.gather(1, ci_r),
+            req_nz[None, :],
+            st.static.index_select(1, row)[:, 0].gather(1, ci)[:, None])
+        live = torch.where(touched.gather(1, ci), live[:, 0],
+                           sc0.index_select(1, row)[:, 0].gather(1, ci))
+        fits = st.mask.index_select(1, row)[:, 0].gather(1, ci) & valid \
+            & torch.all(req <= st.fq.gather(1, ci_r), dim=-1) \
+            & (st.fp.gather(1, ci) >= 1) \
+            & ((e < 0) | (ci == e - st.base[:, None]))
+        masked = torch.where(fits, live, NEG_INF)
+        sbest = masked.amax(dim=1)                              # (S,)
+        any_l = sbest > NEG_INF
+        sidx = torch.where(masked == sbest[:, None], ci, L).amin(dim=1)
+        t = thresh.index_select(1, row)[:, 0]
+        w_t = touched.gather(1, torch.clamp_max(sidx, L - 1)[:, None])[:, 0]
+        trusted = torch.where(any_l, (sbest > t) | ((sbest == t) & ~w_t),
+                              t == NEG_INF)
+        lbest = sbest
+        lidx = torch.where(any_l, sidx, L)
+        if inline:
+            fb_best, fb_idx = st.local_full(req, req_nz, st.gate(row, e),
+                                            row)
+            lbest = torch.where(trusted, lbest, fb_best)
+            lidx = torch.where(trusted, lidx, fb_idx)
+        else:
+            pois.logical_or_(~trusted.all().reshape(1))
+        gbest, gidx = st.winner(lbest, lidx)
+        chosen = torch.where(torch.isfinite(gbest), gidx, -1).reshape(1)
+        st.commit(chosen, req[None], req_nz[None])
+        li = chosen - st.base                                   # (S,)
+        own = torch.where((li >= 0) & (li < L), li, L)
+        touched.scatter_(1, own[:, None], True)
+        tidx[:, i] = own
+        out.append(chosen)
+    return torch.cat(out).to(torch.int32), pois
 
 
 def _wave_body(st: wave_eval.Shards, req_q, req_nz_q, rows, exc,

@@ -38,9 +38,12 @@ Block-index aggregates: the same dirty-row set additionally maintains
 per-block capacity interval planes — (amin_pos, amin, amax) over
 allocatable and (umin, umax) over scoring-used, each (B, R) int32 with
 B = ceil(n_real / block_w) — recomputed O(changed blocks · block_w) per
-refresh and mirrored to the device as one packed (B, 5R) upload. They are
-observability and serving-side reuse state; no solve of this package reads
-them yet (the block-sparse prefilter is a later slice).
+refresh and mirrored to the device as one packed (B, 5R) upload, their
+minima masked with the block kernels' sentinel (`ops/kernels._BLOCK_BIG`),
+so they equal a from-scratch `block_capacity_aggregates`. They are
+observability and serving-side reuse state: the batch solve's block
+prefilter (`solver.block_bound_prefilter`) derives its aggregates from the
+live capacity planes in each device pass, as the reference's does.
 
 Copy of `kubernetes_tpu/serving/resident.py`.
 """
@@ -52,13 +55,10 @@ import time
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.ops.kernels import _BLOCK_BIG
 from kubernetes_tpu_torch.utils import flags
 
 REBUILD_FRACTION = 0.25
-
-#: masked-out sentinel for block minima (the reference's block kernels'
-#: value), so the maintained planes equal a from-scratch recompute.
-_BLOCK_BIG = 2 ** 30
 
 
 class ResidentPlanes:

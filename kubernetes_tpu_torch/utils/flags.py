@@ -1,13 +1,14 @@
 """The `KTPU_*` environment flags this package reads.
 
 Counterpart of `kubernetes_tpu/utils/flags.py`, cut to the flags this
-package reads: the batch solve (the greedy wavefront and the Sinkhorn
-optimal mode) and its solve-mode policy, the serving tier (its kill
-switch, the resident planes' block index and the admission window), the
-store (the watch cache, the shard count, the debug freeze), the lock
-check and the trace threshold. Names, defaults and parsing are the reference's:
-every read is a LIVE `os.environ` lookup, and a malformed value degrades
-to the flag's default.
+package reads: the batch solve (the greedy wavefront, the shortlist and
+its block index, and the Sinkhorn optimal mode) and its solve-mode
+policy, the serving tier (its kill switch, the resident planes' block
+index and the admission window), the store (the watch cache, the shard
+count, the debug freeze), the lock check and the trace threshold. Names,
+defaults and parsing are the reference's: every read is a LIVE
+`os.environ` lookup, and a malformed value degrades to the flag's
+default.
 """
 
 from __future__ import annotations
@@ -77,9 +78,17 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "exactly (a block whose score upper bound loses to the "
          "(K+1)-th shortlist value cannot hold a top-K column). `0` "
          "degrades structurally to the full-width r18/r21 prefilter "
-         "call graph, bit-identical assignments. This package has no "
-         "prefilter yet (ROADMAP queue 1): the flag gates the block "
-         "aggregate planes the serving tier's resident planes maintain."),
+         "call graph, bit-identical assignments. It also gates the "
+         "block aggregate planes the serving tier's resident planes "
+         "maintain."),
+    Flag("KTPU_WAVEFRONT", True, _parse_bool,
+         "Speculative wavefront solve (W pods per scan step with exact "
+         "conflict replay). `0` degrades structurally to the "
+         "one-pod-per-step W=1 scans, bit-identical assignments."),
+    Flag("KTPU_SHORTLIST_K", None, _parse_int,
+         "Shortlist width override for the pruned solve; `0` disables "
+         "pruning. Unset = the tuner derives K from chunk width and "
+         "fallback rate."),
     Flag("KTPU_WAVE_WIDTH", None, _parse_int,
          "Wavefront width override (pods evaluated per wave). Unset = "
          "the tuner picks W and shrinks it when replays climb."),

@@ -299,15 +299,24 @@ def test_padded_node_axis_and_kernel_route_on_cpu():
     assert twave.wave_eval.launches == before
 
 
-@pytest.mark.parametrize("option", [dict(shortlist_k=4), dict(block_w=8)])
+@pytest.mark.parametrize("option", [
+    dict(shortlist_k=4), dict(block_w=8), dict(shortlist_k=4, wave_w=1),
+    dict(shortlist_k=4, block_w=8, wave_w=1)])
 def test_unported_options_raise(option):
-    args = convert.sharded_solver_inputs(tpar.build_mesh(2, CPU),
-                                         _storm(70))
+    """The shard-local shortlist and block index are ported: no option
+    raises any more. wave_w > 1 wins over shortlist_k (the shortlist runs
+    at W <= 1); block_w without a shortlist is ignored, as in the
+    reference. Every route places as the single-device solve does."""
+    storm = _storm(70)
+    args = convert.sharded_solver_inputs(tpar.build_mesh(2, CPU), storm)
+    one = convert.sharded_solver_inputs(tpar.build_mesh(1, CPU), storm)
+    want = tsolver.greedy_assign_rescoring(strategy="LeastAllocated", **one)
     for fn, mesh in ((tpar.sharded_greedy_assign, tpar.build_mesh(2, CPU)),
                      (tpar.sharded_greedy_assign_multislice,
                       tpar.build_multislice_mesh(2, 1, device=CPU))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            fn(mesh, strategy="LeastAllocated", wave_w=8, **args, **option)
+        got = fn(mesh, strategy="LeastAllocated", **args,
+                 **{"wave_w": 8, **option})
+        assert torch.equal(got, want), (mesh.shape, option)
 
 
 def test_build_mesh_defaults_to_cuda_and_raises_without_it(monkeypatch):
