@@ -19,7 +19,10 @@ queue and the serving tier), with the constraint families, gangs
 with the device victim proposal); and bench.py's 50k-node preset (50000
 nodes, 500 + 5000 pods) through `TorchBackend.assign` and the loop (the
 card's full-width wave_solve), with the shortlist-pruned solve and its
-block prefilter forced and held to it —
+block prefilter forced and held to it; and the device-topology workloads
+(DeviceTopology/1000Nodes with NodeResourceTopologyMatch, and
+DeviceTopologyDRA/1000Nodes with DynamicResources and resource claims)
+through the loop —
 after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
@@ -241,7 +244,33 @@ Phases (any failure raises and the script exits non-zero with no result):
      single-device shortlist solve (8192 nodes, 256 pods, two fixtures),
      as are the sharded serial and W=32 wave routes, each timed at 4
      shards;
- 14. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 14. device topology (NodeResourceTopologyMatch, DynamicResources and
+     NodePorts), under a scoped KTPU_SOLVE_MODE=auto with serving on, the
+     card's name and power limit printed first: (a) the three
+     `device_case` chunks (64 nodes in eight NUMA-zone shapes with seeded
+     residents and zone-fitting, zone-misaligned, cpu-heavy, cpu-only and
+     memory-only pods; 64 nodes in eight ResourceSlice shapes with
+     allocated and unallocated resident claims and single-request,
+     unconstrained, two-requests-one-constraint, GPU, wide and pinned
+     claims; 16 nodes with residents on 8080/TCP 0.0.0.0 and 9090/TCP
+     10.0.0.1 and pods on conflicting and free ports) through
+     `TorchBackend()` on the card and `TorchBackend(device="cpu")`,
+     flagless and with greedy pinned: identical assignments, diagnostics,
+     solver metrics, host-fallback counts and backend counters; (b)
+     DeviceTopology/1000Nodes (1000 nodes of cpu 16 / 64Gi / 8 TPUs in two
+     NUMA zones, 100 + 3000 pods of cpu 2 / 1Gi / 2 TPUs; not cut) through
+     the port's `PerfRunner` with `TorchBackend()` and the workload's own
+     schedulerConfig: all 3100 bound, no unschedulable attempt, the
+     store's pods re-packed into their nodes' zones with `pack_zones` (no
+     zone over capacity, every pod's TPUs in one zone); (c)
+     DeviceTopologyDRA/1000Nodes (a ResourceSlice of 8 devices per node,
+     4 per numa; one claim per pod for 2 devices matching on numa; not
+     cut): all 3100 bound, every claim allocated on its pod's node on one
+     numa, 6200 devices in use, none twice. (b) and (c) print what 9(b)
+     prints (the torch.profiler repeat at 100Nodes), with the optimal
+     and greedy dispatches and verify rejects of the measured window,
+     whose wave_solve launches must be above 0;
+ 15. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -254,15 +283,18 @@ Phases (any failure raises and the script exits non-zero with no result):
      assigns: poisoned reruns), `large_full_width_ms` per chunk against
      `large_full_width_bound_ms`, `large_prefilter_ms` (block),
      `large_plain_prefilter_ms` (full width), `large_narrow_ms` and
-     `large_loop_launches`;
+     `large_loop_launches`; and phase 14's: `device_chunk_launches` (14(a)'s
+     card chunks), `device_topology_launches` and
+     `device_topology_dra_launches` (the measured windows of 14(b) and
+     14(c));
      the probe's, its
      launches over phase 9(b)'s run and over 10(b)'s), the card's name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
-`--phase13-only` it builds the kernels and runs phase 13 alone (no result
-lines). It needs one CUDA device; without one, or outside a checkout of the
+`--phase13-only` (or `--phase14-only`) it builds the kernels and runs phase
+13 (or 14) alone (no result lines). It needs one CUDA device; without one, or outside a checkout of the
 repository, it exits non-zero.
 """
 
@@ -2099,8 +2131,10 @@ def counting_runner_cls(torch):
     from kubernetes_tpu_torch.perf.scheduler_perf import PerfRunner
 
     class CountingRunner(PerfRunner):
-        def __init__(self, backend, profile: str | None):
-            super().__init__(backend=backend, batch_size=LOOP_BATCH)
+        def __init__(self, backend, profile: str | None,
+                     scheduler_config=None):
+            super().__init__(backend=backend, batch_size=LOOP_BATCH,
+                             scheduler_config=scheduler_config)
             self.profile = profile
             self.routes = dict.fromkeys(
                 ("backend_dispatches", "backend_pods", "host_path_pods"), 0)
@@ -2177,7 +2211,8 @@ def perf_run(torch, family: dict, workload: str, profile: str | None):
     want = sum(params[op["countParam"][1:]] for op in template
                if op["opcode"] == "createPods")
     wave_kernel.probe.launches = 0
-    runner = counting_runner_cls(torch)(TorchBackend(), profile)
+    runner = counting_runner_cls(torch)(TorchBackend(), profile,
+                                        family.get("schedulerConfig"))
     result = asyncio.run(runner.run(template, params, timeout=900.0))
     pods = asyncio.run(runner.store.list("pods")).items
     nodes = asyncio.run(runner.store.list("nodes")).items
@@ -4209,6 +4244,497 @@ def large_sharded_phase(torch, dev) -> None:
     print(f"phase 13(e) {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 14: device topology ----------------------------------------------
+
+TPU = "google.com/tpu"
+#: Phase 14(a)'s chunk kinds (see `device_case`), cluster size and chunk.
+DEVICE_KINDS = ("nrt", "dra", "ports")
+N_DEVICE_NODES, DEVICE_CHUNK = 64, 128
+
+
+class StaticInformers:
+    """A stand-in for an InformerFactory in direct `assign` calls: each
+    informer's indexer holds the given objects, and a handler added to it
+    sees every object once through its on_add, as a synced informer's
+    would."""
+
+    def __init__(self, objects: dict):
+        self._informers = {r: _StaticInformer(objs)
+                           for r, objs in objects.items()}
+
+    def informer(self, resource: str) -> "_StaticInformer":
+        return self._informers.setdefault(resource, _StaticInformer([]))
+
+
+class _StaticInformer:
+    def __init__(self, objects: list):
+        self.indexer = self
+        self._objects = {}
+        for obj in objects:
+            meta = obj["metadata"]
+            ns = meta.get("namespace")
+            key = f"{ns}/{meta['name']}" if ns else meta["name"]
+            self._objects[key] = obj
+
+    def get(self, key: str):
+        return self._objects.get(key)
+
+    def list(self) -> list:
+        return list(self._objects.values())
+
+    def add_event_handler(self, handler) -> None:
+        if handler.on_add is not None:
+            for obj in list(self._objects.values()):
+                handler.on_add(obj)
+
+
+def _nrt_case(rng) -> dict:
+    """64 nodes in eight shapes (i % 8): 0-3 equal nodes (cpu 16, 8
+    TPUs, two zones of cpu 8 / 4 TPUs) for ties; 4 three zones of 3 TPUs;
+    5 an NRT whose policy is not single-NUMA; 6 no NRT; 7 four zones of 2
+    TPUs, where 3 TPUs fit the node but no zone. Residents (seeded) fill
+    zones first-fit. Pods: zone-fitting (cpu 2, 2 TPUs), zone-misaligned
+    (3 TPUs), cpu-heavy (cpu 5, 1 TPU: three fit a node, one a zone, so
+    the verify rejects), cpu-only (zone-tracked cpu) and memory-only
+    (node-level only)."""
+    from kubernetes_tpu_torch.api.types import (make_node,
+                                                make_node_resource_topology,
+                                                make_pod, split_node_topology)
+
+    nodes, residents, nrts = [], [], []
+    for i in range(N_DEVICE_NODES):
+        name, shape = f"dn-{i}", i % 8
+        alloc = {"cpu": "16", "memory": "64Gi", "pods": "110", TPU: "8"}
+        nodes.append(make_node(name, allocatable=alloc))
+        if shape <= 3:
+            nrts.append(split_node_topology(name, alloc, 2,
+                                            devices={TPU: 4}))
+        elif shape == 4:
+            nrts.append(split_node_topology(name, alloc, 3,
+                                            devices={TPU: 3}))
+        elif shape == 5:
+            nrt = split_node_topology(name, alloc, 2, devices={TPU: 4})
+            nrts.append(make_node_resource_topology(
+                name, nrt["zones"], policies=["BestEffort"]))
+        elif shape == 7:
+            nrts.append(split_node_topology(name, alloc, 4,
+                                            devices={TPU: 2}))
+        for k in range(int(rng.integers(0, 3))):
+            residents.append(make_pod(
+                f"res-{i}-{k}", node_name=name, requests={
+                    "cpu": str(int(rng.choice([1, 2, 3]))),
+                    "memory": "1Gi", TPU: str(int(rng.choice([1, 2, 3])))}))
+    shapes = {"fit": {"cpu": "2", "memory": "1Gi", TPU: "2"},
+              "misaligned": {"cpu": "2", "memory": "1Gi", TPU: "3"},
+              "cpu-heavy": {"cpu": "5", "memory": "1Gi", TPU: "1"},
+              "cpu-only": {"cpu": "3", "memory": "1Gi"},
+              "memory-only": {"memory": "2Gi"}}
+    kinds = rng.choice(list(shapes), size=112, p=[0.4, 0.15, 0.25, 0.1,
+                                                   0.1])
+    pods = [make_pod(f"nrt-{j}-{k}", requests=dict(shapes[k]))
+            for j, k in enumerate(kinds)]
+    from kubernetes_tpu_torch.perf.scheduler_perf import DEVICE_TOPOLOGY
+    return {"nodes": nodes, "residents": residents, "pods": pods,
+            "objects": {"noderesourcetopologies": nrts},
+            "config": DEVICE_TOPOLOGY["schedulerConfig"]}
+
+
+def _dra_devices(zones: tuple, kind: str = "tpu", prefix: str = "dev"):
+    return [{"name": f"{prefix}-{z}-{k}",
+             "attributes": {"type": kind, "numa": str(z)}}
+            for z, n in enumerate(zones) for k in range(n)]
+
+
+def _dra_case(rng) -> dict:
+    """64 nodes (cpu 16) in eight slice shapes (i % 8): 0-3 eight TPUs, 4
+    per NUMA zone (equal nodes); 4 three and five; 5 four TPUs and two
+    GPUs; 6 no slice; 7 two and two. Residents hold claims, allocated (in
+    the ledger) or not (charged from their demand). Pending pods (cpu 2)
+    each reference one claim: 2 TPUs on one `numa` (the counts' row); 3
+    TPUs unconstrained; two requests (1 + 2 TPUs) under one `numa`
+    constraint (the plugin's own row); 1 GPU; 4 TPUs on one `numa` (two
+    fit a node, eight by cpu, so the verify rejects); and claims already
+    allocated on a node (pinned)."""
+    from kubernetes_tpu_torch.api.types import (make_device_class,
+                                                make_node, make_pod,
+                                                make_resource_claim,
+                                                make_resource_slice)
+
+    numa = [{"matchAttribute": "numa"}]
+    shapes = [(4, 4)] * 4 + [(3, 5), (4,), None, (2, 2)]
+    nodes, residents, slices, claims = [], [], [], []
+    for i in range(N_DEVICE_NODES):
+        name, zones = f"dn-{i}", shapes[i % 8]
+        nodes.append(make_node(name, allocatable={
+            "cpu": "16", "memory": "64Gi", "pods": "110"}))
+        if zones is None:
+            continue
+        devices = _dra_devices(zones)
+        if i % 8 == 5:
+            devices += _dra_devices((2,), "gpu", "gpu")
+        slices.append(make_resource_slice(name, "dra.ktpu", devices))
+        held = int(rng.integers(0, 3))
+        for k in range(held):
+            c = make_resource_claim(f"res-{i}-{k}", requests=[
+                {"name": "tpus", "deviceClassName": "tpu", "count": 1}])
+            if rng.random() < 0.5:
+                c["status"] = {"allocation": {
+                    "nodeName": name, "devices": [devices[-1 - k]["name"]]}}
+            claims.append(c)
+            residents.append(make_pod(
+                f"res-{i}-{k}", node_name=name,
+                requests={"cpu": "1", "memory": "1Gi"},
+                resource_claims=[{"name": "c0",
+                                  "resourceClaimName": f"res-{i}-{k}"}]))
+    kinds = {"aligned": ([{"name": "tpus", "deviceClassName": "tpu",
+                           "count": 2}], numa),
+             "loose": ([{"name": "tpus", "deviceClassName": "tpu",
+                         "count": 3}], []),
+             "two-requests": ([{"name": "a", "deviceClassName": "tpu",
+                                "count": 1},
+                               {"name": "b", "deviceClassName": "tpu",
+                                "count": 2}], numa),
+             "gpu": ([{"name": "g", "deviceClassName": "gpu",
+                       "count": 1}], []),
+             "wide": ([{"name": "tpus", "deviceClassName": "tpu",
+                        "count": 4}], numa)}
+    picks = rng.choice(list(kinds), size=104, p=[0.35, 0.15, 0.15, 0.1,
+                                                 0.25])
+    pods = []
+    for j, k in enumerate(picks):
+        reqs, cons = kinds[k]
+        claims.append(make_resource_claim(f"dra-{j}-c0", requests=reqs,
+                                          constraints=cons))
+        pods.append(make_pod(f"dra-{j}", requests={"cpu": "2",
+                                                   "memory": "1Gi"},
+                             resource_claims=[{"name": "c0",
+                                               "resourceClaimName":
+                                                   f"dra-{j}-c0"}]))
+    for j in range(8):
+        node = f"dn-{8 * j + 1}"
+        c = make_resource_claim(f"pinned-{j}-c0", requests=[
+            {"name": "tpus", "deviceClassName": "tpu", "count": 1}])
+        c["status"] = {"allocation": {"nodeName": node,
+                                      "devices": ["dev-1-0"]}}
+        claims.append(c)
+        pods.append(make_pod(f"pinned-{j}", requests={"cpu": "2",
+                                                      "memory": "1Gi"},
+                             resource_claims=[{"name": "c0",
+                                               "resourceClaimName":
+                                                   f"pinned-{j}-c0"}]))
+    classes = [make_device_class("tpu", {"type": "tpu"}),
+               make_device_class("gpu", {"type": "gpu"})]
+    return {"nodes": nodes, "residents": residents, "pods": pods,
+            "objects": {"resourceslices": slices, "deviceclasses": classes,
+                        "resourceclaims": claims},
+            "config": None}
+
+
+def _ports_case(rng) -> dict:
+    """16 equal nodes; residents hold 8080/TCP on 0.0.0.0 (nodes 0-3) and
+    9090/TCP on 10.0.0.1 (nodes 4-5). Pods: 8080/TCP (conflicts on 0-3),
+    8080/UDP (no conflict), 9090 on 0.0.0.0 (conflicts with 10.0.0.1),
+    9090 on 10.0.0.2 (none), 7070 wanted by more pods than nodes (only
+    the verify sees the same-chunk conflicts), and plain pods."""
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+
+    def pod(name, ports, node_name=None):
+        p = make_pod(name, node_name=node_name,
+                     requests={"cpu": "500m", "memory": "1Gi"})
+        if ports:
+            p["spec"]["containers"][0]["ports"] = [
+                {"hostPort": port, "protocol": proto, "hostIP": ip}
+                for port, proto, ip in ports]
+        return p
+
+    nodes = [make_node(f"dn-{i}", allocatable={
+        "cpu": "8", "memory": "32Gi", "pods": "110"}) for i in range(16)]
+    residents = [pod(f"res-{i}", [(8080, "TCP", "0.0.0.0")], f"dn-{i}")
+                 for i in range(4)]
+    residents += [pod(f"res-{i}", [(9090, "TCP", "10.0.0.1")], f"dn-{i}")
+                  for i in (4, 5)]
+    shapes = {"tcp-8080": [(8080, "TCP", "0.0.0.0")],
+              "udp-8080": [(8080, "UDP", "0.0.0.0")],
+              "any-9090": [(9090, "TCP", "0.0.0.0")],
+              "ip-9090": [(9090, "TCP", "10.0.0.2")],
+              "7070": [(7070, "TCP", "0.0.0.0")],
+              "plain": []}
+    kinds = rng.choice(list(shapes), size=96, p=[0.15, 0.1, 0.1, 0.1, 0.25,
+                                                 0.3])
+    pods = [pod(f"port-{j}-{k}", shapes[k]) for j, k in enumerate(kinds)]
+    return {"nodes": nodes, "residents": residents, "pods": pods,
+            "objects": {}, "config": None}
+
+
+def device_case(kind: str, seed: int) -> dict:
+    """Phase 14(a)'s `kind` chunk ("nrt", "dra" or "ports"), seeded with
+    numpy: {"nodes", "residents" (pods with spec.nodeName), "pods" (one
+    chunk), "objects" ({resource: objects} the plugins' informers hold),
+    "config" (a KubeSchedulerConfiguration, or None for the default
+    profile)}, every object a wire dict that either package reads."""
+    rng = np.random.default_rng(seed)
+    return {"nrt": _nrt_case, "dra": _dra_case,
+            "ports": _ports_case}[kind](rng)
+
+
+def device_framework(config_mod, case: dict):
+    """The case's profile as a Framework of `config_mod`'s package, with
+    NodeResourceTopologyMatch's and DynamicResources' informers a
+    `StaticInformers` over the case's objects."""
+    cfg = config_mod.load_config(case["config"])
+    fwk = cfg.profiles[0].build_framework()
+    informers = StaticInformers(copy.deepcopy(case["objects"]))
+    for p in fwk.plugins:
+        if p.NAME in ("NodeResourceTopologyMatch", "DynamicResources"):
+            p.set_informers(informers)
+    return fwk
+
+
+def device_chunk(api, backend, kind: str, seed: int, mode: str):
+    """Phase 14(a)'s `kind` chunk through `backend` (its metrics attached)
+    under KTPU_SOLVE_MODE `mode`; `api` holds the package's `types`,
+    `config`, `SchedulerMetrics` and `run_chunks(backend, pods, snapshot,
+    fwk)` (an assign() that returns its context). Returns (context,
+    metrics)."""
+    from kubernetes_tpu_torch.utils import flags
+
+    case = device_case(kind, seed)
+    fwk = device_framework(api.config, case)
+    infos = {n["metadata"]["name"]: api.types.NodeInfo(copy.deepcopy(n))
+             for n in case["nodes"]}
+    for p in case["residents"]:
+        infos[p["spec"]["nodeName"]].add_pod(
+            api.types.PodInfo(copy.deepcopy(p)))
+    snap = api.types.Snapshot(list(infos.values()), 1)
+    pods = [api.types.PodInfo(copy.deepcopy(p)) for p in case["pods"]]
+    backend.metrics = api.SchedulerMetrics()
+    with flags.scoped_set("KTPU_SOLVE_MODE", mode):
+        ctx = api.run_chunks(backend, pods, snap, fwk)
+    return ctx, backend.metrics
+
+
+def _port_run_chunks(backend, pods, snapshot, fwk):
+    backend._check_supported(pods, fwk)
+    ctx = backend._start(pods, snapshot, fwk)
+    backend._run_chunks(ctx)
+    return ctx
+
+
+def port_device_api():
+    """`device_chunk`'s `api` for this package."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch import config
+    from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
+    from kubernetes_tpu_torch.scheduler import types
+
+    return SimpleNamespace(types=types, config=config,
+                           SchedulerMetrics=SchedulerMetrics,
+                           run_chunks=_port_run_chunks)
+
+
+def device_chunk_view(ctx, metrics) -> dict:
+    """What phase 14(a) and the tests compare: `gang_chunk_view`'s
+    assignments, diagnostics and solver metrics, and the host-fallback
+    degradations (pods that took a plugin's own host row)."""
+    view = gang_chunk_view(ctx, metrics)
+    view["host_fallback"] = metrics.backend_degradations.value(
+        kind="host_fallback")
+    return view
+
+
+def zone_violations(nodes, pods, nrts) -> list[str]:
+    """Nodes whose bound pods, re-packed first-fit with the port's
+    `pack_zones`, leave a pod's zone-tracked request (its TPUs among them)
+    in no single zone, or a zone over its capacity."""
+    from kubernetes_tpu_torch.scheduler.plugins.noderesourcetopology import (
+        _zone_caps, pack_zones)
+    from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo
+
+    infos = {n["metadata"]["name"]: NodeInfo(n) for n in nodes}
+    for p in pods:
+        node = (p.get("spec") or {}).get("nodeName")
+        if node:
+            infos[node].add_pod(PodInfo(p))
+    nrt_of = {n["metadata"]["name"]: n for n in nrts}
+    bad = []
+    for name, ni in infos.items():
+        nrt = nrt_of.get(name)
+        if nrt is None or not ni.pods:
+            continue
+        caps = [c for _, c in _zone_caps(nrt)]
+        free = pack_zones(nrt, ni)
+        tracked = {r for c in caps for r in c}
+        charged = sum(c[r] - f[r] for c, f in zip(caps, free) for r in c)
+        want = sum(v for pi in ni.pods for r, v in pi.requests.items()
+                   if v > 0 and r in tracked)
+        if charged != want or any(v < 0 for f in free for v in f.values()):
+            bad.append(name)
+    return bad
+
+
+def claim_violations(pods, claims, slices) -> tuple[list[str], int]:
+    """(faults, devices in use) of a DRA run read back from its store:
+    every bound pod's claims allocated on its node, each claim's devices
+    on one `numa` of that node's slices, no (node, device) pair allocated
+    twice."""
+    numa = {}
+    for s in slices:
+        node = s["spec"]["nodeName"]
+        for d in s["spec"]["devices"]:
+            numa[(node, d["name"])] = (d.get("attributes") or {}).get("numa")
+    by_key = {f"{c['metadata'].get('namespace', 'default')}/"
+              f"{c['metadata']['name']}": c for c in claims}
+    faults, used = [], set()
+    in_use = 0
+    for p in pods:
+        node = (p.get("spec") or {}).get("nodeName")
+        ns = p["metadata"].get("namespace", "default")
+        for ref in (p.get("spec") or {}).get("resourceClaims") or []:
+            key = f"{ns}/{ref['resourceClaimName']}"
+            alloc = ((by_key.get(key) or {}).get("status") or {}) \
+                .get("allocation") or {}
+            if node is None:
+                if alloc:
+                    faults.append(f"{key} allocated to an unbound pod")
+                continue
+            if alloc.get("nodeName") != node:
+                faults.append(f"{key} on {alloc.get('nodeName')}, pod on "
+                              f"{node}")
+                continue
+            devs = alloc.get("devices") or []
+            zones = {numa.get((node, d)) for d in devs}
+            if len(zones) != 1 or None in zones:
+                faults.append(f"{key} spans numa {sorted(map(str, zones))}")
+            for d in devs:
+                if (node, d) in used:
+                    faults.append(f"{node}/{d} allocated twice")
+                used.add((node, d))
+            in_use += len(devs)
+    return faults, in_use
+
+
+def device_chunks_phase(torch, seed: int) -> int:
+    """Phase 14(a): each `device_case` chunk through `TorchBackend()` on
+    the card and `TorchBackend(device="cpu")`, flagless and with greedy
+    pinned: identical assignments, diagnostics, solver metrics,
+    host-fallback counts and backend counters. Returns wave_solve's
+    launches."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    api = port_device_api()
+    launches = 0
+    for kind in DEVICE_KINDS:
+        for mode in ("auto", "greedy"):
+            wave_kernel.wave_solve.launches = 0
+            on_card = TorchBackend(max_batch=DEVICE_CHUNK)
+            card = device_chunk_view(*device_chunk(api, on_card, kind, seed,
+                                                   mode))
+            launches += wave_kernel.wave_solve.launches
+            on_cpu = TorchBackend(device="cpu", max_batch=DEVICE_CHUNK)
+            cpu = device_chunk_view(*device_chunk(api, on_cpu, kind, seed,
+                                                  mode))
+            same = card == cpu and on_card.counters == on_cpu.counters
+            placed = sum(v is not None for v in card["assignments"].values())
+            print(f"compare device chunk {kind} ({len(card['assignments'])} "
+                  f"pods on {N_DEVICE_NODES if kind != 'ports' else 16} "
+                  f"nodes, KTPU_SOLVE_MODE={mode}), card vs CPU: "
+                  f"{'identical' if same else 'DIFFER'}; placed {placed}, "
+                  f"verify rejects {on_card.counters['verify_rejects']}, "
+                  f"optimal solves {on_card.counters['optimal_solves']}, "
+                  f"host_fallback {card['host_fallback']}")
+            if not same:
+                raise RuntimeError(f"device chunk {kind} ({mode}) differs "
+                                   f"on the card from the CPU")
+    if launches == 0:
+        raise RuntimeError("phase 14(a): no wave_solve launch")
+    print(f"phase 14(a) {time.perf_counter() - t0:.1f} s, wave_solve "
+          f"launches {launches}")
+    return launches
+
+
+def device_loop_phase(torch, family: dict, phase: str) -> int:
+    """Phase 14(b) (DeviceTopology) or 14(c) (DeviceTopologyDRA) at
+    1000Nodes through the port's PerfRunner, `TorchBackend()` and the
+    family's own profile: every pod bound; the store's pods re-packed into
+    their nodes' zones (14(b)) or their claims' allocations checked
+    (14(c)); printed as 9(b) (the profiled repeat at 100Nodes), with the
+    optimal and greedy dispatches. Returns wave_solve's launches in the
+    measured window."""
+    t0 = time.perf_counter()
+    label = f"device topology {phase}"
+    first = perf_run(torch, family, "1000Nodes", None)
+    runner, result, _, pods = first
+    store, w = runner.store, runner.window
+    nodes = asyncio.run(store.list("nodes")).items
+    if "schedulerConfig" in family:
+        nrts = asyncio.run(store.list("noderesourcetopologies")).items
+        bad = zone_violations(nodes, pods, nrts)
+        if bad or result.unschedulable_total:
+            raise RuntimeError(f"{phase}: zones over capacity on {bad[:5]}, "
+                               f"{result.unschedulable_total} unschedulable "
+                               "attempts")
+        check = (f"every pod re-packed into one zone on {len(nrts)} nodes, "
+                 f"no zone over capacity")
+    else:
+        claims = asyncio.run(store.list("resourceclaims")).items
+        slices = asyncio.run(store.list("resourceslices")).items
+        faults, in_use = claim_violations(pods, claims, slices)
+        if faults or in_use != 2 * len(pods):
+            raise RuntimeError(f"{phase}: {in_use} devices in use for "
+                               f"{len(pods)} pods; {faults[:5]}")
+        check = (f"{len(claims)} claims each allocated on its pod's node "
+                 f"on one numa, {in_use} devices in use, none twice")
+    if w["launches"] == 0:
+        raise RuntimeError(f"{phase}: no wave_solve launch in the measured "
+                           f"window")
+    c = w["counters"]
+    print(f"{label} {family['name']}/1000Nodes: {check}; dispatches over "
+          f"the measured window: optimal {c['optimal_solves']}, greedy "
+          f"{c['chunks'] - c['optimal_solves'] - c['spread_chunks']}, "
+          f"verify rejects {c['verify_rejects']}; wave_solve launches "
+          f"{w['launches']}")
+    report_perf(torch, label, family, "1000Nodes", first, phase, t0,
+                device_workload="100Nodes")
+    return w["launches"]
+
+
+def device_topology_run(torch, seed: int) -> dict:
+    """Phase 14 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on. Returns the kernels line's phase
+    14 entries: wave_solve's launches in 14(a) and in the measured windows
+    of 14(b) and 14(c)."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        DEVICE_TOPOLOGY, DEVICE_TOPOLOGY_DRA)
+    from kubernetes_tpu_torch.utils import flags
+
+    t14 = time.perf_counter()
+    print(f"phase 14 on {card_line()}")
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        out = {"device_chunk_launches": device_chunks_phase(torch, seed)}
+        out["device_topology_launches"] = device_loop_phase(
+            torch, DEVICE_TOPOLOGY, "14(b)")
+        out["device_topology_dra_launches"] = device_loop_phase(
+            torch, DEVICE_TOPOLOGY_DRA, "14(c)")
+    print(f"phase 14 {time.perf_counter() - t14:.1f} s")
+    return out
+
+
+def device_topology_phases(torch, seed: int) -> int:
+    """`--phase14-only`: build the kernels (phase 1), then phase 14."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(device_topology_run(torch, seed)))
+    print_card()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -4216,9 +4742,13 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=8,
-                        help="seed of phase 8(a)'s cluster and lone pods")
+                        help="seed of phase 8(a)'s cluster and lone pods "
+                        "and of phase 14(a)'s chunks")
     parser.add_argument("--phase13-only", action="store_true",
                         help="build the kernels and run phase 13 alone "
+                        "(prints no result lines)")
+    parser.add_argument("--phase14-only", action="store_true",
+                        help="build the kernels and run phase 14 alone "
                         "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
@@ -4233,6 +4763,8 @@ def main() -> int:
     # or more pods to the Sinkhorn route, which phase 7 drives.
     if cli.phase13_only:
         return large_cluster_phases(torch)
+    if cli.phase14_only:
+        return device_topology_phases(torch, seed)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -4276,17 +4808,21 @@ def large_cluster_phases(torch) -> int:
     return 0
 
 
-def print_card() -> None:
+def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def print_card() -> None:
+    print(card_line())
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-14 (see the module docstring)."""
+    """Phases 1-15 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -4649,8 +5185,11 @@ def smoke(torch, seed: int) -> int:
     # -- 13. large clusters -------------------------------------------------
     large = large_cluster_run(torch, dev, fwk)
 
-    # -- 14. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-13)")
+    # -- 14. device topology -------------------------------------------------
+    device = device_topology_run(torch, seed)
+
+    # -- 15. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-14)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -4662,7 +5201,7 @@ def smoke(torch, seed: int) -> int:
          "loop_launches": loop["loop_launches"],
          "constraint_launches": anti["launches"] + affinity_launches,
          "gang_launches": gang_launches,
-         "gang_chunk_launches": gang_chunk_launches, **large},
+         "gang_chunk_launches": gang_chunk_launches, **large, **device},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,

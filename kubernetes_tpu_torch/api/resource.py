@@ -8,7 +8,8 @@ milli ("500m"), bare integers and decimals ("0.5", "2e3").
 
 Every quantity canonicalizes to an **integer milli-value** (int64-safe for
 realistic cluster sizes), so a node's allocatable vector becomes one row of an
-(N × R) int array. Copy of `kubernetes_tpu/api/resource.py`, cut to parsing.
+(N × R) int array. Copy of `kubernetes_tpu/api/resource.py`, cut to parsing
+and `format_quantity`.
 """
 
 from __future__ import annotations
@@ -64,6 +65,14 @@ def parse_quantity(s: Union[str, int, float, None]) -> int:
     if len(_PARSE_CACHE) < _PARSE_CACHE_MAX:
         _PARSE_CACHE[s] = val
     return val
+
+
+def format_quantity(milli: int) -> str:
+    """Format integer milli-units back to a canonical quantity string:
+    whole units print bare ("2"), sub-unit values in milli ("500m")."""
+    if milli % 1000 == 0:
+        return str(milli // 1000)
+    return f"{milli}m"
 
 
 def parse_resource_list(resources: dict | None) -> dict[str, int]:

@@ -4,8 +4,9 @@ Parity target: staging/src/k8s.io/api/core/v1/types.go (`Pod`, `PodSpec`,
 `Node`, `NodeSpec.taints`, `NodeStatus.allocatable`, `Binding`) and the pod
 resource-request helpers in pkg/api/v1/resource/helpers.go (`PodRequests`).
 Copy of `kubernetes_tpu/api/types.py`, cut to the pod, node and binding
-constructors, the accessors the scheduler compiles its tensors from and the
-predicates its informers read.
+constructors, the device-topology objects (DeviceClass, ResourceSlice,
+ResourceClaim and its template, NodeResourceTopology), the accessors the
+scheduler compiles its tensors from and the predicates its informers read.
 """
 
 from __future__ import annotations
@@ -13,7 +14,11 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 from kubernetes_tpu_torch.api.meta import new_object
-from kubernetes_tpu_torch.api.resource import parse_resource_list
+from kubernetes_tpu_torch.api.resource import (
+    format_quantity,
+    parse_quantity,
+    parse_resource_list,
+)
 
 # Canonical resource names (core/v1 const ResourceCPU etc.)
 CPU = "cpu"
@@ -114,6 +119,94 @@ def make_node(
     node = new_object("Node", name, namespace=None, labels=all_labels,
                       spec=spec, status=status)
     return node
+
+
+def make_device_class(name: str,
+                      selectors: Mapping[str, str] | None = None) -> dict:
+    """resource.k8s.io DeviceClass (structured parameters). `selectors`
+    are attribute equality matchers, the tractable core of the
+    reference's CEL selectors: a device belongs to the class iff every
+    (attr, value) pair matches."""
+    dc = new_object("DeviceClass", name, None,
+                    api_version="resource.k8s.io/v1")
+    dc["spec"] = {"selectors": dict(selectors or {})}
+    return dc
+
+
+def make_resource_slice(node_name: str, driver: str,
+                        devices: list[dict],
+                        name: str | None = None) -> dict:
+    """resource.k8s.io ResourceSlice: the per-node device inventory a DRA
+    driver publishes. `devices` entries:
+    {"name": "tpu-0", "attributes": {"type": "tpu", "numa": "0"}}."""
+    rs = new_object("ResourceSlice", name or f"{node_name}-{driver}", None,
+                    api_version="resource.k8s.io/v1")
+    rs["spec"] = {"nodeName": node_name, "driver": driver,
+                  "devices": list(devices)}
+    return rs
+
+
+def make_resource_claim(name: str, namespace: str = "default",
+                        requests: list[dict] | None = None,
+                        constraints: list[dict] | None = None) -> dict:
+    """resource.k8s.io ResourceClaim. `requests` entries:
+    {"name": "tpus", "deviceClassName": "tpu", "count": 4}; `constraints`
+    entries: {"matchAttribute": "numa"} — all allocated devices must agree
+    on that attribute (single-NUMA alignment the DRA way)."""
+    rc = new_object("ResourceClaim", name, namespace,
+                    api_version="resource.k8s.io/v1")
+    rc["spec"] = {"devices": {"requests": list(requests or []),
+                              "constraints": list(constraints or [])}}
+    return rc
+
+
+def make_resource_claim_template(name: str, namespace: str = "default",
+                                 requests: list[dict] | None = None,
+                                 constraints: list[dict] | None = None
+                                 ) -> dict:
+    """ResourceClaimTemplate: per-pod claims stamped out for pods
+    referencing the template."""
+    t = new_object("ResourceClaimTemplate", name, namespace,
+                   api_version="resource.k8s.io/v1")
+    t["spec"] = {"devices": {"requests": list(requests or []),
+                             "constraints": list(constraints or [])}}
+    return t
+
+
+def make_node_resource_topology(
+        node_name: str,
+        zones: list[dict],
+        policies: list[str] | None = None) -> dict:
+    """topology.node.k8s.io/v1alpha2 NodeResourceTopology (the scheduler-
+    plugins NUMA CRD; see plugins/noderesourcetopology.py). `zones` entries:
+    {"name": ..., "resources": [{"name": ..., "capacity": ...}, ...]}."""
+    nrt = new_object("NodeResourceTopology", node_name, None,
+                     api_version="topology.node.k8s.io/v1alpha2")
+    nrt["topologyPolicies"] = list(
+        policies or ["SingleNUMANodeContainerLevel"])
+    nrt["zones"] = zones
+    return nrt
+
+
+def split_node_topology(node_name: str, allocatable: Mapping[str, str],
+                        num_zones: int = 2,
+                        zoned: tuple[str, ...] = ("cpu",),
+                        devices: Mapping[str, int] | None = None) -> dict:
+    """Split a node's allocatable evenly into `num_zones` NUMA zones (cpu +
+    extended device resources), the shape a device-manager node agent
+    would report."""
+    zones = []
+    for z in range(num_zones):
+        res = []
+        for r in zoned:
+            if r in allocatable:
+                res.append({"name": r, "capacity": format_quantity(
+                    parse_quantity(allocatable[r]) // num_zones)})
+        for r, per_zone in (devices or {}).items():
+            res.append({"name": r, "capacity": str(per_zone)})
+        zones.append({"name": f"{node_name}-numa-{z}", "type": "Node",
+                      "resources": res})
+    return make_node_resource_topology(node_name, zones)
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,21 @@ snapshot, and hard spread constraints ride the spread scan. Pods placed
 earlier in the same assign() are checked by the host verify's delta
 affinity check (a conflict is rejected and requeues).
 
+The device-topology plugins are host rows too, as in the reference:
+NodeResourceTopologyMatch's filter and score rows come from per-node zone
+arrays packed once per snapshot (`_nrt_state`), DynamicResources' filter
+rows from per-(node, device class) free-device counts charged from the
+claim ledgers once per snapshot (`_dra_state`; a claim shape those counts
+cannot answer takes the plugin's own host row), and NodePorts' from the
+plugin's own filter. Their pods are "stateful": the host verify re-checks
+host ports against the working node, and a chunk holding any pod of
+NodeResourceTopologyMatch or DynamicResources (or another stateful plugin
+but NodePorts) re-runs every placement through the framework's PreFilter
+and Filter against a working snapshot that carries this assign()'s earlier
+placements (`_verify`), so zone usage and devices handed out earlier in
+the same assign() are seen. ImageLocality is a static score row, cached by
+the pod's image list.
+
 The (N, 2R+1) used-state pack stays on the device and chains from chunk to
 chunk with no host round trip. It is seeded at each assign() from the
 snapshot, or, when the serving tier's resident planes are attached
@@ -68,10 +83,10 @@ beside this one: the serving fast path (serving/fastpath.py,
 would.
 
 Not covered, and refused with NotImplementedError rather than scheduled on
-a partial model: resource claims, volumes, host ports, slice-shaped gangs
+a partial model: volumes (ROADMAP queue 1 item 7), slice-shaped gangs
 (a PodGroup with `spec.sliceShape`), and any plugin at a PreFilter,
-Filter, PreScore or Score point beyond the eight of `MODELLED_PLUGINS`
-(NodeResourceTopologyMatch among them). Plugins at none
+Filter, PreScore or Score point beyond the twelve of `MODELLED_PLUGINS`
+(the four volume plugins among them). Plugins at none
 of those points (queue sort, gates, bind) are the scheduler loop's and
 pass. Where the reference falls back to host rows and a stateful verify
 for spread pods that miss the union table (`spread_poisoned`), this
@@ -96,6 +111,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api.labels import from_label_selector, ns_contains
+from kubernetes_tpu_torch.api.meta import namespaced_name
 from kubernetes_tpu_torch.ops import kernels, solver, wave_kernel
 from kubernetes_tpu_torch.ops.affinity import AffinityCompiler, _seg_sum
 from kubernetes_tpu_torch.ops.tensorize import ClusterTensors, PodBatch
@@ -109,11 +125,22 @@ from kubernetes_tpu_torch.scheduler.plugins.coscheduling import (
     POD_GROUP_LABEL,  # noqa: F401 (the gang label, re-exported)
     refuse_slice_shape,
 )
+from kubernetes_tpu_torch.scheduler.plugins.dynamicresources import (
+    claim_allocated_node,
+    claim_match_attrs,
+    claim_requests,
+    pod_claim_keys,
+)
 from kubernetes_tpu_torch.scheduler.plugins.interpodaffinity import (
     resolve_term_namespaces,
 )
 from kubernetes_tpu_torch.scheduler.plugins.noderesources import (
     insufficient_resources,
+)
+from kubernetes_tpu_torch.scheduler.plugins.noderesourcetopology import (
+    SINGLE_NUMA_POLICIES,
+    _zone_caps,
+    pack_zones,
 )
 from kubernetes_tpu_torch.scheduler.plugins.registry import IN_TREE
 from kubernetes_tpu_torch.scheduler.types import PodInfo, Snapshot
@@ -127,7 +154,8 @@ logger = logging.getLogger(__name__)
 MODELLED_PLUGINS = frozenset((
     "NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
     "NodeName", "NodeUnschedulable", "TaintToleration", "InterPodAffinity",
-    "PodTopologySpread"))
+    "PodTopologySpread", "NodePorts", "ImageLocality",
+    "NodeResourceTopologyMatch", "DynamicResources"))
 _MODELLED_POINTS = frozenset(("PreFilter", "Filter", "PreScore", "Score"))
 
 #: Plugins with full device kernels.
@@ -152,6 +180,11 @@ _FILTER_ACTIVE = {
         or snap.have_pods_with_required_anti_affinity),
     "PodTopologySpread": lambda plugin, pi, snap: bool(
         plugin._constraints_for(pi, "DoNotSchedule")),
+    "NodePorts": lambda plugin, pi, snap: bool(pi.host_ports),
+    "NodeResourceTopologyMatch":
+        lambda plugin, pi, snap: plugin.active_for(pi),
+    "DynamicResources":
+        lambda plugin, pi, snap: plugin.active_for(pi),
 }
 _SCORE_ACTIVE = {
     "InterPodAffinity": lambda plugin, pi, snap: bool(
@@ -159,6 +192,8 @@ _SCORE_ACTIVE = {
         or snap.have_pods_with_affinity),
     "PodTopologySpread": lambda plugin, pi, snap: bool(
         plugin._constraints_for(pi, "ScheduleAnyway")),
+    "NodeResourceTopologyMatch":
+        lambda plugin, pi, snap: plugin.active_for(pi),
 }
 
 #: Solve chunk when the caller does not pin one.
@@ -168,10 +203,14 @@ _DEFAULT_CHUNK = 1024
 #: overflow gangs keep the Permit barrier alone.
 _GANG_PAD = 16
 
+#: Diagnostic reasons of the host filter rows; NodeResourceTopologyMatch
+#: and DynamicResources read the default "node(s) filtered", as in the
+#: reference.
 _HOST_REASONS = {
     "NodeAffinity": "node(s) didn't match Pod's node affinity/selector",
     "NodeName": "node didn't match the requested node name",
     "NodeUnschedulable": "node(s) were unschedulable",
+    "NodePorts": "node(s) didn't have free ports for the requested pod ports",
     "InterPodAffinity": "node(s) didn't match pod affinity/anti-affinity rules",
     "PodTopologySpread": "node(s) didn't match pod topology spread constraints",
 }
@@ -212,12 +251,9 @@ def compress_score_wire(host_scores: np.ndarray) -> np.ndarray:
 def unsupported_feature(pi: PodInfo) -> str | None:
     """The first feature of this pod the package does not model, or
     None."""
-    if pi.resource_claims:
-        return "resource claims (dynamic resource allocation)"
     if pi.pvc_names:
-        return "volumes (PersistentVolumeClaims)"
-    if pi.host_ports:
-        return "host ports"
+        return ("volumes (PersistentVolumeClaims; ROADMAP queue 1 item 7, "
+                "the volume plugins)")
     return None
 
 
@@ -466,6 +502,9 @@ def _signature(plugin_name: str, pi: PodInfo) -> str:
             for t in pi.tolerations))
     if plugin_name == "NodeAffinity":
         return repr((pi.node_selector, pi.affinity.get("nodeAffinity")))
+    if plugin_name == "ImageLocality":
+        return repr(sorted(
+            c.get("image", "") for c in pi.pod.get("spec", {}).get("containers") or []))
     raise KeyError(plugin_name)
 
 
@@ -781,6 +820,11 @@ class TorchBackend:
         #: (snapshot generation, any resident pod contributes
         #: InterPodAffinity score symmetry).
         self._ipa_resident_relevant: tuple | None = None
+        #: (key, state) of NodeResourceTopologyMatch's zone arrays and
+        #: DynamicResources' free-device counts (see _nrt_state,
+        #: _dra_state).
+        self._nrt_cache: tuple | None = None
+        self._dra_cache: tuple | None = None
         #: chunks dispatched ahead of the oldest chunk's host verify (the
         #: tuner's decision at each assign()).
         self.pipeline_depth = self._tuner.depth
@@ -893,6 +937,311 @@ class TorchBackend:
             hit = self._row_cache[key] = (row, bool(row.any()))
         return hit
 
+    # -- NodeResourceTopologyMatch rows --------------------------------------
+
+    def _nrt_state(self, plugin, snapshot: Snapshot,
+                   ct: ClusterTensors) -> dict:
+        """Batch-start zone arrays for NodeResourceTopologyMatch: free/cap
+        (N, Zmax, T), zone_valid (N, Zmax), tracked (N, T) over the union T
+        of zone-listed resources. Each node is packed ONCE per snapshot
+        (`pack_zones`), and rows are answered with numpy broadcasting;
+        within-batch drift is caught by the full re-check in _verify."""
+        # nrt_seq moves on NRT object churn (which does not move the
+        # snapshot generation); id(plugin) separates per-profile instances.
+        key = (ct.generation, id(snapshot), id(plugin), plugin.nrt_seq)
+        if self._nrt_cache is not None and self._nrt_cache[0] == key:
+            return self._nrt_cache[1]
+        T = sorted(plugin._zone_resources)
+        t_index = {r: j for j, r in enumerate(T)}
+        N = ct.n_real
+        per_node: list[tuple | None] = []
+        zmax = 1
+        for ni in snapshot.nodes:
+            nrt = plugin._nrt(ni.name)
+            if nrt is None or not (
+                    set(nrt.get("topologyPolicies") or [])
+                    & SINGLE_NUMA_POLICIES):
+                per_node.append(None)
+                continue
+            caps = [c for _, c in _zone_caps(nrt)]
+            per_node.append((pack_zones(nrt, ni), caps))
+            zmax = max(zmax, len(caps))
+        free = np.zeros((N, zmax, len(T)), dtype=np.int64)
+        cap = np.zeros_like(free)
+        zone_valid = np.zeros((N, zmax), dtype=np.bool_)
+        tracked = np.zeros((N, len(T)), dtype=np.bool_)
+        for n, entry in enumerate(per_node):
+            if entry is None:
+                continue
+            zfree, zcaps = entry
+            for z, (zf, zc) in enumerate(zip(zfree, zcaps)):
+                zone_valid[n, z] = True
+                for r, v in zc.items():
+                    j = t_index[r]
+                    cap[n, z, j] = v
+                    tracked[n, j] = True
+                for r, v in zf.items():
+                    free[n, z, t_index[r]] = v
+        state = {"T": T, "t_index": t_index, "free": free, "cap": cap,
+                 "zone_valid": zone_valid, "tracked": tracked,
+                 "strategy": plugin.strategy,
+                 # zone-tracked request bytes -> evaluation, filter row,
+                 # score row: a template's pods compute each once.
+                 "by_request": {}, "filter_rows": {}, "score_rows": {}}
+        self._nrt_cache = (key, state)
+        return state
+
+    @staticmethod
+    def _nrt_req_vec(st: dict, pi: PodInfo) -> np.ndarray:
+        q = np.zeros(len(st["T"]), dtype=np.int64)
+        for r, v in pi.requests.items():
+            j = st["t_index"].get(r)
+            if j is not None and v > 0:
+                q[j] = v
+        return q
+
+    def _nrt_pod_eval(self, st: dict, pi: PodInfo, memo: dict, i: int):
+        """Per-pod (q, constrained, zone_fit), memoized per chunk index and
+        per zone-tracked request vector (the state's `by_request`, which
+        lives as long as the snapshot's zone arrays): the Filter and Score
+        rows share the (N, Zmax, T) reduction, and a template's pods run
+        it once."""
+        hit = memo.get(i)
+        if hit is None:
+            q = self._nrt_req_vec(st, pi)
+            hit = st["by_request"].get(q.tobytes())
+            if hit is None:
+                qpos = (q > 0)[None, None, :]
+                constrained = (st["tracked"] & (q > 0)[None, :]).any(-1)
+                viol = st["tracked"][:, None, :] & qpos \
+                    & (st["free"] < q[None, None, :])
+                zone_fit = st["zone_valid"] & ~viol.any(-1)
+                hit = st["by_request"][q.tobytes()] = (q, constrained,
+                                                       zone_fit)
+            memo[i] = hit
+        return hit
+
+    def _nrt_filter_row(self, st: dict, pi: PodInfo, memo: dict,
+                        i: int) -> np.ndarray:
+        """(n_real,) bool: the plugin's filter() over every node (one
+        shared row per zone-tracked request vector)."""
+        q, constrained, zone_fit = self._nrt_pod_eval(st, pi, memo, i)
+        row = st["filter_rows"].get(q.tobytes())
+        if row is None:
+            row = st["filter_rows"][q.tobytes()] = \
+                ~constrained | zone_fit.any(-1)
+        return row
+
+    def _nrt_score_row(self, st: dict, pi: PodInfo, memo: dict,
+                       i: int) -> np.ndarray:
+        """(n_real,) float64: the plugin's score() over every node (best
+        zone by the configured strategy; 0 for unconstrained or unfitting
+        nodes), in the reference's arithmetic order; one shared row per
+        zone-tracked request vector."""
+        q, constrained, zone_fit = self._nrt_pod_eval(st, pi, memo, i)
+        row = st["score_rows"].get(q.tobytes())
+        if row is None:
+            row = st["score_rows"][q.tobytes()] = self._nrt_zone_score(
+                st, q, constrained, zone_fit)
+        return row
+
+    @staticmethod
+    def _nrt_zone_score(st: dict, q: np.ndarray, constrained: np.ndarray,
+                        zone_fit: np.ndarray) -> np.ndarray:
+        qpos = (q > 0)[None, None, :]
+        m = (st["cap"] > 0) & qpos
+        cnt = m.sum(-1)
+        safe_cap = np.maximum(st["cap"], 1)
+        fr = np.where(m, (st["free"] - q[None, None, :]) / safe_cap, 0.0)
+        denom = np.maximum(cnt, 1)
+        mean = fr.sum(-1) / denom
+        if st["strategy"] == "MostAllocated":
+            s = 100.0 * (1.0 - mean)
+        elif st["strategy"] == "BalancedAllocation":
+            var = (np.where(m, fr * fr, 0.0).sum(-1) / denom) - mean * mean
+            s = 100.0 * (1.0 - np.sqrt(np.maximum(var, 0.0)))
+        else:  # LeastAllocated
+            s = 100.0 * mean
+        s = np.where(zone_fit & (cnt > 0), s, -np.inf)
+        best = s.max(-1)
+        return np.where(constrained & np.isfinite(best),
+                        np.maximum(best, 0.0), 0.0)
+
+    # -- DynamicResources rows ------------------------------------------------
+
+    def _dra_state(self, plugin, snapshot: Snapshot,
+                   ct: ClusterTensors) -> dict:
+        """Batch-start free-device counts for DynamicResources: per (node,
+        class) free counts plus, per device-attribute key, the largest
+        single-value group — enough to answer count-N claims with or
+        without one matchAttribute constraint as numpy rows. Claims are
+        charged ONCE per snapshot from three ledgers: allocations
+        (`plugin._alloc_by_node`), unallocated claims of resident pods, and
+        the assume ledger (`plugin._assumed`: reserved claims whose PreBind
+        has not written yet). In-batch drift is caught by the full
+        re-check in _verify."""
+        # dra_seq moves on claim, slice and class churn, assume_seq on
+        # every assume-ledger change: both key the cache.
+        key = (ct.generation, id(snapshot), id(plugin), plugin.dra_seq,
+               plugin.assume_seq)
+        if self._dra_cache is not None and self._dra_cache[0] == key:
+            return self._dra_cache[1]
+        classes = plugin._classes()
+        class_names = sorted(classes)
+        c_index = {c: j for j, c in enumerate(class_names)}
+        N, C = ct.n_real, len(class_names)
+        free_total = np.zeros((N, C), dtype=np.int32)
+        #: attr key -> (N, C) best single-value group size
+        max_group: dict[str, np.ndarray] = {}
+
+        # One pass over the claim ledgers, grouped per node.
+        charges: dict[str, dict[str, dict]] = {}
+
+        def charge(node_name: str, claim: dict) -> None:
+            charges.setdefault(node_name, {})[namespaced_name(claim)] = claim
+
+        for n, bucket in plugin._alloc_by_node.items():
+            for claim in bucket.values():
+                charge(n, claim)
+        for ni in snapshot.nodes:
+            for pi in ni.pods:
+                for ckey in pod_claim_keys(pi):
+                    claim = plugin._claim_informer.indexer.get(ckey) \
+                        if plugin._claim_informer is not None else None
+                    if claim is not None and \
+                            claim_allocated_node(claim) is None:
+                        charge(ni.name, claim)
+        for a in plugin._assumed.values():
+            charge(a["node"], a["claim"])
+
+        attr_keys: set[str] = set()
+        per_node_free: list[list[dict]] = []
+        for ni in snapshot.nodes:
+            devices = plugin.node_devices(ni.name)
+            if not devices:
+                per_node_free.append([])
+                continue
+            taken: set[str] = set()
+            for claim in (charges.get(ni.name) or {}).values():
+                alloc = (claim.get("status") or {}).get("allocation")
+                if alloc:
+                    if alloc.get("nodeName") == ni.name:
+                        taken.update(alloc.get("devices") or [])
+                    continue
+                picked = plugin._pick_devices(
+                    claim, [d for d in devices if d["name"] not in taken],
+                    classes)
+                if picked is not None:
+                    taken.update(picked)
+            free = [d for d in devices if d["name"] not in taken]
+            per_node_free.append(free)
+            for d in free:
+                attr_keys.update((d.get("attributes") or {}).keys())
+        for a in attr_keys:
+            max_group[a] = np.zeros((N, C), dtype=np.int32)
+        for idx, free in enumerate(per_node_free):
+            if not free:
+                continue
+            for j, cname in enumerate(class_names):
+                cls = classes[cname]
+                matching = [d for d in free
+                            if plugin._class_matches(cls, d)]
+                free_total[idx, j] = len(matching)
+                for a in attr_keys:
+                    groups: dict = {}
+                    for d in matching:
+                        v = (d.get("attributes") or {}).get(a)
+                        groups[v] = groups.get(v, 0) + 1
+                    if groups:
+                        max_group[a][idx, j] = max(groups.values())
+        state = {"c_index": c_index, "free_total": free_total,
+                 "max_group": max_group, "_name_idx": ct.name_to_idx,
+                 # claim shapes -> row (False: not answerable here): a
+                 # template's pods compute each once.
+                 "by_shape": {}}
+        self._dra_cache = (key, state)
+        return state
+
+    @staticmethod
+    def _dra_filter_row(st: dict, plugin, pi: PodInfo,
+                        memo: dict, i: int) -> np.ndarray | None:
+        """(n_real,) bool row, or None when the pod's claims use a shape
+        the counts cannot answer (several matchAttribute constraints, a
+        constraint over several requests, an unknown claim): the caller
+        then takes the plugin's own host row. Memoized per chunk index
+        and per claim shape (the allocated node, or the requests and
+        constraints of each claim): pods of one template share a row."""
+        hit = memo.get(i)
+        if hit is not None:
+            return hit if hit is not False else None
+        claims = []
+        for ckey in pod_claim_keys(pi):
+            claim = plugin._claim_informer.indexer.get(ckey) \
+                if plugin._claim_informer is not None else None
+            if claim is None:
+                memo[i] = False
+                return None
+            claims.append(claim)
+        shape = tuple(
+            (claim_allocated_node(c), repr(claim_requests(c)),
+             tuple(claim_match_attrs(c))) for c in claims)
+        hit = st["by_shape"].get(shape)
+        if hit is None:
+            hit = st["by_shape"][shape] = TorchBackend._dra_claims_row(
+                st, claims)
+        memo[i] = hit
+        return hit if hit is not False else None
+
+    @staticmethod
+    def _dra_claims_row(st: dict, claims: list):
+        """The row of `_dra_filter_row` for resolved claims, or False."""
+        N = st["free_total"].shape[0]
+        row = np.ones((N,), dtype=np.bool_)
+        for claim in claims:
+            pinned = claim_allocated_node(claim)
+            if pinned is not None:
+                # PreFilter's pin: only the allocated node survives.
+                pin_row = np.zeros((N,), dtype=np.bool_)
+                j = st["_name_idx"].get(pinned)
+                if j is not None:
+                    pin_row[j] = True
+                row &= pin_row
+                continue
+            attrs = claim_match_attrs(claim)
+            if len(attrs) > 1 or (attrs and
+                                  len(claim_requests(claim)) > 1):
+                return False
+            for req in claim_requests(claim):
+                j = st["c_index"].get(req.get("deviceClassName", ""))
+                if j is None:
+                    row[:] = False
+                    continue
+                count = int(req.get("count", 1))
+                if attrs:
+                    mg = st["max_group"].get(attrs[0])
+                    avail = mg[:, j] if mg is not None else 0
+                else:
+                    avail = st["free_total"][:, j]
+                row &= avail >= count
+        return row
+
+    @staticmethod
+    def _dynamic_filter_row(plugin, pi: PodInfo, snapshot: Snapshot,
+                            ct: ClusterTensors,
+                            state: CycleState) -> np.ndarray | None:
+        """A stateful plugin's own host row (NodePorts, and
+        DynamicResources' claim shapes the counts cannot answer): None
+        when the plugin skips the pod at PreFilter."""
+        st = plugin.pre_filter(state, pi, snapshot)
+        if st.is_skip():
+            return None
+        if not st.is_success():
+            return np.zeros((ct.n_real,), dtype=np.bool_)
+        return np.fromiter(
+            (plugin.filter(state, pi, ni).is_success()
+             for ni in snapshot.nodes),
+            dtype=np.bool_, count=ct.n_real)
+
     # -- main entry ----------------------------------------------------------
 
     def assign(self, pods: Sequence[PodInfo], snapshot: Snapshot,
@@ -995,6 +1344,7 @@ class TorchBackend:
         # Shared verify state: later chunks are checked against earlier
         # chunks' accepted placements (working nodes + delta list).
         ctx.working = {}
+        ctx.wsnap = None
         ctx.delta = []
         ctx.delta_has_terms = False
         ctx.sel_cache = {}
@@ -1287,6 +1637,17 @@ class TorchBackend:
         host_filter_fail: dict[str, dict[int, np.ndarray]] = {}
         #: hard-spread pods: (chunk index, PodInfo, constraints).
         spread_pods: list[tuple[int, PodInfo, list[dict]]] = []
+        #: per-pod CycleState of the plugins' own host rows, and the
+        #: per-chunk memos of the NRT evaluation and the DRA rows.
+        dyn_states: dict[int, CycleState] = {}
+        nrt_memo: dict[int, tuple] = {}
+        dra_memo: dict[int, object] = {}
+        #: pods of NodeResourceTopologyMatch or DynamicResources: their
+        #: chunk takes the verify's full host re-check.
+        stateful_pods: set[int] = set()
+        #: DISTINCT pods that took a plugin's own per-pod host row,
+        #: counted once into backend_degradations{kind="host_fallback"}.
+        fallback_pods: set[int] = set()
 
         def _apply_interned(i: int, cid: int, nnz: int, col: int) -> None:
             if nnz == 0:
@@ -1328,7 +1689,8 @@ class TorchBackend:
                     if not all_true:
                         apply_row(plugin.NAME, i, row)
                 continue
-            # The constraint families (_check_supported admits no other).
+            # The stateful plugins (_check_supported admits no other),
+            # each behind its activity gate.
             gate = _FILTER_ACTIVE[plugin.NAME]
             for i, pi in enumerate(pods):
                 if i in unknown_res or not gate(plugin, pi, snapshot):
@@ -1341,11 +1703,50 @@ class TorchBackend:
                     if grp is None:
                         grp = ipa_groups[id(row_full)] = (row_full, [])
                     grp[1].append(i)
-                else:
+                elif plugin.NAME == "PodTopologySpread":
                     constraints = plugin._constraints_for(
                         pi, "DoNotSchedule")
                     if constraints:
                         spread_pods.append((i, pi, constraints))
+                elif plugin.NAME == "NodeResourceTopologyMatch":
+                    # Zone-alignment rows from the snapshot's zone
+                    # arrays; in-batch drift -> the full re-check.
+                    row = self._nrt_filter_row(
+                        self._nrt_state(plugin, snapshot, ct), pi,
+                        nrt_memo, i)
+                    apply_row(plugin.NAME, i, row)
+                    stateful_pods.add(i)
+                elif plugin.NAME == "DynamicResources":
+                    # Claim-fit rows from the snapshot's free-device
+                    # counts, or the plugin's own row for a claim shape
+                    # they cannot answer; in-batch consumption -> the full
+                    # re-check.
+                    row = self._dra_filter_row(
+                        self._dra_state(plugin, snapshot, ct), plugin, pi,
+                        dra_memo, i)
+                    if row is None:
+                        row = self._dynamic_filter_row(
+                            plugin, pi, snapshot, ct,
+                            dyn_states.setdefault(i, CycleState()))
+                        if row is not None:
+                            fallback_pods.add(i)
+                    if row is not None:
+                        apply_row(plugin.NAME, i, row)
+                    stateful_pods.add(i)
+                else:
+                    # NodePorts: the plugin's own row. Its conflicts are
+                    # per pod, so the verify's port check covers the
+                    # placements earlier in the same assign().
+                    row = self._dynamic_filter_row(
+                        plugin, pi, snapshot, ct,
+                        dyn_states.setdefault(i, CycleState()))
+                    if row is not None:
+                        apply_row(plugin.NAME, i, row)
+                        fallback_pods.add(i)
+
+        if fallback_pods and self.metrics is not None:
+            self.metrics.backend_degradations.inc(
+                len(fallback_pods), kind="host_fallback")
 
         for row_full, idxs in ipa_groups.values():
             row = row_full[: ct.n_real]
@@ -1410,6 +1811,8 @@ class TorchBackend:
         #: (feasibility class, pod signature): (feasible idx, weighted
         #: normalized values or None, member pods).
         norm_memo: dict[tuple, tuple] = {}
+        #: id(NRT score row) -> its interned weighted part (-1: all 0).
+        nrt_parts: dict[int, int] = {}
         _pck_memo: dict[int, tuple] = {}
 
         def pod_class_key(i: int) -> tuple:
@@ -1493,13 +1896,30 @@ class TorchBackend:
                         pod_parts.setdefault(i, []).append(
                             _intern_score(srow))
                     continue
-                # The constraint families (_check_supported admits no
-                # other): raw rows from the affinity compiler, normalized
-                # over the pod's feasible set as the plugin's
-                # NormalizeScore does, memoized per (feasibility class,
-                # pod signature).
+                # The stateful plugins (_check_supported admits no
+                # other), each behind its activity gate.
                 if not _SCORE_ACTIVE[name](plugin, pi, snapshot):
                     continue
+                if name == "NodeResourceTopologyMatch":
+                    # The zone score, host float64 cast into the plane;
+                    # not normalized (the plugin has no NormalizeScore).
+                    # Score rows are shared per request vector, so each
+                    # is weighted and interned once (id-keyed).
+                    srow = self._nrt_score_row(
+                        self._nrt_state(plugin, snapshot, ct), pi,
+                        nrt_memo, i)
+                    sid = nrt_parts.get(id(srow))
+                    if sid is None:
+                        sid = nrt_parts[id(srow)] = _intern_score(
+                            (w * srow).astype(np.float32)) \
+                            if srow.any() else -1
+                    if sid >= 0:
+                        pod_parts.setdefault(i, []).append(sid)
+                    continue
+                # The constraint families: raw rows from the affinity
+                # compiler, normalized over the pod's feasible set as the
+                # plugin's NormalizeScore does, memoized per (feasibility
+                # class, pod signature).
                 if name == "PodTopologySpread":
                     constraints = plugin._constraints_for(
                         pi, "ScheduleAnyway")
@@ -1719,7 +2139,7 @@ class TorchBackend:
             "dev_pack": self._put(pack_np),
             "cls_np": cls_np,
             "host_filter_fail": host_filter_fail,
-            "unknown_res": unknown_res,
+            "unknown_res": unknown_res, "stateful_pods": stateful_pods,
             "dev_perms": self._perms(pods, batch, P),
             "wave_w": wave_w,
             "shortlist_k": shortlist_k,
@@ -1950,7 +2370,7 @@ class TorchBackend:
             elif run["optimal_fallback"]:
                 m.solver_optimal_fallbacks.inc()
 
-        rejects = self._verify(pods, assign, ctx)
+        rejects = self._verify(pods, assign, ctx, run["stateful_pods"])
         self.counters["verify_rejects"] += len(rejects)
         # Fold verify rejections back into the device-chained used state so
         # later dispatches don't see the rejected pods' resources as
@@ -1996,42 +2416,94 @@ class TorchBackend:
 
     # -- verification --------------------------------------------------------
 
-    def _verify(self, pods, assign, ctx: "_AssignCtx"
-                ) -> list[tuple[int, int]]:
+    def _verify(self, pods, assign, ctx: "_AssignCtx",
+                stateful_pods: set) -> list[tuple[int, int]]:
         """Exact host re-check of every solver placement against a working
         copy of its node that accumulates this assign()'s earlier
-        placements: resources by integer arithmetic, and inter-pod
-        affinity (both ways) against the pods placed earlier in the same
-        assign() only — the batch-start rows cover the snapshot exactly.
-        Spread placements need no re-check: the scan counted them.
-        Returns [(chunk index, node index)] for rejected placements (the
-        caller folds them out of the device state)."""
-        snapshot, ct = ctx.snapshot, ctx.ct
+        placements: resources by integer arithmetic and host ports against
+        the working node's ports; then, in a chunk with stateful pods
+        (NodeResourceTopologyMatch, DynamicResources), every placement
+        through the framework's PreFilter and Filter against the working
+        snapshot `ctx.wsnap` (built once per assign(), patched as new
+        working clones appear); otherwise inter-pod affinity (both ways)
+        against the pods placed earlier in the same assign() only — the
+        batch-start rows cover the snapshot exactly. Spread placements
+        need no re-check: the scan counted them. Returns [(chunk index,
+        node index)] for rejected placements (the caller folds them out of
+        the device state)."""
+        snapshot, fwk, ct = ctx.snapshot, ctx.fwk, ctx.ct
         working = ctx.working
         delta = ctx.delta
         delta_has_terms = ctx.delta_has_terms
+
+        def node_for(idx: int):
+            name = ct.node_names[idx]
+            ni = working.get(name)
+            if ni is None:
+                ni = working[name] = snapshot.get(name).clone()
+                # Patch the shared working snapshot in place (clones
+                # mutate in place afterwards, so its entries stay
+                # current).
+                w = ctx.wsnap
+                if w is not None:
+                    old = w._by_name.get(name)
+                    w.nodes[idx] = ni
+                    w._by_name[name] = ni
+                    for lst in (w.have_pods_with_affinity,
+                                w.have_pods_with_required_anti_affinity):
+                        for k, entry in enumerate(lst):
+                            if entry is old:
+                                lst[k] = ni
+                                break
+            return ni
+
+        full_check_batch = bool(stateful_pods)
         contention = Status.unschedulable(
             "node(s) exhausted by earlier pods in the batch"
         ).with_plugin("NodeResourcesFit")
         affinity_conflict = Status.unschedulable(
             "node(s) conflicted with pod affinity/anti-affinity of pods "
             "placed earlier in the batch").with_plugin("InterPodAffinity")
+        port_conflict = Status.unschedulable(
+            "node(s) didn't have free ports for the requested pod ports"
+        ).with_plugin("NodePorts")
         rejects: list[tuple[int, int]] = []
         for i, pi in enumerate(pods):
             idx = int(assign[i])
             if idx < 0:
                 ctx.assignments[pi.key] = None
                 continue
-            name = ct.node_names[idx]
-            ni = working.get(name)
-            if ni is None:
-                ni = working[name] = snapshot.get(name).clone()
+            ni = node_for(idx)
             if insufficient_resources(pi, ni):
                 ctx.assignments[pi.key] = None
                 ctx.diagnostics[pi.key] = {ni.name: contention}
                 rejects.append((i, idx))
                 continue
-            if (delta_has_terms or pi.has_affinity_constraints) \
+            if pi.host_ports and any(
+                    (ip == "0.0.0.0" or uip == "0.0.0.0" or ip == uip)
+                    and proto == uproto and port == uport
+                    for (ip, proto, port) in pi.host_ports
+                    for (uip, uproto, uport) in ni.used_ports):
+                ctx.assignments[pi.key] = None
+                ctx.diagnostics[pi.key] = {ni.name: port_conflict}
+                rejects.append((i, idx))
+                continue
+            if full_check_batch:
+                wsnap = ctx.wsnap
+                if wsnap is None:
+                    wsnap = ctx.wsnap = Snapshot(
+                        [working.get(n.name, n) for n in snapshot.nodes],
+                        snapshot.generation)
+                state = CycleState()
+                st = fwk.run_pre_filter(state, pi, wsnap)
+                if st.is_success():
+                    st = fwk.run_filters(state, pi, ni)
+                if not st.is_success():
+                    ctx.assignments[pi.key] = None
+                    ctx.diagnostics[pi.key] = {ni.name: st}
+                    rejects.append((i, idx))
+                    continue
+            elif (delta_has_terms or pi.has_affinity_constraints) \
                     and not _delta_affinity_ok(pi, ni, delta, ct,
                                                self._affinity,
                                                ctx.delta_idx):
@@ -2041,6 +2513,15 @@ class TorchBackend:
                 continue
             ctx.assignments[pi.key] = ni.name
             ni.add_pod(pi)
+            # Keep the working snapshot's affinity indexes current
+            # (Snapshot() derives them; add_pod bypasses that).
+            if ctx.wsnap is not None:
+                if pi.has_affinity_constraints and \
+                        ni not in ctx.wsnap.have_pods_with_affinity:
+                    ctx.wsnap.have_pods_with_affinity.append(ni)
+                if pi.has_required_anti_affinity and ni not in \
+                        ctx.wsnap.have_pods_with_required_anti_affinity:
+                    ctx.wsnap.have_pods_with_required_anti_affinity.append(ni)
             delta.append((pi, ni.labels))
             ctx.delta_idx.add(pi, ni.labels)
             if pi.required_affinity_terms or pi.required_anti_affinity_terms:
@@ -2177,11 +2658,11 @@ class DiagMap(dict):
 class _AssignCtx:
     """Per-assign()-call state: the chunk list, framework params,
     accumulated results, the cross-chunk verify context (working nodes,
-    the delta of accepted placements and its affinity index) and the
-    union spread table."""
+    the working snapshot of the full re-check, the delta of accepted
+    placements and its affinity index) and the union spread table."""
 
     __slots__ = ("snapshot", "fwk", "ct", "chunks", "params",
-                 "assignments", "diagnostics", "working", "delta",
+                 "assignments", "diagnostics", "working", "wsnap", "delta",
                  "delta_has_terms", "sel_cache", "delta_idx", "spread",
                  "spread_last_gated", "chunk_seq", "class_pad")
 

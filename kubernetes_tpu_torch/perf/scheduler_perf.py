@@ -23,8 +23,12 @@ nothing contradicts Bind. Same workload shape:
 
 Copy of `kubernetes_tpu/perf/scheduler_perf.py`, cut to the in-process run
 (no apiserver, multi-process control plane, node agents or policy chain)
-and the opcodes createNodes, createPods (without resource claims), barrier
-and sleep. `WorkloadResult` keeps the fields this path fills, under the
+and the opcodes createNodes (with `topologyTemplate`, a
+NodeResourceTopology per node, and `draTemplate`, the DeviceClass once and
+a ResourceSlice per node), createPods (with `podTemplate.claim`, one
+ResourceClaim `{pod}-c0` per pod, created before its pod), barrier and
+sleep. A workload's `schedulerConfig` builds the scheduler's profiles
+through the port's `config.load_config`. `WorkloadResult` keeps the fields this path fills, under the
 reference's names. A barrier raises the scheduler loop's own exception as
 soon as `Scheduler.run` ends with one (the port has no backend fallback),
 where the reference's would wait out its deadline. SchedulingBasic's
@@ -32,10 +36,11 @@ workload is a constant here (`SCHEDULING_BASIC`, equal to the reference's
 YAML entry), so the harness needs no YAML parser unless `load_config` is
 given a path; so are the constraint families' SchedulingPodAntiAffinity,
 SchedulingPodAffinity and TopologySpreading (`SCHEDULING_POD_ANTI_AFFINITY`,
-`SCHEDULING_POD_AFFINITY`, `TOPOLOGY_SPREADING`), and so is Preemption
+`SCHEDULING_POD_AFFINITY`, `TOPOLOGY_SPREADING`), so is Preemption
 (`PREEMPTION`), whose preemptors wait on their own binds only: victims
 being deleted shrink the global bound count, so neither the warm-up nor
-the measured window can end on a global barrier.
+the measured window can end on a global barrier, and so are the
+device-topology families (`DEVICE_TOPOLOGY`, `DEVICE_TOPOLOGY_DRA`).
 
 Metrics over the measured phase: SchedulingThroughput (pods/s),
 scheduling_attempt_duration percentiles (exact order statistics of the
@@ -59,8 +64,16 @@ import time
 from typing import Any, Mapping
 
 from kubernetes_tpu_torch.api.meta import namespaced_name
-from kubernetes_tpu_torch.api.types import make_node, make_pod
+from kubernetes_tpu_torch.api.types import (
+    make_device_class,
+    make_node,
+    make_pod,
+    make_resource_claim,
+    make_resource_slice,
+    split_node_topology,
+)
 from kubernetes_tpu_torch.client import InformerFactory, ResourceEventHandler
+from kubernetes_tpu_torch.config import load_config as load_scheduler_config
 from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
 from kubernetes_tpu_torch.scheduler import Scheduler
 from kubernetes_tpu_torch.store import (
@@ -226,10 +239,71 @@ PREEMPTION = {
     ],
 }
 
+_TPU_POD = {"requests": {"cpu": "2", "memory": "1Gi", "google.com/tpu": "2"}}
+_DRA_POD = {
+    "requests": {"cpu": "2", "memory": "1Gi"},
+    "claim": {
+        "requests": [{"name": "tpus", "deviceClassName": "tpu", "count": 2}],
+        "constraints": [{"matchAttribute": "numa"}]},
+}
+
+
+def _device_family(name: str, nodes_op: dict, pod: dict,
+                   scheduler_config: dict | None = None) -> dict:
+    family = {"name": name} if scheduler_config is None else {
+        "name": name, "schedulerConfig": scheduler_config}
+    family["workloadTemplate"] = [
+        nodes_op,
+        {"opcode": "createPods", "countParam": "$warmupPods",
+         "podTemplate": pod},
+        {"opcode": "barrier"},
+        {"opcode": "createPods", "countParam": "$measurePods",
+         "collectMetrics": True, "podTemplate": pod},
+        {"opcode": "barrier"},
+    ]
+    family["workloads"] = [
+        {"name": "100Nodes",
+         "params": {"initNodes": 100, "warmupPods": 50, "measurePods": 300}},
+        {"name": "1000Nodes",
+         "params": {"initNodes": 1000, "warmupPods": 100,
+                    "measurePods": 3000}},
+    ]
+    return family
+
+
+#: DeviceTopology of the reference's performance-config.yaml: nodes with
+#: 8 google.com/tpu split over 2 NUMA zones (a NodeResourceTopology each),
+#: pods asking for 2 that must align in one zone; NodeResourceTopologyMatch
+#: enabled by the workload's own profile.
+DEVICE_TOPOLOGY = _device_family(
+    "DeviceTopology",
+    {"opcode": "createNodes", "countParam": "$initNodes",
+     "nodeTemplate": {"allocatable": {
+         "cpu": "16", "memory": "64Gi", "pods": "110",
+         "google.com/tpu": "8"}},
+     "topologyTemplate": {"zones": 2, "devices": {"google.com/tpu": 4}}},
+    _TPU_POD,
+    {"apiVersion": "kubescheduler.config.k8s.io/v1",
+     "kind": "KubeSchedulerConfiguration",
+     "profiles": [{"schedulerName": "default-scheduler", "plugins": {
+         "multiPoint": {"enabled": [
+             {"name": "NodeResourceTopologyMatch", "weight": 2}]}}}]})
+
+#: DeviceTopologyDRA of the reference's performance-config.yaml: the same
+#: workload as per-pod ResourceClaims for 2 devices of class "tpu" that
+#: match on "numa", against a ResourceSlice of 8 devices per node.
+DEVICE_TOPOLOGY_DRA = _device_family(
+    "DeviceTopologyDRA",
+    {"opcode": "createNodes", "countParam": "$initNodes",
+     "nodeTemplate": {"allocatable": {
+         "cpu": "16", "memory": "64Gi", "pods": "110"}},
+     "draTemplate": {"className": "tpu", "zones": 2, "devicesPerZone": 4}},
+    _DRA_POD)
+
 #: Per-family runner settings of the reference's suite that this harness
 #: does not have; a config naming one is refused, not run differently.
-_UNSUPPORTED_CASE_KEYS = ("schedulerConfig", "throughApiserver",
-                          "policyCount", "policyTenants", "auditLevel")
+_UNSUPPORTED_CASE_KEYS = ("throughApiserver", "policyCount",
+                          "policyTenants", "auditLevel")
 
 
 def _subst(value: Any, params: Mapping[str, Any]) -> Any:
@@ -366,10 +440,14 @@ class PerfRunner:
     store + scheduler, mirroring mustSetupCluster → runWorkload."""
 
     def __init__(self, backend=None, batch_size: int = 1,
-                 scheduler_kwargs: Mapping | None = None):
+                 scheduler_kwargs: Mapping | None = None,
+                 scheduler_config: Mapping | None = None):
         self.backend = backend
         self.batch_size = batch_size
         self.scheduler_kwargs = dict(scheduler_kwargs or {})
+        #: the workload's KubeSchedulerConfiguration (its
+        #: `schedulerConfig`), or None for the default profile.
+        self.scheduler_config = scheduler_config
 
     async def run(self, template_ops: list, params: Mapping[str, Any],
                   timeout: float = 600.0) -> WorkloadResult:
@@ -377,8 +455,14 @@ class PerfRunner:
         install_core_validation(backing)
         try:
             metrics = SchedulerMetrics()
+            profiles = None
+            if self.scheduler_config is not None:
+                cfg = load_scheduler_config(self.scheduler_config)
+                profiles = {p.scheduler_name: p.build_framework(
+                    store=backing, metrics=metrics) for p in cfg.profiles}
             sched = Scheduler(backing, seed=42, backend=self.backend,
-                              metrics=metrics, **self.scheduler_kwargs)
+                              metrics=metrics, profiles=profiles,
+                              **self.scheduler_kwargs)
             factory = InformerFactory(backing)
             await sched.setup_informers(factory)
         except BaseException:
@@ -412,6 +496,7 @@ class PerfRunner:
         node_count = 0
         pod_seq = 0
         created_total = 0
+        device_classes: set[str] = set()
         deadline = time.monotonic() + timeout
         try:
             for op in template_ops:
@@ -420,12 +505,46 @@ class PerfRunner:
                     count = _resolve_count(op, params)
                     tmpl = {**DEFAULT_NODE_TEMPLATE,
                             **(op.get("nodeTemplate") or {})}
+                    # NUMA topology: a NodeResourceTopology per node,
+                    # allocatable split across zones as a device-manager
+                    # agent reports it. DRA: the DeviceClass once, then a
+                    # ResourceSlice per node listing devices with their
+                    # NUMA attribute.
+                    topo = op.get("topologyTemplate")
+                    dra = op.get("draTemplate")
                     t0 = time.monotonic()
+                    if dra:
+                        cls = dra.get("className", "tpu")
+                        if cls not in device_classes:
+                            await store.create(
+                                "deviceclasses",
+                                make_device_class(cls, {"type": cls}))
+                            device_classes.add(cls)
 
                     async def stage_node(i):
+                        name = f"node-{node_count + i}"
                         await store.create("nodes", make_node(
-                            f"node-{node_count + i}",
-                            **copy.deepcopy(tmpl)))
+                            name, **copy.deepcopy(tmpl)))
+                        if topo:
+                            await store.create(
+                                "noderesourcetopologies",
+                                split_node_topology(
+                                    name, tmpl.get("allocatable") or {},
+                                    num_zones=int(topo.get("zones", 2)),
+                                    devices=topo.get("devices")))
+                        if dra:
+                            zones = int(dra.get("zones", 2))
+                            per = int(dra.get("devicesPerZone", 4))
+                            devices = [
+                                {"name": f"dev-{z}-{k}",
+                                 "attributes": {"type": cls,
+                                                "numa": str(z)}}
+                                for z in range(zones) for k in range(per)]
+                            await store.create(
+                                "resourceslices",
+                                make_resource_slice(
+                                    name, dra.get("driver", "dra.ktpu"),
+                                    devices))
 
                     for lo in range(0, count, 512):
                         await asyncio.gather(*(
@@ -438,17 +557,36 @@ class PerfRunner:
                     count = _resolve_count(op, params)
                     tmpl = {**DEFAULT_POD_TEMPLATE,
                             **(op.get("podTemplate") or {})}
-                    if "claim" in tmpl:
-                        raise NotImplementedError(
-                            "createPods with resource claims is not ported")
+                    # DRA pods: one ResourceClaim per pod (the
+                    # resourceclaim controller's output shape), created
+                    # before the pod that references it.
+                    claim_tmpl = tmpl.pop("claim", None)
                     measured = bool(op.get("collectMetrics"))
                     if measured:
                         window = self._begin_measure(metrics, store)
                     names = [f"pod-{pod_seq + i}" for i in range(count)]
+
+                    async def create_pod(name):
+                        if not claim_tmpl:
+                            await store.create("pods", make_pod(
+                                name, **copy.deepcopy(tmpl)))
+                            return
+                        await store.create(
+                            "resourceclaims", make_resource_claim(
+                                f"{name}-c0",
+                                requests=copy.deepcopy(
+                                    claim_tmpl.get("requests") or []),
+                                constraints=copy.deepcopy(
+                                    claim_tmpl.get("constraints") or [])))
+                        await store.create("pods", make_pod(
+                            name, resource_claims=[{
+                                "name": "c0",
+                                "resourceClaimName": f"{name}-c0"}],
+                            **copy.deepcopy(tmpl)))
+
                     for lo in range(0, count, 512):
                         await asyncio.gather(*(
-                            store.create("pods", make_pod(
-                                name, **copy.deepcopy(tmpl)))
+                            create_pod(name)
                             for name in names[lo:lo + 512]))
                     pod_seq += count
                     created_total += count
@@ -687,7 +825,8 @@ def run_suite(config: list[dict], backend_factory=None, batch_size: int = 1,
                 raise NotImplementedError(
                     f"{full}: {bad} are not ported (in-process runs only)")
             backend = backend_factory() if backend_factory else None
-            runner = PerfRunner(backend=backend, batch_size=batch_size)
+            runner = PerfRunner(backend=backend, batch_size=batch_size,
+                                scheduler_config=case.get("schedulerConfig"))
             res = asyncio.run(runner.run(
                 case["workloadTemplate"], wl.get("params") or {},
                 timeout=timeout))

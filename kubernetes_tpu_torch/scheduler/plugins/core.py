@@ -1,20 +1,21 @@
-"""Queue-order, gating and binding plugins.
+"""Queue-order, gating, image-locality and binding plugins.
 
 Parity targets: pkg/scheduler/framework/plugins/{queuesort/priority_sort.go,
-schedulinggates/scheduling_gates.go, defaultbinder/default_binder.go}. Copy
-of `kubernetes_tpu/scheduler/plugins/core.py` without ImageLocality, a
-Score plugin the batched backend does not model yet.
+schedulinggates/scheduling_gates.go, imagelocality/image_locality.go,
+defaultbinder/default_binder.go}. Copy of
+`kubernetes_tpu/scheduler/plugins/core.py`.
 """
 
 from __future__ import annotations
 
 from kubernetes_tpu_torch.api.types import make_binding
 from kubernetes_tpu_torch.scheduler.framework import (
+    MAX_NODE_SCORE,
     CycleState,
     Plugin,
     Status,
 )
-from kubernetes_tpu_torch.scheduler.types import PodInfo
+from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo
 
 
 class PrioritySort(Plugin):
@@ -47,6 +48,25 @@ class SchedulingGates(Plugin):
                 f"waiting for scheduling gates: {pod.scheduling_gates}",
                 resolvable=False)
         return Status.success()
+
+
+class ImageLocality(Plugin):
+    """Score: prefer nodes that already hold the pod's images
+    (image_locality.go `calculatePriority`; presence fraction, since image
+    sizes are not tracked)."""
+
+    NAME = "ImageLocality"
+    EXTENSION_POINTS = ("Score",)
+
+    def score(self, state: CycleState, pod: PodInfo, node: NodeInfo) -> float:
+        images = [
+            c.get("image", "") for c in pod.pod.get("spec", {}).get("containers", [])
+            if c.get("image")
+        ]
+        if not images or not node.image_names:
+            return 0.0
+        present = sum(1 for img in images if img in node.image_names)
+        return MAX_NODE_SCORE * present / len(images)
 
 
 class DefaultBinder(Plugin):

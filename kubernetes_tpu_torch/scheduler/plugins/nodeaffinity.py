@@ -1,10 +1,9 @@
 """Node-predicate plugins: NodeAffinity, NodeName, NodeUnschedulable,
-TaintToleration.
+TaintToleration, NodePorts.
 
 Parity targets: pkg/scheduler/framework/plugins/{nodeaffinity,nodename,
-nodeunschedulable,tainttoleration} — Filter semantics documented per class.
-Copy of `kubernetes_tpu/scheduler/plugins/nodeaffinity.py` without NodePorts,
-which the batch slice does not cover.
+nodeunschedulable,tainttoleration,nodeports} — Filter semantics documented
+per class. Copy of `kubernetes_tpu/scheduler/plugins/nodeaffinity.py`.
 """
 
 from __future__ import annotations
@@ -151,3 +150,28 @@ class TaintToleration(Plugin):
         mx = max(scores.values())
         for k, v in scores.items():
             scores[k] = MAX_NODE_SCORE * (mx - v) / mx if mx > 0 else float(MAX_NODE_SCORE)
+
+
+class NodePorts(Plugin):
+    """Filter: requested hostPorts must be free on the node
+    (nodeports/node_ports.go `Fits`: conflict on (ip, protocol, port) with
+    0.0.0.0 overlapping any ip)."""
+
+    NAME = "NodePorts"
+    EXTENSION_POINTS = ("PreFilter", "Filter")
+    EVENTS = ["Pod/Delete"]
+
+    def pre_filter(self, state: CycleState, pod: PodInfo, snapshot: Snapshot) -> Status:
+        if not pod.host_ports:
+            return Status.skip()
+        return Status.success()
+
+    def filter(self, state: CycleState, pod: PodInfo, node: NodeInfo) -> Status:
+        for (ip, proto, port) in pod.host_ports:
+            for (uip, uproto, uport) in node.used_ports:
+                if port != uport or proto != uproto:
+                    continue
+                if ip == "0.0.0.0" or uip == "0.0.0.0" or ip == uip:
+                    return Status.unschedulable(
+                        "node(s) didn't have free ports for the requested pod ports")
+        return Status.success()

@@ -1,11 +1,13 @@
 """Plugin registry (plugins/registry.go `NewInTreeRegistry`), cut to the
 plugins this package models: the Filter/Score plugins the batched backend
-computes (the six node plugins and the two constraint families,
-InterPodAffinity and PodTopologySpread), the queue-sort, gating and
-binding plugins the scheduler loop runs on the host, Coscheduling (gangs:
-registered, not default-enabled, as in the reference) and
-DefaultPreemption (the PostFilter, with its batched device victim
-proposal)."""
+computes (the node plugins with NodePorts and ImageLocality, the two
+constraint families, InterPodAffinity and PodTopologySpread, and the
+device-topology plugins, DynamicResources and NodeResourceTopologyMatch),
+the queue-sort, gating and binding plugins the scheduler loop runs on the
+host, Coscheduling and NodeResourceTopologyMatch (registered, not
+default-enabled, as in the reference) and DefaultPreemption (the
+PostFilter, with its batched device victim proposal). The four volume
+plugins are not here yet."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Callable, Mapping
 
 from kubernetes_tpu_torch.scheduler.plugins.core import (
     DefaultBinder,
+    ImageLocality,
     PrioritySort,
     SchedulingGates,
 )
@@ -20,12 +23,16 @@ from kubernetes_tpu_torch.scheduler.plugins.coscheduling import Coscheduling
 from kubernetes_tpu_torch.scheduler.plugins.defaultpreemption import (
     DefaultPreemption,
 )
+from kubernetes_tpu_torch.scheduler.plugins.dynamicresources import (
+    DynamicResources,
+)
 from kubernetes_tpu_torch.scheduler.plugins.interpodaffinity import (
     InterPodAffinity,
 )
 from kubernetes_tpu_torch.scheduler.plugins.nodeaffinity import (
     NodeAffinity,
     NodeName,
+    NodePorts,
     NodeUnschedulable,
     TaintToleration,
 )
@@ -33,14 +40,20 @@ from kubernetes_tpu_torch.scheduler.plugins.noderesources import (
     BalancedAllocation,
     NodeResourcesFit,
 )
+from kubernetes_tpu_torch.scheduler.plugins.noderesourcetopology import (
+    NodeResourceTopologyMatch,
+)
 from kubernetes_tpu_torch.scheduler.plugins.podtopologyspread import (
     PodTopologySpread,
 )
 
-#: name -> factory(args) (framework/runtime Registry). Coscheduling is
-#: registered but not default-enabled (out-of-tree in the reference).
+#: name -> factory(args) (framework/runtime Registry). Coscheduling and
+#: NodeResourceTopologyMatch are registered but not default-enabled
+#: (out-of-tree in the reference).
 IN_TREE: dict[str, Callable] = {
     "Coscheduling": Coscheduling,
+    "DynamicResources": DynamicResources,
+    "NodeResourceTopologyMatch": NodeResourceTopologyMatch,
     "PrioritySort": PrioritySort,
     "SchedulingGates": SchedulingGates,
     "NodeResourcesFit": NodeResourcesFit,
@@ -49,8 +62,10 @@ IN_TREE: dict[str, Callable] = {
     "NodeName": NodeName,
     "NodeUnschedulable": NodeUnschedulable,
     "TaintToleration": TaintToleration,
+    "NodePorts": NodePorts,
     "InterPodAffinity": InterPodAffinity,
     "PodTopologySpread": PodTopologySpread,
+    "ImageLocality": ImageLocality,
     "DefaultPreemption": DefaultPreemption,
     "DefaultBinder": DefaultBinder,
 }
@@ -64,10 +79,13 @@ DEFAULT_PLUGINS = [
     "NodeName",
     "TaintToleration",
     "NodeAffinity",
+    "NodePorts",
     "NodeResourcesFit",
     "NodeResourcesBalancedAllocation",
     "InterPodAffinity",
     "PodTopologySpread",
+    "ImageLocality",
+    "DynamicResources",
     "DefaultPreemption",
     "DefaultBinder",
 ]
@@ -80,6 +98,7 @@ DEFAULT_SCORE_WEIGHTS = {
     "InterPodAffinity": 2,
     "PodTopologySpread": 2,
     "TaintToleration": 3,
+    "ImageLocality": 1,
 }
 
 

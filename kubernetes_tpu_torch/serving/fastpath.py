@@ -20,26 +20,30 @@ its placement is representable in the resident planes —
   is just a one-column mask here — a lone pod's argmax over ≤1 column
   cannot be moved by score normalization, so the batch path's
   exception-column form is assignment-identical);
-- no live stateful plugin: InterPodAffinity and PodTopologySpread take the
-  pod only when their activity gates (the backend's `_FILTER_ACTIVE` /
+- no live stateful plugin: InterPodAffinity, PodTopologySpread,
+  NodePorts, NodeResourceTopologyMatch and DynamicResources take the pod
+  only when their activity gates (the backend's `_FILTER_ACTIVE` /
   `_SCORE_ACTIVE`, each the plugin's own Skip condition) say inactive, as
   in the reference — a plain pod against a term-free cluster stays
-  eligible, while a pod with affinity terms, or a labeled pod under the
-  default profile (whose default spread constraints score it), does not;
+  eligible, while a pod with affinity terms, a labeled pod under the
+  default profile (whose default spread constraints score it), a pod with
+  host ports or claims, or a pod with a zone-tracked request under
+  NodeResourceTopologyMatch does not;
 - none of the features this package does not model (`unsupported_feature`:
-  claims, volumes, host ports) — the reference's default profile makes
-  each such pod ineligible through its plugins' activity gates;
+  volumes) — the reference's default profile makes such a pod ineligible
+  through its plugins' activity gates;
 - not a gang member under Coscheduling: a pod with a PodGroup label is
   ineligible when the profile holds Coscheduling (its quota is the batch
   solve's all-or-nothing mask), as in the reference; without
   Coscheduling the label means nothing and the pod places like any
   other;
-- no nonzero host score rows (preferred node affinity) — score
-  normalization is feasible-set relative and belongs to the chunk prep.
+- no nonzero host score rows (preferred node affinity, ImageLocality on a
+  node holding one of the pod's images) — score normalization is
+  feasible-set relative and belongs to the chunk prep.
 
 Anything else falls through (None) to the normal path, which also owns
 diagnostics and preemption for no-fit pods. A framework holding a plugin
-at PreFilter, Filter, PreScore or Score that is not one of the eight the
+at PreFilter, Filter, PreScore or Score that is not one of the twelve the
 backend models (`MODELLED_PLUGINS`) raises NotImplementedError, as
 `TorchBackend.assign` does; plugins at none of those points (PrioritySort,
 SchedulingGates, DefaultBinder) pass. A host verify (exact

@@ -206,10 +206,13 @@ def test_fused_program_matches_reference(runs):
 
 
 def test_unsupported_pods_raise():
-    """Resource claims, volumes and host ports are not modelled and raise
-    before any placement; inter-pod affinity, topology spread and gang
-    labels are modelled now and place (a gang label without Coscheduling
-    in the profile means nothing, as in the reference)."""
+    """Volumes are not modelled and raise before any placement, naming
+    the ROADMAP item; resource claims and host ports are modelled now
+    (DynamicResources and NodePorts), as are inter-pod affinity, topology
+    spread and gang labels, and place or fail through their plugins (a
+    claim with no claims informer wired fails DynamicResources' PreFilter,
+    as in the reference; a gang label without Coscheduling in the profile
+    means nothing)."""
     nodes, residents, _ = cluster_objects()
     snap = _snapshot(ttypes, nodes, residents)
     fwk = tframework.Framework(tregistry.build_plugins(),
@@ -221,15 +224,15 @@ def test_unsupported_pods_raise():
     pvc = make_pod("pvc")
     pvc["spec"]["volumes"] = [{"name": "data", "persistentVolumeClaim": {
         "claimName": "data-0"}}]
-    cases = [
-        (claim, "resource claims"),
-        (pvc, "volumes"),
-        (make_pod("ports", host_ports=[8080]), "host ports"),
-    ]
-    for pod, match in cases:
-        with pytest.raises(NotImplementedError, match=match):
-            tb.assign([ttypes.PodInfo(pod)], snap, fwk)
+    with pytest.raises(NotImplementedError,
+                       match="volumes .*ROADMAP queue 1 item 7"):
+        tb.assign([ttypes.PodInfo(pvc)], snap, fwk)
     assert tb.counters["chunks"] == 0
+    got, diag = tb.assign([ttypes.PodInfo(claim), ttypes.PodInfo(
+        make_pod("ports", host_ports=[8080]))], snap, fwk)
+    assert got["default/claim"] is None
+    assert "DynamicResources" in diag["default/claim"].plugins
+    assert got["default/ports"] is not None
     spread = make_pod("spread", topology_spread_constraints=[{
         "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
         "whenUnsatisfiable": "DoNotSchedule"}])

@@ -26,7 +26,8 @@ nothing, and its `SinglePodFastPath` places lone pods where the card's
 heterogeneous workload exactly as on the CPU; gang chunks (Coscheduling in
 the profile) place on the card exactly as on the CPU, and one bucket of the
 preemption victim proposal (`propose_victims`) on the card, under sync
-debug "error", equals the CPU's.
+debug "error", equals the CPU's; and device-topology chunks (NUMA zones,
+resource claims, host ports) place on the card exactly as on the CPU.
 """
 
 import numpy as np
@@ -554,3 +555,27 @@ def test_propose_victims_on_card_matches_cpu(cuda, n):
     for c, w in zip(card, want):
         assert torch.equal(c.cpu(), w)
     assert int((want[0] >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "greedy"])
+@pytest.mark.parametrize("kind", ["nrt", "dra", "ports"])
+def test_device_chunk_on_card_matches_cpu(cuda, kind, mode):
+    """A device-topology chunk (`chip_smoke.device_case`: NUMA zones,
+    resource claims, host ports) through `TorchBackend()` on the card and
+    on the CPU: identical assignments, diagnostics, solver metrics,
+    host-fallback counts and backend counters, and wave_solve launched on
+    the card."""
+    from chip_smoke import (DEVICE_CHUNK, device_chunk, device_chunk_view,
+                            port_device_api)
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    api = port_device_api()
+    wave_kernel.wave_solve.launches = 0
+    on_card = TorchBackend(device=cuda, max_batch=DEVICE_CHUNK)
+    card = device_chunk_view(*device_chunk(api, on_card, kind, 8, mode))
+    assert wave_kernel.wave_solve.launches > 0
+    on_cpu = TorchBackend(device="cpu", max_batch=DEVICE_CHUNK)
+    cpu = device_chunk_view(*device_chunk(api, on_cpu, kind, 8, mode))
+    assert card == cpu
+    assert on_card.counters == on_cpu.counters

@@ -84,9 +84,10 @@ def test_default_profile_is_the_loop_profile():
 
     assert DEFAULT_PLUGINS == [
         "PrioritySort", "SchedulingGates", "NodeUnschedulable", "NodeName",
-        "TaintToleration", "NodeAffinity", "NodeResourcesFit",
+        "TaintToleration", "NodeAffinity", "NodePorts", "NodeResourcesFit",
         "NodeResourcesBalancedAllocation", "InterPodAffinity",
-        "PodTopologySpread", "DefaultPreemption", "DefaultBinder"]
+        "PodTopologySpread", "ImageLocality", "DynamicResources",
+        "DefaultPreemption", "DefaultBinder"]
     assert "Coscheduling" in tregistry.IN_TREE
     assert "Coscheduling" not in DEFAULT_PLUGINS
     assert DEFAULT_PLUGINS == [p for p in jregistry.DEFAULT_PLUGINS
