@@ -270,7 +270,39 @@ Phases (any failure raises and the script exits non-zero with no result):
      prints (the torch.profiler repeat at 100Nodes), with the optimal
      and greedy dispatches and verify rejects of the measured window,
      whose wave_solve launches must be above 0;
- 15. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 15. the chunk stream and the volume plugins, under a scoped
+     KTPU_SOLVE_MODE=auto with serving on, the card's name and power limit
+     printed first (every loop phase above already takes
+     `TorchBackend.assign_stream`, as the reference's loop does): (a)
+     SchedulingBasic/5000Nodes' first three measured 1024-pod chunks after
+     its 1000 init pods, flagless and greedy, a conflict storm (48 nodes
+     of 2 CPUs, 256 pods, greedy: replays) and a chunk with failures (200
+     nodes, 512 pods, one in eight fitting nowhere) through `assign` and
+     `assign_stream` on the card and `assign` on the CPU: identical
+     assignments, diagnostics, counters and solver metrics, the stream's
+     chunk order `assign`'s finalize order, each yielded chunk's keys
+     final; (b) SchedulingBasic/5000Nodes (not cut) through the loop in
+     turns, through the stream and through `AssignOnly` (`assign` alone):
+     stream, assign, assign, stream, the second pair under torch.profiler;
+     printed: pods/s, the `assign` share, the idle share and the binds
+     that began before their dispatch's last chunk fetch returned; then
+     the same 11000 pods pre-created (queued before the loop starts: one
+     dispatch of 11 chunks), stream, assign, assign, stream, the stream's
+     early binds required above 0 and `assign`'s 0; (c)
+     `volume_case`'s chunk (200 nodes in three zones, pre-bound zonal,
+     WaitForFirstConsumer and local claims, a shared ReadWriteOncePod
+     claim, nodes at their `attachable-volumes-csi` limit) through
+     `TorchBackend()` and `TorchBackend(device="cpu")`, flagless and
+     greedy: identical assignments, diagnostics, verify rejects and
+     host-fallback counts; (d) `volume_loop` at 5000 nodes in three zones
+     (500 + 1000 pods of one claim each, half bound in advance to zonal
+     PVs, half WaitForFirstConsumer claims the ported PV binder
+     provisions beside the loop): every pod bound, every claim bound to a
+     PV admitting its pod's node, no node over its volume limit, no
+     ReadWriteOncePod claim used twice; printed: pods/s, the `assign`
+     share, prep and verify, the PreBind waits, and the idle share of a
+     profiled repeat at 1000 nodes;
+ 16. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -286,15 +318,16 @@ Phases (any failure raises and the script exits non-zero with no result):
      `large_loop_launches`; and phase 14's: `device_chunk_launches` (14(a)'s
      card chunks), `device_topology_launches` and
      `device_topology_dra_launches` (the measured windows of 14(b) and
-     14(c));
+     14(c)); and phase 15's: `volume_chunk_launches` (15(c)'s card
+     chunks) and `volume_loop_launches` (15(d)'s measured window);
      the probe's, its
      launches over phase 9(b)'s run and over 10(b)'s), the card's name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
-`--phase13-only` (or `--phase14-only`) it builds the kernels and runs phase
-13 (or 14) alone (no result lines). It needs one CUDA device; without one, or outside a checkout of the
+`--phase13-only` (or `--phase14-only`, `--phase15-only`) it builds the
+kernels and runs phase 13 (or 14, 15) alone (no result lines). It needs one CUDA device; without one, or outside a checkout of the
 repository, it exits non-zero.
 """
 
@@ -1893,6 +1926,27 @@ async def start_scheduler(api, store, seed: int = 42, **kw):
     return sched, factory
 
 
+class AssignOnly:
+    """A batched backend seen through `assign` alone: the scheduler loop
+    takes the backend's chunk stream (`assign_stream`) or `assign_async`
+    when it has them, so this hides both (phase 15(b)'s comparison, and
+    the no-fallback tests). Every other attribute, read or written, is the
+    wrapped backend's."""
+
+    _HIDDEN = ("assign_stream", "assign_async")
+
+    def __init__(self, backend):
+        object.__setattr__(self, "_backend", backend)
+
+    def __getattr__(self, name):
+        if name in AssignOnly._HIDDEN:
+            raise AttributeError(name)
+        return getattr(self._backend, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._backend, name, value)
+
+
 class LoopRun:
     """One scheduler loop over a fresh store of `api`'s package."""
 
@@ -2122,6 +2176,61 @@ def host_breakdown(prof) -> tuple[dict, list, dict]:
         dict(sorted(cum.items(), key=lambda kv: -kv[1]))
 
 
+def count_backend_routes(sched, routes: dict) -> None:
+    """Count the loop's backend dispatches and their pods in `routes`,
+    whichever entry the loop takes (`assign_stream`, else `assign_async`,
+    else `assign`), and in `routes["early_binds"]` the binds of a dispatch's
+    pods that began before its last chunk's fetch returned (the stream's
+    overlap; 0 through `assign`)."""
+    backend = sched.backend
+    live: set = set()
+    binds = [0]
+    bind = sched._assume_and_bind
+
+    async def counted_bind(fwk, state, pi, node):
+        if pi.key in live:
+            binds[0] += 1
+        return await bind(fwk, state, pi, node)
+
+    def begin(pods):
+        routes["backend_dispatches"] += 1
+        routes["backend_pods"] += len(pods)
+        live.clear()
+        live.update(pi.key for pi in pods)
+        binds[0] = 0
+
+    sched._assume_and_bind = counted_bind
+    assign = backend.assign
+
+    def counted_assign(pods, snapshot, fwk):
+        begin(pods)
+        return assign(pods, snapshot, fwk)
+
+    backend.assign = counted_assign
+    if hasattr(backend, "assign_stream"):
+        stream = backend.assign_stream
+
+        async def counted_stream(pods, snapshot, fwk):
+            begin(pods)
+            before = 0
+            async for item in stream(pods, snapshot, fwk):
+                # Reached once this chunk's fetch returned: the binds so
+                # far began before it.
+                before = binds[0]
+                yield item
+            routes["early_binds"] += before
+
+        backend.assign_stream = counted_stream
+    elif hasattr(backend, "assign_async"):
+        run_async = backend.assign_async
+
+        async def counted_async(pods, snapshot, fwk):
+            begin(pods)
+            return await run_async(pods, snapshot, fwk)
+
+        backend.assign_async = counted_async
+
+
 def counting_runner_cls(torch):
     """PerfRunner that counts each route's pods over the measured window,
     sets the launch counters to 0 just before the measured createPods and
@@ -2137,31 +2246,28 @@ def counting_runner_cls(torch):
                              scheduler_config=scheduler_config)
             self.profile = profile
             self.routes = dict.fromkeys(
-                ("backend_dispatches", "backend_pods", "host_path_pods"), 0)
+                ("backend_dispatches", "backend_pods", "host_path_pods",
+                 "early_binds"), 0)
             self.window: dict = {}
 
         async def _drive(self, template_ops, params, timeout, store,
                          metrics, sched, factory):
             self.store = store
-            assign, host = sched.backend.assign, sched._schedule_host_path
-
-            def counted_assign(pods, snapshot, fwk):
-                self.routes["backend_dispatches"] += 1
-                self.routes["backend_pods"] += len(pods)
-                return assign(pods, snapshot, fwk)
+            count_backend_routes(sched, self.routes)
+            host = sched._schedule_host_path
 
             async def counted_host(pi, snapshot):
                 self.routes["host_path_pods"] += 1
                 return await host(pi, snapshot)
 
-            sched.backend.assign = counted_assign
             sched._schedule_host_path = counted_host
             return await super()._drive(template_ops, params, timeout,
                                         store, metrics, sched, factory)
 
         def _begin_measure(self, metrics, backing):
             torch.cuda.synchronize()
-            self.routes = dict.fromkeys(self.routes, 0)
+            # In place: count_backend_routes' wrappers hold this dict.
+            self.routes.update(dict.fromkeys(self.routes, 0))
             wave_kernel.wave_solve.launches = 0
             self.window = {"timings": dict(self.backend.timings),
                            "counters": dict(self.backend.counters)}
@@ -2197,11 +2303,13 @@ def counting_runner_cls(torch):
     return CountingRunner
 
 
-def perf_run(torch, family: dict, workload: str, profile: str | None):
+def perf_run(torch, family: dict, workload: str, profile: str | None,
+             wrap=None):
     """One run of `family`'s `workload` through the port's PerfRunner and
-    `Scheduler.run` with `TorchBackend()`: every created pod must be bound
-    and no node over capacity on an exact host re-check of the store.
-    Returns (runner, result, probe launches over the run, pod objects)."""
+    `Scheduler.run` with `TorchBackend()` (seen through `wrap`, e.g.
+    `AssignOnly`, when given): every created pod must be bound and no node
+    over capacity on an exact host re-check of the store. Returns (runner,
+    result, probe launches over the run, pod objects)."""
     from kubernetes_tpu_torch.ops import wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend
 
@@ -2211,7 +2319,8 @@ def perf_run(torch, family: dict, workload: str, profile: str | None):
     want = sum(params[op["countParam"][1:]] for op in template
                if op["opcode"] == "createPods")
     wave_kernel.probe.launches = 0
-    runner = counting_runner_cls(torch)(TorchBackend(), profile,
+    backend = TorchBackend() if wrap is None else wrap(TorchBackend())
+    runner = counting_runner_cls(torch)(backend, profile,
                                         family.get("schedulerConfig"))
     result = asyncio.run(runner.run(template, params, timeout=900.0))
     pods = asyncio.run(runner.store.list("pods")).items
@@ -2249,7 +2358,9 @@ def report_perf(torch, label: str, family: dict, workload: str, first,
     print(f"{label} routes over the measured window: fast-path pods "
           f"{r['serving_fast_path_pods_total']}, backend dispatches "
           f"{routes['backend_dispatches']} with {routes['backend_pods']} "
-          f"pods, host-path pods {routes['host_path_pods']}, unschedulable "
+          f"pods (binds begun before their dispatch's last chunk fetch "
+          f"returned {routes['early_binds']}), host-path pods "
+          f"{routes['host_path_pods']}, unschedulable "
           f"attempts (requeued) {r['unschedulable_total']}; "
           f"TorchBackend.counters {json.dumps(w['counters'])}, wave_solve "
           f"launches {w['launches']}; probe launches over the run "
@@ -2963,18 +3074,25 @@ GANG_METRICS = ("solver_optimal_solves", "solver_optimal_fallbacks",
                 "solver_wave_commits", "solver_wave_replays")
 
 
+def diagnostics_view(diagnostics) -> dict:
+    """Each diagnostic's reasons, plugins and resolvability (a FitError's
+    statuses), or its per-node statuses."""
+    out = {}
+    for key, d in diagnostics.items():
+        if hasattr(d, "reason_counts"):
+            out[key] = (sorted(d.reason_counts.items()), sorted(d.plugins),
+                        d.resolvable)
+        else:
+            out[key] = sorted((n, st.code, list(st.reasons), st.plugin)
+                              for n, st in d.items())
+    return out
+
+
 def gang_chunk_view(ctx, metrics) -> dict:
     """What phase 12(a) and the tests compare: assignments, each
     diagnostic's reasons, plugins and resolvability, the solver metrics,
     the gang-overflow degradations and the chained spread counts."""
-    diags = {}
-    for key, d in ctx.diagnostics.items():
-        if hasattr(d, "reason_counts"):
-            diags[key] = (sorted(d.reason_counts.items()), sorted(d.plugins),
-                          d.resolvable)
-        else:
-            diags[key] = sorted((n, st.code, list(st.reasons), st.plugin)
-                                for n, st in d.items())
+    diags = diagnostics_view(ctx.diagnostics)
     counts = None
     if ctx.spread and ctx.spread.get("cons"):
         counts = [int(c) for c in np.asarray(
@@ -4735,6 +4853,817 @@ def device_topology_phases(torch, seed: int) -> int:
     return 0
 
 
+# -- phase 15: the chunk stream and the volume plugins -----------------------
+
+def drain_stream(backend, pods, snapshot, fwk) -> tuple[list, object]:
+    """Drain `backend.assign_stream` in a fresh event loop: per yield, the
+    chunk's pod keys and the accumulated assignments and diagnostics
+    (`diagnostics_view`) at that yield; and the last context (None for no
+    pods)."""
+    async def drain():
+        seen, last = [], None
+        async for chunk_pods, ctx in backend.assign_stream(pods, snapshot,
+                                                           fwk):
+            seen.append(([pi.key for pi in chunk_pods],
+                         dict(ctx.assignments),
+                         diagnostics_view(ctx.diagnostics)))
+            last = ctx
+        return seen, last
+    return asyncio.run(drain())
+
+
+def finalize_order(backend, pods, snapshot, fwk) -> tuple[list, dict, dict]:
+    """`backend.assign` with each chunk's pod keys recorded in finalize
+    order: (the order, assignments, diagnostics)."""
+    order = []
+    fin = backend._finalize_chunk
+
+    def recorded(run, assign_np, ctx):
+        order.append([pi.key for pi in run["pods"]])
+        return fin(run, assign_np, ctx)
+
+    backend._finalize_chunk = recorded
+    try:
+        assignments, diagnostics = backend.assign(pods, snapshot, fwk)
+    finally:
+        del backend._finalize_chunk
+    return order, assignments, diagnostics
+
+
+def stream_case(kind: str) -> tuple[list, list, int]:
+    """Phase 15(a)'s small chunks, as (node dicts, pod dicts, max_batch):
+    "storm", 48 nodes of 2 CPUs under 256 pods of 300m-900m (waves that
+    conflict, and more CPU asked than the nodes hold); "failures", 200
+    nodes and 512 pods of which one in eight asks 64 CPUs or a zone no
+    node has."""
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+
+    if kind == "storm":
+        nodes = [make_node(f"storm-{i}", allocatable={
+            "cpu": "2", "memory": "8Gi", "pods": "16"}) for i in range(48)]
+        pods = [make_pod(f"storm-{j}", requests={
+            "cpu": f"{300 + 100 * (j % 7)}m", "memory": "256Mi"})
+            for j in range(256)]
+        return nodes, pods, 128
+    nodes = [make_node(f"fail-{i}", labels={ZONE_KEY: ZONES[i % 3]})
+             for i in range(200)]
+    pods = []
+    for j in range(512):
+        kw = {"requests": dict(POD_REQUESTS)}
+        if j % 16 == 3:
+            kw["requests"] = {"cpu": "64", "memory": "250Mi"}
+        elif j % 16 == 11:
+            kw["node_selector"] = {ZONE_KEY: "zone-x"}
+        pods.append(make_pod(f"fail-{j}", **kw))
+    return nodes, pods, 128
+
+
+def compare_stream(torch, label: str, make_snapshot, pods, fwk,
+                   max_batch: int, mode: str, need: str) -> dict:
+    """One 15(a) case under KTPU_SOLVE_MODE `mode`: `assign` on the card
+    (finalize order recorded), `assign_stream` on the card and `assign` on
+    the CPU, each on a fresh backend and snapshot. Assignments,
+    diagnostics, counters and solver metrics must be identical, the
+    stream's chunk order the finalize order, each yielded chunk's keys
+    final, and `need` ("replays", "failures" or "") must show. Returns
+    the card's counters."""
+    from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.utils import flags
+
+    def fresh(device):
+        b = TorchBackend(device=device, max_batch=max_batch)
+        b.metrics = SchedulerMetrics()
+        return b
+
+    def metrics_view(b):
+        return {m: getattr(b.metrics, m).value() for m in GANG_METRICS}
+
+    with flags.scoped_set("KTPU_SOLVE_MODE", mode):
+        a = fresh(None)
+        order, assign_a, diag_a = finalize_order(a, pods, make_snapshot(),
+                                                 fwk)
+        s = fresh(None)
+        seen, ctx = drain_stream(s, pods, make_snapshot(), fwk)
+        c = fresh("cpu")
+        assign_c, diag_c = c.assign(pods, make_snapshot(), fwk)
+    diag_a = diagnostics_view(diag_a)
+    checks = {
+        "stream assignments": dict(ctx.assignments) == assign_a,
+        "stream diagnostics": diagnostics_view(ctx.diagnostics) == diag_a,
+        "stream counters": s.counters == a.counters
+        and metrics_view(s) == metrics_view(a),
+        "chunk order": [keys for keys, _, _ in seen] == order,
+        "chunk keys final": all(
+            acc.get(k) == assign_a[k] for keys, acc, _ in seen
+            for k in keys),
+        "card vs CPU": assign_c == assign_a
+        and diagnostics_view(diag_c) == diag_a and c.counters == a.counters
+        and metrics_view(c) == metrics_view(a),
+    }
+    failed = sum(v is None for v in assign_a.values())
+    shown = {"replays": a.counters["wave_replays"] > 0,
+             "failures": failed > 0, "": True}[need]
+    print(f"compare chunk stream {label} (KTPU_SOLVE_MODE={mode}, "
+          f"{len(pods)} pods in {len(order)} chunks of {max_batch}): "
+          + ", ".join(f"{k} {'identical' if v else 'DIFFER'}"
+                      for k, v in checks.items())
+          + f"; unplaced {failed}, counters {json.dumps(a.counters)}")
+    if not all(checks.values()) or not shown:
+        raise RuntimeError(f"15(a) {label} ({mode}): {checks}, {need} "
+                           f"shown {shown}")
+    return a.counters
+
+
+def stream_chunks_phase(torch) -> None:
+    """Phase 15(a): SchedulingBasic/5000Nodes' first three measured
+    1024-pod chunks after its 1000 init pods, flagless and greedy, the
+    storm chunk and the failures chunk, through `assign` and
+    `assign_stream` on the card and `assign` on the CPU
+    (`compare_stream`)."""
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+    from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo
+    from kubernetes_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    fwk = Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS)
+    init = [PodInfo(make_pod(f"init-{i}", requests=POD_REQUESTS))
+            for i in range(N_INIT)]
+    with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
+        placed, _ = TorchBackend().assign(init, stamped_snapshot(
+            [NodeInfo(make_node(f"node-{i}")) for i in range(N_NODES)], 1),
+            fwk)
+    gen = [1]
+
+    def basic_snapshot():
+        nodes = [NodeInfo(make_node(f"node-{i}")) for i in range(N_NODES)]
+        by_name = {ni.name: ni for ni in nodes}
+        for pi in init:
+            by_name[placed[pi.key]].add_pod(pi)
+        gen[0] += 1
+        return stamped_snapshot(nodes, gen[0])
+
+    measured = [PodInfo(make_pod(f"pod-{i}", requests=POD_REQUESTS))
+                for i in range(3 * 1024)]
+    for mode in ("auto", "greedy"):
+        compare_stream(torch, "SchedulingBasic/5000Nodes first three "
+                       "measured chunks", basic_snapshot, measured, fwk,
+                       1024, mode, "")
+    for kind, need, modes in (("storm", "replays", ("greedy",)),
+                              ("failures", "failures", ("auto", "greedy"))):
+        nodes, pods, batch = stream_case(kind)
+
+        def snapshot(nodes=nodes):
+            gen[0] += 1
+            return stamped_snapshot([NodeInfo(copy.deepcopy(n))
+                                     for n in nodes], gen[0])
+
+        for mode in modes:
+            compare_stream(torch, kind, snapshot,
+                           [PodInfo(copy.deepcopy(p)) for p in pods], fwk,
+                           batch, mode, need)
+    print(f"phase 15(a) {time.perf_counter() - t0:.1f} s")
+
+
+def stream_loop_phase(torch) -> None:
+    """Phase 15(b): SchedulingBasic/5000Nodes through the loop, in turns
+    in one process: through the chunk stream and through `AssignOnly` (the
+    backend's `assign` alone), stream, assign, assign, stream, the second
+    pair under torch.profiler for the idle share. Prints each run's
+    throughput, `assign` share, idle share and the binds that began before
+    their dispatch's last chunk fetch returned."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_BASIC
+
+    t0 = time.perf_counter()
+    for entry, profile in (("stream", None), ("assign", None),
+                           ("assign", "device"), ("stream", "device")):
+        wrap = AssignOnly if entry == "assign" else None
+        runner, result, _, _ = perf_run(torch, SCHEDULING_BASIC, "5000Nodes",
+                                        profile, wrap=wrap)
+        w = runner.window
+        idle = None
+        if profile == "device":
+            busy = sum(device_us(e) for e in runner.prof.key_averages())
+            idle = 1 - busy / 1e6 / w["wall"] if busy else None
+        routes = w["routes"]
+        if entry == "assign" and routes["early_binds"]:
+            raise RuntimeError(f"15(b): {routes['early_binds']} early binds "
+                               "through assign alone")
+        print(f"chunk stream 15(b) SchedulingBasic/5000Nodes through "
+              f"{'the stream' if entry == 'stream' else 'assign alone'}"
+              f"{' (profiled)' if profile else ''}: SchedulingThroughput "
+              f"{result.throughput:.2f} pods/s, window wall "
+              f"{w['wall']:.6f} s, assign share "
+              f"{w['timings']['assign_s'] / w['wall']:.4f} "
+              f"(TorchBackend.timings {json.dumps(w['timings'])}), idle share "
+              f"{'not measured' if idle is None else f'{idle:.4f}'}; backend "
+              f"dispatches {routes['backend_dispatches']} with "
+              f"{routes['backend_pods']} pods, chunks "
+              f"{w['counters']['chunks']}, binds begun before their "
+              f"dispatch's last chunk fetch returned {routes['early_binds']}")
+    print(f"phase 15(b) {time.perf_counter() - t0:.1f} s")
+
+
+async def precreated_loop(api, backend, n_nodes: int, n_pods: int,
+                          routes: dict) -> dict:
+    """`n_pods` of SchedulingBasic's pod template queued on `n_nodes`
+    nodes before `Scheduler.run` opens the loop (one pop, one dispatch of
+    many chunks), `routes` counting the backend's dispatches
+    (`count_backend_routes`). Returns the wall from the loop's start to
+    the last bind an informer sees, and the backend's `timings` over it."""
+    lr = LoopRun(api, backend, LOOP_BATCH)
+    await lr.start([(f"node-{i}", {}) for i in range(n_nodes)])
+    try:
+        count_backend_routes(lr.sched, routes)
+        bound: set = set()
+
+        def track(obj):
+            if (obj.get("spec") or {}).get("nodeName"):
+                bound.add(obj["metadata"]["name"])
+
+        lr.factory.informer("pods").add_event_handler(
+            api.ResourceEventHandler(
+                on_add=track, on_update=lambda old, new: track(new)))
+        pods = [api.make_pod(f"pod-{i}", requests=dict(POD_REQUESTS))
+                for i in range(n_pods)]
+        for lo in range(0, n_pods, 512):
+            await asyncio.gather(*(lr.store.create("pods", p)
+                                   for p in pods[lo:lo + 512]))
+        await lr.wait(lambda: lr.queued() == n_pods, "pods queued")
+        before = dict(backend.timings)
+        t0 = time.perf_counter()
+        lr.open()
+        await lr.wait(lambda: len(bound) == n_pods, "pods bound")
+        wall = time.perf_counter() - t0
+        return {"wall": wall, "timings": {
+            k: v - before[k] for k, v in backend.timings.items()}}
+    finally:
+        await lr.close()
+
+
+def precreated_stream_phase(torch) -> None:
+    """Phase 15(b), pre-created: SchedulingBasic/5000Nodes' 11000 pods
+    queued before the loop starts, so one dispatch streams 11 chunks,
+    through the stream and through `AssignOnly`, in turns (stream,
+    assign, assign, stream). Prints each run's wall, pods/s, `assign`
+    share and the binds begun before the dispatch's last chunk fetch
+    returned, which must be above 0 through the stream."""
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    api = port_loop_api()
+    n_pods = N_INIT + N_MEASURED
+    for entry in ("stream", "assign", "assign", "stream"):
+        backend = TorchBackend()
+        routes = dict.fromkeys(("backend_dispatches", "backend_pods",
+                                "early_binds"), 0)
+        out = asyncio.run(precreated_loop(
+            api, backend if entry == "stream" else AssignOnly(backend),
+            N_NODES, n_pods, routes))
+        tm = out["timings"]
+        print(f"chunk stream 15(b) pre-created, {n_pods} pods on {N_NODES} "
+              f"nodes through "
+              f"{'the stream' if entry == 'stream' else 'assign alone'}: "
+              f"{n_pods / out['wall']:.2f} pods/s, wall {out['wall']:.6f} s, "
+              f"assign share {tm['assign_s'] / out['wall']:.4f} "
+              f"(TorchBackend.timings "
+              f"{json.dumps({k: round(v, 6) for k, v in tm.items()})}); "
+              f"backend dispatches {routes['backend_dispatches']} with "
+              f"{routes['backend_pods']} pods, binds begun before their "
+              f"dispatch's last chunk fetch returned {routes['early_binds']}")
+        if (entry == "stream") != (routes["early_binds"] > 0):
+            raise RuntimeError(f"15(b) pre-created through {entry}: "
+                               f"{routes['early_binds']} early binds")
+
+
+# -- the volume fixtures (15(c), 15(d), tests/test_torch_volumes.py) ---------
+
+#: StorageClasses of the volume fixtures: a pre-provisioned class (no
+#: dynamic provisioning, Immediate binding), a local class (no
+#: provisioning, WaitForFirstConsumer) and a provisioning
+#: WaitForFirstConsumer class.
+STATIC_CLASS, LOCAL_CLASS, WFFC_CLASS = "zonal-static", "local", "wffc"
+NO_PROVISIONER = "kubernetes.io/no-provisioner"
+VOLUME_PLUGINS = ("VolumeBinding", "VolumeRestrictions", "VolumeZone",
+                  "NodeVolumeLimits")
+N_VOLUME_NODES, VOLUME_CHUNK = 200, 128
+
+
+def volume_classes(make_storage_class) -> list:
+    return [make_storage_class(STATIC_CLASS, provisioner=NO_PROVISIONER),
+            make_storage_class(LOCAL_CLASS, provisioner=NO_PROVISIONER,
+                               binding_mode="WaitForFirstConsumer"),
+            make_storage_class(WFFC_CLASS,
+                               binding_mode="WaitForFirstConsumer")]
+
+
+def zonal_pv(make_pv, name: str, zone: str, claim: str | None,
+             modes=("ReadWriteOnce",)) -> dict:
+    """A 10Gi PV of the static class pinned to `zone` by its label and its
+    node affinity; bound to `claim` (a default-namespace PVC) when given,
+    else Available."""
+    pv = make_pv(name, "10Gi", storage_class=STATIC_CLASS,
+                 access_modes=list(modes), labels={ZONE_KEY: zone},
+                 node_affinity={"nodeSelectorTerms": [{"matchExpressions": [
+                     {"key": ZONE_KEY, "operator": "In", "values": [zone]}]}]})
+    if claim is not None:
+        pv["spec"]["claimRef"] = {"kind": "PersistentVolumeClaim",
+                                  "namespace": "default", "name": claim}
+        pv["status"]["phase"] = "Bound"
+    return pv
+
+
+def bound_pvc(make_pvc, name: str, volume: str,
+              modes=("ReadWriteOnce",)) -> dict:
+    """A 5Gi claim of the static class, bound to `volume` in advance."""
+    pvc = make_pvc(name, request="5Gi", storage_class=STATIC_CLASS,
+                   access_modes=list(modes))
+    pvc["spec"]["volumeName"] = volume
+    pvc["status"]["phase"] = "Bound"
+    return pvc
+
+
+def with_claim(pod: dict, claim: str) -> dict:
+    pod["spec"]["volumes"] = [{"name": "data",
+                               "persistentVolumeClaim": {"claimName": claim}}]
+    return pod
+
+
+def volume_case(seed: int, n_nodes: int = N_VOLUME_NODES) -> dict:
+    """Phase 15(c)'s chunk, seeded with numpy, in `device_case`'s form:
+    `n_nodes` nodes in three zones, every tenth with an
+    `attachable-volumes-csi` limit of 1 (every twentieth at it already
+    through a resident's ReadWriteOnce claim); pods whose claims are
+    pre-bound to zonal PVs, WaitForFirstConsumer claims of the provisioning
+    class and of the local class (six local PVs, each pinned to one node),
+    pods joining a resident's ReadWriteOnce claim, two pods sharing one
+    ReadWriteOncePod claim, an unbound Immediate claim, a missing claim,
+    and plain pods."""
+    from kubernetes_tpu_torch.api.types import (make_node, make_pod, make_pv,
+                                                make_pvc, make_storage_class)
+
+    rng = np.random.default_rng(seed)
+    nodes, residents, pvs, pvcs = [], [], [], []
+    for i in range(n_nodes):
+        alloc = {"cpu": "8", "memory": "32Gi", "pods": "110"}
+        if i % 10 == 0:
+            alloc["attachable-volumes-csi"] = "1"
+        nodes.append(make_node(f"vn-{i}", labels={ZONE_KEY: ZONES[i % 3]},
+                               allocatable=alloc))
+        if i % 20 == 0:
+            claim = f"res-claim-{i}"
+            pvs.append(zonal_pv(make_pv, f"pv-{claim}", ZONES[i % 3], claim))
+            pvcs.append(bound_pvc(make_pvc, claim, f"pv-{claim}"))
+            residents.append(with_claim(make_pod(
+                f"res-{i}", node_name=f"vn-{i}",
+                requests={"cpu": "500m", "memory": "1Gi"}), claim))
+    for k in range(6):
+        node = f"vn-{int(rng.integers(0, n_nodes))}"
+        pvs.append(make_pv(f"pv-local-{k}", "20Gi", storage_class=LOCAL_CLASS,
+                           node_affinity={"nodeSelectorTerms": [{
+                               "matchFields": [{"key": "metadata.name",
+                                                "operator": "In",
+                                                "values": [node]}]}]}))
+    pvs.append(zonal_pv(make_pv, "pv-rwop", ZONES[1], "rwop-shared",
+                        ("ReadWriteOncePod",)))
+    pvcs.append(bound_pvc(make_pvc, "rwop-shared", "pv-rwop",
+                          ("ReadWriteOncePod",)))
+    pvcs.append(make_pvc("immediate-0", request="5Gi",
+                         storage_class=STATIC_CLASS))
+    kinds = rng.choice(["zonal", "wffc", "local", "rwo-join", "plain"],
+                       size=VOLUME_CHUNK - 4,
+                       p=[0.35, 0.25, 0.1, 0.05, 0.25])
+
+    def pod(name):
+        return make_pod(name, requests={
+            "cpu": f"{250 + 250 * int(rng.integers(0, 4))}m",
+            "memory": "1Gi"})
+
+    pods = []
+    for j, kind in enumerate(kinds):
+        name, claim = f"vp-{j}-{kind}", f"claim-{j}"
+        if kind == "zonal":
+            zone = ZONES[int(rng.integers(0, 3))]
+            pvs.append(zonal_pv(make_pv, f"pv-{claim}", zone, claim))
+            pvcs.append(bound_pvc(make_pvc, claim, f"pv-{claim}"))
+        elif kind in ("wffc", "local"):
+            pvcs.append(make_pvc(claim, request="5Gi", storage_class=(
+                WFFC_CLASS if kind == "wffc" else LOCAL_CLASS)))
+        elif kind == "rwo-join":
+            claim = f"res-claim-{20 * int(rng.integers(0, n_nodes // 20))}"
+        else:
+            pods.append(pod(name))
+            continue
+        pods.append(with_claim(pod(name), claim))
+    pods.append(with_claim(pod("vp-rwop-a"), "rwop-shared"))
+    pods.append(with_claim(pod("vp-rwop-b"), "rwop-shared"))
+    pods.append(with_claim(pod("vp-immediate"), "immediate-0"))
+    pods.append(with_claim(pod("vp-missing"), "no-such-claim"))
+    return {"nodes": nodes, "residents": residents, "pods": pods,
+            "objects": {"persistentvolumes": pvs,
+                        "persistentvolumeclaims": pvcs,
+                        "storageclasses": volume_classes(
+                            make_storage_class)}}
+
+
+def volume_chunk(api, backend, seed: int, mode: str):
+    """Phase 15(c)'s chunk through `backend` (its metrics attached) under
+    KTPU_SOLVE_MODE `mode`, with the default profile of `api`'s package
+    (`device_chunk`'s `api`, plus its plugin `registry` and `framework`
+    modules) and the volume plugins' informers a `StaticInformers` over
+    the case's objects. Returns (context, metrics)."""
+    from kubernetes_tpu_torch.utils import flags
+
+    case = volume_case(seed)
+    reg = api.registry
+    fwk = api.framework.Framework(reg.build_plugins(),
+                                  reg.DEFAULT_SCORE_WEIGHTS)
+    informers = StaticInformers(copy.deepcopy(case["objects"]))
+    for p in fwk.plugins:
+        if p.NAME in VOLUME_PLUGINS and hasattr(p, "set_informers"):
+            p.set_informers(informers)
+    infos = {n["metadata"]["name"]: api.types.NodeInfo(copy.deepcopy(n))
+             for n in case["nodes"]}
+    for p in case["residents"]:
+        infos[p["spec"]["nodeName"]].add_pod(
+            api.types.PodInfo(copy.deepcopy(p)))
+    snap = api.types.Snapshot(list(infos.values()), 1)
+    pods = [api.types.PodInfo(copy.deepcopy(p)) for p in case["pods"]]
+    backend.metrics = api.SchedulerMetrics()
+    with flags.scoped_set("KTPU_SOLVE_MODE", mode):
+        ctx = api.run_chunks(backend, pods, snap, fwk)
+    return ctx, backend.metrics
+
+
+def port_volume_api():
+    """`volume_chunk`'s `api` for this package."""
+    from kubernetes_tpu_torch.scheduler import framework
+    from kubernetes_tpu_torch.scheduler.plugins import registry
+
+    api = port_device_api()
+    api.registry, api.framework = registry, framework
+    return api
+
+
+def volume_chunk_view(ctx, metrics, counters: dict) -> dict:
+    """What 15(c) and the tests compare: `device_chunk_view` and the verify
+    rejects."""
+    view = device_chunk_view(ctx, metrics)
+    view["verify_rejects"] = counters["verify_rejects"]
+    return view
+
+
+def volume_chunks_phase(torch, seed: int) -> int:
+    """Phase 15(c): `volume_case`'s chunk through `TorchBackend()` on the
+    card and `TorchBackend(device="cpu")`, flagless and with greedy
+    pinned: identical assignments, diagnostics, solver metrics,
+    host-fallback counts, verify rejects and counters. Returns
+    wave_solve's launches."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    api = port_volume_api()
+    launches = 0
+    for mode in ("auto", "greedy"):
+        wave_kernel.wave_solve.launches = 0
+        on_card = TorchBackend(max_batch=VOLUME_CHUNK)
+        card = volume_chunk_view(*volume_chunk(api, on_card, seed, mode),
+                                 on_card.counters)
+        launches += wave_kernel.wave_solve.launches
+        on_cpu = TorchBackend(device="cpu", max_batch=VOLUME_CHUNK)
+        cpu = volume_chunk_view(*volume_chunk(api, on_cpu, seed, mode),
+                                on_cpu.counters)
+        same = card == cpu and on_card.counters == on_cpu.counters
+        placed = sum(v is not None for v in card["assignments"].values())
+        print(f"compare volume chunk ({len(card['assignments'])} pods on "
+              f"{N_VOLUME_NODES} nodes in 3 zones, KTPU_SOLVE_MODE={mode}), "
+              f"card vs CPU: {'identical' if same else 'DIFFER'}; placed "
+              f"{placed}, verify rejects {card['verify_rejects']}, "
+              f"host_fallback {card['host_fallback']}, optimal solves "
+              f"{on_card.counters['optimal_solves']}")
+        if not same:
+            raise RuntimeError(f"volume chunk ({mode}) differs on the card "
+                               f"from the CPU")
+    if launches == 0:
+        raise RuntimeError("phase 15(c): no wave_solve launch")
+    print(f"phase 15(c) {time.perf_counter() - t0:.1f} s, wave_solve "
+          f"launches {launches}")
+    return launches
+
+
+#: Phase 15(d)'s sizes, after upstream scheduler_perf's volume families
+#: (SchedulingInTreePVs, SchedulingWaitForFirstConsumerPVs): 500 init and
+#: 1000 measured pods, one claim each, on SchedulingBasic's 5000 nodes.
+VOLUME_LOOP_INIT, VOLUME_LOOP_MEASURED = 500, 1000
+#: Each node's `attachable-volumes-csi` limit in 15(d): None, so that the
+#: nodes keep SchedulingBasic's shape and NodeVolumeLimits its default of
+#: 256 volumes (above the 110 pods a node holds).
+VOLUME_LOOP_LIMIT = None
+#: The simulated provisioner's delay per WaitForFirstConsumer claim (s).
+PROVISION_DELAY_S = 0.005
+
+
+def port_volume_loop_api():
+    """`volume_loop`'s `api`: `port_loop_api` with this package's volume
+    constructors, ControllerManager and PVBinderController."""
+    from kubernetes_tpu_torch.api.types import (make_pv, make_pvc,
+                                                make_storage_class)
+    from kubernetes_tpu_torch.controllers import (ControllerManager,
+                                                  PVBinderController)
+    from kubernetes_tpu_torch.controllers.pvbinder import pv_node_ok
+
+    api = port_loop_api()
+    api.make_pv, api.make_pvc = make_pv, make_pvc
+    api.make_storage_class = make_storage_class
+    api.ControllerManager = ControllerManager
+    api.PVBinderController = PVBinderController
+    api.pv_node_ok = pv_node_ok
+    return api
+
+
+def volume_loop_pod(api, k: int) -> tuple[dict, list, list]:
+    """The k-th pod of a volume loop with its claim: even k a claim bound
+    in advance to a PV of zone k/2 mod 3 (static class, ReadWriteOnce),
+    odd k a WaitForFirstConsumer claim of the provisioning class
+    (ReadWriteOncePod). Returns (pod, PVs, PVCs)."""
+    claim = f"data-{k}"
+    pod = with_claim(api.make_pod(f"vol-{k}", requests=dict(POD_REQUESTS)),
+                     claim)
+    if k % 2 == 0:
+        pv = zonal_pv(api.make_pv, f"pv-{claim}", ZONES[(k // 2) % 3], claim)
+        return pod, [pv], [bound_pvc(api.make_pvc, claim, f"pv-{claim}")]
+    return pod, [], [api.make_pvc(claim, request="5Gi",
+                                  storage_class=WFFC_CLASS,
+                                  access_modes=["ReadWriteOncePod"])]
+
+
+async def volume_loop(api, backend, n_nodes: int, n_init: int,
+                      n_measured: int, batch_size: int = LOOP_BATCH,
+                      limit: int | None = VOLUME_LOOP_LIMIT, routes=None,
+                      window_hook=None, timeout: float = 600.0) -> dict:
+    """A volume workload through `api`'s `Scheduler.run` with the PV
+    binder beside it: `n_nodes` nodes of SchedulingBasic's shape in three
+    zones, each with an `attachable-volumes-csi` limit of `limit` (None:
+    none, NodeVolumeLimits' default), the
+    three volume classes, every pod's PV and claim (`volume_loop_pod`)
+    created first, then `n_init` pods (bound first) and `n_measured` pods
+    in 512-pod gathers into the running loop. The window runs from the
+    first measured create to the last measured bind an informer sees;
+    `window_hook(start)` is called at its start (True) and end (False).
+    `routes` (a dict) counts the backend's dispatches
+    (`count_backend_routes`). Returns the window's seconds, the
+    scheduler's metrics, VolumeBinding's PreBind waits (s) and the
+    store's pods, claims, PVs and nodes."""
+    store = api.new_cluster_store()
+    api.install_core_validation(store)
+    for sc in volume_classes(api.make_storage_class):
+        await store.create("storageclasses", sc)
+    alloc = {"cpu": "8", "memory": "32Gi", "pods": "110"}
+    if limit is not None:
+        alloc["attachable-volumes-csi"] = str(limit)
+    for i in range(n_nodes):
+        await store.create("nodes", api.make_node(
+            f"node-{i}", labels={ZONE_KEY: ZONES[i % 3]},
+            allocatable=dict(alloc)))
+    pods = []
+    for k in range(n_init + n_measured):
+        pod, pvs, pvcs = volume_loop_pod(api, k)
+        pods.append(pod)
+        for pv in pvs:
+            await store.create("persistentvolumes", pv)
+        for pvc in pvcs:
+            await store.create("persistentvolumeclaims", pvc)
+    mgr = api.ControllerManager(store, [api.PVBinderController(
+        store, provision_delay=PROVISION_DELAY_S)])
+    await mgr.start()
+    lr = LoopRun(api, backend, batch_size)
+    lr.store = store
+    try:
+        lr.sched, lr.factory = await start_scheduler(api, store,
+                                                     backend=backend)
+        if routes is not None:
+            count_backend_routes(lr.sched, routes)
+        waits: list = []
+        vb = next(p for fwk in lr.sched.profiles.values()
+                  for p in fwk.plugins if p.NAME == "VolumeBinding")
+        pre_bind = vb.pre_bind
+
+        async def timed(state, pod, node_name):
+            t = time.perf_counter()
+            st = await pre_bind(state, pod, node_name)
+            waits.append(time.perf_counter() - t)
+            return st
+
+        vb.pre_bind = timed
+        bound: set = set()
+
+        def track(obj):
+            if (obj.get("spec") or {}).get("nodeName"):
+                bound.add(obj["metadata"]["name"])
+
+        lr.factory.informer("pods").add_event_handler(
+            api.ResourceEventHandler(
+                on_add=track, on_update=lambda old, new: track(new)))
+
+        async def create(batch):
+            for lo in range(0, len(batch), 512):
+                await asyncio.gather(*(store.create("pods", p)
+                                       for p in batch[lo:lo + 512]))
+
+        lr.open()
+        await create(pods[:n_init])
+        await lr.wait(lambda: len(bound) >= n_init, "init pods bound",
+                      timeout)
+        if window_hook is not None:
+            window_hook(True)
+        t0 = time.perf_counter()
+        await create(pods[n_init:])
+        await lr.wait(lambda: len(bound) >= n_init + n_measured,
+                      "measured pods bound", timeout)
+        window = time.perf_counter() - t0
+        if window_hook is not None:
+            window_hook(False)
+        out = {"window": window, "metrics": lr.sched.metrics,
+               "prebind_waits": waits}
+        for resource in ("pods", "persistentvolumeclaims",
+                         "persistentvolumes", "nodes"):
+            out[resource] = (await store.list(resource)).items
+        return out
+    finally:
+        await mgr.stop()
+        await lr.close()
+
+
+def volume_violations(api, out: dict) -> list[str]:
+    """15(d)'s gates on a `volume_loop` result: every pod bound; its claim
+    bound to a PV whose node affinity and zone label admit the pod's node;
+    no node over its `attachable-volumes-csi` limit; no ReadWriteOncePod
+    claim used by two pods."""
+    nodes = {n["metadata"]["name"]: n for n in out["nodes"]}
+    pvcs = {p["metadata"]["name"]: p for p in out["persistentvolumeclaims"]}
+    pvs = {p["metadata"]["name"]: p for p in out["persistentvolumes"]}
+    faults, per_node, users = [], {}, {}
+    for pod in out["pods"]:
+        name = pod["metadata"]["name"]
+        node = (pod.get("spec") or {}).get("nodeName")
+        claim = pod["spec"]["volumes"][0]["persistentVolumeClaim"][
+            "claimName"]
+        if not node:
+            faults.append(f"{name} unbound")
+            continue
+        pvc = pvcs.get(claim)
+        pv = pvs.get((pvc or {}).get("spec", {}).get("volumeName") or "")
+        if pvc is None or pv is None \
+                or (pvc.get("status") or {}).get("phase") != "Bound":
+            faults.append(f"{name}: claim {claim} not bound to a PV")
+            continue
+        zone = (pv["metadata"].get("labels") or {}).get(ZONE_KEY)
+        labels = nodes[node]["metadata"].get("labels") or {}
+        if not api.pv_node_ok(pv, nodes[node]) \
+                or (zone is not None and labels.get(ZONE_KEY) != zone):
+            faults.append(f"{name}: PV {pv['metadata']['name']} does not "
+                          f"admit {node}")
+        per_node.setdefault(node, set()).add(claim)
+        if "ReadWriteOncePod" in (pvc["spec"].get("accessModes") or []):
+            users.setdefault(claim, []).append(name)
+    for node, claims in per_node.items():
+        cap = int(nodes[node]["status"]["allocatable"].get(
+            "attachable-volumes-csi", 256))
+        if len(claims) > cap:
+            faults.append(f"{node}: {len(claims)} volumes over {cap}")
+    faults += [f"RWOP claim {c} used by {u}" for c, u in users.items()
+               if len(u) > 1]
+    return faults
+
+
+def volume_loop_phase(torch) -> int:
+    """Phase 15(d): `volume_loop` at SchedulingBasic's 5000 nodes, 500
+    init and 1000 measured pods, through `TorchBackend()`; the gates of
+    `volume_violations`; throughput, the `assign` share, prep and verify,
+    the PreBind waits; then a profiled repeat at 1000 nodes (100 + 200
+    pods) for the idle share. Returns wave_solve's launches in the
+    measured window."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    api = port_volume_loop_api()
+    backend = TorchBackend()
+    routes = dict.fromkeys(("backend_dispatches", "backend_pods",
+                            "early_binds"), 0)
+    window: dict = {}
+
+    def hook(start):
+        torch.cuda.synchronize()
+        if start:
+            routes.update(dict.fromkeys(routes, 0))
+            wave_kernel.wave_solve.launches = 0
+            window["timings"] = dict(backend.timings)
+            window["counters"] = dict(backend.counters)
+        else:
+            window["launches"] = wave_kernel.wave_solve.launches
+            window["routes"] = dict(routes)
+            window["timings"] = {k: round(v - window["timings"][k], 6)
+                                 for k, v in backend.timings.items()}
+            window["counters"] = {
+                k: v - window["counters"][k]
+                for k, v in backend.counters.items()
+                if k != "sinkhorn_iterations"}
+
+    out = asyncio.run(volume_loop(api, backend, N_NODES, VOLUME_LOOP_INIT,
+                                  VOLUME_LOOP_MEASURED, routes=routes,
+                                  window_hook=hook))
+    faults = volume_violations(api, out)
+    if faults:
+        raise RuntimeError(f"15(d): {len(faults)} faults: {faults[:5]}")
+    if window["launches"] == 0:
+        raise RuntimeError("15(d): no wave_solve launch in the measured "
+                           "window")
+    tm, waits = window["timings"], out["prebind_waits"]
+    per_node = max(
+        sum(1 for p in out["pods"]
+            if (p.get("spec") or {}).get("nodeName") == n["metadata"]["name"])
+        for n in out["nodes"])
+    print(f"volume loop 15(d) {N_NODES} nodes in 3 zones, "
+          f"{VOLUME_LOOP_INIT} + {VOLUME_LOOP_MEASURED} pods with one claim "
+          f"each (half bound in advance to zonal PVs, half "
+          f"WaitForFirstConsumer provisioned by the PV binder): every pod "
+          f"bound, every claim bound to a PV admitting its pod's node, no "
+          f"node over its volume limit (most pods on a node {per_node}), no "
+          f"ReadWriteOncePod claim used twice; "
+          f"SchedulingThroughput {VOLUME_LOOP_MEASURED / out['window']:.2f} "
+          f"pods/s, window {out['window']:.6f} s, assign share "
+          f"{tm['assign_s'] / out['window']:.4f}, TorchBackend.timings "
+          f"{json.dumps(tm)}, counters {json.dumps(window['counters'])}, "
+          f"backend dispatches {window['routes']['backend_dispatches']} "
+          f"with {window['routes']['backend_pods']} pods, wave_solve "
+          f"launches {window['launches']}; PreBind waits: {len(waits)} "
+          f"pods, mean {sum(waits) / max(1, len(waits)) * 1e3:.3f} ms, max "
+          f"{max(waits, default=0.0) * 1e3:.3f} ms")
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    walls = {}
+
+    def prof_hook(start):
+        torch.cuda.synchronize()
+        if start:
+            prof.start()
+            walls["t0"] = time.perf_counter()
+        else:
+            walls["wall"] = time.perf_counter() - walls["t0"]
+            prof.stop()
+
+    small = asyncio.run(volume_loop(api, TorchBackend(), 1000, 100, 200,
+                                    window_hook=prof_hook))
+    if volume_violations(api, small):
+        raise RuntimeError("15(d): the profiled repeat broke a gate")
+    busy = sum(device_us(e) for e in prof.key_averages())
+    print(f"profiled volume loop 15(d) (1000 nodes, 100 + 200 pods): wall "
+          f"{walls['wall']:.6f} s, device busy {busy / 1e6:.6f} s, "
+          + (f"idle share {1 - busy / 1e6 / walls['wall']:.4f}" if busy
+             else "device time not measured by the profiler")
+          + f"; phase 15(d) {time.perf_counter() - t0:.1f} s")
+    return window["launches"]
+
+
+def stream_volume_run(torch, seed: int) -> dict:
+    """Phase 15 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on. Returns the kernels line's phase
+    15 entries: wave_solve's launches in 15(c) and in 15(d)'s measured
+    window."""
+    from kubernetes_tpu_torch.utils import flags
+
+    t15 = time.perf_counter()
+    print(f"phase 15 on {card_line()}")
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        stream_chunks_phase(torch)
+        stream_loop_phase(torch)
+        precreated_stream_phase(torch)
+        out = {"volume_chunk_launches": volume_chunks_phase(torch, seed)}
+        out["volume_loop_launches"] = volume_loop_phase(torch)
+    print(f"phase 15 {time.perf_counter() - t15:.1f} s")
+    return out
+
+
+def stream_volume_phases(torch, seed: int) -> int:
+    """`--phase15-only`: build the kernels (phase 1), then phase 15."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(stream_volume_run(torch, seed)))
+    print_card()
+    return 0
+
+
+
 def main() -> int:
     import argparse
 
@@ -4749,6 +5678,9 @@ def main() -> int:
                         "(prints no result lines)")
     parser.add_argument("--phase14-only", action="store_true",
                         help="build the kernels and run phase 14 alone "
+                        "(prints no result lines)")
+    parser.add_argument("--phase15-only", action="store_true",
+                        help="build the kernels and run phase 15 alone "
                         "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
@@ -4765,6 +5697,8 @@ def main() -> int:
         return large_cluster_phases(torch)
     if cli.phase14_only:
         return device_topology_phases(torch, seed)
+    if cli.phase15_only:
+        return stream_volume_phases(torch, seed)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -4822,7 +5756,7 @@ def print_card() -> None:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-15 (see the module docstring)."""
+    """Phases 1-16 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -5188,8 +6122,11 @@ def smoke(torch, seed: int) -> int:
     # -- 14. device topology -------------------------------------------------
     device = device_topology_run(torch, seed)
 
-    # -- 15. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-14)")
+    # -- 15. the chunk stream and the volume plugins ------------------------
+    stream_volume = stream_volume_run(torch, seed)
+
+    # -- 16. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-15)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -5201,7 +6138,8 @@ def smoke(torch, seed: int) -> int:
          "loop_launches": loop["loop_launches"],
          "constraint_launches": anti["launches"] + affinity_launches,
          "gang_launches": gang_launches,
-         "gang_chunk_launches": gang_chunk_launches, **large, **device},
+         "gang_chunk_launches": gang_chunk_launches, **large, **device,
+         **stream_volume},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,

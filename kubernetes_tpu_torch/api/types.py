@@ -4,7 +4,8 @@ Parity target: staging/src/k8s.io/api/core/v1/types.go (`Pod`, `PodSpec`,
 `Node`, `NodeSpec.taints`, `NodeStatus.allocatable`, `Binding`) and the pod
 resource-request helpers in pkg/api/v1/resource/helpers.go (`PodRequests`).
 Copy of `kubernetes_tpu/api/types.py`, cut to the pod, node and binding
-constructors, the device-topology objects (DeviceClass, ResourceSlice,
+constructors, the volume objects (PersistentVolume, PersistentVolumeClaim,
+StorageClass), the device-topology objects (DeviceClass, ResourceSlice,
 ResourceClaim and its template, NodeResourceTopology), the accessors the
 scheduler compiles its tensors from and the predicates its informers read.
 """
@@ -119,6 +120,62 @@ def make_node(
     node = new_object("Node", name, namespace=None, labels=all_labels,
                       spec=spec, status=status)
     return node
+
+
+def make_pv(name: str, capacity: str = "10Gi", *,
+            storage_class: str = "", access_modes: list | None = None,
+            node_affinity: Mapping | None = None,
+            labels: Mapping[str, str] | None = None,
+            reclaim_policy: str = "Retain") -> dict:
+    """core/v1 PersistentVolume (cluster-scoped). `node_affinity` is the
+    PV's `spec.nodeAffinity.required` nodeSelectorTerms mapping (topology
+    pinning — local/zonal volumes)."""
+    spec = {
+        "capacity": {"storage": capacity},
+        "accessModes": access_modes or ["ReadWriteOnce"],
+        "storageClassName": storage_class,
+        "persistentVolumeReclaimPolicy": reclaim_policy,
+    }
+    if node_affinity:
+        spec["nodeAffinity"] = {"required": dict(node_affinity)}
+    pv = new_object("PersistentVolume", name, None, spec=spec,
+                    status={"phase": "Available"})
+    if labels:
+        pv["metadata"]["labels"] = dict(labels)
+    return pv
+
+
+def make_pvc(name: str, namespace: str = "default", request: str = "1Gi", *,
+             storage_class: str | None = None,
+             access_modes: list | None = None) -> dict:
+    spec = {
+        "resources": {"requests": {"storage": request}},
+        "accessModes": access_modes or ["ReadWriteOnce"],
+    }
+    if storage_class is not None:
+        spec["storageClassName"] = storage_class
+    return new_object("PersistentVolumeClaim", name, namespace, spec=spec,
+                      status={"phase": "Pending"})
+
+
+def make_storage_class(name: str, *,
+                       binding_mode: str = "Immediate",
+                       provisioner: str = "ktpu.dev/simulated",
+                       allowed_topologies: list | None = None,
+                       is_default: bool = False) -> dict:
+    """storage.k8s.io/v1 StorageClass; `binding_mode` is
+    Immediate | WaitForFirstConsumer. `is_default` sets the
+    storageclass.kubernetes.io/is-default-class annotation the
+    DefaultStorageClass admission mutator looks for."""
+    sc = new_object("StorageClass", name, None)
+    sc["volumeBindingMode"] = binding_mode
+    sc["provisioner"] = provisioner
+    if allowed_topologies:
+        sc["allowedTopologies"] = allowed_topologies
+    if is_default:
+        sc["metadata"].setdefault("annotations", {})[
+            "storageclass.kubernetes.io/is-default-class"] = "true"
+    return sc
 
 
 def make_device_class(name: str,

@@ -1,6 +1,7 @@
 """Client runtime: the reflector → informer triangle (client-go tools/cache
-equivalents) and event recording. Counterpart of `kubernetes_tpu/client/`;
-the sharded informer, the workqueue and leader election wait."""
+equivalents), event recording and the rate-limited work queue. Counterpart
+of `kubernetes_tpu/client/`; the sharded informer and leader election
+wait."""
 
 from kubernetes_tpu_torch.client.informer import (
     Indexer,
@@ -10,6 +11,7 @@ from kubernetes_tpu_torch.client.informer import (
     namespace_index,
 )
 from kubernetes_tpu_torch.client.events import EventRecorder
+from kubernetes_tpu_torch.client.workqueue import RateLimitingQueue
 
 __all__ = [
     "Indexer",
@@ -18,4 +20,5 @@ __all__ = [
     "SharedInformer",
     "namespace_index",
     "EventRecorder",
+    "RateLimitingQueue",
 ]

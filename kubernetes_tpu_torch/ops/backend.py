@@ -61,14 +61,18 @@ arrays packed once per snapshot (`_nrt_state`), DynamicResources' filter
 rows from per-(node, device class) free-device counts charged from the
 claim ledgers once per snapshot (`_dra_state`; a claim shape those counts
 cannot answer takes the plugin's own host row), and NodePorts' from the
-plugin's own filter. Their pods are "stateful": the host verify re-checks
-host ports against the working node, and a chunk holding any pod of
-NodeResourceTopologyMatch or DynamicResources (or another stateful plugin
-but NodePorts) re-runs every placement through the framework's PreFilter
-and Filter against a working snapshot that carries this assign()'s earlier
-placements (`_verify`), so zone usage and devices handed out earlier in
-the same assign() are seen. ImageLocality is a static score row, cached by
-the pod's image list.
+plugin's own filter. The four volume plugins (VolumeBinding,
+VolumeRestrictions, VolumeZone, NodeVolumeLimits) are the plugin's own
+host row for each pod with PersistentVolumeClaims, counted as
+`host_fallback`, as in the reference. These pods are "stateful": the host
+verify re-checks host ports against the working node, and a chunk holding
+any pod of NodeResourceTopologyMatch, DynamicResources or a volume plugin
+(or another stateful plugin but NodePorts) re-runs every placement through
+the framework's PreFilter and Filter against a working snapshot that
+carries this assign()'s earlier placements (`_verify`), so zone usage,
+devices, a ReadWriteOncePod claim or a node's last volume slot taken
+earlier in the same assign() are seen. ImageLocality is a static score
+row, cached by the pod's image list.
 
 The (N, 2R+1) used-state pack stays on the device and chains from chunk to
 chunk with no host round trip. It is seeded at each assign() from the
@@ -83,12 +87,10 @@ beside this one: the serving fast path (serving/fastpath.py,
 would.
 
 Not covered, and refused with NotImplementedError rather than scheduled on
-a partial model: volumes (ROADMAP queue 1 item 7), slice-shaped gangs
-(a PodGroup with `spec.sliceShape`), and any plugin at a PreFilter,
-Filter, PreScore or Score point beyond the twelve of `MODELLED_PLUGINS`
-(the four volume plugins among them). Plugins at none
-of those points (queue sort, gates, bind) are the scheduler loop's and
-pass. Where the reference falls back to host rows and a stateful verify
+a partial model: slice-shaped gangs (a PodGroup with `spec.sliceShape`),
+and any plugin at a PreFilter, Filter, PreScore or Score point beyond the
+sixteen of `MODELLED_PLUGINS`. Plugins at none of those points (queue
+sort, gates, bind) are the scheduler loop's and pass. Where the reference falls back to host rows and a stateful verify
 for spread pods that miss the union table (`spread_poisoned`), this
 package raises.
 
@@ -101,6 +103,7 @@ among them. Multi-device sharding of the node axis is a later slice.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import logging
 import time
@@ -154,7 +157,8 @@ logger = logging.getLogger(__name__)
 MODELLED_PLUGINS = frozenset((
     "NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
     "NodeName", "NodeUnschedulable", "TaintToleration", "InterPodAffinity",
-    "PodTopologySpread", "NodePorts", "ImageLocality",
+    "PodTopologySpread", "NodePorts", "ImageLocality", "VolumeBinding",
+    "VolumeRestrictions", "VolumeZone", "NodeVolumeLimits",
     "NodeResourceTopologyMatch", "DynamicResources"))
 _MODELLED_POINTS = frozenset(("PreFilter", "Filter", "PreScore", "Score"))
 
@@ -181,6 +185,10 @@ _FILTER_ACTIVE = {
     "PodTopologySpread": lambda plugin, pi, snap: bool(
         plugin._constraints_for(pi, "DoNotSchedule")),
     "NodePorts": lambda plugin, pi, snap: bool(pi.host_ports),
+    "VolumeBinding": lambda plugin, pi, snap: bool(pi.pvc_names),
+    "VolumeRestrictions": lambda plugin, pi, snap: bool(pi.pvc_names),
+    "VolumeZone": lambda plugin, pi, snap: bool(pi.pvc_names),
+    "NodeVolumeLimits": lambda plugin, pi, snap: bool(pi.pvc_names),
     "NodeResourceTopologyMatch":
         lambda plugin, pi, snap: plugin.active_for(pi),
     "DynamicResources":
@@ -246,15 +254,6 @@ def compress_score_wire(host_scores: np.ndarray) -> np.ndarray:
     else:
         amax = 0.0
     return host_scores.astype(np.float16 if amax <= 1024.0 else np.float32)
-
-
-def unsupported_feature(pi: PodInfo) -> str | None:
-    """The first feature of this pod the package does not model, or
-    None."""
-    if pi.pvc_names:
-        return ("volumes (PersistentVolumeClaims; ROADMAP queue 1 item 7, "
-                "the volume plugins)")
-    return None
 
 
 class AdaptiveTuner:
@@ -1229,9 +1228,9 @@ class TorchBackend:
     def _dynamic_filter_row(plugin, pi: PodInfo, snapshot: Snapshot,
                             ct: ClusterTensors,
                             state: CycleState) -> np.ndarray | None:
-        """A stateful plugin's own host row (NodePorts, and
-        DynamicResources' claim shapes the counts cannot answer): None
-        when the plugin skips the pod at PreFilter."""
+        """A stateful plugin's own host row (NodePorts, the volume
+        plugins, and DynamicResources' claim shapes the counts cannot
+        answer): None when the plugin skips the pod at PreFilter."""
         st = plugin.pre_filter(state, pi, snapshot)
         if st.is_skip():
             return None
@@ -1260,9 +1259,131 @@ class TorchBackend:
         self.timings["assign_s"] += time.perf_counter() - t0
         return ctx.assignments, ctx.diagnostics
 
-    def _run_chunks(self, ctx: "_AssignCtx") -> None:
-        """Prep, dispatch and finish every chunk of an assign() context,
-        `pipeline_depth` dispatches ahead of the oldest finish."""
+    async def assign_async(self, pods: Sequence[PodInfo], snapshot: Snapshot,
+                           fwk: Framework):
+        """`assign` for the scheduler's event loop: the chunks of
+        `assign_stream`, drained; the waits for the card yield to the
+        loop's other tasks."""
+        ctx = None
+        async for _chunk_pods, ctx in self.assign_stream(pods, snapshot, fwk):
+            pass
+        if ctx is None:  # empty batch
+            return {}, {}
+        return ctx.assignments, ctx.diagnostics
+
+    async def assign_stream(self, pods: Sequence[PodInfo],
+                            snapshot: Snapshot, fwk: Framework):
+        """Chunk-streaming `assign`: yields (chunk_pods, ctx) as each
+        chunk's host verify completes, so the caller's per-pod work
+        (assume, Reserve, the binding cycle) overlaps the next chunks'
+        device passes. ctx.assignments and ctx.diagnostics accumulate; a
+        chunk's keys are final once it is yielded. The same pipeline as
+        `assign` (`_pipeline`), so the assignments, diagnostics, counters,
+        solver metrics and `timings` are assign()'s. `timings` charge the
+        generator's own wall: not the caller's between yields, nor other
+        tasks' inside its waits for the card (`_await_event`), which the
+        blocking `assign` would have run after it.
+
+        The wait for the card runs on the loop's thread: the dispatch
+        queued the assignments' copy into pinned host memory and an event
+        behind it (`_dispatch_chunk`), and the wait polls that event
+        between short sleeps (`_await_event`). So no CUDA call runs off
+        the loop thread, where PyTorch's current stream is another and a
+        graph capture of another loop task (a spread scan, a victim
+        proposal) could be open."""
+        pods = list(pods)
+        self._check_supported(pods, fwk)
+        tm = self.timings
+        t0 = time.perf_counter()
+        ctx = self._start(pods, snapshot, fwk)
+        for run in self._pipeline(ctx):
+            t2 = time.perf_counter()
+            with self._fetch_span(run):
+                others = await self._await_event(run.get("assign_ev"))
+                assign_np = self._host_assign(run)
+            t3 = time.perf_counter()
+            if self.metrics is not None:
+                self.metrics.solve_duration.observe(
+                    run["dispatch_s"] + t3 - t2)
+            diag_others = 0.0
+            if (assign_np[: run["batch"].p_real] < 0).any():
+                # Solver failures: _finalize_chunk's diagnostics read the
+                # unsat planes. Their copies are queued and awaited here,
+                # so finalize does not stall the loop on a device read.
+                diag_others = await self._await_event(
+                    self._queue_diag_planes(run))
+            self._finalize_chunk(run, assign_np, ctx)
+            t4 = time.perf_counter()
+            # The time other tasks ran inside the waits is theirs, not
+            # this assign()'s (the blocking `assign` runs it afterwards).
+            tm["device_s"] += t3 - t2 - others
+            tm["verify_s"] += t4 - t3 - diag_others
+            tm["assign_s"] += t4 - t0 - others - diag_others
+            yield run["pods"], ctx
+            t0 = time.perf_counter()
+        tm["assign_s"] += time.perf_counter() - t0
+
+    #: the event poll's first sleeps are 0 (a pass of the loop's ready
+    #: tasks) until the wait reaches _SPIN_S seconds, then _POLL_S each; a
+    #: sleep that returns more than _IDLE_SLACK_S after it asked to ran
+    #: other tasks for the excess.
+    _SPIN_S = 0.002
+    _POLL_S = 0.0005
+    _IDLE_SLACK_S = 0.001
+
+    @classmethod
+    async def _await_event(cls, ev) -> float:
+        """Wait on the loop's thread until a CUDA event has completed
+        (None: nothing to wait for, the CPU), letting other tasks run.
+        Returns the seconds other tasks held the loop inside the wait:
+        each sleep's return past its request and _IDLE_SLACK_S (the
+        selector's millisecond rounding)."""
+        if ev is None:
+            return 0.0
+        t0 = time.perf_counter()
+        others = 0.0
+        while not ev.query():
+            before = time.perf_counter()
+            delay = 0.0 if before - t0 < cls._SPIN_S else cls._POLL_S
+            await asyncio.sleep(delay)
+            others += max(0.0, time.perf_counter() - before - delay
+                          - cls._IDLE_SLACK_S)
+        return others
+
+    def _queue_diag_planes(self, run: dict):
+        """Start the device-to-host copies of a chunk's diagnostic unsat
+        planes (`fit0_d`, `taint_ok_d`) into pinned memory, behind one
+        event: the event (None on the CPU, where the planes are host
+        arrays already). `_finalize_chunk` reads them from
+        `run["fit0_np"]` / `run["taint_ok_np"]`."""
+        for k in ("fit0", "taint_ok"):
+            dev = run[f"{k}_d"]
+            if not dev.is_cuda:
+                run[f"{k}_np"] = dev.numpy()
+                continue
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            host.copy_(dev, non_blocking=True)
+            run[f"{k}_np"] = host.numpy()
+        if not run["fit0_d"].is_cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    @staticmethod
+    def _host_assign(run: dict) -> np.ndarray:
+        """A chunk's assignments on the host, once its event completed (or
+        at once on the CPU)."""
+        host = run.pop("assign_host", None)
+        if host is not None:
+            return host.numpy()
+        return run["assign_d"].numpy()
+
+    def _pipeline(self, ctx: "_AssignCtx"):
+        """Prep and dispatch every chunk of an assign() context, yielding
+        the dispatched runs in finalize order, `pipeline_depth` dispatches
+        ahead of the oldest (the reference's `_pipeline`); charges
+        `timings["prep_s"]` and the dispatch's part of `["device_s"]`."""
         tm = self.timings
         pending: deque = deque()
         for chunk in ctx.chunks:
@@ -1274,16 +1395,22 @@ class TorchBackend:
             tm["prep_s"] += t2 - t1
             tm["device_s"] += prep["dispatch_s"]
             if len(pending) > self.pipeline_depth:
-                self._finish_chunk(pending.popleft(), ctx)
+                yield pending.popleft()
         while pending:
-            self._finish_chunk(pending.popleft(), ctx)
+            yield pending.popleft()
+
+    def _run_chunks(self, ctx: "_AssignCtx") -> None:
+        """Prep, dispatch and finish every chunk of an assign() context,
+        `pipeline_depth` dispatches ahead of the oldest finish."""
+        for run in self._pipeline(ctx):
+            self._finish_chunk(run, ctx)
 
     def _finish_chunk(self, run: dict, ctx: "_AssignCtx") -> None:
         """Fetch one dispatched chunk's assignments (waiting for its
         device pass), then verify and finalize it."""
         tm = self.timings
         t2 = time.perf_counter()
-        assign_np = self._fetch_assign(run, run["chunk_idx"])
+        assign_np = self._fetch_assign(run)
         t3 = time.perf_counter()
         if self.metrics is not None:
             self.metrics.solve_duration.observe(run["dispatch_s"] + t3 - t2)
@@ -1291,18 +1418,25 @@ class TorchBackend:
         tm["device_s"] += t3 - t2
         tm["verify_s"] += time.perf_counter() - t3
 
-    def _fetch_assign(self, run: dict, chunk_idx: int) -> np.ndarray:
-        """Blocking device→host fetch of a chunk's assignments (it waits
-        for the device pass), under a `solver.solve` span when tracing is
-        on. The dispatch seam raises under KTPU_LOCK_CHECK when a lock is
-        held across it."""
+    def _fetch_span(self, run: dict):
+        """The `solver.solve` span of a chunk's fetch when tracing is on.
+        The dispatch seam raises under KTPU_LOCK_CHECK when a lock is held
+        across the fetch."""
         check_dispatch_seam("backend.fetch_assign")
         tr = self.tracer
-        span = tr.span("solver.solve", chunk=chunk_idx,
-                       pods=run["batch"].p_real) \
-            if tr is not None and tr.enabled else contextlib.nullcontext()
-        with span:
-            return run["assign_d"].cpu().numpy()
+        if tr is None or not tr.enabled:
+            return contextlib.nullcontext()
+        return tr.span("solver.solve", chunk=run["chunk_idx"],
+                       pods=run["batch"].p_real)
+
+    def _fetch_assign(self, run: dict) -> np.ndarray:
+        """Blocking device→host fetch of a chunk's assignments (it waits
+        for the device pass)."""
+        with self._fetch_span(run):
+            ev = run.get("assign_ev")
+            if ev is not None:
+                ev.synchronize()
+            return self._host_assign(run)
 
     @staticmethod
     def _check_supported(pods: list[PodInfo], fwk: Framework) -> None:
@@ -1315,11 +1449,6 @@ class TorchBackend:
                     f"plugin {p.NAME!r}: this slice models only "
                     f"{sorted(MODELLED_PLUGINS)} at "
                     f"{sorted(_MODELLED_POINTS)}")
-        for pi in pods:
-            feature = unsupported_feature(pi)
-            if feature is not None:
-                raise NotImplementedError(
-                    f"pod {pi.key}: {feature} is not covered by this slice")
 
     def _start(self, pods: list[PodInfo], snapshot: Snapshot,
                fwk: Framework) -> "_AssignCtx":
@@ -1734,15 +1863,20 @@ class TorchBackend:
                         apply_row(plugin.NAME, i, row)
                     stateful_pods.add(i)
                 else:
-                    # NodePorts: the plugin's own row. Its conflicts are
-                    # per pod, so the verify's port check covers the
-                    # placements earlier in the same assign().
+                    # NodePorts and the volume plugins: the plugin's own
+                    # row. NodePorts' conflicts are per pod, so the
+                    # verify's port check covers the placements earlier in
+                    # the same assign(); a volume plugin's (one RWOP claim,
+                    # a node's last volume slot) cross pods, so its pod
+                    # takes the full re-check. None: the plugin skipped.
                     row = self._dynamic_filter_row(
                         plugin, pi, snapshot, ct,
                         dyn_states.setdefault(i, CycleState()))
                     if row is not None:
                         apply_row(plugin.NAME, i, row)
                         fallback_pods.add(i)
+                        if plugin.NAME != "NodePorts":
+                            stateful_pods.add(i)
 
         if fallback_pods and self.metrics is not None:
             self.metrics.backend_degradations.inc(
@@ -2312,6 +2446,16 @@ class TorchBackend:
         prep["assign_d"] = assign_d
         prep["fit0_d"] = fit0_d
         prep["taint_ok_d"] = taint_ok_d
+        if assign_d.is_cuda:
+            # The assignments' copy to pinned host memory is queued on
+            # this (the dispatching) stream now, with an event behind it:
+            # the fetch then waits for that event alone, on any thread.
+            host = torch.empty(assign_d.shape, dtype=assign_d.dtype,
+                               pin_memory=True)
+            host.copy_(assign_d, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            prep["assign_host"], prep["assign_ev"] = host, ev
         return prep
 
     def _finalize_chunk(self, run: dict, assign_np: np.ndarray,
@@ -2407,9 +2551,14 @@ class TorchBackend:
                      if ctx.assignments.get(pi.key) is None
                      and pi.key not in ctx.diagnostics]
         if need_diag:
+            fit0 = run.get("fit0_np")
+            if fit0 is None:
+                fit0 = run["fit0_d"].cpu().numpy()
+            taint_ok = run.get("taint_ok_np")
+            if taint_ok is None:
+                taint_ok = run["taint_ok_d"].cpu().numpy()
             self._build_diagnostics(
-                need_diag, pods, ctx.ct, batch,
-                run["fit0_d"].cpu().numpy(), run["taint_ok_d"].cpu().numpy(),
+                need_diag, pods, ctx.ct, batch, fit0, taint_ok,
                 run["cls_np"], run["host_filter_fail"],
                 ctx.params["filter_names"], ctx.diagnostics,
                 run["unknown_res"])

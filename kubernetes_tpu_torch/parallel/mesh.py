@@ -57,13 +57,13 @@ class Mesh:
     def device(self) -> torch.device:
         """The one device every shard sits on. A mesh over several devices
         needs a transport between them, which this package does not have
-        yet (ROADMAP queue 1 item 7)."""
+        yet (ROADMAP, "Blocked on hardware: multi-GPU")."""
         devs = sorted(map(str, set(self.devices)))
         if len(devs) != 1:
             raise NotImplementedError(
                 f"a mesh over several devices {devs} needs a transport "
-                "across cards (ROADMAP queue 1 item 7); put every shard on "
-                "one device")
+                "across cards (ROADMAP, \"Blocked on hardware: multi-GPU\"); "
+                "put every shard on one device")
         return self.devices[0]
 
 

@@ -1,13 +1,13 @@
 """Plugin registry (plugins/registry.go `NewInTreeRegistry`), cut to the
 plugins this package models: the Filter/Score plugins the batched backend
-computes (the node plugins with NodePorts and ImageLocality, the two
-constraint families, InterPodAffinity and PodTopologySpread, and the
-device-topology plugins, DynamicResources and NodeResourceTopologyMatch),
-the queue-sort, gating and binding plugins the scheduler loop runs on the
-host, Coscheduling and NodeResourceTopologyMatch (registered, not
-default-enabled, as in the reference) and DefaultPreemption (the
-PostFilter, with its batched device victim proposal). The four volume
-plugins are not here yet."""
+computes (the node plugins with NodePorts and ImageLocality, the four
+volume plugins, the two constraint families, InterPodAffinity and
+PodTopologySpread, and the device-topology plugins, DynamicResources and
+NodeResourceTopologyMatch), the queue-sort, gating and binding plugins the
+scheduler loop runs on the host, Coscheduling and NodeResourceTopologyMatch
+(registered, not default-enabled, as in the reference) and
+DefaultPreemption (the PostFilter, with its batched device victim
+proposal). The default profile is the reference's."""
 
 from __future__ import annotations
 
@@ -46,6 +46,12 @@ from kubernetes_tpu_torch.scheduler.plugins.noderesourcetopology import (
 from kubernetes_tpu_torch.scheduler.plugins.podtopologyspread import (
     PodTopologySpread,
 )
+from kubernetes_tpu_torch.scheduler.plugins.volumebinding import (
+    NodeVolumeLimits,
+    VolumeBinding,
+    VolumeRestrictions,
+    VolumeZone,
+)
 
 #: name -> factory(args) (framework/runtime Registry). Coscheduling and
 #: NodeResourceTopologyMatch are registered but not default-enabled
@@ -63,6 +69,10 @@ IN_TREE: dict[str, Callable] = {
     "NodeUnschedulable": NodeUnschedulable,
     "TaintToleration": TaintToleration,
     "NodePorts": NodePorts,
+    "VolumeBinding": VolumeBinding,
+    "VolumeRestrictions": VolumeRestrictions,
+    "VolumeZone": VolumeZone,
+    "NodeVolumeLimits": NodeVolumeLimits,
     "InterPodAffinity": InterPodAffinity,
     "PodTopologySpread": PodTopologySpread,
     "ImageLocality": ImageLocality,
@@ -70,8 +80,7 @@ IN_TREE: dict[str, Callable] = {
     "DefaultBinder": DefaultBinder,
 }
 
-#: The default profile: the reference's default plugins this package has,
-#: in the reference's order.
+#: The default profile: the reference's default plugins, in its order.
 DEFAULT_PLUGINS = [
     "PrioritySort",
     "SchedulingGates",
@@ -80,6 +89,10 @@ DEFAULT_PLUGINS = [
     "TaintToleration",
     "NodeAffinity",
     "NodePorts",
+    "VolumeBinding",
+    "VolumeRestrictions",
+    "VolumeZone",
+    "NodeVolumeLimits",
     "NodeResourcesFit",
     "NodeResourcesBalancedAllocation",
     "InterPodAffinity",

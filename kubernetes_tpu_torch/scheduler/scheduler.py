@@ -19,20 +19,28 @@ backend scores every node because full-N is one tensor op (SURVEY §2.8).
 
 Copy of `kubernetes_tpu/scheduler/scheduler.py`, with these departures:
 
-- no fallback: the reference catches any backend exception, runs the
-  batch through the host path and opens a circuit after three failures;
-  here a backend exception propagates out of `run` (a failure of the card
-  or a kernel must not be hidden), and the `backend_fallback` attempt
-  result is never counted. The host path itself is here: a one-pod
+- no fallback: the reference catches any backend exception, including
+  one of its chunk stream (`assign_stream`) before or after the first
+  chunk, runs the batch's pods not yet yielded through the host path and
+  opens a circuit after three failures; here a backend or stream
+  exception propagates out of `run` (a failure of the card or a kernel
+  must not be hidden), the pods of chunks not yet yielded are not re-run,
+  and the `backend_fallback` attempt result is never counted. Nor does
+  the stream's failure wave move a pod to backoff when `_handle_failure`
+  raises: that propagates too. The host path itself is here: a one-pod
   dispatch takes it by design, as in the reference.
 - no fallback for the batched victim proposal either: the reference logs
   a `DefaultPreemption.prime_wave` failure and goes on with the per-pod
   candidate search; here it propagates out of `run` like any other
   failure of the card.
-- the backend's `assign` only: the reference prefers `assign_stream` /
-  `assign_async` when the backend has them; TorchBackend has neither.
 - the preemptor's device: DefaultPreemption's `prime_wave` runs on the
   attached backend's device (cuda:0 when the plugin has none set).
+- a batched placement of a pod with PersistentVolumeClaims binds with
+  VolumeBinding's PreFilter state (`_bind_state`): the reference binds
+  every batched placement with an empty CycleState, so its VolumeBinding
+  PreBind never writes the selected node nor waits, and a
+  WaitForFirstConsumer claim of a pod the backend placed is never
+  provisioned (a fault of the reference, ROADMAP queue 3).
 - not here yet: extenders (`extenders` stays empty), leader election and
   a remote store's topology probe.
 """
@@ -579,7 +587,19 @@ class Scheduler:
 
     async def _backend_cycle(self, pods: list[PodInfo], snapshot, fwk,
                              t0: float) -> None:
-        assignments, diagnostics = self.backend.assign(pods, snapshot, fwk)
+        """The reference's order: the backend's chunk stream when it has
+        one (`_schedule_via_backend_stream`), else `assign_async`, else
+        `assign`. An exception of any of them propagates."""
+        if hasattr(self.backend, "assign_stream"):
+            # Bindings for chunk k start while chunk k+1 still solves.
+            return await self._schedule_via_backend_stream(
+                pods, snapshot, fwk, t0)
+        if hasattr(self.backend, "assign_async"):
+            assignments, diagnostics = await self.backend.assign_async(
+                pods, snapshot, fwk)
+        else:
+            assignments, diagnostics = self.backend.assign(
+                pods, snapshot, fwk)
         elapsed = time.perf_counter() - t0
         # Assigned pods bind FIRST so the failure wave below sees every
         # in-batch assume in ONE snapshot; per-failure re-snapshots were
@@ -590,7 +610,8 @@ class Scheduler:
             node = assignments.get(pi.key)
             if node:
                 self.metrics.observe_attempt("scheduled", fwk.profile_name, elapsed / len(pods))
-                await self._assume_and_bind(fwk, CycleState(), pi, node)
+                await self._assume_and_bind(
+                    fwk, self._bind_state(fwk, pi, snapshot), pi, node)
             else:
                 failed.append(pi)
         live = self.cache.update_snapshot() if failed else None
@@ -611,6 +632,62 @@ class Scheduler:
             await self._handle_failure(
                 fwk, pi, FitError(pi, len(snapshot), statuses),
                 statuses, state=state, snapshot=live)
+
+    async def _schedule_via_backend_stream(self, pods: list[PodInfo],
+                                           snapshot, fwk, t0: float) -> None:
+        """Consume the backend's per-chunk assignment stream: each chunk's
+        assume / Reserve / binding cycle starts as soon as its host verify
+        lands, overlapping the next chunks' device passes. A stream
+        exception propagates (no host-path rerun of the pods not yet
+        yielded; see the module docstring)."""
+        last_t = t0
+        async for chunk_pods, ctx in self.backend.assign_stream(
+                pods, snapshot, fwk):
+            # Per-chunk delta (not since-batch-start): summed per-pod
+            # observations track wall time, as on the non-stream path.
+            now = time.perf_counter()
+            elapsed, last_t = now - last_t, now
+            n = max(1, len(chunk_pods))
+            # Binds first, then the chunk's failure wave against ONE live
+            # snapshot (see _backend_cycle).
+            failed: list[PodInfo] = []
+            for pi in chunk_pods:
+                node = ctx.assignments.get(pi.key)
+                if node:
+                    self.metrics.observe_attempt(
+                        "scheduled", fwk.profile_name, elapsed / n)
+                    await self._assume_and_bind(
+                    fwk, self._bind_state(fwk, pi, snapshot), pi, node)
+                else:
+                    failed.append(pi)
+            live = self.cache.update_snapshot() if failed else None
+            if failed:
+                self._prime_preemption(fwk, failed, live, ctx.diagnostics)
+            for pi in failed:
+                self.metrics.observe_attempt(
+                    "unschedulable", fwk.profile_name, elapsed / n)
+                statuses = ctx.diagnostics.get(pi.key, {})
+                state = CycleState()
+                fwk.run_pre_filter(state, pi, live)
+                await self._handle_failure(
+                    fwk, pi, FitError(pi, len(snapshot), statuses),
+                    statuses, state=state, snapshot=live)
+
+    @staticmethod
+    def _bind_state(fwk: Framework, pi: PodInfo, snapshot) -> CycleState:
+        """The CycleState a batched placement binds with: empty, as in the
+        reference, but for a pod with PersistentVolumeClaims, for which
+        VolumeBinding's PreFilter runs first, so that its Unreserve and its
+        PreBind (the selected-node annotation, the wait for the claims to
+        bind) see the pod's claims. The reference binds such a pod with an
+        empty state: its PreBind returns at once and a WaitForFirstConsumer
+        claim is never provisioned (see the module docstring)."""
+        state = CycleState()
+        if pi.pvc_names:
+            for p in fwk.pre_filter_plugins:
+                if p.NAME == "VolumeBinding":
+                    p.pre_filter(state, pi, snapshot)
+        return state
 
     def _prime_preemption(self, fwk: Framework, failed: list[PodInfo],
                           snapshot, diagnostics: Mapping) -> None:

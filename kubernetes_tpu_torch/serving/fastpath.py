@@ -21,17 +21,15 @@ its placement is representable in the resident planes —
   cannot be moved by score normalization, so the batch path's
   exception-column form is assignment-identical);
 - no live stateful plugin: InterPodAffinity, PodTopologySpread,
-  NodePorts, NodeResourceTopologyMatch and DynamicResources take the pod
-  only when their activity gates (the backend's `_FILTER_ACTIVE` /
-  `_SCORE_ACTIVE`, each the plugin's own Skip condition) say inactive, as
-  in the reference — a plain pod against a term-free cluster stays
-  eligible, while a pod with affinity terms, a labeled pod under the
-  default profile (whose default spread constraints score it), a pod with
-  host ports or claims, or a pod with a zone-tracked request under
+  NodePorts, the four volume plugins, NodeResourceTopologyMatch and
+  DynamicResources take the pod only when their activity gates (the
+  backend's `_FILTER_ACTIVE` / `_SCORE_ACTIVE`, each the plugin's own Skip
+  condition) say inactive, as in the reference — a plain pod against a
+  term-free cluster stays eligible, while a pod with affinity terms, a
+  labeled pod under the default profile (whose default spread constraints
+  score it), a pod with host ports, PersistentVolumeClaims or resource
+  claims, or a pod with a zone-tracked request under
   NodeResourceTopologyMatch does not;
-- none of the features this package does not model (`unsupported_feature`:
-  volumes) — the reference's default profile makes such a pod ineligible
-  through its plugins' activity gates;
 - not a gang member under Coscheduling: a pod with a PodGroup label is
   ineligible when the profile holds Coscheduling (its quota is the batch
   solve's all-or-nothing mask), as in the reference; without
@@ -43,7 +41,7 @@ its placement is representable in the resident planes —
 
 Anything else falls through (None) to the normal path, which also owns
 diagnostics and preemption for no-fit pods. A framework holding a plugin
-at PreFilter, Filter, PreScore or Score that is not one of the twelve the
+at PreFilter, Filter, PreScore or Score that is not one of the sixteen the
 backend models (`MODELLED_PLUGINS`) raises NotImplementedError, as
 `TorchBackend.assign` does; plugins at none of those points (PrioritySort,
 SchedulingGates, DefaultBinder) pass. A host verify (exact
@@ -73,7 +71,6 @@ from kubernetes_tpu_torch.ops.backend import (
     DEVICE_SCORE_PLUGINS,
     STATIC_ROW_PLUGINS,
     STATIC_SCORE_PLUGINS,
-    unsupported_feature,
 )
 from kubernetes_tpu_torch.scheduler.plugins.noderesources import (
     insufficient_resources,
@@ -127,8 +124,6 @@ class SinglePodFastPath:
     def _base_rows(self, pi, snapshot, fwk, ct) -> list | None:
         """The pod's host filter rows (static plugins only), or None when
         any influence outside the fast path's vocabulary is live for it."""
-        if unsupported_feature(pi) is not None:
-            return None
         rows = []
         for plugin in fwk.filter_plugins:
             name = plugin.NAME

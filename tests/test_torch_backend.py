@@ -206,13 +206,15 @@ def test_fused_program_matches_reference(runs):
 
 
 def test_unsupported_pods_raise():
-    """Volumes are not modelled and raise before any placement, naming
-    the ROADMAP item; resource claims and host ports are modelled now
-    (DynamicResources and NodePorts), as are inter-pod affinity, topology
-    spread and gang labels, and place or fail through their plugins (a
-    claim with no claims informer wired fails DynamicResources' PreFilter,
-    as in the reference; a gang label without Coscheduling in the profile
-    means nothing)."""
+    """Nothing a pod carries raises any more: volumes (the four volume
+    plugins), resource claims and host ports are modelled (DynamicResources
+    and NodePorts), as are inter-pod affinity, topology spread and gang
+    labels, and each pod places or fails through its plugins (a claim with
+    no claims informer wired fails DynamicResources' PreFilter, as in the
+    reference; a PersistentVolumeClaim with no claims informer wired is
+    skipped by VolumeBinding, VolumeZone and VolumeRestrictions, as in the
+    reference; a gang label without Coscheduling in the profile means
+    nothing)."""
     nodes, residents, _ = cluster_objects()
     snap = _snapshot(ttypes, nodes, residents)
     fwk = tframework.Framework(tregistry.build_plugins(),
@@ -224,10 +226,9 @@ def test_unsupported_pods_raise():
     pvc = make_pod("pvc")
     pvc["spec"]["volumes"] = [{"name": "data", "persistentVolumeClaim": {
         "claimName": "data-0"}}]
-    with pytest.raises(NotImplementedError,
-                       match="volumes .*ROADMAP queue 1 item 7"):
-        tb.assign([ttypes.PodInfo(pvc)], snap, fwk)
-    assert tb.counters["chunks"] == 0
+    got, _ = tb.assign([ttypes.PodInfo(pvc)], snap, fwk)
+    assert got["default/pvc"] is not None
+    assert tb.counters["chunks"] == 1
     got, diag = tb.assign([ttypes.PodInfo(claim), ttypes.PodInfo(
         make_pod("ports", host_ports=[8080]))], snap, fwk)
     assert got["default/claim"] is None

@@ -5,11 +5,11 @@ the JAX package's, on the CPU.
   workload's own, read from `performance-config.yaml` by the JAX harness
   and from the port's `DEVICE_TOPOLOGY` constant; multiPoint disable-all
   and re-enable; per-point disable and enable with weights; pluginConfig
-  args; a YAML string): the same profiles, per-point plugin names and
-  score weights, less the four volume plugins the port does not have
-  (VolumeBinding, VolumeRestrictions, VolumeZone, NodeVolumeLimits: ROADMAP
-  queue 1 item 7); the same scalar settings; and `build_framework` gives
-  the same plugins at every extension point, with their args.
+  args, the volume plugins' `bindTimeoutSeconds` and `maxVolumesPerNode`
+  among them; a YAML string): the same profiles, per-point plugin names
+  and score weights, the four volume plugins included; the same scalar
+  settings; and `build_framework` gives the same plugins at every
+  extension point, with their args.
 - Invalid configurations raise ConfigError in both (unknown plugin,
   unsupported apiVersion or kind, a duplicate profile, a plugin enabled at
   a point it does not implement, pluginConfig for an unknown plugin).
@@ -32,8 +32,6 @@ from kubernetes_tpu_torch.utils import featuregate as tfg
 
 YAML = Path(__file__).resolve().parent.parent / "kubernetes_tpu" / "perf" \
     / "config" / "performance-config.yaml"
-VOLUME_PLUGINS = {"VolumeBinding", "VolumeRestrictions", "VolumeZone",
-                  "NodeVolumeLimits"}
 POINTS = ("Filter", "Score", "PreFilter", "PreScore", "Reserve", "PreBind",
           "PreEnqueue", "QueueSort", "PostFilter", "Bind", "Permit",
           "PostBind")
@@ -66,6 +64,9 @@ CONFIGS = {
             {"name": "NodeResourcesFit", "args": {
                 "scoringStrategy": {"type": "MostAllocated"}}},
             {"name": "TPUScorer", "args": {"enabled": False}}]}]},
+    "volume-args": {"profiles": [{"pluginConfig": [
+        {"name": "VolumeBinding", "args": {"bindTimeoutSeconds": 5}},
+        {"name": "NodeVolumeLimits", "args": {"maxVolumesPerNode": 3}}]}]},
     "yaml": """apiVersion: kubescheduler.config.k8s.io/v1
 kind: KubeSchedulerConfiguration
 profiles:
@@ -78,7 +79,7 @@ profiles:
 
 
 def view(cfg) -> dict:
-    """A loaded config, volume plugins left out."""
+    """A loaded config."""
     out = {"scalars": (cfg.api_version, cfg.parallelism,
                        cfg.percentage_of_nodes_to_score,
                        cfg.pod_initial_backoff, cfg.pod_max_backoff,
@@ -86,14 +87,12 @@ def view(cfg) -> dict:
     for p in cfg.profiles:
         fwk = p.build_framework()
         out[p.scheduler_name] = {
-            "active": {pt: [n for n in names if n not in VOLUME_PLUGINS]
-                       for pt, names in p.active.items()},
+            "active": dict(p.active),
             "weights": p.weights,
             "args": {k: v for k, v in p.plugin_config.items()},
             "percentage": p.percentage_of_nodes_to_score,
             "framework": {pt: [(q.NAME, q.args) for q in getattr(
-                fwk, _attr(pt)) if q.NAME not in VOLUME_PLUGINS]
-                for pt in POINTS},
+                fwk, _attr(pt))] for pt in POINTS},
             "weights_fwk": fwk.score_weights,
         }
     return out

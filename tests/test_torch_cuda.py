@@ -27,7 +27,10 @@ heterogeneous workload exactly as on the CPU; gang chunks (Coscheduling in
 the profile) place on the card exactly as on the CPU, and one bucket of the
 preemption victim proposal (`propose_victims`) on the card, under sync
 debug "error", equals the CPU's; and device-topology chunks (NUMA zones,
-resource claims, host ports) place on the card exactly as on the CPU.
+resource claims, host ports) place on the card exactly as on the CPU; and
+the chunk stream (`assign_stream`) on the card equals `assign` on the card
+and on the CPU, its wait for the card running beside another task's CUDA
+graph captures.
 """
 
 import numpy as np
@@ -579,3 +582,86 @@ def test_device_chunk_on_card_matches_cpu(cuda, kind, mode):
     cpu = device_chunk_view(*device_chunk(api, on_cpu, kind, 8, mode))
     assert card == cpu
     assert on_card.counters == on_cpu.counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mode", [("storm", "greedy"),
+                                       ("failures", "auto"),
+                                       ("failures", "greedy")])
+def test_stream_on_card_matches_assign(cuda, kind, mode):
+    """`assign_stream` on the card against `assign` on the card and on the
+    CPU (phase 15(a)'s `compare_stream`, which raises on any difference)."""
+    import copy
+
+    from chip_smoke import compare_stream, stamped_snapshot, stream_case
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+    from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo
+
+    nodes, pods, batch = stream_case(kind)
+    gen = [0]
+
+    def snapshot():
+        gen[0] += 1
+        return stamped_snapshot([NodeInfo(copy.deepcopy(n)) for n in nodes],
+                                gen[0])
+
+    compare_stream(torch, kind, snapshot, [PodInfo(p) for p in pods],
+                   Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS), batch,
+                   mode, "replays" if kind == "storm" else "failures")
+
+
+@pytest.mark.cuda
+def test_stream_wait_beside_graph_captures(cuda):
+    """The stream's wait for the card polls its event on the loop's
+    thread, so another task capturing and replaying CUDA graphs (default
+    global capture mode) between its polls neither raises nor spoils a
+    capture, and the stream's result is `assign`'s."""
+    import asyncio
+
+    from chip_smoke import stamped_snapshot, stream_case
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_SCORE_WEIGHTS, build_plugins)
+    from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo
+
+    nodes, pods, batch = stream_case("failures")
+    fwk = Framework(build_plugins(), DEFAULT_SCORE_WEIGHTS)
+    want, _ = TorchBackend(max_batch=batch).assign(
+        [PodInfo(p) for p in pods],
+        stamped_snapshot([NodeInfo(n) for n in nodes], 1), fwk)
+    x = torch.arange(4096, dtype=torch.float32, device=cuda)
+
+    async def main():
+        done = []
+
+        async def capturer():
+            captures = 0
+            while not done:
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    y = x * 2 + 1
+                g.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(y, x * 2 + 1)
+                captures += 1
+                await asyncio.sleep(0)
+            return captures
+
+        task = asyncio.ensure_future(capturer())
+        backend = TorchBackend(max_batch=batch)
+        ctx = None
+        async for _, ctx in backend.assign_stream(
+                [PodInfo(p) for p in pods],
+                stamped_snapshot([NodeInfo(n) for n in nodes], 2), fwk):
+            # Between chunks the capturer runs while later chunks' passes
+            # and copies are still queued behind their events.
+            await asyncio.sleep(0)
+        done.append(True)
+        return dict(ctx.assignments), await task
+
+    got, captures = asyncio.run(main())
+    assert got == want
+    assert captures > 0

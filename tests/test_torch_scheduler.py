@@ -19,9 +19,10 @@ the reference on `TPUBackend(max_batch=16, mesh=None)`.
   one takes the seeded host path (a one-pod dispatch), and the
   placements and messages are identical (seed 42).
 - Serving on with a trickle of lone pods: the fast path places pods.
-- No fallback: a backend whose `assign` raises, and a fast path that
-  raises, each make `run` raise, with no pod bound and no
-  `backend_fallback` attempt counted.
+- No fallback: a backend that raises in `assign`, at its chunk stream's
+  first chunk or mid-stream (after the first chunk's pods are bound), and
+  a fast path that raises, each make `run` raise, with no pod of a chunk
+  not yet yielded bound and no `backend_fallback` attempt counted.
 
 Tolerance: none.
 """
@@ -32,8 +33,8 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from chip_smoke import (LoopRun, loop_cluster, over_capacity, port_loop_api,
-                        run_loop)
+from chip_smoke import (AssignOnly, LoopRun, loop_cluster, over_capacity,
+                        port_loop_api, run_loop)
 from kubernetes_tpu.api.types import make_node as jmake_node
 from kubernetes_tpu.api.types import make_pod as jmake_pod
 from kubernetes_tpu.client import InformerFactory as JInformerFactory
@@ -75,19 +76,21 @@ def both(nodes, pods, trickle=False):
 
 
 def test_default_profile_is_the_loop_profile():
-    """The port's default profile is the reference's, restricted to the
-    plugins the port has, in the reference's order, with its weights:
-    DefaultPreemption just before DefaultBinder, Coscheduling registered
-    but not enabled."""
+    """The port's default profile is the reference's whole, in the
+    reference's order, with its weights: the four volume plugins after
+    NodePorts, DefaultPreemption just before DefaultBinder, Coscheduling
+    registered but not enabled."""
     from kubernetes_tpu.scheduler.plugins import registry as jregistry
     from kubernetes_tpu_torch.scheduler.plugins import registry as tregistry
 
     assert DEFAULT_PLUGINS == [
         "PrioritySort", "SchedulingGates", "NodeUnschedulable", "NodeName",
-        "TaintToleration", "NodeAffinity", "NodePorts", "NodeResourcesFit",
-        "NodeResourcesBalancedAllocation", "InterPodAffinity",
-        "PodTopologySpread", "ImageLocality", "DynamicResources",
-        "DefaultPreemption", "DefaultBinder"]
+        "TaintToleration", "NodeAffinity", "NodePorts", "VolumeBinding",
+        "VolumeRestrictions", "VolumeZone", "NodeVolumeLimits",
+        "NodeResourcesFit", "NodeResourcesBalancedAllocation",
+        "InterPodAffinity", "PodTopologySpread", "ImageLocality",
+        "DynamicResources", "DefaultPreemption", "DefaultBinder"]
+    assert DEFAULT_PLUGINS == jregistry.DEFAULT_PLUGINS
     assert "Coscheduling" in tregistry.IN_TREE
     assert "Coscheduling" not in DEFAULT_PLUGINS
     assert DEFAULT_PLUGINS == [p for p in jregistry.DEFAULT_PLUGINS
@@ -143,9 +146,28 @@ def test_serving_trickle_takes_the_fast_path(monkeypatch):
     assert not over_capacity(got["nodes"], got["pods"])
 
 
+RAISE_AT = {"assign": 0, "stream-first-chunk": 0, "mid-stream": 1}
+
+
+def raising_backend(where: str, **kw):
+    """A CPU `TorchBackend` whose chunk finalize raises "device lost" at
+    the first chunk (`assign`, seen through `chip_smoke.AssignOnly`, or
+    the stream's first chunk) or at the second, after the stream yielded
+    the first (`mid-stream`)."""
+    backend = RaisingBackend(RAISE_AT[where], device="cpu", **kw)
+    return AssignOnly(backend) if where == "assign" else backend
+
+
 class RaisingBackend(TorchBackend):
-    def assign(self, pods, snapshot, fwk):
-        raise RuntimeError("device lost")
+    def __init__(self, raise_at: int, **kw):
+        super().__init__(**kw)
+        self.raise_at, self.finalized = raise_at, 0
+
+    def _finalize_chunk(self, run, assign_np, ctx):
+        if self.finalized == self.raise_at:
+            raise RuntimeError("device lost")
+        self.finalized += 1
+        return super()._finalize_chunk(run, assign_np, ctx)
 
 
 async def raising_run(backend, pods) -> tuple[dict, dict]:
@@ -164,13 +186,25 @@ async def raising_run(backend, pods) -> tuple[dict, dict]:
         await lr.close()
 
 
-def test_raising_backend_makes_run_raise(monkeypatch):
+@pytest.mark.parametrize("where", sorted(RAISE_AT))
+def test_raising_backend_makes_run_raise(monkeypatch, where):
+    """`run` raises wherever the backend fails: in `assign`, at the
+    stream's first chunk, or mid-stream once the first chunk's pods are
+    bound; no `backend_fallback` is counted and the pods of the chunks not
+    yet yielded stay unbound (no host-path rerun)."""
     monkeypatch.setenv("KTPU_SERVING", "0")
-    _, pods = loop_cluster(3, 25, 10)
+    _, pods = loop_cluster(3, 25, 40)
     assignments, counts = asyncio.run(raising_run(
-        RaisingBackend(device="cpu", max_batch=16), pods))
-    assert not any(assignments.values())
-    assert counts["backend_fallback"] == 0 and counts["scheduled"] == 0
+        raising_backend(where, max_batch=16), pods))
+    assert counts["backend_fallback"] == 0
+    bound = sum(v is not None for v in assignments.values())
+    if where == "mid-stream":
+        # The first chunk's 16 pods were yielded: the placed ones bound,
+        # the rest failed through the failure wave; no other pod bound.
+        assert 0 < counts["scheduled"] == bound <= 16
+        assert counts["scheduled"] + counts["unschedulable"] == 16
+    else:
+        assert bound == 0 and counts["scheduled"] == 0
 
 
 def test_raising_fast_path_makes_run_raise(monkeypatch):

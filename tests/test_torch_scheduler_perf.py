@@ -13,7 +13,8 @@
 - `main` runs a YAML config on the torch backend, and with no options
   runs TorchBackend on cuda:0 (raising without CUDA); an opcode or a family
   setting that is not ported raises; a barrier raises the loop's own
-  exception when a backend raises (no fallback).
+  exception when a backend raises, in `assign`, at its chunk stream's
+  first chunk or mid-stream (no fallback).
 
 Tolerance: none (counts and the fragmentation are exact).
 """
@@ -25,6 +26,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from chip_smoke import AssignOnly
 from kubernetes_tpu.ops.backend import TPUBackend
 from kubernetes_tpu.perf import scheduler_perf as jperf
 from kubernetes_tpu_torch.ops.backend import TorchBackend
@@ -83,17 +85,33 @@ def test_runner_without_a_backend_binds_on_the_host_path():
 
 
 class RaisingBackend(TorchBackend):
-    def assign(self, pods, snapshot, fwk):
-        raise RuntimeError("device lost")
+    def __init__(self, raise_at: int, **kw):
+        super().__init__(**kw)
+        self.raise_at, self.finalized = raise_at, 0
+
+    def _finalize_chunk(self, run, assign_np, ctx):
+        if self.finalized == self.raise_at:
+            raise RuntimeError("device lost")
+        self.finalized += 1
+        return super()._finalize_chunk(run, assign_np, ctx)
 
 
-def test_barrier_raises_the_loops_exception(monkeypatch):
+@pytest.mark.parametrize("where", ["assign", "mid-stream",
+                                   "stream-first-chunk"])
+def test_barrier_raises_the_loops_exception(monkeypatch, where):
+    """The runner's barrier raises the loop's exception wherever the
+    backend fails: in `assign` (a backend seen through
+    `chip_smoke.AssignOnly`), at the stream's first chunk, or mid-stream
+    after the first chunk was yielded (16-pod chunks)."""
     monkeypatch.setenv("KTPU_SERVING", "0")
     template = tperf.SCHEDULING_BASIC["workloadTemplate"]
-    runner = tperf.PerfRunner(backend=RaisingBackend(device="cpu"),
-                              batch_size=16384)
+    backend = RaisingBackend(1 if where == "mid-stream" else 0,
+                             device="cpu", max_batch=16)
+    if where == "assign":
+        backend = AssignOnly(backend)
+    runner = tperf.PerfRunner(backend=backend, batch_size=16384)
     with pytest.raises(RuntimeError, match="device lost"):
-        asyncio.run(runner.run(template, {"initNodes": 5, "initPods": 10,
+        asyncio.run(runner.run(template, {"initNodes": 5, "initPods": 40,
                                           "measurePods": 20}, timeout=60.0))
 
 

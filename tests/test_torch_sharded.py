@@ -337,7 +337,7 @@ def test_mesh_shapes_and_limits():
     with pytest.raises(ValueError, match="divide"):
         tpar.build_mesh_2d(6, pods_parallelism=4, device=CPU)
     two = tpar.Mesh(("nodes",), (2,), (CPU, torch.device("meta")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Blocked on hardware"):
         two.device
     args = convert.sharded_solver_inputs(tpar.build_mesh(1, CPU),
                                          _storm(71))
