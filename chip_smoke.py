@@ -22,7 +22,10 @@ card's full-width wave_solve), with the shortlist-pruned solve and its
 block prefilter forced and held to it; and the device-topology workloads
 (DeviceTopology/1000Nodes with NodeResourceTopologyMatch, and
 DeviceTopologyDRA/1000Nodes with DynamicResources and resource claims)
-through the loop —
+through the loop; and slice-shaped gangs (TopologySlice's contiguous
+sub-mesh plan, its scan as PyTorch ops on the card) with agent-backed
+nodes and the open-loop churn harness (ChurnSlicePacking at 64 and 256
+agents, ChurnDay/5000Nodes-trickle) —
 after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
@@ -302,7 +305,37 @@ Phases (any failure raises and the script exits non-zero with no result):
      ReadWriteOncePod claim used twice; printed: pods/s, the `assign`
      share, prep and verify, the PreBind waits, and the idle share of a
      profiled repeat at 1000 nodes;
- 16. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 16. slice topology, the node agents and the churn harness, under a
+     scoped KTPU_SOLVE_MODE=auto with serving on, the card's name and
+     power limit printed first: (a) `topology.device.device_scan` on the
+     card against the port's scan on the CPU over SCAN_MESHES (the 4x4
+     torus, the walled 4x8 mesh, the 3x5x2 torus, the 71x71 auto torus of
+     5000 nodes, the 8x8x16 torus) x SCAN_SHAPES ((2,2), (1,3), (2,4),
+     (4,4), (8,8), (2,2,2), (2,2,8), (4,4,4) and the mesh's full span) x
+     `scan_masks` from `--seed` (fully free, random at 0.9 and 0.6,
+     symmetric holes, the wrap band): keys, feasibility, frag and
+     coverage identical, None on both where the size contract declines,
+     `best_key` identical at 1, 4 and 8 shards; the ms per scan (CUDA
+     events) and the device kernels and device time per scan
+     (torch.profiler) of SCAN_TIMED; (b) the SLICE_CASES fixtures (two
+     2x2 gangs on a 4x4 auto torus with a busy cell, a 2x2x2 gang on
+     4x4x2, an impossible 1x3 gang) as one chunk (flagless and greedy)
+     and through `Scheduler.run`, on the card and on the CPU: identical
+     placements, every gang whole on a contiguous sub-mesh, the 1x3 gang
+     pending whole, no node over capacity; (c) ChurnSlicePacking/
+     64Agents-2x2 and /256Agents-4x4 (the YAML's params: 64 and 256
+     in-process NodeAgents on the auto torus, rate 20 and 40 for 6 s, a
+     2x2 and a 4x4 gang at 1 s, its node killed at 3.5 s; not cut)
+     through the port's `PerfRunner` with `TorchBackend()`: both faults
+     recovered, each gang whole on a contiguous sub-mesh, the replacement
+     off the dead node, no node over capacity; printed: recovery, attempt
+     p50/p99/p999, arrivals, backlog peak, slice fragmentation, plans
+     (oracle plans), wave_solve launches and solve_one calls in the
+     window, and for the 64-agent cell the idle share of a profiled
+     repeat; (d) ChurnDay/5000Nodes-trickle (5000 nodes, 300 warm-up
+     pods, 250/s for 10 s; not cut): no node over capacity, no create
+     error; the attempt percentiles and the fast-path share;
+ 17. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -319,15 +352,19 @@ Phases (any failure raises and the script exits non-zero with no result):
      card chunks), `device_topology_launches` and
      `device_topology_dra_launches` (the measured windows of 14(b) and
      14(c)); and phase 15's: `volume_chunk_launches` (15(c)'s card
-     chunks) and `volume_loop_launches` (15(d)'s measured window);
+     chunks) and `volume_loop_launches` (15(d)'s measured window); and
+     phase 16's: `slice_fixture_launches` (16(b) on the card),
+     `churn_slice_64_launches`, `churn_slice_256_launches` and
+     `churn_day_launches` (the measured windows of 16(c) and 16(d));
      the probe's, its
      launches over phase 9(b)'s run and over 10(b)'s), the card's name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
-`--phase13-only` (or `--phase14-only`, `--phase15-only`) it builds the
-kernels and runs phase 13 (or 14, 15) alone (no result lines). It needs one CUDA device; without one, or outside a checkout of the
+`--phase13-only` (or `--phase14-only`, `--phase15-only`,
+`--phase16-only`) it builds the kernels and runs phase 13 (or 14, 15, 16)
+alone (no result lines). It needs one CUDA device; without one, or outside a checkout of the
 repository, it exits non-zero.
 """
 
@@ -5663,6 +5700,605 @@ def stream_volume_phases(torch, seed: int) -> int:
     return 0
 
 
+# -- phase 16: slice topology, the node agents and the churn harness --------
+
+#: Phase 16(a)'s meshes (KTPU_MESH_SHAPE, node count) and slice shapes; each
+#: mesh also scans its own dims (the full-span case).
+SCAN_MESHES = (("4x4", 16), ("4x8:mesh", 32), ("3x5x2", 30), ("auto", 5000),
+               ("8x8x16", 1024))
+SCAN_SHAPES = ((2, 2), (1, 3), (2, 4), (4, 4), (8, 8), (2, 2, 2), (2, 2, 8),
+               (4, 4, 4))
+#: Phase 16(a)'s timed (mesh, shape) pairs: the churn cells' 8x8 and 16x16
+#: auto tori, the 5000-node torus and the 3D torus.
+SCAN_TIMED = ((("auto", 64), (2, 2)), (("auto", 256), (4, 4)),
+              (("auto", 5000), (8, 8)), (("8x8x16", 1024), (4, 4, 4)))
+
+
+def mesh_spec(raw: str, n: int):
+    from kubernetes_tpu_torch.topology.mesh import parse_mesh_shape
+    return parse_mesh_shape(raw, n)
+
+
+def scan_masks(spec, seed: int) -> list:
+    """Seeded free masks of one mesh, as (name, (cells,) bool): fully free
+    (every anchor ties), random at densities 0.9 and 0.6, symmetric holes
+    (a random hole set united with its mirror through the mesh's centre,
+    so mirrored placements tie) and the wrap band (only the first and last
+    index of each axis longer than 2 free: on a torus a slice of at most 2
+    per axis exists there only through the wrap; on a walled mesh none)."""
+    rng = np.random.default_rng(seed)
+    dims = spec.dims
+    coords = np.indices(dims).reshape(3, -1).T
+    holes = rng.random(spec.cells) < 0.15
+    mirror = [spec.index_of(tuple(d - 1 - c for c, d in zip(xyz, dims)))
+              for xyz in coords]
+    band = np.ones(spec.cells, dtype=np.bool_)
+    for axis, d in enumerate(dims):
+        if d > 2:
+            band &= (coords[:, axis] == 0) | (coords[:, axis] == d - 1)
+    return [("free", np.ones(spec.cells, dtype=np.bool_)),
+            ("p0.9", rng.random(spec.cells) < 0.9),
+            ("p0.6", rng.random(spec.cells) < 0.6),
+            ("symmetric", ~(holes | holes[mirror])),
+            ("wrap-band", band)]
+
+
+def scan_shapes(spec) -> list:
+    """SCAN_SHAPES plus the mesh's own dims (trailing 1s dropped)."""
+    full = tuple(spec.dims)
+    while len(full) > 1 and full[-1] == 1:
+        full = full[:-1]
+    return list(SCAN_SHAPES) + [full]
+
+
+def scan_view(scan) -> tuple | None:
+    """A device_scan result as comparable lists (None stays None)."""
+    if scan is None:
+        return None
+    return tuple(np.asarray(a).tolist() for a in scan)
+
+
+def scan_phase(torch, seed: int) -> dict:
+    """Phase 16(a): `device_scan` on the card against the port's scan on
+    the CPU on every (mesh, shape, mask) of SCAN_MESHES x scan_shapes x
+    scan_masks: keys, feasibility, frag and coverage identical (None where
+    the size contract declines, on both), and `best_key` identical at 1,
+    4 and 8 shards on the card and to the CPU's plain max; then the ms per
+    scan (CUDA events) and the device kernels per scan (torch.profiler) of
+    the SCAN_TIMED pairs. Returns the ms per scan by pair."""
+    from kubernetes_tpu_torch.topology import device as topo
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    scans = declined = feasible = 0
+    for raw, n in SCAN_MESHES:
+        spec = mesh_spec(raw, n)
+        for shape in scan_shapes(spec):
+            for name, mask in scan_masks(spec, seed):
+                card = topo.device_scan(mask, spec, shape, dev)
+                cpu = topo.device_scan(mask, spec, shape, "cpu")
+                if scan_view(card) != scan_view(cpu):
+                    raise RuntimeError(f"16(a): device_scan differs on the "
+                                       f"card, mesh {raw} ({n} nodes), "
+                                       f"shape {shape}, mask {name}")
+                scans += 1
+                if card is None:
+                    declined += 1
+                    continue
+                want = topo.best_key(cpu[0])
+                got = [topo.best_key(card[0], s, dev) for s in (1, 4, 8)]
+                if got != [want] * 3:
+                    raise RuntimeError(f"16(a): best_key {got} at 1/4/8 "
+                                       f"shards against {want}, mesh {raw}, "
+                                       f"shape {shape}, mask {name}")
+                feasible += want >= 0
+    print(f"compare slice scan, card vs CPU: {scans} (mesh, shape, mask) "
+          f"scans identical (keys, feasibility, frag, coverage), "
+          f"{declined} declined by the size contract on both, best_key "
+          f"identical at 1, 4 and 8 shards ({feasible} with a feasible "
+          f"placement)")
+    timed = {}
+    for (raw, n), shape in SCAN_TIMED:
+        spec = mesh_spec(raw, n)
+        mask = scan_masks(spec, seed)[1][1]
+        ms = cuda_ms(torch, lambda: topo.device_scan(mask, spec, shape, dev),
+                     20)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                topo.device_scan(mask, spec, shape, dev)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if device_us(e) > 0) / 5
+        busy_ms = sum(device_us(e) for e in prof.key_averages()) / 5e3
+        key = f"{spec.dims[0]}x{spec.dims[1]}x{spec.dims[2]} {shape}"
+        timed[key] = ms
+        print(f"slice scan {key} ({'torus' if spec.wrap else 'mesh'}, "
+              f"{spec.cells} cells, p0.9 mask): {ms:.4f} ms per scan (CUDA "
+              f"events, the host read included); {kernels:.0f} device "
+              f"kernels and {busy_ms:.4f} ms of device time per scan "
+              f"(profiler)")
+    print(f"phase 16(a) {time.perf_counter() - t0:.1f} s")
+    return timed
+
+
+#: Phase 16(b)'s fixtures.
+SLICE_CASES = ("torus-2x2", "mesh-2x2x2", "impossible-1x3")
+SLICE_NODE = {"allocatable": {"cpu": "4", "memory": "16Gi", "pods": "110"}}
+
+
+def slice_case(kind: str) -> dict:
+    """One phase 16(b) fixture: KTPU_MESH_SHAPE, nodes and residents as
+    (name, make_node / make_pod kwargs), PodGroups [(name, sliceShape)] and
+    pods (gang members of cpu 1 among lone pods of cpu 500m). A resident
+    of cpu 4 makes its node a busy cell. `torus-2x2`: two 2x2 gangs and 6
+    lone pods on the 4x4 auto torus of 16 nodes with node-5 busy (the two
+    plans must not claim one node); `mesh-2x2x2`: a 2x2x2 gang and 4 lone
+    pods on the 4x4x2 torus with node-0 busy; `impossible-1x3`: a 1x3 gang
+    and 4 lone pods on the 4x4 auto torus with a checkerboard of busy
+    cells, so no three free cells line up and the gang stays pending
+    whole while the lone pods place."""
+    if kind == "torus-2x2":
+        mesh, n, busy, lone = "auto", 16, (5,), 6
+        groups = [("g1", (2, 2)), ("g2", (2, 2))]
+    elif kind == "mesh-2x2x2":
+        mesh, n, busy, lone = "4x4x2", 32, (0,), 4
+        groups = [("g3", (2, 2, 2))]
+    elif kind == "impossible-1x3":
+        mesh, n, lone = "auto", 16, 4
+        busy = tuple(i for i in range(n) if (i // 4 + i % 4) % 2 == 0)
+        groups = [("g4", (1, 3))]
+    else:
+        raise ValueError(kind)
+    nodes = [(f"node-{i}", copy.deepcopy(SLICE_NODE)) for i in range(n)]
+    residents = [(f"busy-{i}", {"node_name": f"node-{i}", "requests": {
+        "cpu": "4", "memory": "1Gi"}}) for i in busy]
+    pods = []
+    for g, shape in groups:
+        pods += [(f"{g}-{k}", {"requests": {"cpu": "1", "memory": "1Gi"},
+                               "labels": {GANG_LABEL: g}})
+                 for k in range(math.prod(shape))]
+    pods += [(f"solo-{k}", {"requests": {"cpu": "500m", "memory": "1Gi"}})
+             for k in range(lone)]
+    return {"mesh": mesh, "nodes": nodes, "residents": residents,
+            "groups": groups, "pods": pods}
+
+
+def port_slice_api():
+    """This package's modules phase 16(b) and the tests drive (the tests
+    build the JAX package's counterpart)."""
+    from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
+    from kubernetes_tpu_torch.scheduler import framework, types
+    from kubernetes_tpu_torch.scheduler.plugins import coscheduling, registry
+    from kubernetes_tpu_torch.topology import mesh
+
+    api = port_loop_api()
+    api.types, api.framework, api.registry = types, framework, registry
+    api.coscheduling, api.mesh = coscheduling, mesh
+    api.SchedulerMetrics = SchedulerMetrics
+    return api
+
+
+def slice_profile(api, store=None, groups=None, device=None):
+    """The default profile plus Coscheduling and TopologySlice of `api`'s
+    package. With `groups` ([(name, sliceShape)]) both plugins read a
+    `PodGroupIndex` over them (direct `assign`) and TopologySlice's scan
+    runs on `device` where the plugin has one; without, the scheduler
+    wires informers and the device."""
+    from kubernetes_tpu_torch.scheduler.plugins.registry import (
+        DEFAULT_PLUGINS)
+
+    plugins = api.registry.build_plugins(
+        list(DEFAULT_PLUGINS) + ["Coscheduling", "TopologySlice"],
+        store=store)
+    if groups is not None:
+        index = PodGroupIndex({
+            f"default/{g}": api.coscheduling.make_pod_group(
+                g, math.prod(shape), slice_shape=shape)
+            for g, shape in groups})
+        for p in plugins[-2:]:
+            p.pg_informer = index
+        if hasattr(plugins[-1], "device"):
+            plugins[-1].device = device
+    return api.framework.Framework(plugins,
+                                   api.registry.DEFAULT_SCORE_WEIGHTS)
+
+
+def slice_chunk(api, backend, kind: str, mode: str) -> dict:
+    """Phase 16(b)'s `kind` fixture as one chunk through `backend`'s
+    assign() under KTPU_SOLVE_MODE `mode` and the fixture's mesh:
+    assignments, diagnostics, the slice fragmentation gauge and the
+    TopologySlice plan routes (the port's; None for the reference)."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.utils import flags
+
+    case = slice_case(kind)
+    fwk = slice_profile(api, groups=case["groups"],
+                        device=getattr(backend, "device", None))
+    ts = fwk.plugins[-1]
+    ts.scheduler = SimpleNamespace(metrics=api.SchedulerMetrics())
+    snap = constraint_snapshot(api.types, api.make_node, api.make_pod,
+                               case["nodes"], case["residents"])
+    pods = [api.types.PodInfo(api.make_pod(n, **kw))
+            for n, kw in case["pods"]]
+    with flags.scoped_set("KTPU_MESH_SHAPE", case["mesh"]), \
+            flags.scoped_set("KTPU_SOLVE_MODE", mode):
+        assignments, diagnostics = backend.assign(pods, snap, fwk)
+    return {"assignments": dict(assignments),
+            "diagnostics": diagnostics_view(diagnostics),
+            "slice_fragmentation_pct":
+                ts.scheduler.metrics.slice_fragmentation_pct.value(),
+            "paths": dict(getattr(ts, "paths", {})) or None}
+
+
+def slice_violations(api, case: dict, assignments: dict) -> list[str]:
+    """What phase 16(b) and the tests require of a fixture's placements
+    ({pod name or key: node}): each gang bound whole on a contiguous
+    sub-mesh of its shape or not at all, the impossible gang not at all,
+    and no node over capacity."""
+    from kubernetes_tpu_torch.topology.slices import is_contiguous_slice
+
+    bad = []
+    spec = api.mesh.parse_mesh_shape(case["mesh"], len(case["nodes"]))
+    for g, shape in case["groups"]:
+        got = [assignments.get(f"default/{g}-{k}",
+                               assignments.get(f"{g}-{k}"))
+               for k in range(math.prod(shape))]
+        placed = [n for n in got if n is not None]
+        if not placed:
+            continue
+        cells = [api.mesh.node_cell(n, {}, spec) for n in placed]
+        if len(placed) < len(got) or len(set(placed)) < len(placed) \
+                or not is_contiguous_slice(cells, spec, shape):
+            bad.append(f"gang {g} bent or partial: {got}")
+        if shape == (1, 3):
+            bad.append(f"the impossible gang {g} placed: {got}")
+    used: dict = {}
+    for name, kw in case["residents"]:
+        used[kw["node_name"]] = used.get(kw["node_name"], 0) + 4000
+    for name, kw in case["pods"]:
+        node = assignments.get(f"default/{name}", assignments.get(name))
+        if node is not None:
+            cpu = kw["requests"]["cpu"]
+            used[node] = used.get(node, 0) + (
+                int(cpu[:-1]) if cpu.endswith("m") else 1000 * int(cpu))
+    bad += [f"{n} over capacity" for n, v in used.items() if v > 4000]
+    return bad
+
+
+async def slice_loop(api, backend, kind: str, batch_size: int) -> dict:
+    """Phase 16(b)'s `kind` fixture through `api`'s `Scheduler.run` with
+    the slice profile (the caller sets the fixture's mesh): residents
+    first (cached), the PodGroups, then every pod pre-created before the
+    loop opens; the loop runs until every pod is bound or parked
+    unschedulable. Returns the assignments by pod name and the slice
+    gangs Permit released."""
+    lr = LoopRun(api, backend, batch_size)
+    case = slice_case(kind)
+    names = [n for n, _ in case["pods"]]
+    await lr.start(case["nodes"], profiles=lambda store: {
+        "default-scheduler": slice_profile(api, store)})
+    try:
+        await lr.create(case["residents"])
+        await lr.wait(lambda: sum(
+            len(ni.pods) for ni in lr.sched.cache.update_snapshot().nodes)
+            == len(case["residents"]), "residents cached")
+        for g, shape in case["groups"]:
+            await lr.store.create("podgroups", api.coscheduling.make_pod_group(
+                g, math.prod(shape), slice_shape=shape))
+        await lr.create(case["pods"])
+        await lr.wait(lambda: lr.queued() == len(names), "pods queued")
+        lr.open()
+        await lr.wait(lambda: lr.settled(names), "pods placed")
+        assignments, _, _, _ = await lr.results()
+        return {"assignments": {n: assignments[n] for n in names},
+                "slice_gangs_bound":
+                    lr.sched.metrics.slice_gangs_bound.value()}
+    finally:
+        await lr.close()
+
+
+def slice_fixtures_phase(torch) -> int:
+    """Phase 16(b): each SLICE_CASES fixture through `TorchBackend()` on
+    the card and `TorchBackend(device="cpu")`, as one chunk (flagless and
+    with greedy pinned) and through `Scheduler.run`: identical placements
+    (and, for the chunk, diagnostics, fragmentation gauge and plan
+    routes), every gang whole on a contiguous sub-mesh, the impossible
+    gang pending whole, no node over capacity. Returns wave_solve's
+    launches on the card."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    api = port_slice_api()
+    launches = 0
+    for kind in SLICE_CASES:
+        case = slice_case(kind)
+        for mode in ("auto", "greedy"):
+            wave_kernel.wave_solve.launches = 0
+            card = slice_chunk(api, TorchBackend(max_batch=64), kind, mode)
+            launches += wave_kernel.wave_solve.launches
+            cpu = slice_chunk(api, TorchBackend(device="cpu", max_batch=64),
+                              kind, mode)
+            bad = slice_violations(api, case, card["assignments"])
+            placed = sum(v is not None for v in card["assignments"].values())
+            print(f"compare slice chunk {kind} (KTPU_SOLVE_MODE={mode}), "
+                  f"card vs CPU: {'identical' if card == cpu else 'DIFFER'}"
+                  f"; placed {placed}/{len(case['pods'])}, plans "
+                  f"{card['paths']}, slice fragmentation "
+                  f"{card['slice_fragmentation_pct']:.2f}%")
+            if card != cpu or bad:
+                raise RuntimeError(f"16(b): slice chunk {kind} ({mode}): "
+                                   f"card vs CPU {card == cpu}, {bad}")
+        wave_kernel.wave_solve.launches = 0
+        with flags.scoped_set("KTPU_MESH_SHAPE", case["mesh"]):
+            card = asyncio.run(slice_loop(api, TorchBackend(), kind,
+                                          LOOP_BATCH))
+            launches += wave_kernel.wave_solve.launches
+            cpu = asyncio.run(slice_loop(api, TorchBackend(device="cpu"),
+                                         kind, LOOP_BATCH))
+        bad = slice_violations(api, case, card["assignments"])
+        bound = sum(v is not None for v in card["assignments"].values())
+        print(f"compare slice loop {kind}, card vs CPU: "
+              f"{'identical' if card == cpu else 'DIFFER'}; bound "
+              f"{bound}/{len(case['pods'])}, slice gangs released "
+              f"{card['slice_gangs_bound']}")
+        if card != cpu or bad:
+            raise RuntimeError(f"16(b): slice loop {kind}: card vs CPU "
+                               f"{card == cpu}, {bad}")
+    print(f"phase 16(b) {time.perf_counter() - t0:.1f} s, wave_solve "
+          f"launches {launches}")
+    return launches
+
+
+def slice_runner_cls(base):
+    """`base` (the port's PerfRunner or a subclass of it) that keeps the
+    run's store and scheduler and records, through a pods informer
+    handler, the node of every slice-gang member as it binds — a gang the
+    sliceDeath fault deletes later included — for the 16(c) gates."""
+    from kubernetes_tpu_torch.client import ResourceEventHandler
+
+    class SliceRunner(base):
+        async def _drive(self, template_ops, params, timeout, store,
+                         metrics, sched, factory):
+            self.store, self.sched = store, sched
+            self.gang_nodes: dict = {}
+
+            def track(obj):
+                group = (obj["metadata"].get("labels") or {}).get(GANG_LABEL)
+                node = (obj.get("spec") or {}).get("nodeName")
+                if group and node:
+                    self.gang_nodes.setdefault(group, {})[
+                        obj["metadata"]["name"]] = node
+
+            factory.informer("pods").add_event_handler(ResourceEventHandler(
+                on_add=track, on_update=lambda old, new: track(new)))
+            return await super()._drive(template_ops, params, timeout,
+                                        store, metrics, sched, factory)
+
+    return SliceRunner
+
+
+def slice_plugin(sched):
+    """The TopologySlice plugin of the scheduler's default profile."""
+    return next(p for p in sched.profiles["default-scheduler"].plugins
+                if p.NAME == "TopologySlice")
+
+
+def churn_slice_violations(runner, result, params: dict) -> list[str]:
+    """Phase 16(c)'s gates on a ChurnSlicePacking run (`runner` from
+    `slice_runner_cls`): both faults recovered; each slice gang (the
+    first and its replacement) bound whole, one node per member, on a
+    contiguous sub-mesh of the auto torus; the replacement clear of the
+    dead member's node; no node over capacity in the store."""
+    from kubernetes_tpu_torch.topology.mesh import node_cell
+    from kubernetes_tpu_torch.topology.slices import is_contiguous_slice
+    from kubernetes_tpu_torch.utils import flags
+
+    shape = tuple(params["shape"])
+    size = math.prod(shape)
+    pods = asyncio.run(runner.store.list("pods")).items
+    nodes = asyncio.run(runner.store.list("nodes")).items
+    labels = {n["metadata"]["name"]: n["metadata"].get("labels") or {}
+              for n in nodes}
+    spec = mesh_spec(flags.get("KTPU_MESH_SHAPE"), len(nodes))
+    bad = [f"fault {r['kind']} not recovered: {r}"
+           for r in result.churn_faults if not r.get("recovered")]
+    if [r["kind"] for r in result.churn_faults] != ["gangArrival",
+                                                    "sliceDeath"]:
+        bad.append(f"fault records {result.churn_faults}")
+    dead = next((r.get("node") for r in result.churn_faults
+                 if r["kind"] == "sliceDeath"), None)
+    if sorted(runner.gang_nodes) != ["slice-1000", "slice-1000-r3500"]:
+        bad.append(f"slice gangs bound: {sorted(runner.gang_nodes)}")
+    for group, members in runner.gang_nodes.items():
+        placed = list(members.values())
+        cells = [node_cell(n, labels.get(n), spec) for n in placed]
+        if len(placed) != size or len(set(placed)) != size \
+                or None in cells \
+                or not is_contiguous_slice(cells, spec, shape):
+            bad.append(f"gang {group} not one contiguous {shape} slice: "
+                       f"{members}")
+        if group.endswith("-r3500") and dead in placed:
+            bad.append(f"replacement gang {group} on the dead node {dead}")
+    bad += [f"{n} over capacity" for n in over_capacity(nodes, pods)]
+    return bad
+
+
+def churn_view(result, sched, window: dict | None = None) -> str:
+    """The numbers phase 16(c) and 16(d) print of a churn run."""
+    r = result.as_dict()
+    ts = next((p for p in sched.profiles["default-scheduler"].plugins
+               if p.NAME == "TopologySlice"), None)
+    text = (f"attempt ms p50 {r['attempt_p50_ms']} p99 {r['attempt_p99_ms']}"
+            f" p999 {r['attempt_p999_ms']} (exact "
+            f"{r['attempt_percentiles_exact']}); arrivals "
+            f"{r['churn_arrivals_total']} at {r['churn_achieved_rate']}/s "
+            f"(offered {r['churn_offered_rate']}, late "
+            f"{r['churn_late_arrivals']}), backlog peak "
+            f"{r['churn_backlog_peak']}, final {r['churn_backlog_final']}, "
+            f"saturated {r['churn_saturated']}; fast-path pods "
+            f"{r['serving_fast_path_pods_total']}, agent boot "
+            f"{r['agent_start_seconds']} s")
+    if ts is not None:
+        text += (f"; churn_recovery_seconds_max "
+                 f"{r['churn_recovery_seconds_max']}, faults "
+                 f"{json.dumps(r['churn_faults'])}, slice gangs released "
+                 f"{r['slice_gangs_bound_total']}, slice_fragmentation_pct "
+                 f"{r['slice_fragmentation_pct']}, plans made "
+                 f"{ts.paths['device'] + ts.paths['oracle']} (oracle "
+                 f"{ts.paths['oracle']}), coordinate-plane rebuilds "
+                 f"{r['topology_plane_rebuilds_total']}")
+    if window is not None:
+        text += (f"; in the window: wave_solve launches "
+                 f"{window['launches']}, solve_one calls "
+                 f"{window['solve_one']}, backend dispatches "
+                 f"{window['routes']['backend_dispatches']} with "
+                 f"{window['routes']['backend_pods']} pods, host-path pods "
+                 f"{window['routes']['host_path_pods']}, wall "
+                 f"{window['wall']:.6f} s, assign share "
+                 f"{window['timings']['assign_s'] / window['wall']:.4f}")
+    return text
+
+
+def churn_run(torch, family: dict, workload: str, profile: str | None
+              ) -> tuple:
+    """One run of a churn family's workload through the port's
+    `PerfRunner` (`Scheduler.run`, `TorchBackend()`, batch_size 16384),
+    counting the routes, wave_solve's launches and the fast path's
+    solve_one calls over the measured window (and profiling it when
+    asked, as `counting_runner_cls`). Returns (runner, result)."""
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    params = next(w["params"] for w in family["workloads"]
+                  if w["name"] == workload)
+    base = slice_runner_cls(counting_runner_cls(torch))
+
+    with counted_solves(torch, False) as solves:
+        class ChurnRunner(base):
+            def _begin_measure(self, metrics, backing):
+                out = super()._begin_measure(metrics, backing)
+                self.window["solves"] = dict(solves)
+                return out
+
+            def _end_measure(self, result, metrics, backing, base, count):
+                super()._end_measure(result, metrics, backing, base, count)
+                self.window["solve_one"] = {
+                    k: v - self.window["solves"][k]
+                    for k, v in solves.items()}
+
+        runner = ChurnRunner(TorchBackend(), profile,
+                             family.get("schedulerConfig"))
+        result = asyncio.run(runner.run(family["workloadTemplate"], params,
+                                        timeout=600.0))
+    return runner, result
+
+
+def churn_slice_phase(torch) -> dict:
+    """Phase 16(c): ChurnSlicePacking's two cells through `churn_run`, each
+    held to `churn_slice_violations`, then the 64-agent cell again under
+    torch.profiler for the idle share. Returns wave_solve's launches in
+    each cell's window."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import CHURN_SLICE_PACKING
+
+    t0 = time.perf_counter()
+    launches = {}
+    for workload in ("64Agents-2x2", "256Agents-4x4"):
+        params = next(w["params"] for w in CHURN_SLICE_PACKING["workloads"]
+                      if w["name"] == workload)
+        runner, result = churn_run(torch, CHURN_SLICE_PACKING, workload,
+                                   None)
+        bad = churn_slice_violations(runner, result, params)
+        print(f"churn slice packing ChurnSlicePacking/{workload} "
+              f"(PerfRunner, TorchBackend(), {params['initNodes']} agents, "
+              f"rate {params['rate']}/s for {params['duration']} s, shape "
+              f"{params['shape']}): "
+              + churn_view(result, runner.sched, runner.window)
+              + f"; gangs {json.dumps(runner.gang_nodes)}")
+        if bad:
+            raise RuntimeError(f"16(c) {workload}: {bad}")
+        launches[workload] = runner.window["launches"]
+    runner, result = churn_run(torch, CHURN_SLICE_PACKING, "64Agents-2x2",
+                               "device")
+    bad = churn_slice_violations(runner, result, next(
+        w["params"] for w in CHURN_SLICE_PACKING["workloads"]
+        if w["name"] == "64Agents-2x2"))
+    if bad:
+        raise RuntimeError(f"16(c) profiled repeat: {bad}")
+    w = runner.window
+    busy = sum(device_us(e) for e in runner.prof.key_averages())
+    print(f"profiled churn slice packing window (64Agents-2x2): wall "
+          f"{w['wall']:.6f} s, device busy {busy / 1e6:.6f} s, "
+          + (f"idle share {1 - busy / 1e6 / w['wall']:.4f}" if busy
+             else "device time not measured by the profiler")
+          + f"; phase 16(c) {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def churn_day_phase(torch) -> int:
+    """Phase 16(d): ChurnDay/5000Nodes-trickle (5000 nodes, 300 warm-up
+    pods, then Poisson arrivals at 250/s for 10 s; not cut) through
+    `churn_run`: no node over capacity, no create error, every warm-up pod
+    bound (the barrier). Returns wave_solve's launches in the window."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import CHURN_DAY
+
+    t0 = time.perf_counter()
+    runner, result = churn_run(torch, CHURN_DAY, "5000Nodes-trickle", None)
+    pods = asyncio.run(runner.store.list("pods")).items
+    nodes = asyncio.run(runner.store.list("nodes")).items
+    bound = sum(bool((p.get("spec") or {}).get("nodeName")) for p in pods)
+    r = result.as_dict()
+    share = r["serving_fast_path_pods_total"] / max(
+        1, r["churn_arrivals_total"])
+    print(f"churn day ChurnDay/5000Nodes-trickle (PerfRunner, "
+          f"TorchBackend()): " + churn_view(result, runner.sched,
+                                            runner.window)
+          + f"; fast-path share {share:.4f}; bound at the end {bound}/"
+          f"{len(pods)}; phase 16(d) {time.perf_counter() - t0:.1f} s")
+    bad = over_capacity(nodes, pods)
+    if bad or result.churn_create_errors or not result.churn_arrivals_total:
+        raise RuntimeError(f"16(d): over capacity {bad[:5]}, create errors "
+                           f"{result.churn_create_errors}, arrivals "
+                           f"{result.churn_arrivals_total}")
+    return runner.window["launches"]
+
+
+def slice_topology_run(torch, seed: int) -> dict:
+    """Phase 16 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on. Returns the kernels line's phase
+    16 entries: wave_solve's launches in 16(b) on the card and in the
+    measured windows of 16(c) and 16(d)."""
+    from kubernetes_tpu_torch.utils import flags
+
+    t16 = time.perf_counter()
+    print(f"phase 16 on {card_line()}")
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        scan_phase(torch, seed)
+        out = {"slice_fixture_launches": slice_fixtures_phase(torch)}
+        churn = churn_slice_phase(torch)
+        out["churn_slice_64_launches"] = churn["64Agents-2x2"]
+        out["churn_slice_256_launches"] = churn["256Agents-4x4"]
+        out["churn_day_launches"] = churn_day_phase(torch)
+    print(f"phase 16 {time.perf_counter() - t16:.1f} s")
+    return out
+
+
+def slice_topology_phases(torch, seed: int) -> int:
+    """`--phase16-only`: build the kernels (phase 1), then phase 16."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(slice_topology_run(torch, seed)))
+    print_card()
+    return 0
+
+
 
 def main() -> int:
     import argparse
@@ -5671,7 +6307,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=8,
-                        help="seed of phase 8(a)'s cluster and lone pods "
+                        help="seed of phase 8(a)'s cluster and lone pods, "
+                        "of phase 16(a)'s free masks "
                         "and of phase 14(a)'s chunks")
     parser.add_argument("--phase13-only", action="store_true",
                         help="build the kernels and run phase 13 alone "
@@ -5681,6 +6318,9 @@ def main() -> int:
                         "(prints no result lines)")
     parser.add_argument("--phase15-only", action="store_true",
                         help="build the kernels and run phase 15 alone "
+                        "(prints no result lines)")
+    parser.add_argument("--phase16-only", action="store_true",
+                        help="build the kernels and run phase 16 alone "
                         "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
@@ -5699,6 +6339,8 @@ def main() -> int:
         return device_topology_phases(torch, seed)
     if cli.phase15_only:
         return stream_volume_phases(torch, seed)
+    if cli.phase16_only:
+        return slice_topology_phases(torch, seed)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -5756,7 +6398,7 @@ def print_card() -> None:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-16 (see the module docstring)."""
+    """Phases 1-17 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -6125,8 +6767,11 @@ def smoke(torch, seed: int) -> int:
     # -- 15. the chunk stream and the volume plugins ------------------------
     stream_volume = stream_volume_run(torch, seed)
 
-    # -- 16. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-15)")
+    # -- 16. slice topology, the node agents and the churn harness ---------
+    slice_topology = slice_topology_run(torch, seed)
+
+    # -- 17. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-16)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -6139,7 +6784,7 @@ def smoke(torch, seed: int) -> int:
          "constraint_launches": anti["launches"] + affinity_launches,
          "gang_launches": gang_launches,
          "gang_chunk_launches": gang_chunk_launches, **large, **device,
-         **stream_volume},
+         **stream_volume, **slice_topology},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,

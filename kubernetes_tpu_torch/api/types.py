@@ -6,7 +6,8 @@ resource-request helpers in pkg/api/v1/resource/helpers.go (`PodRequests`).
 Copy of `kubernetes_tpu/api/types.py`, cut to the pod, node and binding
 constructors, the volume objects (PersistentVolume, PersistentVolumeClaim,
 StorageClass), the device-topology objects (DeviceClass, ResourceSlice,
-ResourceClaim and its template, NodeResourceTopology), the accessors the
+ResourceClaim and its template, NodeResourceTopology), the device list a
+node agent publishes (`template_devices`), the accessors the
 scheduler compiles its tensors from and the predicates its informers read.
 """
 
@@ -201,6 +202,33 @@ def make_resource_slice(node_name: str, driver: str,
     rs["spec"] = {"nodeName": node_name, "driver": driver,
                   "devices": list(devices)}
     return rs
+
+
+def template_devices(allocatable: Mapping | None,
+                     zones: int = 2) -> list[dict]:
+    """Derive a node's DRA device list from its allocatable extended
+    resources (names containing '/'), the convention kwok nodes and the
+    hollow-kubelet agent share: '/' maps to '--' (dots kept) so two
+    vendors' same-suffix resources can't collide in the consumed-device
+    set, and devices split into contiguous NUMA-zone blocks (devices
+    0..n/z-1 in zone 0, etc. — the alignment MatchAttribute needs)."""
+    zones = max(1, zones)
+    devices: list[dict] = []
+    for res, count in (allocatable or {}).items():
+        if "/" not in res:
+            continue  # core resources are not devices
+        try:
+            n = int(str(count))
+        except ValueError:
+            continue
+        prefix = res.replace("/", "--")
+        short = res.rsplit("/", 1)[1]
+        for k in range(n):
+            devices.append({
+                "name": f"{prefix}-{k}",
+                "attributes": {"type": short,
+                               "numa": str(k * zones // n)}})
+    return devices
 
 
 def make_resource_claim(name: str, namespace: str = "default",

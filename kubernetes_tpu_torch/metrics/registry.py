@@ -8,8 +8,9 @@ No prometheus_client dependency: a registry that renders the text exposition
 format is ~100 lines and keeps the zero-install constraint.
 
 Copy of `kubernetes_tpu/metrics/registry.py`, cut to the families the store,
-the watch cache and the scheduler loop fill (the churn, durability, HA,
-descheduler and apiserver families wait for the modules that fill them).
+the watch cache, the scheduler loop and the churn harness fill (the
+durability, HA, descheduler and apiserver families wait for the modules
+that fill them).
 The scheduler's family keeps every reference name, the device-solve ones
 included, so the exposition text is the reference's.
 """
@@ -348,6 +349,42 @@ class WatchCacheMetrics:
         """Surface these through a server registry's render (the
         WatchMetrics register_into pattern: same objects, one truth)."""
         for m in (self.hits, self.misses, self.ring_len):
+            registry._metrics.setdefault(m.name, m)
+
+
+class ChurnMetrics:
+    """Churn-battery counters (perf/churn — ROADMAP #2's scenario
+    battery): open-loop arrivals enqueued per model, fault-timeline
+    events injected per kind, and summed time-to-recovery per kind.
+    FaultInjector and ChurnDriver increment these; the bench detail JSON reports
+    the per-phase deltas, and `register_into` surfaces them through a
+    server registry's /metrics render (the WatchMetrics pattern: same
+    objects, one truth)."""
+
+    def __init__(self, registry: Registry | None = None):
+        r = registry or Registry()
+        self.registry = r
+        self.arrivals = r.counter(
+            "churn_arrivals_total",
+            "Open-loop pod arrivals enqueued by the churn driver",
+            labels=("model",))
+        self.faults_injected = r.counter(
+            "churn_faults_injected_total",
+            "Fault-timeline events injected by the churn battery",
+            labels=("kind",))
+        self.recovery_seconds = r.counter(
+            "churn_recovery_seconds_total",
+            "Summed time-to-recovery of disruptive injected faults "
+            "(displaced pods rescheduled, backlog under threshold)",
+            labels=("kind",))
+        self.backlog_peak = r.gauge(
+            "churn_queue_backlog_peak",
+            "Peak scheduler queue backlog observed during the latest "
+            "open-loop churn phase")
+
+    def register_into(self, registry: Registry) -> None:
+        for m in (self.arrivals, self.faults_injected,
+                  self.recovery_seconds, self.backlog_peak):
             registry._metrics.setdefault(m.name, m)
 
 

@@ -86,11 +86,17 @@ beside this one: the serving fast path (serving/fastpath.py,
 `solver.solve_one`), which places a pod where this cycle's first scan step
 would.
 
+Slice-shaped gangs (a PodGroup with `spec.sliceShape`) are gangs as the
+reference treats them: TopologySlice's PreFilter plans the gang's
+contiguous sub-mesh and its Filter admits only the member's planned node,
+an nnz==1 host row that becomes a `pod_pin` exception column of the solve;
+such a pod takes the full re-check.
+
 Not covered, and refused with NotImplementedError rather than scheduled on
-a partial model: slice-shaped gangs (a PodGroup with `spec.sliceShape`),
-and any plugin at a PreFilter, Filter, PreScore or Score point beyond the
-sixteen of `MODELLED_PLUGINS`. Plugins at none of those points (queue
-sort, gates, bind) are the scheduler loop's and pass. Where the reference falls back to host rows and a stateful verify
+a partial model: any plugin at a PreFilter, Filter, PreScore or Score
+point beyond the seventeen of `MODELLED_PLUGINS`. Plugins at none of
+those points (queue sort, gates, bind) are the scheduler loop's and pass.
+Where the reference falls back to host rows and a stateful verify
 for spread pods that miss the union table (`spread_poisoned`), this
 package raises.
 
@@ -126,7 +132,6 @@ from kubernetes_tpu_torch.scheduler.framework import (
 )
 from kubernetes_tpu_torch.scheduler.plugins.coscheduling import (
     POD_GROUP_LABEL,  # noqa: F401 (the gang label, re-exported)
-    refuse_slice_shape,
 )
 from kubernetes_tpu_torch.scheduler.plugins.dynamicresources import (
     claim_allocated_node,
@@ -159,7 +164,7 @@ MODELLED_PLUGINS = frozenset((
     "NodeName", "NodeUnschedulable", "TaintToleration", "InterPodAffinity",
     "PodTopologySpread", "NodePorts", "ImageLocality", "VolumeBinding",
     "VolumeRestrictions", "VolumeZone", "NodeVolumeLimits",
-    "NodeResourceTopologyMatch", "DynamicResources"))
+    "NodeResourceTopologyMatch", "DynamicResources", "TopologySlice"))
 _MODELLED_POINTS = frozenset(("PreFilter", "Filter", "PreScore", "Score"))
 
 #: Plugins with full device kernels.
@@ -192,6 +197,8 @@ _FILTER_ACTIVE = {
     "NodeResourceTopologyMatch":
         lambda plugin, pi, snap: plugin.active_for(pi),
     "DynamicResources":
+        lambda plugin, pi, snap: plugin.active_for(pi),
+    "TopologySlice":
         lambda plugin, pi, snap: plugin.active_for(pi),
 }
 _SCORE_ACTIVE = {
@@ -870,6 +877,11 @@ class TorchBackend:
         if self._ct is None or self._ct.generation != snapshot.generation:
             self._ct = ClusterTensors(snapshot, prev=self._ct)
             self._affinity = None  # resident pods changed: recompile
+            # Coordinate-plane rebuilds: reuse does not count.
+            topo = self._ct.topology
+            if self.metrics is not None and topo is not None \
+                    and topo.rebuilt:
+                self.metrics.topology_plane_rebuilds.inc()
         if self._row_fp != self._ct._static_fp:
             self._row_cache.clear()
             self._row_fp = self._ct._static_fp
@@ -2322,7 +2334,6 @@ class TorchBackend:
             if g >= _GANG_PAD:
                 break  # overflow gangs: Permit barrier only
             pg = cosched._pod_group(gk)
-            refuse_slice_shape(gk, pg)
             mm = int(((pg or {}).get("spec") or {}).get("minMember", 1))
             assembled = len(cosched._bound.get(gk) or ()) + \
                 len(cosched._waiting.get(gk) or ())

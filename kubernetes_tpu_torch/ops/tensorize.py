@@ -29,11 +29,11 @@ Node counts (max-pods) are small ints and carried exactly.
 Shapes are padded (nodes to a multiple of `NODE_PAD`, pods to the batch size)
 so node add/remove churn keeps the device buffers' shapes stable.
 
-Copy of `kubernetes_tpu/ops/tensorize.py` with the same quantization and the
+Copy of `kubernetes_tpu/ops/tensorize.py` with the same quantization, the
 same incremental builds (the full build's copy of the previous arrays, and
-the O(changed) `_init_delta` off a `SchedulerCache` snapshot). Left out: the
-topology coordinate planes and the control-plane shard accounting (ROADMAP
-queue 1, items 6 and 7), and the caller-pinned resource prefix.
+the O(changed) `_init_delta` off a `SchedulerCache` snapshot) and the same
+topology coordinate planes (`topology`, under `KTPU_TOPOLOGY`). Left out:
+the control-plane shard accounting and the caller-pinned resource prefix.
 """
 
 from __future__ import annotations
@@ -52,6 +52,11 @@ from kubernetes_tpu_torch.api.types import (
     toleration_tolerates_taint,
 )
 from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo, Snapshot
+from kubernetes_tpu_torch.topology.planes import (
+    TopologyPlanes,
+    build_topology_planes,
+)
+from kubernetes_tpu_torch.utils import flags
 
 #: Node axis is padded to a multiple of this so node add/remove churn keeps
 #: the device shapes stable.
@@ -225,6 +230,13 @@ class ClusterTensors:
             self.taint_filter_mat, self.taint_prefer_mat = \
                 self.taints.node_rows(nodes, N)
         self._static_fp = fp
+        # Topology coordinate planes (topology/planes): static per
+        # node-set like the taint interning, absent entirely when the
+        # kill switch is off (flat-capacity call graph, no new arrays).
+        self.topology: TopologyPlanes | None = (
+            build_topology_planes(
+                nodes, N, getattr(prev, "topology", None))
+            if flags.get("KTPU_TOPOLOGY") else None)
 
     def _init_delta(self, snapshot: Snapshot,
                     prev: "ClusterTensors | None") -> bool:
@@ -279,6 +291,13 @@ class ClusterTensors:
                 self.used_nz_q[i, j] = _quant_ceil(
                     ni.nonzero_requested.get(r), sc[j])
             self.used_pods[i] = ni.requested.pods
+        # spec_seq pins node specs identical, so the planes fingerprint
+        # matches and this is a pure reuse (rebuilt=False) — unless the
+        # mesh flags moved live, which forces the honest rebuild.
+        self.topology = (
+            build_topology_planes(
+                nodes, self.n_pad, getattr(prev, "topology", None))
+            if flags.get("KTPU_TOPOLOGY") else None)
         return True
 
     # -- per-pod compilation -------------------------------------------------

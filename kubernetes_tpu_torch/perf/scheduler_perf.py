@@ -22,12 +22,17 @@ nothing contradicts Bind. Same workload shape:
         params: {initNodes: 5000, initPods: 1000, measurePods: 10000}
 
 Copy of `kubernetes_tpu/perf/scheduler_perf.py`, cut to the in-process run
-(no apiserver, multi-process control plane, node agents or policy chain)
-and the opcodes createNodes (with `topologyTemplate`, a
-NodeResourceTopology per node, and `draTemplate`, the DeviceClass once and
-a ResourceSlice per node), createPods (with `podTemplate.claim`, one
-ResourceClaim `{pod}-c0` per pod, created before its pod), barrier and
-sleep. A workload's `schedulerConfig` builds the scheduler's profiles
+(no apiserver, multi-process control plane or policy chain) and the
+opcodes createNodes (with `topologyTemplate`, a NodeResourceTopology per
+node, and `draTemplate`, the DeviceClass once and a ResourceSlice per
+node), startAgents (N in-process hollow-kubelet NodeAgents, agent/, which
+register their own Nodes, watch their pods through a field selector, mark
+them Running and renew their leases), createPods (with `podTemplate.claim`,
+one ResourceClaim `{pod}-c0` per pod, created before its pod),
+churnOpenLoop (perf/churn: a timed open-loop arrival window with an
+optional fault timeline; its `nodeDeath` and `killLeader` faults and a
+`descheduler` block raise NotImplementedError, as their modules are not
+ported), barrier and sleep. A workload's `schedulerConfig` builds the scheduler's profiles
 through the port's `config.load_config`. `WorkloadResult` keeps the fields this path fills, under the
 reference's names. A barrier raises the scheduler loop's own exception as
 soon as `Scheduler.run` ends with one (the port has no backend fallback),
@@ -40,7 +45,8 @@ SchedulingPodAffinity and TopologySpreading (`SCHEDULING_POD_ANTI_AFFINITY`,
 (`PREEMPTION`), whose preemptors wait on their own binds only: victims
 being deleted shrink the global bound count, so neither the warm-up nor
 the measured window can end on a global barrier, and so are the
-device-topology families (`DEVICE_TOPOLOGY`, `DEVICE_TOPOLOGY_DRA`).
+device-topology families (`DEVICE_TOPOLOGY`, `DEVICE_TOPOLOGY_DRA`) and
+the churn families `CHURN_DAY` and `CHURN_SLICE_PACKING`.
 
 Metrics over the measured phase: SchedulingThroughput (pods/s),
 scheduling_attempt_duration percentiles (exact order statistics of the
@@ -60,9 +66,12 @@ import asyncio
 import copy
 import json
 import math
+import shutil
+import tempfile
 import time
 from typing import Any, Mapping
 
+from kubernetes_tpu_torch.agent import NodeAgent
 from kubernetes_tpu_torch.api.meta import namespaced_name
 from kubernetes_tpu_torch.api.types import (
     make_device_class,
@@ -74,7 +83,14 @@ from kubernetes_tpu_torch.api.types import (
 )
 from kubernetes_tpu_torch.client import InformerFactory, ResourceEventHandler
 from kubernetes_tpu_torch.config import load_config as load_scheduler_config
-from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
+from kubernetes_tpu_torch.metrics.registry import ChurnMetrics, SchedulerMetrics
+from kubernetes_tpu_torch.perf.churn import (
+    ChurnDriver,
+    FaultInjector,
+    build_fault_timeline,
+    is_saturated,
+    make_arrival_process,
+)
 from kubernetes_tpu_torch.scheduler import Scheduler
 from kubernetes_tpu_torch.store import (
     install_core_validation, new_cluster_store)
@@ -300,6 +316,70 @@ DEVICE_TOPOLOGY_DRA = _device_family(
      "draTemplate": {"className": "tpu", "zones": 2, "devicesPerZone": 4}},
     _DRA_POD)
 
+#: ChurnDay of the reference's performance-config.yaml: open-loop Poisson
+#: arrivals after a drained warm-up; no trailing barrier.
+CHURN_DAY = {
+    "name": "ChurnDay",
+    "workloadTemplate": [
+        {"opcode": "createNodes", "countParam": "$initNodes"},
+        {"opcode": "createPods", "countParam": "$warmupPods"},
+        {"opcode": "barrier"},
+        {"opcode": "churnOpenLoop", "collectMetrics": True,
+         "arrival": {"model": "poisson", "rate": "$rate"},
+         "duration": "$duration", "seed": 17},
+    ],
+    "workloads": [
+        {"name": "1000Nodes-r100",
+         "params": {"initNodes": 1000, "warmupPods": 300, "rate": 100,
+                    "duration": 10.0}},
+        {"name": "1000Nodes-r400",
+         "params": {"initNodes": 1000, "warmupPods": 300, "rate": 400,
+                    "duration": 10.0}},
+        {"name": "1000Nodes-r1600",
+         "params": {"initNodes": 1000, "warmupPods": 300, "rate": 1600,
+                    "duration": 10.0}},
+        {"name": "5000Nodes-trickle",
+         "params": {"initNodes": 5000, "warmupPods": 300, "rate": 250,
+                    "duration": 10.0}},
+    ],
+}
+
+#: ChurnSlicePacking of the reference's performance-config.yaml:
+#: agent-backed nodes (node-i on the auto torus's cell i), a slice-shaped
+#: gang mid-wave and the death of one of its nodes; the fault's recovery
+#: is the time to re-coalesce the gang around the dead cell.
+CHURN_SLICE_PACKING = {
+    "name": "ChurnSlicePacking",
+    "schedulerConfig": {
+        "apiVersion": "kubescheduler.config.k8s.io/v1",
+        "kind": "KubeSchedulerConfiguration",
+        "profiles": [{"schedulerName": "default-scheduler", "plugins": {
+            "multiPoint": {"enabled": [
+                {"name": "Coscheduling"}, {"name": "TopologySlice"}]}}}]},
+    "workloadTemplate": [
+        {"opcode": "startAgents", "countParam": "$initNodes",
+         "leasePeriod": 5.0},
+        {"opcode": "createPods", "countParam": "$warmupPods"},
+        {"opcode": "barrier"},
+        {"opcode": "churnOpenLoop", "collectMetrics": True,
+         "arrival": {"model": "poisson", "rate": "$rate"},
+         "duration": "$duration", "seed": 17, "recoveryThreshold": 10,
+         "recoveryTimeout": 20.0,
+         "faults": [
+             {"at": 1.0, "kind": "gangArrival", "sliceShape": "$shape"},
+             {"at": "$deathAt", "kind": "sliceDeath", "group": "slice-1000",
+              "sliceShape": "$shape"}]},
+    ],
+    "workloads": [
+        {"name": "64Agents-2x2",
+         "params": {"initNodes": 64, "warmupPods": 100, "rate": 20,
+                    "duration": 6.0, "shape": [2, 2], "deathAt": 3.5}},
+        {"name": "256Agents-4x4",
+         "params": {"initNodes": 256, "warmupPods": 150, "rate": 40,
+                    "duration": 6.0, "shape": [4, 4], "deathAt": 3.5}},
+    ],
+}
+
 #: Per-family runner settings of the reference's suite that this harness
 #: does not have; a config naming one is refused, not run differently.
 _UNSUPPORTED_CASE_KEYS = ("throughApiserver", "policyCount",
@@ -371,6 +451,42 @@ class WorkloadResult:
         self.admission_window_ms = 0.0
         #: createNodes opcode wall (data staging).
         self.staging_seconds = 0.0
+        #: startAgents opcode wall (the fleet's cold start; 0.0 when no
+        #: agents started).
+        self.agent_start_seconds = 0.0
+        #: churnOpenLoop (perf/churn): the measured phase is a TIMED
+        #: arrival-process window, not a drained bulk — offered vs
+        #: achieved rate proves the loop stayed open, backlog growth is
+        #: the saturation witness, and the exact attempt percentiles
+        #: above are the headline.
+        self.churn_offered_rate = 0.0
+        self.churn_achieved_rate = 0.0
+        self.churn_arrival_model = ""
+        self.churn_arrivals_total = 0
+        self.churn_duration_s = 0.0
+        self.churn_backlog_peak = 0
+        self.churn_backlog_final = 0
+        self.churn_pending_final: dict[str, int] = {}
+        #: None = no churn phase ran; else the is_saturated verdict.
+        self.churn_saturated: bool | None = None
+        #: open-loop honesty counters: arrivals fired >50ms late, and
+        #: creates the transport backstop forced to serialize.
+        self.churn_late_arrivals = 0
+        self.churn_throttled_creates = 0
+        self.churn_create_errors = 0
+        self.churn_create_drain_s = 0.0
+        #: fault-injection records (timeline order) + per-kind counts +
+        #: the worst measured time-to-recovery.
+        self.churn_faults: list[dict] = []
+        self.churn_faults_injected: dict[str, int] = {}
+        self.churn_recovery_seconds_max: float | None = None
+        #: topology-slice accounting over the measured phase: slice gangs
+        #: Permit released as one contiguous sub-mesh, the slice
+        #: fragmentation gauge after the last plan, and coordinate-plane
+        #: rebuilds (reuse does not count).
+        self.slice_gangs_bound_total = 0
+        self.slice_fragmentation_pct = 0.0
+        self.topology_plane_rebuilds_total = 0
 
     def as_dict(self) -> dict:
         def ms(v: float):
@@ -426,6 +542,28 @@ class WorkloadResult:
                 self.resident_plane_refresh_seconds_total, 4),
             "admission_window_ms": self.admission_window_ms,
             "staging_seconds": round(self.staging_seconds, 3),
+            "agent_start_seconds": round(self.agent_start_seconds, 3),
+            "churn_offered_rate": round(self.churn_offered_rate, 2),
+            "churn_achieved_rate": round(self.churn_achieved_rate, 2),
+            "churn_arrival_model": self.churn_arrival_model,
+            "churn_arrivals_total": self.churn_arrivals_total,
+            "churn_duration_s": round(self.churn_duration_s, 3),
+            "churn_backlog_peak": self.churn_backlog_peak,
+            "churn_backlog_final": self.churn_backlog_final,
+            "churn_pending_final": dict(self.churn_pending_final),
+            "churn_saturated": self.churn_saturated,
+            "churn_late_arrivals": self.churn_late_arrivals,
+            "churn_throttled_creates": self.churn_throttled_creates,
+            "churn_create_errors": self.churn_create_errors,
+            "churn_create_drain_s": round(self.churn_create_drain_s, 3),
+            "churn_faults": list(self.churn_faults),
+            "churn_faults_injected": dict(self.churn_faults_injected),
+            "churn_recovery_seconds_max": self.churn_recovery_seconds_max,
+            "slice_gangs_bound_total": self.slice_gangs_bound_total,
+            "slice_fragmentation_pct": round(
+                self.slice_fragmentation_pct, 2),
+            "topology_plane_rebuilds_total":
+                self.topology_plane_rebuilds_total,
         }
 
 
@@ -497,11 +635,50 @@ class PerfRunner:
         pod_seq = 0
         created_total = 0
         device_classes: set[str] = set()
+        agents: list = []
+        agent_dir: str | None = None
         deadline = time.monotonic() + timeout
         try:
             for op in template_ops:
                 opcode = op["opcode"]
-                if opcode == "createNodes":
+                if opcode == "startAgents":
+                    # Agent-backed staging: N hollow-kubelet NodeAgents
+                    # register their own Nodes and consume
+                    # field-selector-filtered pod watches instead of
+                    # createNodes' bare data staging. Their mark-Running
+                    # writes and lease renewals ride the same store and
+                    # loop as the workload.
+                    count = _resolve_count(op, params)
+                    tmpl = {**DEFAULT_NODE_TEMPLATE,
+                            **(op.get("nodeTemplate") or {})}
+                    if agent_dir is None:
+                        agent_dir = tempfile.mkdtemp(prefix="ktpu-agents-")
+                    new_agents = [
+                        NodeAgent(store, f"node-{node_count + i}",
+                                  checkpoint_dir=agent_dir,
+                                  node_template=copy.deepcopy(tmpl),
+                                  lease_period=float(_subst(
+                                      op.get("leasePeriod", 5.0), params)))
+                        for i in range(count)]
+                    # Tracked before starting, so a mid-boot failure still
+                    # stops every booted agent in the finally block.
+                    agents.extend(new_agents)
+                    t0 = time.monotonic()
+                    await NodeAgent.start_many(new_agents)
+                    result.agent_start_seconds += time.monotonic() - t0
+                    node_count += count
+
+                elif opcode == "churnOpenLoop":
+                    # A TIMED open-loop arrival window with an optional
+                    # deterministic fault timeline. No trailing barrier
+                    # belongs after this op: a saturated run ends with
+                    # unbound pods (that backlog IS the measurement).
+                    created_total += await self._run_churn_phase(
+                        op, params, result, metrics, store, sched,
+                        agents, bound_keys, pod_seq)
+                    pod_seq += result.churn_arrivals_total
+
+                elif opcode == "createNodes":
                     count = _resolve_count(op, params)
                     tmpl = {**DEFAULT_NODE_TEMPLATE,
                             **(op.get("nodeTemplate") or {})}
@@ -610,6 +787,11 @@ class PerfRunner:
                 else:
                     raise ValueError(f"unknown opcode {opcode!r}")
         finally:
+            if agents:
+                await asyncio.gather(
+                    *(a.stop() for a in agents), return_exceptions=True)
+            if agent_dir is not None:
+                shutil.rmtree(agent_dir, ignore_errors=True)
             await sched.stop()
             run_task.cancel()
             factory.stop()
@@ -634,6 +816,117 @@ class PerfRunner:
         result.events_emitted_total = sched.recorder.emitted
         result.events_dropped_total = sched.recorder.dropped
         return result
+
+    async def _run_churn_phase(self, op: Mapping, params: Mapping[str, Any],
+                               result: WorkloadResult, metrics, store,
+                               sched: Scheduler, agents: list,
+                               bound_keys: set, pod_seq: int) -> int:
+        """Execute one churnOpenLoop op; returns the net pod-count delta
+        (arrivals + fault creates − fault deletes) for created_total."""
+        if op.get("descheduler"):
+            # The rebalance family's descheduler, and the fragmentation
+            # curve (`sampleInterval`) it is read by, wait for it.
+            raise NotImplementedError(
+                "churnOpenLoop: a descheduler block needs "
+                "controllers/descheduler.py, which is not ported (ROADMAP "
+                "queue 1 item 9)")
+        duration = float(_subst(op.get("duration", 5.0), params))
+        seed = int(_subst(op.get("seed", 0), params))
+        arrival = {k: _subst(v, params)
+                   for k, v in (op.get("arrival")
+                                or {"model": "poisson", "rate": 100}).items()}
+        process = make_arrival_process(arrival, seed=seed)
+        churn_metrics = ChurnMetrics(metrics.registry)
+        measured = bool(op.get("collectMetrics"))
+        tmpl = {**DEFAULT_POD_TEMPLATE, **(op.get("podTemplate") or {})}
+        pod_ns = tmpl.get("namespace", "default")
+
+        async def create_arrival(name: str, template: dict | None = None):
+            await store.create("pods", make_pod(
+                name, **(template if template is not None
+                         else copy.deepcopy(tmpl))))
+
+        driver = ChurnDriver(
+            process, duration,
+            create_pod=create_arrival,
+            backlog_stats=sched.queue.stats,
+            # Keep scheduler_pending_pods{queue} fresh under saturation
+            # (the scheduler only refreshes it per popped batch).
+            on_backlog=metrics.set_pending,
+            metrics=churn_metrics,
+            name_prefix=f"churn{pod_seq}")
+
+        injector = None
+        timeline = []
+        fault_specs = op.get("faults") or []
+        if fault_specs:
+            timeline = build_fault_timeline(
+                [{k: _subst(v, params) for k, v in f.items()}
+                 for f in fault_specs],
+                seed=seed,
+                node_names=[a.node_name for a in agents])
+            injector = FaultInjector(
+                store=store, agents=agents, bound_keys=bound_keys,
+                create_pod=create_arrival,
+                backlog_fn=sched.queue.backlog_depth,
+                metrics=churn_metrics, pod_template=tmpl,
+                recovery_threshold=int(_subst(
+                    op.get("recoveryThreshold", 10), params)),
+                recovery_timeout=float(_subst(
+                    op.get("recoveryTimeout", 60.0), params)),
+                namespace=pod_ns)
+
+        window = self._begin_measure(metrics, store) if measured else None
+        inj_task = None
+        t0 = time.monotonic()
+        try:
+            if injector is not None:
+                inj_task = asyncio.ensure_future(injector.run(timeline, t0))
+            phase = await driver.run(t0)
+            if inj_task is not None:
+                await inj_task
+                await injector.drain()
+        finally:
+            # On an exception, stop the timeline and its handlers (a
+            # no-op after a clean drain).
+            if inj_task is not None and not inj_task.done():
+                inj_task.cancel()
+                await asyncio.gather(inj_task, return_exceptions=True)
+            if injector is not None:
+                await injector.cancel()
+        if measured:
+            self._end_measure(result, metrics, store, window,
+                              phase.arrivals_total)
+        result.churn_offered_rate = phase.offered_rate
+        result.churn_achieved_rate = phase.achieved_rate
+        result.churn_arrival_model = phase.arrival_model
+        result.churn_arrivals_total = phase.arrivals_total
+        result.churn_duration_s = phase.duration
+        result.churn_backlog_peak = phase.backlog_peak
+        result.churn_backlog_final = phase.backlog_final
+        result.churn_pending_final = dict(phase.pending_final)
+        result.churn_saturated = is_saturated(
+            phase.arrivals_total, phase.backlog_final,
+            float(_subst(op.get("saturationFrac", 0.2), params)),
+            offered_rate=phase.offered_rate,
+            achieved_rate=phase.achieved_rate)
+        result.churn_late_arrivals = phase.late_arrivals
+        result.churn_throttled_creates = phase.throttled_creates
+        result.churn_create_errors = phase.create_errors
+        result.churn_create_drain_s = phase.create_drain_s
+        net = phase.arrivals_total
+        if injector is not None:
+            result.churn_faults = list(injector.results)
+            counts: dict[str, int] = {}
+            for rec in injector.results:
+                counts[rec["kind"]] = counts.get(rec["kind"], 0) + 1
+            result.churn_faults_injected = counts
+            recoveries = [rec["recovery_s"] for rec in injector.results
+                          if rec.get("recovery_s") is not None]
+            if recoveries:
+                result.churn_recovery_seconds_max = max(recoveries)
+            net += injector.net_created
+        return net
 
     @staticmethod
     def _cache_totals(backing) -> tuple[float, float]:
@@ -664,6 +957,8 @@ class PerfRunner:
             "coalesced": metrics.serving_coalesced_batches.value(),
             "refreshes": metrics.resident_plane_refreshes.value(),
             "refresh_s": metrics.resident_plane_refresh.sum(),
+            "slice_gangs": metrics.slice_gangs_bound.value(),
+            "topo_rebuilds": metrics.topology_plane_rebuilds.value(),
             "window": metrics.attempt_window().mark(),
         }
 
@@ -722,6 +1017,12 @@ class PerfRunner:
             metrics.resident_plane_refreshes.value() - base["refreshes"])
         result.resident_plane_refresh_seconds_total = \
             metrics.resident_plane_refresh.sum() - base["refresh_s"]
+        result.slice_gangs_bound_total = int(
+            metrics.slice_gangs_bound.value() - base["slice_gangs"])
+        result.topology_plane_rebuilds_total = int(
+            metrics.topology_plane_rebuilds.value() - base["topo_rebuilds"])
+        result.slice_fragmentation_pct = \
+            metrics.slice_fragmentation_pct.value()
         # Gauge is base-unit seconds; the field keeps its ms name.
         result.admission_window_ms = 1e3 * metrics.admission_window.value()
 

@@ -19,11 +19,11 @@ with the gang's all-or-nothing mask (ops/backend.py fills the gang
 arrays), then each pod's Permit runs — a complete gang in one batch sails
 through the barrier in one cycle.
 
-Copy of `kubernetes_tpu/scheduler/plugins/coscheduling.py`, with one
-departure: slice-shaped gangs (`spec.sliceShape`, whose members must land
-on one contiguous sub-mesh) need the topology package, which is not
-ported, so a PodGroup carrying one raises NotImplementedError wherever the
-plugin or the backend reads it, instead of behaving as a count-only gang.
+Slice-shaped gangs (`spec.sliceShape`) must also land on one contiguous
+sub-mesh: TopologySlice plans it, and Permit re-checks the assembled
+gang's reserved nodes (`_slice_misaligned`) and rejects a bent gang whole.
+
+Copy of `kubernetes_tpu/scheduler/plugins/coscheduling.py`.
 """
 
 from __future__ import annotations
@@ -56,21 +56,11 @@ def make_pod_group(name: str, min_member: int, namespace: str = "default",
     if schedule_timeout_seconds is not None:
         spec["scheduleTimeoutSeconds"] = schedule_timeout_seconds
     if slice_shape is not None:
-        # Slice-shaped gang: members must land on one contiguous sub-mesh
-        # of this shape (not ported: such a group raises when read).
+        # Slice-shaped gang (topology/): members must land on one
+        # contiguous sub-mesh of this shape (TopologySlice plans it,
+        # Permit here enforces it before release).
         spec["sliceShape"] = [int(s) for s in slice_shape]
     return new_object("PodGroup", name, namespace, spec=spec)
-
-
-def refuse_slice_shape(gk: str, pg: dict | None) -> None:
-    """Raise NotImplementedError for a slice-shaped PodGroup: its
-    contiguity check needs the topology package (`topology.mesh`,
-    `topology.slices`), which is not ported."""
-    if pg is not None and (pg.get("spec") or {}).get("sliceShape"):
-        raise NotImplementedError(
-            f"PodGroup {gk}: spec.sliceShape (slice-shaped gangs) needs the "
-            f"topology package, which is not ported (ROADMAP queue 1, "
-            f"the Topology item: device_scan and TopologySlice)")
 
 
 class Coscheduling(Plugin):
@@ -84,12 +74,13 @@ class Coscheduling(Plugin):
         self._waiting: dict[str, set[str]] = defaultdict(set)
         #: group key -> pod keys bound (left the barrier)
         self._bound: dict[str, set[str]] = defaultdict(set)
-        #: group key -> {pod key -> reserved node}
+        #: group key -> {pod key -> reserved node} — the membership the
+        #: sliceShape contiguity check at Permit verifies.
         self._nodes: dict[str, dict[str, str]] = defaultdict(dict)
         self.scheduler = None      # wired by Scheduler (allow/reject handles)
         self.pg_informer = None    # wired via set_informers
         self.pod_informer = None
-        self.node_informer = None
+        self.node_informer = None  # node labels for the coordinate map
 
     def set_scheduler(self, scheduler) -> None:
         self.scheduler = scheduler
@@ -159,12 +150,50 @@ class Coscheduling(Plugin):
         if pg is None:
             return Status.unschedulable(
                 f"PodGroup {gk} not found", resolvable=False)
-        refuse_slice_shape(gk, pg)
         min_member = int(pg["spec"].get("minMember", 1))
         if self._group_pod_count(gk) < min_member:
             return Status.unschedulable(
                 f"gang {gk}: fewer than minMember={min_member} pods exist")
         return Status.success()
+
+    def _slice_misaligned(self, gk: str, pg: dict) -> str | None:
+        """Reason the assembled gang's reserved nodes do NOT form one
+        contiguous sub-mesh of the group's sliceShape; None = aligned
+        (or not a slice-shaped gang / topology off — count-only gangs
+        keep the pre-topology barrier exactly)."""
+        from kubernetes_tpu_torch.topology.mesh import (
+            node_cell, normalize_shape, parse_mesh_shape)
+        from kubernetes_tpu_torch.topology.slices import is_contiguous_slice
+        from kubernetes_tpu_torch.utils import flags
+
+        raw = pg["spec"].get("sliceShape")
+        if not raw or not flags.get("KTPU_TOPOLOGY"):
+            return None
+        try:
+            shape = normalize_shape(raw)
+        except (ValueError, TypeError):
+            return None  # malformed shape: count-only semantics
+        if self.node_informer is None:
+            return "no node informer for the slice contiguity check"
+        members = self._nodes.get(gk, {})
+        node_names = set(members.values())
+        if len(node_names) < len(members):
+            return "two slice members reserved the same node"
+        all_nodes = self.node_informer.indexer.list()
+        spec = parse_mesh_shape(
+            flags.get("KTPU_MESH_SHAPE"), len(all_nodes))
+        cells = []
+        for name in node_names:
+            obj = self.node_informer.indexer.get(name)
+            labels = (obj or {}).get("metadata", {}).get("labels") or {}
+            cell = node_cell(name, labels, spec)
+            if cell is None:
+                return f"member node {name} is off-mesh"
+            cells.append(cell)
+        if not is_contiguous_slice(cells, spec, shape):
+            return ("reserved nodes do not form a contiguous "
+                    f"{'x'.join(str(s) for s in raw)} sub-mesh")
+        return None
 
     def reserve(self, state: CycleState, pod: PodInfo,
                 node_name: str) -> Status:
@@ -181,10 +210,22 @@ class Coscheduling(Plugin):
         pg = self._pod_group(gk)
         if pg is None:
             return Status.unschedulable(f"PodGroup {gk} vanished"), 0.0
-        refuse_slice_shape(gk, pg)
         min_member = int(pg["spec"].get("minMember", 1))
         assembled = (len(self._waiting[gk]) + len(self._bound[gk]) + 1)
         if assembled >= min_member:
+            misaligned = self._slice_misaligned(gk, pg)
+            if misaligned is not None:
+                # A complete but BENT gang must not bind: reject the
+                # whole membership (all-or-nothing) so the next attempt
+                # replans from a fresh TopologySlice placement.
+                waiting = self._waiting.pop(gk, set())
+                if self.scheduler is not None:
+                    for key in waiting:
+                        self.scheduler.reject_waiting_pod(key)
+                logger.info("gang %s: %s; rejecting %d waiters",
+                            gk, misaligned, len(waiting))
+                return Status.unschedulable(
+                    f"gang {gk}: {misaligned}"), 0.0
             # Gang complete: release every parked sibling.
             waiting = self._waiting.pop(gk, set())
             if self.scheduler is not None:
@@ -192,6 +233,9 @@ class Coscheduling(Plugin):
                     self.scheduler.allow_waiting_pod(key)
             self._bound[gk].update(waiting)
             self._bound[gk].add(pod.key)
+            if pg["spec"].get("sliceShape") and self.scheduler is not None \
+                    and getattr(self.scheduler, "metrics", None) is not None:
+                self.scheduler.metrics.slice_gangs_bound.inc()
             return Status.success(), 0.0
         self._waiting[gk].add(pod.key)
         timeout = float(pg["spec"].get("scheduleTimeoutSeconds",

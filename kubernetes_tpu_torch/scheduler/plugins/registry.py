@@ -4,8 +4,9 @@ computes (the node plugins with NodePorts and ImageLocality, the four
 volume plugins, the two constraint families, InterPodAffinity and
 PodTopologySpread, and the device-topology plugins, DynamicResources and
 NodeResourceTopologyMatch), the queue-sort, gating and binding plugins the
-scheduler loop runs on the host, Coscheduling and NodeResourceTopologyMatch
-(registered, not default-enabled, as in the reference) and
+scheduler loop runs on the host, Coscheduling, TopologySlice and
+NodeResourceTopologyMatch (registered, not default-enabled, as in the
+reference) and
 DefaultPreemption (the PostFilter, with its batched device victim
 proposal). The default profile is the reference's."""
 
@@ -46,6 +47,7 @@ from kubernetes_tpu_torch.scheduler.plugins.noderesourcetopology import (
 from kubernetes_tpu_torch.scheduler.plugins.podtopologyspread import (
     PodTopologySpread,
 )
+from kubernetes_tpu_torch.scheduler.plugins.topologyslice import TopologySlice
 from kubernetes_tpu_torch.scheduler.plugins.volumebinding import (
     NodeVolumeLimits,
     VolumeBinding,
@@ -53,11 +55,12 @@ from kubernetes_tpu_torch.scheduler.plugins.volumebinding import (
     VolumeZone,
 )
 
-#: name -> factory(args) (framework/runtime Registry). Coscheduling and
-#: NodeResourceTopologyMatch are registered but not default-enabled
-#: (out-of-tree in the reference).
+#: name -> factory(args) (framework/runtime Registry). Coscheduling,
+#: TopologySlice and NodeResourceTopologyMatch are registered but not
+#: default-enabled (out-of-tree in the reference).
 IN_TREE: dict[str, Callable] = {
     "Coscheduling": Coscheduling,
+    "TopologySlice": TopologySlice,
     "DynamicResources": DynamicResources,
     "NodeResourceTopologyMatch": NodeResourceTopologyMatch,
     "PrioritySort": PrioritySort,

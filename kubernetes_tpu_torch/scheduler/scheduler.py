@@ -33,8 +33,9 @@ Copy of `kubernetes_tpu/scheduler/scheduler.py`, with these departures:
   a `DefaultPreemption.prime_wave` failure and goes on with the per-pod
   candidate search; here it propagates out of `run` like any other
   failure of the card.
-- the preemptor's device: DefaultPreemption's `prime_wave` runs on the
-  attached backend's device (cuda:0 when the plugin has none set).
+- the preemptor's and the slice plan's device: DefaultPreemption's
+  `prime_wave` and TopologySlice's scan run on the attached backend's
+  device (cuda:0 when the plugin has none set).
 - a batched placement of a pod with PersistentVolumeClaims binds with
   VolumeBinding's PreFilter state (`_bind_state`): the reference binds
   every batched placement with an empty CycleState, so its VolumeBinding
@@ -67,6 +68,9 @@ from kubernetes_tpu_torch.scheduler.framework import (
 )
 from kubernetes_tpu_torch.scheduler.plugins.defaultpreemption import (
     DefaultPreemption,
+)
+from kubernetes_tpu_torch.scheduler.plugins.topologyslice import (
+    TopologySlice,
 )
 from kubernetes_tpu_torch.scheduler.plugins.registry import (
     DEFAULT_SCORE_WEIGHTS,
@@ -320,10 +324,12 @@ class Scheduler:
         constructor injection and config-built schedulers."""
         self.backend = backend
         if backend is not None:
-            # The batched victim proposal runs where the backend runs.
+            # The batched victim proposal and the slice plan's scan run
+            # where the backend runs.
             for fwk in self.profiles.values():
-                for p in fwk.post_filter_plugins:
-                    if isinstance(p, DefaultPreemption) and p.device is None:
+                for p in fwk.plugins:
+                    if isinstance(p, (DefaultPreemption, TopologySlice)) \
+                            and p.device is None:
                         p.device = backend.device
         if backend is not None and hasattr(backend, "metrics"):
             backend.metrics = self.metrics

@@ -41,7 +41,7 @@ its placement is representable in the resident planes —
 
 Anything else falls through (None) to the normal path, which also owns
 diagnostics and preemption for no-fit pods. A framework holding a plugin
-at PreFilter, Filter, PreScore or Score that is not one of the sixteen the
+at PreFilter, Filter, PreScore or Score that is not one of the seventeen the
 backend models (`MODELLED_PLUGINS`) raises NotImplementedError, as
 `TorchBackend.assign` does; plugins at none of those points (PrioritySort,
 SchedulingGates, DefaultBinder) pass. A host verify (exact

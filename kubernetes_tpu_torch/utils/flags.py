@@ -5,7 +5,8 @@ package reads: the batch solve (the greedy wavefront, the shortlist and
 its block index, and the Sinkhorn optimal mode) and its solve-mode
 policy, the serving tier (its kill switch, the resident planes' block
 index and the admission window), the store (the watch cache, the shard
-count, the debug freeze), the lock check and the trace threshold. Names,
+count, the debug freeze), the lock check, the trace threshold and the
+topology pair (the slice placement kill switch and the mesh shape). Names,
 defaults and parsing are the reference's: every read is a LIVE
 `os.environ` lookup, and a malformed value degrades to the flag's
 default.
@@ -37,6 +38,10 @@ def _parse_float(raw: str) -> float:
 
 def _parse_ms(raw: str) -> float:
     return max(0.0, float(raw.strip()))
+
+
+def _parse_str(raw: str) -> str:
+    return raw
 
 
 def _parse_solve_mode(raw: str) -> str:
@@ -115,6 +120,21 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "block-sparse index; `0` disables it like KTPU_BLOCK_INDEX=0. "
          "Unset = the AdaptiveTuner's structural policy row picks the "
          "width from the node count."),
+    Flag("KTPU_TOPOLOGY", True, _parse_bool,
+         "Topology-aware slice placement (kubernetes_tpu_torch/topology): "
+         "interconnect coordinate planes on the cluster tensors, the "
+         "device-side contiguous sub-mesh scan behind the TopologySlice "
+         "plugin, and Coscheduling's sliceShape contiguity check at "
+         "Permit. `0` degrades structurally to flat capacity vectors: "
+         "count-only gangs, no coordinate planes, identical assignments "
+         "on topology-free workloads."),
+    Flag("KTPU_MESH_SHAPE", "auto", _parse_str,
+         "Interconnect mesh dimensions, e.g. `4x8` (2D torus), `2x4x4` "
+         "(3D torus) or `4x8:mesh` (no wraparound). `auto` derives a "
+         "near-square 2D torus from the node count. Nodes map to "
+         "coordinates via the `ktpu.io/topology-coord` label agents "
+         "stamp at registration, falling back to the trailing integer "
+         "in the node name (row-major)."),
     Flag("KTPU_WATCH_CACHE", True, _parse_bool,
          "Watch-cache serving tier (store/cacher.py). `0` degrades "
          "every LIST/watch to the direct-mvcc path."),

@@ -8,9 +8,10 @@ mask) against the JAX package on the CPU.
   parked member (the rest of the gang is rejected), PostBind, and pod
   deletes (membership dropped) — and record every status, timeout,
   allow/reject call and the internal member sets after each step: equal.
-- A PodGroup with `spec.sliceShape` raises NotImplementedError at
-  PreEnqueue, at Permit and in the backend's gang arrays (the topology
-  package it needs is not ported).
+- A PodGroup with `spec.sliceShape` raises nowhere: with TopologySlice in
+  the profile its gang plans one contiguous sub-mesh in the backend's
+  chunk and Permit releases it whole (tests/test_torch_topologyslice.py
+  holds the slice half against the JAX package).
 - The batch solve: `TorchBackend(device="cpu").assign` against
   `TPUBackend.assign` on the five gang chunk shapes of `chip_smoke.gang_chunk`
   (gangs that fit; a 64-member gang with one member no node holds; a gang
@@ -237,26 +238,46 @@ def test_store_accepts_pod_groups_as_the_reference():
 
 
 def test_slice_shaped_group_raises():
+    """The slice-shaped group no longer raises anywhere: it plans (one
+    contiguous 2x2 sub-mesh, TopologySlice) and binds whole (Permit's
+    contiguity check releases the gang)."""
+    from kubernetes_tpu_torch.topology.mesh import node_cell, parse_mesh_shape
+    from kubernetes_tpu_torch.topology.slices import is_contiguous_slice
+
     pg = tcos.make_pod_group("s", 4, slice_shape=[2, 2])
-    cos = tcos.Coscheduling()
-    cos.pg_informer = PodGroupIndex({"default/s": pg})
-    pi = ttypes.PodInfo(make_pod("s-0", labels={GANG_LABEL: "s"}))
-    with pytest.raises(NotImplementedError, match="queue 1, the Topology"):
-        cos.pre_enqueue(pi)
-    with pytest.raises(NotImplementedError, match="sliceShape"):
-        cos.permit(tframework.CycleState(), pi, "node-0")
-    # The backend reads the group for its gang arrays and raises too.
-    fwk = tframework.Framework(
-        tregistry.build_plugins(list(tregistry.DEFAULT_PLUGINS)) + [cos],
+    assert pg["spec"]["sliceShape"] == [2, 2]
+    fwk = tframework.Framework(tregistry.build_plugins(
+        list(tregistry.DEFAULT_PLUGINS) + ["Coscheduling", "TopologySlice"]),
         tregistry.DEFAULT_SCORE_WEIGHTS)
-    snap = ttypes.Snapshot([ttypes.NodeInfo(make_node("node-0"))], 1)
+    cos, ts = fwk.plugins[-2], fwk.plugins[-1]
+    cos.pg_informer = ts.pg_informer = PodGroupIndex({"default/s": pg})
+    ts.device = "cpu"
+    pods = [ttypes.PodInfo(make_pod(f"s-{k}", labels={GANG_LABEL: "s"}))
+            for k in range(4)]
+    # Without a pod informer no sibling is counted: gated, not raised.
+    assert not cos.pre_enqueue(pods[0]).is_success()
+    nodes = {f"node-{i}": make_node(f"node-{i}") for i in range(16)}
+    snap = ttypes.Snapshot([ttypes.NodeInfo(n) for n in nodes.values()], 1)
     tb = tbackend.TorchBackend(device="cpu", max_batch=16)
-    with pytest.raises(NotImplementedError, match="sliceShape"):
-        tb.assign([pi], snap, fwk)
-    # A count-only group still places.
-    cos.pg_informer = PodGroupIndex({"default/s": tcos.make_pod_group("s", 1)})
-    got, _ = tb.assign([pi], snap, fwk)
-    assert got[pi.key] == "node-0"
+    got, _ = tb.assign(pods, snap, fwk)
+    placed = [got[pi.key] for pi in pods]
+    spec = parse_mesh_shape("auto", 16)
+    assert None not in placed and len(set(placed)) == 4
+    assert is_contiguous_slice([node_cell(n, {}, spec) for n in placed],
+                               spec, (2, 2))
+    allowed = []
+    cos.node_informer = PodGroupIndex(nodes)
+    cos.node_informer.list = lambda: list(nodes.values())
+    cos.set_scheduler(SimpleNamespace(
+        metrics=None, allow_waiting_pod=allowed.append,
+        reject_waiting_pod=lambda key: pytest.fail(f"{key} rejected")))
+    statuses = []
+    for pi, node in zip(pods, placed):
+        st = tframework.CycleState()
+        assert cos.reserve(st, pi, node).is_success()
+        statuses.append(cos.permit(st, pi, node)[0])
+    assert [s.is_success() for s in statuses] == [False] * 3 + [True]
+    assert sorted(allowed) == [pi.key for pi in pods[:3]]
 
 
 # -- the batch solve ----------------------------------------------------------

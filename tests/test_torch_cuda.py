@@ -30,7 +30,10 @@ debug "error", equals the CPU's; and device-topology chunks (NUMA zones,
 resource claims, host ports) place on the card exactly as on the CPU; and
 the chunk stream (`assign_stream`) on the card equals `assign` on the card
 and on the CPU, its wait for the card running beside another task's CUDA
-graph captures.
+graph captures; and the slice scan (`topology.device.device_scan`) on the
+card equals the CPU's on phase 16(a)'s fixtures, its sharded winner equal
+at 1, 4 and 8 shards, and the slice-gang chunks place on the card exactly
+as on the CPU.
 """
 
 import numpy as np
@@ -665,3 +668,37 @@ def test_stream_wait_beside_graph_captures(cuda):
     got, captures = asyncio.run(main())
     assert got == want
     assert captures > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("raw,n", [("4x4", 16), ("4x8:mesh", 32),
+                                   ("3x5x2", 30), ("auto", 5000),
+                                   ("8x8x16", 1024)])
+def test_slice_scan_on_card_matches_cpu(cuda, raw, n):
+    from chip_smoke import mesh_spec, scan_masks, scan_shapes, scan_view
+    from kubernetes_tpu_torch.topology import device as topo
+
+    spec = mesh_spec(raw, n)
+    for shape in scan_shapes(spec):
+        for name, mask in scan_masks(spec, 8):
+            card = topo.device_scan(mask, spec, shape, "cuda:0")
+            assert scan_view(card) == scan_view(
+                topo.device_scan(mask, spec, shape, "cpu")), (shape, name)
+            if card is not None:
+                want = topo.best_key(card[0])
+                assert [topo.best_key(card[0], s, "cuda:0")
+                        for s in (1, 4, 8)] == [want] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "greedy"])
+@pytest.mark.parametrize("kind", ["torus-2x2", "mesh-2x2x2",
+                                  "impossible-1x3"])
+def test_slice_chunk_on_card_matches_cpu(cuda, kind, mode):
+    from chip_smoke import port_slice_api, slice_chunk
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    api = port_slice_api()
+    assert slice_chunk(api, TorchBackend(max_batch=64), kind, mode) == \
+        slice_chunk(api, TorchBackend(device="cpu", max_batch=64), kind,
+                    mode)
