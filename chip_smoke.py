@@ -25,7 +25,10 @@ DeviceTopologyDRA/1000Nodes with DynamicResources and resource claims)
 through the loop; and slice-shaped gangs (TopologySlice's contiguous
 sub-mesh plan, its scan as PyTorch ops on the card) with agent-backed
 nodes and the open-loop churn harness (ChurnSlicePacking at 64 and 256
-agents, ChurnDay/5000Nodes-trickle) —
+agents, ChurnDay/5000Nodes-trickle); and the runner's last in-process
+families (SchedulingGated, AgentRelistStorm at 2000 and 5000 agents,
+ChurnDayFaults with a node death and the node lifecycle controller,
+ChurnRebalance with the descheduler off and on) —
 after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
@@ -163,8 +166,9 @@ Phases (any failure raises and the script exits non-zero with no result):
      counts within 1, spread chunks in the window; (d)
      SchedulingPodAffinity/500Nodes: every worker bound in a zone holding
      a hub. (b) and (c) print what 9(b) prints, with a torch.profiler
-     and a cProfile repeat each (10(c)'s torch.profiler repeat runs
-     TopologySpreading/300Nodes);
+     repeat each (10(c)'s runs TopologySpreading/300Nodes) and no cProfile
+     repeat (cut, as in 12(c), 13(c) and 14(b)-(c), to keep the smoke
+     inside half its time limit);
  12. gangs and preemption, under a scoped KTPU_SOLVE_MODE=auto with
      serving on: (a) the five gang chunk shapes of `gang_chunk` (gangs
      that fit; a 64-member gang with one member no node holds; a gang
@@ -194,8 +198,8 @@ Phases (any failure raises and the script exits non-zero with no result):
      its preemptor's, no node over capacity; SchedulingThroughput,
      DefaultPreemption's routes (device-primed, ranked host search,
      per-node host scan, in-flight), `propose_victims` calls, ms per call
-     and graph replays, over a repeat under torch.profiler the idle
-     share, and over a repeat under cProfile the host's top costs;
+     and graph replays, and over a repeat under torch.profiler the idle
+     share;
  13. large clusters (the shortlist and the block index), under a scoped
      KTPU_SOLVE_MODE=auto with serving on: (a) the shortlist route on the
      card against the CPU port on the eight `shortlist_case` fixtures
@@ -335,7 +339,35 @@ Phases (any failure raises and the script exits non-zero with no result):
      repeat; (d) ChurnDay/5000Nodes-trickle (5000 nodes, 300 warm-up
      pods, 250/s for 10 s; not cut): no node over capacity, no create
      error; the attempt percentiles and the fast-path share;
- 17. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 17. the runner's last in-process families, at the YAML's own params
+     through the port's `PerfRunner` with `TorchBackend()`, under a
+     scoped KTPU_SOLVE_MODE=auto with serving on, the card's name and
+     power limit printed first: (a) SchedulingGated/100Nodes (1000 gated
+     pods): all bound, measured_pods 1000, none bound before ungatePods;
+     pods/s and wave_solve's launches in the window; (b)
+     AgentRelistStorm/2000Agents and /5000Agents: relist_storm_agents ==
+     N, no direct store scan during the storm, at least N watch-cache
+     hits; storm seconds, agent boot seconds, measured pods/s; (c)
+     ChurnDayFaults/500Agents-nodeDeath (200/s for 10 s, the agent killed
+     at 3 s, grace 2 s, toleration 0.25 s): the fault recovered, the dead
+     node and no other tainted unreachable, every displaced pod evicted,
+     one replacement per displaced pod, each bound, no node over
+     capacity; recovery, the displaced pods (the seed's node may hold
+     none at the kill), replacements bound back to the dead node (the
+     taint is NoExecute and tolerated 300 s, as in the reference),
+     attempt p50/p99/p999, backlog peak and final;
+     (d) ChurnRebalance/200Nodes-deschedulerOff and -On: evictions the
+     sum of the descheduler's cycles, none over the budget (none with it
+     off), the curve sampled, no node over capacity; both curves,
+     evictions, recovery, and whether occupied fragmentation ends lower
+     with the descheduler on (printed, not gated); (e)
+     `solver.consolidation_scores` on the card against the CPU on (d)'s
+     last rebalance state and a random 50,000-node state: identical bits;
+     CUDA-event ms per call; (f) `solve_provenance()`, then (a)'s
+     workload through a `PerfRunner` with a `profile_dir` under build/: one
+     Chrome trace naming `wave_solve_kernel`, the result's provenance
+     equal to the call's;
+ 18. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -355,17 +387,20 @@ Phases (any failure raises and the script exits non-zero with no result):
      chunks) and `volume_loop_launches` (15(d)'s measured window); and
      phase 16's: `slice_fixture_launches` (16(b) on the card),
      `churn_slice_64_launches`, `churn_slice_256_launches` and
-     `churn_day_launches` (the measured windows of 16(c) and 16(d));
-     the probe's, its
+     `churn_day_launches` (the measured windows of 16(c) and 16(d)); and
+     phase 17's: `gated_launches`, `relist_storm_2000_launches`,
+     `relist_storm_5000_launches`, `node_death_launches`,
+     `rebalance_off_launches` and `rebalance_on_launches` (the measured
+     windows of 17(a)-(d)); the probe's, its
      launches over phase 9(b)'s run and over 10(b)'s), the card's name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
 `--phase13-only` (or `--phase14-only`, `--phase15-only`,
-`--phase16-only`) it builds the kernels and runs phase 13 (or 14, 15, 16)
-alone (no result lines). It needs one CUDA device; without one, or outside a checkout of the
-repository, it exits non-zero.
+`--phase16-only`, `--phase17-only`) it builds the kernels and runs phase
+13 (or 14, 15, 16, 17) alone (no result lines). It needs one CUDA device;
+without one, or outside a checkout of the repository, it exits non-zero.
 """
 
 from __future__ import annotations
@@ -2371,14 +2406,15 @@ def perf_run(torch, family: dict, workload: str, profile: str | None,
 
 
 def report_perf(torch, label: str, family: dict, workload: str, first,
-                phase: str, t0: float, device_workload: str | None = None
-                ) -> None:
+                phase: str, t0: float, device_workload: str | None = None,
+                host_profile: bool = False) -> None:
     """Print a family run's numbers (`first` from perf_run), then repeat
     it under torch.profiler (the device's busy time and idle share; of
     `device_workload` where given, a smaller workload of the family whose
-    trace the profiler processes in seconds) and under cProfile (the
-    host's own time by area, the busiest functions and the cumulative time
-    of the loop's stages)."""
+    trace the profiler processes in seconds) and, with `host_profile`,
+    under cProfile (the host's own time by area, the busiest functions and
+    the cumulative time of the loop's stages; 9(b) alone keeps it, so the
+    smoke stays inside half its time limit)."""
     runner, result, probe_launches, _ = first
     w, r = runner.window, result.as_dict()
     routes = w["routes"]
@@ -2424,7 +2460,9 @@ def report_perf(torch, label: str, family: dict, workload: str, first,
           f"{busy_us / 1e6:.6f} s" + (
               f", idle share {1 - busy_us / 1e6 / pw['wall']:.4f}"
               if busy_us else ", device time not measured by the profiler")
-          )
+          + f"; phase {phase} {time.perf_counter() - t0:.1f} s")
+    if not host_profile:
+        return
     host_runner, host_result, _, _ = perf_run(torch, family, workload,
                                               "host")
     areas, top, cum = host_breakdown(host_runner.prof)
@@ -2448,7 +2486,7 @@ def scheduler_perf_phase(torch) -> dict:
         raise RuntimeError("phase 9(b): no wave_solve launch in the "
                            "measured window")
     report_perf(torch, "scheduler loop", SCHEDULING_BASIC, "5000Nodes",
-                first, "9(b)", t0)
+                first, "9(b)", t0, host_profile=True)
     return {"loop_launches": launches, "loop_probe_launches": first[2]}
 
 
@@ -3586,7 +3624,7 @@ def preemption_run(torch, workload: str, profile: str | None):
 def preemption_phase(torch) -> None:
     """Phase 12(c): Preemption/1000Nodes (1000 nodes, 4000 fillers, 100
     warm-up and 1000 measured preemptors; not cut) through the port's
-    PerfRunner, then repeats under torch.profiler and cProfile."""
+    PerfRunner, then a repeat under torch.profiler."""
     t0 = time.perf_counter()
     runner, result, pods = preemption_run(torch, "1000Nodes", None)
     w, r = runner.window, result.as_dict()
@@ -3617,15 +3655,8 @@ def preemption_phase(torch) -> None:
           f"{pw['wall']:.6f} s, throughput {prof_result.throughput:.1f} "
           f"pods/s, device busy {busy_us / 1e6:.6f} s" + (
               f", idle share {1 - busy_us / 1e6 / pw['wall']:.4f}"
-              if busy_us else ", device time not measured by the profiler"))
-    host_runner, host_result, _ = preemption_run(torch, "1000Nodes", "host")
-    areas, top, cum = host_breakdown(host_runner.prof)
-    print(f"host profile of the Preemption/1000Nodes measured window "
-          f"(cProfile, wall {host_runner.window['wall']:.6f} s, throughput "
-          f"{host_result.throughput:.1f} pods/s): own seconds by area "
-          f"{json.dumps(areas)}; cumulative seconds {json.dumps(cum)}; top "
-          f"functions by own seconds {json.dumps(top)}; phase 12(c) "
-          f"{time.perf_counter() - t0:.1f} s")
+              if busy_us else ", device time not measured by the profiler")
+          + f"; phase 12(c) {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -6164,18 +6195,21 @@ def churn_view(result, sched, window: dict | None = None) -> str:
     return text
 
 
-def churn_run(torch, family: dict, workload: str, profile: str | None
-              ) -> tuple:
+def churn_run(torch, family: dict, workload: str, profile: str | None,
+              wrap=None) -> tuple:
     """One run of a churn family's workload through the port's
     `PerfRunner` (`Scheduler.run`, `TorchBackend()`, batch_size 16384),
     counting the routes, wave_solve's launches and the fast path's
     solve_one calls over the measured window (and profiling it when
-    asked, as `counting_runner_cls`). Returns (runner, result)."""
+    asked, as `counting_runner_cls`); `wrap` (a runner class to its
+    subclass) adds a phase's own records. Returns (runner, result)."""
     from kubernetes_tpu_torch.ops.backend import TorchBackend
 
     params = next(w["params"] for w in family["workloads"]
                   if w["name"] == workload)
     base = slice_runner_cls(counting_runner_cls(torch))
+    if wrap is not None:
+        base = wrap(base)
 
     with counted_solves(torch, False) as solves:
         class ChurnRunner(base):
@@ -6300,6 +6334,457 @@ def slice_topology_phases(torch, seed: int) -> int:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the runner's last in-process families
+# ---------------------------------------------------------------------------
+
+#: The `consolidation_case` fixtures: ties everywhere (uniform nodes), a
+#: node exactly at the threshold, a resource column with zero allocatable
+#: on some nodes, empty nodes, invalid rows, and random free planes.
+CONSOLIDATION_CASES = ("uniform", "at-threshold", "zero-alloc", "empty",
+                       "invalid", "random")
+
+
+def consolidation_case(kind: str, seed: int = 0, n: int = 96) -> tuple:
+    """Inputs of `solver.consolidation_scores` as numpy arrays: free_q and
+    alloc_q (n, 3) f32 in the descheduler's units (cpu millicores, memory
+    bytes, an extended resource), used_pods (n,) i32, valid (n,) bool and
+    the f32 threshold."""
+    rng = np.random.default_rng(seed)
+    gib = float(1 << 30)
+    alloc = np.tile(np.array([4000.0, 16 * gib, 8.0], np.float32), (n, 1))
+    req = np.array([500.0, gib, 1.0], np.float32)
+    used = rng.integers(0, 9, size=n).astype(np.int32)
+    valid = np.ones(n, bool)
+    thr = np.float32(0.4)
+    if kind == "uniform":
+        used[:] = 2
+    elif kind == "at-threshold":
+        # Pods of a quarter of each resource: 1 - 3/4 = 0.25 exactly;
+        # 4000/16Gi/8 at two such pods leaves one half of each.
+        thr = np.float32(0.5)
+        used = np.where(np.arange(n) % 2 == 0, 2, 3).astype(np.int32)
+        req = alloc[0] / np.float32(4.0)
+    elif kind == "zero-alloc":
+        alloc[::3, 2] = 0.0
+    elif kind == "empty":
+        used[::2] = 0
+    elif kind == "invalid":
+        valid = rng.random(n) < 0.7
+    elif kind != "random":
+        raise ValueError(kind)
+    free = alloc - used[:, None].astype(np.float32) * req[None, :]
+    if kind == "random":
+        alloc[:, 0] = rng.choice([2000.0, 4000.0, 8000.0], size=n)
+        free = (alloc * rng.random((n, 3))).astype(np.float32)
+        free[rng.random(n) < 0.1] *= np.float32(-0.5)
+        thr = np.float32(rng.choice([0.25, 0.4, 0.5]))
+    free = np.where(alloc > 0, free, 0.0).astype(np.float32)
+    return free, alloc.astype(np.float32), used, valid, thr
+
+
+def gated_runner_cls(base):
+    """`base` that records, through a pods informer handler, the pods seen
+    bound, and how many of them there were when the first measured window
+    (SchedulingGated's ungatePods) began."""
+    from kubernetes_tpu_torch.client import ResourceEventHandler
+
+    class GatedRunner(base):
+        async def _drive(self, template_ops, params, timeout, store,
+                         metrics, sched, factory):
+            self.bound_names: set = set()
+            self.bound_at_measure = None
+
+            def track(obj):
+                if (obj.get("spec") or {}).get("nodeName"):
+                    self.bound_names.add(obj["metadata"]["name"])
+
+            factory.informer("pods").add_event_handler(ResourceEventHandler(
+                on_add=track, on_update=lambda old, new: track(new)))
+            return await super()._drive(template_ops, params, timeout,
+                                        store, metrics, sched, factory)
+
+        def _begin_measure(self, metrics, backing):
+            if self.bound_at_measure is None:
+                self.bound_at_measure = len(self.bound_names)
+            return super()._begin_measure(metrics, backing)
+
+    return GatedRunner
+
+
+def storm_runner_cls(base):
+    """`base` that snapshots the store's direct LIST scans at every
+    watch-cache total it reads: in AgentRelistStorm the first two are the
+    relistStorm op's, before and after the storm."""
+
+    class StormRunner(base):
+        def _cache_totals(self, backing):
+            if not hasattr(self, "direct_scans"):
+                self.direct_scans = []
+            self.direct_scans.append(dict(backing.list_direct_total))
+            return super()._cache_totals(backing)
+
+    return StormRunner
+
+
+def storm_violations(runner, result, agents: int) -> list[str]:
+    """AgentRelistStorm's promise (the watch cache's): every agent
+    relisted, the storm cost the store no direct LIST scan, and at least
+    one watch-cache hit per agent."""
+    bad = []
+    if result.relist_storm_agents != agents:
+        bad.append(f"relist_storm_agents {result.relist_storm_agents}")
+    before, after = runner.direct_scans[0], runner.direct_scans[1]
+    if after != before:
+        bad.append(f"direct scans during the storm: {before} -> {after}")
+    if result.relist_storm_cache_hits < agents:
+        bad.append(f"cache hits {result.relist_storm_cache_hits} < {agents}")
+    return bad
+
+
+def node_death_violations(runner, result) -> list[str]:
+    """ChurnDayFaults' gates on a run whose only fault is one nodeDeath:
+    the fault recovered; the dead node, and no other, carries the
+    unreachable taint; every displaced pod evicted, and one replacement
+    per displaced pod, each bound; no node over capacity. The dead node
+    is the seed's pick, so it may hold no pod at the kill (the open loop
+    decides); the phase prints the count. A replacement may bind back to
+    the dead node, in both packages: the taint is NoExecute only,
+    admission gives every pod a 300 s toleration of it, and the emptied
+    node scores best (`replacements_on_dead_node` counts them)."""
+    from kubernetes_tpu_torch.api.types import TAINT_UNREACHABLE
+
+    recs = result.churn_faults
+    if [r["kind"] for r in recs] != ["nodeDeath"]:
+        return [f"fault records {recs}"]
+    rec = recs[0]
+    bad = [] if rec.get("recovered") else [f"not recovered: {rec}"]
+    dead = rec["node"]
+    pods = asyncio.run(runner.store.list("pods")).items
+    nodes = asyncio.run(runner.store.list("nodes")).items
+    tainted = sorted(n["metadata"]["name"] for n in nodes if any(
+        t.get("key") == TAINT_UNREACHABLE
+        for t in (n.get("spec") or {}).get("taints") or []))
+    if tainted != [dead]:
+        bad.append(f"unreachable taints on {tainted[:5]} ({len(tainted)}), "
+                   f"dead node {dead}")
+    suffix = f"-r{round(rec['at'] * 1e3)}"
+    repl = {p["metadata"]["name"]: (p.get("spec") or {}).get("nodeName")
+            for p in pods if p["metadata"]["name"].endswith(suffix)}
+    if len(repl) != rec["displaced_pods"] \
+            or rec["replacements"] != rec["displaced_pods"]:
+        bad.append(f"{rec['displaced_pods']} displaced, "
+                   f"{rec['replacements']} replacements, {len(repl)} found")
+    names = {p["metadata"]["name"] for p in pods}
+    kept = [n[:-len(suffix)] for n in repl if n[:-len(suffix)] in names]
+    if kept:
+        bad.append(f"displaced pods not evicted: {kept[:5]}")
+    if not all(repl.values()):
+        bad.append(f"replacements unbound: {repl}")
+    runner.replacements_on_dead_node = sum(v == dead for v in repl.values())
+    bad += [f"{n} over capacity" for n in over_capacity(nodes, pods)]
+    return bad
+
+
+@contextlib.contextmanager
+def counted_descheduler(torch):
+    """Count the runner's descheduler cycles (each `rebalance_once`'s
+    evictions, in order) and keep, as CPU tensors, the inputs of the last
+    `solver.consolidation_scores` call."""
+    from kubernetes_tpu_torch.ops import solver
+    from kubernetes_tpu_torch.perf import scheduler_perf
+
+    base, scores = scheduler_perf.DeschedulerController, \
+        solver.consolidation_scores
+    log = {"cycles": [], "last_inputs": None}
+
+    class CountedDescheduler(base):
+        async def rebalance_once(self) -> int:
+            n = await super().rebalance_once()
+            log["cycles"].append(n)
+            return n
+
+    def recorded(*args):
+        log["last_inputs"] = tuple(
+            a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+        return scores(*args)
+
+    scheduler_perf.DeschedulerController = CountedDescheduler
+    solver.consolidation_scores = recorded
+    try:
+        yield log
+    finally:
+        scheduler_perf.DeschedulerController = base
+        solver.consolidation_scores = scores
+
+
+def rebalance_violations(result, cycles: list, budget: int,
+                         enabled: bool) -> list[str]:
+    """ChurnRebalance's gates: the descheduler's evictions are the sum of
+    its cycles', none over the budget (so no more than budget x cycles),
+    none with it off; the fragmentation curve sampled."""
+    bad = []
+    ev = result.churn_descheduler_evictions
+    if ev != sum(cycles) or any(c > budget for c in cycles) \
+            or ev > budget * len(cycles):
+        bad.append(f"{ev} evictions over cycles {cycles} (budget {budget})")
+    if enabled != bool(cycles):
+        bad.append(f"descheduler enabled {enabled}, cycles {len(cycles)}")
+    if len(result.churn_fragmentation_curve) < 2:
+        bad.append(f"curve {result.churn_fragmentation_curve}")
+    return bad
+
+
+def curve_view(curve: list) -> str:
+    """A fragmentation curve's final occupied point and its mean after the
+    first wave (t >= 1 s)."""
+    late = [p[2] for p in curve if p[0] >= 1.0] or [p[2] for p in curve]
+    return (f"final {curve[-1][2]}%, mean after 1 s "
+            f"{sum(late) / len(late):.3f}%")
+
+
+def gated_phase(torch) -> int:
+    """Phase 17(a): SchedulingGated/100Nodes. Returns wave_solve's
+    launches in the measured window."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_GATED
+
+    t0 = time.perf_counter()
+    runner, result = churn_run(torch, SCHEDULING_GATED, "100Nodes", None,
+                               gated_runner_cls)
+    pods = asyncio.run(runner.store.list("pods")).items
+    nodes = asyncio.run(runner.store.list("nodes")).items
+    bound = sum(bool((p.get("spec") or {}).get("nodeName")) for p in pods)
+    w = runner.window
+    print(f"gated SchedulingGated/100Nodes (PerfRunner, TorchBackend()): "
+          f"{result.throughput:.2f} pods/s from gate removal to all bound, "
+          f"measured_pods {result.measured_pods}, bound before ungatePods "
+          f"{runner.bound_at_measure}, bound at the end {bound}/{len(pods)};"
+          f" in the window: wave_solve launches {w['launches']}, backend "
+          f"dispatches {w['routes']['backend_dispatches']} with "
+          f"{w['routes']['backend_pods']} pods, fast-path pods "
+          f"{result.serving_fast_path_pods_total}; phase 17(a) "
+          f"{time.perf_counter() - t0:.1f} s")
+    bad = over_capacity(nodes, pods)
+    if result.measured_pods != 1000 or bound != 1000 \
+            or runner.bound_at_measure != 0 or bad or not w["launches"]:
+        raise RuntimeError(f"17(a): measured {result.measured_pods}, bound "
+                           f"{bound}, bound before the ungate "
+                           f"{runner.bound_at_measure}, launches "
+                           f"{w['launches']}, over capacity {bad[:5]}")
+    return w["launches"]
+
+
+def relist_storm_phase(torch) -> dict:
+    """Phase 17(b): AgentRelistStorm/2000Agents and /5000Agents. Returns
+    wave_solve's launches in each measured window."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import AGENT_RELIST_STORM
+
+    out = {}
+    for workload, agents in (("2000Agents", 2000), ("5000Agents", 5000)):
+        t0 = time.perf_counter()
+        runner, result = churn_run(torch, AGENT_RELIST_STORM, workload, None,
+                                   storm_runner_cls)
+        pods = asyncio.run(runner.store.list("pods")).items
+        bound = sum(bool((p.get("spec") or {}).get("nodeName")) for p in pods)
+        bad = storm_violations(runner, result, agents)
+        if bound != len(pods) or len(pods) != 1300:
+            bad.append(f"{bound}/{len(pods)} pods bound")
+        w = runner.window
+        print(f"relist storm AgentRelistStorm/{workload} (PerfRunner, "
+              f"TorchBackend()): storm {result.relist_storm_seconds:.6f} s "
+              f"over {result.relist_storm_agents} agents, cache hits "
+              f"{result.relist_storm_cache_hits}, misses "
+              f"{result.relist_storm_cache_misses}, direct scans "
+              f"{runner.direct_scans[1]}; agent boot "
+              f"{result.agent_start_seconds:.6f} s; measured "
+              f"{result.throughput:.2f} pods/s ({result.measured_pods} pods,"
+              f" attempt p99 {result.attempt_p99 * 1e3:.3f} ms); wave_solve "
+              f"launches in the window {w['launches']}; phase 17(b) "
+              f"{time.perf_counter() - t0:.1f} s")
+        if bad:
+            raise RuntimeError(f"17(b) {workload}: {bad}")
+        out[workload] = w["launches"]
+    return out
+
+
+def node_death_phase(torch) -> int:
+    """Phase 17(c): ChurnDayFaults/500Agents-nodeDeath. Returns wave_solve's
+    launches in the measured window."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import CHURN_DAY_FAULTS
+
+    t0 = time.perf_counter()
+    runner, result = churn_run(torch, CHURN_DAY_FAULTS,
+                               "500Agents-nodeDeath", None)
+    rec = (result.churn_faults or [{}])[0]
+    bad = node_death_violations(runner, result)
+    print(f"node death ChurnDayFaults/500Agents-nodeDeath (PerfRunner, "
+          f"TorchBackend()): recovery_s {rec.get('recovery_s')} (node "
+          f"{rec.get('node')}, {rec.get('displaced_pods')} displaced pods, "
+          f"replacements bound back to it "
+          f"{getattr(runner, 'replacements_on_dead_node', None)}), "
+          + churn_view(result, runner.sched, runner.window)
+          + f"; phase 17(c) {time.perf_counter() - t0:.1f} s")
+    if bad or result.churn_create_errors:
+        raise RuntimeError(f"17(c): {bad}, create errors "
+                           f"{result.churn_create_errors}")
+    return runner.window["launches"]
+
+
+def rebalance_phase(torch) -> tuple:
+    """Phase 17(d): ChurnRebalance/200Nodes-deschedulerOff and -On.
+    Returns (wave_solve's launches in each window, the inputs of the -On
+    run's last `consolidation_scores` call)."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import CHURN_REBALANCE
+
+    launches, curves, captured = {}, {}, None
+    for workload in ("200Nodes-deschedulerOff", "200Nodes-deschedulerOn"):
+        t0 = time.perf_counter()
+        params = next(w["params"] for w in CHURN_REBALANCE["workloads"]
+                      if w["name"] == workload)
+        with counted_descheduler(torch) as log:
+            runner, result = churn_run(torch, CHURN_REBALANCE, workload, None)
+        pods = asyncio.run(runner.store.list("pods")).items
+        nodes = asyncio.run(runner.store.list("nodes")).items
+        curve = result.churn_fragmentation_curve
+        print(f"rebalance ChurnRebalance/{workload} (PerfRunner, "
+              f"TorchBackend()): descheduler evictions "
+              f"{result.churn_descheduler_evictions} over "
+              f"{len(log['cycles'])} cycles (budget {params['budget']}), "
+              f"rebalance recovery {result.churn_rebalance_recovery_s} s, "
+              f"occupied fragmentation {curve_view(curve)}; curve "
+              f"{json.dumps(curve)}; "
+              + churn_view(result, runner.sched, runner.window)
+              + f"; phase 17(d) {time.perf_counter() - t0:.1f} s")
+        bad = rebalance_violations(result, log["cycles"], params["budget"],
+                                   params["descheduler"])
+        bad += [f"{n} over capacity" for n in over_capacity(nodes, pods)]
+        if bad or result.churn_create_errors:
+            raise RuntimeError(f"17(d) {workload}: {bad}, create errors "
+                               f"{result.churn_create_errors}")
+        launches[workload] = runner.window["launches"]
+        curves[workload] = curve
+        if params["descheduler"]:
+            captured = log["last_inputs"]
+    off = curves["200Nodes-deschedulerOff"]
+    on = curves["200Nodes-deschedulerOn"]
+    print(f"rebalance on below off (occupied fragmentation, printed, not "
+          f"gated): final {on[-1][2] < off[-1][2]} ({on[-1][2]} against "
+          f"{off[-1][2]}); {curve_view(on)} on, {curve_view(off)} off")
+    if captured is None:
+        raise RuntimeError("17(d): the descheduler scored no cycle")
+    return launches, captured
+
+
+def consolidation_phase(torch, captured: tuple, seed: int) -> None:
+    """Phase 17(e): `consolidation_scores` on the card against the same
+    call on the CPU, bitwise, on 17(d)'s last rebalance state and on a
+    random 50,000-node state; CUDA-event ms per call."""
+    from kubernetes_tpu_torch.ops import solver
+
+    t0 = time.perf_counter()
+    rand = consolidation_case("random", seed, 50000)
+    cases = (("17(d) rebalance state", captured[:4], captured[4]),
+             ("random 50000 nodes", tuple(map(torch.from_numpy, rand[:4])),
+              rand[4]))
+    for label, args, thr in cases:
+        want = solver.consolidation_scores(*args, thr)
+        on_card = tuple(a.to("cuda:0") for a in args)
+        got = solver.consolidation_scores(*on_card, thr)
+        same = torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        ms = cuda_ms(torch, lambda: solver.consolidation_scores(
+            *on_card, thr), 200)
+        n = int(args[0].shape[0])
+        print(f"compare consolidation_scores {label} ({n} nodes), card vs "
+              f"CPU: {'identical bits' if same else 'DIFFER'}; candidates "
+              f"{int(torch.isfinite(want).sum())}; {ms:.5f} ms per call "
+              f"(CUDA events)")
+        if not same:
+            raise RuntimeError(f"17(e): consolidation_scores {label} differs")
+    print(f"phase 17(e) {time.perf_counter() - t0:.1f} s")
+
+
+def provenance_trace_phase(torch) -> None:
+    """Phase 17(f): `solve_provenance()`, then SchedulingGated/100Nodes
+    through a `PerfRunner` with a `profile_dir`: one trace file, naming
+    the wave_solve kernel."""
+    import glob
+    import shutil
+
+    from kubernetes_tpu_torch.ops.backend import TorchBackend, solve_provenance
+    from kubernetes_tpu_torch.perf.scheduler_perf import (PerfRunner,
+                                                          SCHEDULING_GATED)
+
+    t0 = time.perf_counter()
+    prov = solve_provenance()
+    print(f"solve_provenance(): {json.dumps(prov)}")
+    if prov["solve_kernel"] != "cuda" or not prov.get("power_limit"):
+        raise RuntimeError(f"17(f): provenance {prov}")
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "traces", "phase17f")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    runner = PerfRunner(backend=TorchBackend(), batch_size=LOOP_BATCH,
+                        profile_dir=trace_dir)
+    result = asyncio.run(runner.run(
+        SCHEDULING_GATED["workloadTemplate"],
+        SCHEDULING_GATED["workloads"][0]["params"], timeout=600.0))
+    files = sorted(glob.glob(os.path.join(trace_dir, "*.json")))
+    events = []
+    if len(files) == 1:
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    kernels = sum("wave_solve_kernel" in n for n in names)
+    print(f"profiled SchedulingGated/100Nodes (profile_dir): "
+          f"{result.throughput:.2f} pods/s, trace {files} "
+          f"({os.path.getsize(files[0]) if files else 0} bytes), "
+          f"{len(events)} events, {len(names)} device kernels of "
+          f"{len(set(names))} names, wave_solve_kernel events {kernels}; "
+          f"the result's provenance "
+          f"{'equals' if result.solve_provenance == prov else 'DIFFERS from'}"
+          f" the call's; phase 17(f) {time.perf_counter() - t0:.1f} s")
+    if not kernels or result.solve_provenance != prov \
+            or result.measured_pods != 1000:
+        raise RuntimeError(f"17(f): traces {files}, kernel events {kernels}, "
+                           f"provenance {result.solve_provenance}")
+
+
+def runner_families_run(torch, seed: int) -> dict:
+    """Phase 17 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on. Returns the kernels line's phase
+    17 entries: wave_solve's launches in the measured windows of 17(a)-(d)."""
+    from kubernetes_tpu_torch.utils import flags
+
+    t17 = time.perf_counter()
+    print(f"phase 17 on {card_line()}")
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        out = {"gated_launches": gated_phase(torch)}
+        storm = relist_storm_phase(torch)
+        out["relist_storm_2000_launches"] = storm["2000Agents"]
+        out["relist_storm_5000_launches"] = storm["5000Agents"]
+        out["node_death_launches"] = node_death_phase(torch)
+        rebalance, captured = rebalance_phase(torch)
+        out["rebalance_off_launches"] = rebalance["200Nodes-deschedulerOff"]
+        out["rebalance_on_launches"] = rebalance["200Nodes-deschedulerOn"]
+        consolidation_phase(torch, captured, seed)
+        provenance_trace_phase(torch)
+    print(f"phase 17 {time.perf_counter() - t17:.1f} s")
+    return out
+
+
+def runner_families_phases(torch, seed: int) -> int:
+    """`--phase17-only`: build the kernels (phase 1), then phase 17."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(runner_families_run(torch, seed)))
+    print_card()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -6308,8 +6793,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=8,
                         help="seed of phase 8(a)'s cluster and lone pods, "
-                        "of phase 16(a)'s free masks "
-                        "and of phase 14(a)'s chunks")
+                        "of phase 16(a)'s free masks, of phase 17(e)'s "
+                        "random state and of phase 14(a)'s chunks")
     parser.add_argument("--phase13-only", action="store_true",
                         help="build the kernels and run phase 13 alone "
                         "(prints no result lines)")
@@ -6321,6 +6806,9 @@ def main() -> int:
                         "(prints no result lines)")
     parser.add_argument("--phase16-only", action="store_true",
                         help="build the kernels and run phase 16 alone "
+                        "(prints no result lines)")
+    parser.add_argument("--phase17-only", action="store_true",
+                        help="build the kernels and run phase 17 alone "
                         "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
@@ -6341,6 +6829,8 @@ def main() -> int:
         return stream_volume_phases(torch, seed)
     if cli.phase16_only:
         return slice_topology_phases(torch, seed)
+    if cli.phase17_only:
+        return runner_families_phases(torch, seed)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -6398,7 +6888,7 @@ def print_card() -> None:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-17 (see the module docstring)."""
+    """Phases 1-18 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -6770,8 +7260,11 @@ def smoke(torch, seed: int) -> int:
     # -- 16. slice topology, the node agents and the churn harness ---------
     slice_topology = slice_topology_run(torch, seed)
 
-    # -- 17. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-16)")
+    # -- 17. the runner's last in-process families ------------------------
+    families = runner_families_run(torch, seed)
+
+    # -- 18. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-17)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -6784,7 +7277,7 @@ def smoke(torch, seed: int) -> int:
          "constraint_launches": anti["launches"] + affinity_launches,
          "gang_launches": gang_launches,
          "gang_chunk_launches": gang_chunk_launches, **large, **device,
-         **stream_volume, **slice_topology},
+         **stream_volume, **slice_topology, **families},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,

@@ -20,9 +20,8 @@ Copy of `kubernetes_tpu/agent/agent.py`. The reference also runs an
 agent as a process of its own over the apiserver wire
 (`kubernetes_tpu/agent/__main__.py`, with the read-only kubelet server of
 `agent/server.py`); those wait for the apiserver's port, so here an agent
-runs in process against a store object, and what only those serve
-(the local pod view of `/pods`, the relist storm's `force_relist`) is
-left out.
+runs in process against a store object, and what only the server
+serves (the local pod view of `/pods`) is left out.
 """
 
 from __future__ import annotations
@@ -100,6 +99,7 @@ class NodeAgent:
                          f"devices-{node_name}.checkpoint.json"),
             node_name)
         self._tasks: list[asyncio.Task] = []
+        self._watch_task: asyncio.Task | None = None
         self._workers: set[asyncio.Task] = set()
         #: pod key -> latest observed object (None = deleted); per-pod
         #: workers drain this map serially per key, latest state wins
@@ -181,8 +181,9 @@ class NodeAgent:
             self._ip_seq = max(self._ip_seq, self._ip_seq_of(p))
         for p in lst.items:
             self._observe(namespaced_name(p), p)
-        self._tasks.append(asyncio.ensure_future(
-            self._watch_loop(lst.resource_version)))
+        self._watch_task = asyncio.ensure_future(
+            self._watch_loop(lst.resource_version))
+        self._tasks.append(self._watch_task)
         self._tasks.append(asyncio.ensure_future(self._lease_loop()))
 
     async def stop(self, graceful: bool = True) -> None:
@@ -342,6 +343,36 @@ class NodeAgent:
         for key in self.ledger.reconcile(seen):
             self._observe(key, None)
         return lst.resource_version
+
+    async def force_relist(self) -> None:
+        """Cold-start reconnect, forced: tear down the watch, full LIST +
+        reconcile, re-watch from the LIST's RV. The relist-storm
+        scenario's per-agent unit (perf/scheduler_perf.py `relistStorm`
+        gathers this across every agent at once) — with the watch cache
+        active the LIST is a read of the shared snapshot, so the storm
+        costs the store one table seed total, not one scan per agent."""
+        if self._watch_task is not None:
+            self._watch_task.cancel()
+            try:
+                await self._watch_task
+            except (asyncio.CancelledError, Exception):
+                pass
+            try:
+                self._tasks.remove(self._watch_task)
+            except ValueError:
+                pass
+            self._watch_task = None
+        fields = {"spec.nodeName": self.node_name}
+        # The relist must land before re-watching: watch-from-now with
+        # no reconcile would never observe pods deleted while the watch
+        # was down (the ledger would hold their devices forever).
+        rv = None
+        while rv is None and not self._stopped:
+            rv = await self._relist(fields)
+        if self._stopped:
+            return
+        self._watch_task = asyncio.ensure_future(self._watch_loop(rv))
+        self._tasks.append(self._watch_task)
 
     # -- pod workers -------------------------------------------------------
 

@@ -383,6 +383,8 @@ TAINT_NO_SCHEDULE = "NoSchedule"
 TAINT_PREFER_NO_SCHEDULE = "PreferNoSchedule"
 TAINT_NO_EXECUTE = "NoExecute"
 
+TAINT_UNREACHABLE = "node.kubernetes.io/unreachable"
+
 
 def toleration_tolerates_taint(tol: Mapping, taint: Mapping) -> bool:
     """v1helper.TolerationsTolerateTaint single-pair check.

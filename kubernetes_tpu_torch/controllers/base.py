@@ -6,9 +6,10 @@ rate-limited workqueue, N worker tasks pop keys and run `sync(key)`
 level-triggered; failures re-enqueue with exponential backoff; periodic
 resync forces full reconciliation.
 
-Copy of `kubernetes_tpu/controllers/base.py` without what the PV binder
-does not use: the owner-reference watches, the enqueue helpers and the
-leader-elected lifetime (leader election is not ported).
+Copy of `kubernetes_tpu/controllers/base.py` without what the port's
+controllers (the PV binder, the node lifecycle controller and the
+descheduler) do not use: the owner-reference watches, the enqueue helpers
+and the leader-elected lifetime (leader election is not ported).
 """
 
 from __future__ import annotations

@@ -8,9 +8,9 @@ No prometheus_client dependency: a registry that renders the text exposition
 format is ~100 lines and keeps the zero-install constraint.
 
 Copy of `kubernetes_tpu/metrics/registry.py`, cut to the families the store,
-the watch cache, the scheduler loop and the churn harness fill (the
-durability, HA, descheduler and apiserver families wait for the modules
-that fill them).
+the watch cache, the scheduler loop, the churn harness and the
+descheduler fill (the durability, HA and apiserver families wait for the
+modules that fill them).
 The scheduler's family keeps every reference name, the device-solve ones
 included, so the exposition text is the reference's.
 """
@@ -386,6 +386,25 @@ class ChurnMetrics:
         for m in (self.arrivals, self.faults_injected,
                   self.recovery_seconds, self.backlog_peak):
             registry._metrics.setdefault(m.name, m)
+
+
+class DeschedulerMetrics:
+    """Rebalance-descheduler counters (controllers/descheduler.py):
+    evict-and-replace consolidation moves actually issued. The
+    disruption budget bounds the per-cycle delta; the ChurnRebalance
+    family reports the phase total next to the fragmentation-over-time
+    curve."""
+
+    def __init__(self, registry: Registry | None = None):
+        r = registry or Registry()
+        self.registry = r
+        self.evictions = r.counter(
+            "descheduler_evictions_total",
+            "Pods evicted (and re-created unbound) by the rebalance "
+            "descheduler's consolidation moves")
+
+    def register_into(self, registry: Registry) -> None:
+        registry._metrics.setdefault(self.evictions.name, self.evictions)
 
 
 class SchedulerMetrics:

@@ -104,7 +104,11 @@ When the scheduler attaches its metrics (`metrics`, `tracer`), each chunk
 observes `scheduler_tpu_solve_seconds` (dispatch to fetched) and the
 solver_* counters the reference's chunk finalization updates, for the
 counters this backend keeps, the shortlist's and the block index's
-among them. Multi-device sharding of the node axis is a later slice.
+among them. For perf output, `solve_provenance(device)` names the card
+and the solve route, and `start_profile` / `stop_profile` write a
+torch.profiler Chrome trace of a window (raising where the reference
+logs and goes on). Multi-device sharding of the node axis is a later
+slice.
 """
 
 from __future__ import annotations
@@ -112,6 +116,8 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import logging
+import os
+import subprocess
 import time
 from collections import deque
 from typing import Mapping, Sequence
@@ -261,6 +267,34 @@ def compress_score_wire(host_scores: np.ndarray) -> np.ndarray:
     else:
         amax = 0.0
     return host_scores.astype(np.float16 if amax <= 1024.0 else np.float32)
+
+
+def solve_provenance(device=None) -> dict:
+    """Solve-backend provenance for perf output: the platform, the card
+    (`card_name` and `power_limit`, as nvidia-smi gives them) where there
+    is one, the visible card count, the torch and CUDA versions, the
+    host's core count, and which route an eligible greedy wave chunk
+    takes on `device` (cuda:0 when None): the hand-written `wave_solve`
+    ("cuda") or its plain PyTorch version ("plain", CPU tensors). A CPU
+    row and a card row can then never be taken for one another. On a
+    CUDA device a failed nvidia-smi query raises; on the CPU there is no
+    card field."""
+    dev = torch.device("cuda:0" if device is None else device)
+    out = {"platform": dev.type,
+           "device_count": torch.cuda.device_count(),
+           "torch_version": torch.__version__,
+           "cuda_version": torch.version.cuda,
+           "cpu_count": os.cpu_count(),
+           "solve_kernel": "cuda" if dev.type == "cuda" else "plain"}
+    if dev.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", f"--id={dev.index or 0}",
+             "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+        name, limit = smi.stdout.strip().splitlines()[0].rsplit(",", 1)
+        out["card_name"] = name.strip()
+        out["power_limit"] = limit.strip()
+    return out
 
 
 class AdaptiveTuner:
@@ -869,6 +903,43 @@ class TorchBackend:
         #: attached by Scheduler.attach_backend (None: nothing observed).
         self.metrics = None
         self.tracer = None
+        #: (torch.profiler.profile, trace directory) between
+        #: start_profile and stop_profile; traces written so far.
+        self._profile: tuple | None = None
+        self._traces = 0
+
+    # -- profiling (torch.profiler; the reference's jax.profiler hook) -----
+
+    def start_profile(self, log_dir: str) -> None:
+        """Begin a torch.profiler trace of this process (CPU activity,
+        plus CUDA on a card) until `stop_profile`, which writes it under
+        `log_dir`. Unlike the reference, which logs and returns False
+        when its profiler is unavailable, a profiler that cannot start
+        raises here."""
+        if self._profile is not None:
+            raise RuntimeError("start_profile: a profile is already running")
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        self._profile = (prof, log_dir)
+
+    def stop_profile(self) -> str | None:
+        """End the running trace and write it to `log_dir` as a Chrome
+        trace (`trace-<pid>-<n>.json`); returns its path, or None when no
+        profile runs."""
+        if self._profile is None:
+            return None
+        prof, log_dir = self._profile
+        self._profile = None
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        self._traces += 1
+        path = os.path.join(log_dir,
+                            f"trace-{os.getpid()}-{self._traces}.json")
+        prof.export_chrome_trace(path)
+        return path
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

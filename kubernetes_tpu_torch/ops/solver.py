@@ -4,7 +4,8 @@ the Sinkhorn optimal mode.
 Counterpart of `kubernetes_tpu/ops/solver.py`, cut to the greedy
 multistart wavefront route, the shortlist-pruned solve and its block
 prefilter, the batch-optimal route, the spread scans and the serving fast
-path's single-pod solve. The reference's
+path's single-pod solve, with the descheduler's `consolidation_scores`
+beside the fragmentation gauges. The reference's
 `lax.scan`s become Python loops over device tensors here; on the CUDA
 device the main paths do not run them: `multistart_greedy_assign_wave_kernel`
 and `multistart_greedy_assign_kernel` hand the whole chunk to the
@@ -1451,6 +1452,25 @@ def fragmentation_occupied(free_q, alloc_q, used_pods, valid):
     per_node = _free_fraction(free_q, alloc_q)
     return 100.0 * torch.where(occ, per_node, 0.0).sum() / torch.clamp_min(
         occ.sum(), 1)
+
+
+def consolidation_scores(free_q, alloc_q, used_pods, valid, threshold):
+    """Per-node consolidation priority for the descheduler
+    (controllers/descheduler.py): occupied nodes whose mean free-capacity
+    fraction is >= `threshold` are drain candidates, scored by that
+    fraction (emptiest first: the node with the least to move frees a
+    whole node soonest). Empty nodes, invalid rows and well-packed nodes
+    score NEG_INF (never drained).
+
+    free_q, alloc_q (N, R) f32; used_pods (N,) i32; valid (N,) bool;
+    threshold an f32 scalar, compared as a host number (exact in f32, and
+    no copy to the device). Returns (N,) f32 on the inputs' device. The
+    sum over R is the index-order fold of `fragmentation`, so the scores
+    are the reference's bit for bit."""
+    per_node = _free_fraction(free_q, alloc_q)
+    eligible = valid & (used_pods > 0) & (per_node >= float(
+        np.float32(threshold)))
+    return torch.where(eligible, per_node, NEG_INF)
 
 
 # ---------------------------------------------------------------------------

@@ -53,11 +53,10 @@ Copy of `kubernetes_tpu/perf/churn/faults.py`, with these departures:
   such exception propagates out of `drain()` once every handler has
   ended; a handler's own store errors are still absorbed as in the
   reference (a create or delete that races the run);
-- not here yet: `nodeDeath` needs the node lifecycle controller
-  (`controllers/nodelifecycle.py`) and `killLeader` the multi-process
-  control plane (`multiproc/`), ROADMAP queue 1 item 9; both handlers
-  raise NotImplementedError. `build_fault_timeline` resolves every kind
-  as the reference does.
+- not here yet: `killLeader` needs the multi-process control plane
+  (`multiproc/`), ROADMAP queue 1 item 9; its handler raises
+  NotImplementedError. `build_fault_timeline` resolves every kind as the
+  reference does.
 """
 
 from __future__ import annotations
@@ -245,10 +244,26 @@ class FaultInjector:
     # -- kinds -------------------------------------------------------------
 
     async def _do_nodeDeath(self, ev: FaultEvent, rec: dict) -> None:
-        raise NotImplementedError(
-            "nodeDeath needs the node lifecycle controller "
-            "(controllers/nodelifecycle.py), which is not ported "
-            "(ROADMAP queue 1 item 9)")
+        node = ev.params["node"]
+        displaced = await self._pods_on(node)
+        agent = self.agents.get(node)
+        t_kill = self.clock()
+        if agent is not None:
+            # The death itself: tasks cancelled, no further writes; the
+            # Lease goes stale and the nodelifecycle controller's grace
+            # period decides when the cluster notices.
+            await agent.stop(graceful=False)
+        else:
+            # createNodes staging (no agent to kill): the closest honest
+            # analog is deleting the Node object outright.
+            try:
+                await self.store.delete("nodes", node)
+            except StoreError:
+                pass
+        rec["displaced_pods"] = len(displaced)
+        await self._replace_and_recover(
+            ev, rec, displaced, t_kill,
+            wait_eviction=agent is not None)
 
     async def _do_drain(self, ev: FaultEvent, rec: dict) -> None:
         node = ev.params["node"]
@@ -262,7 +277,8 @@ class FaultInjector:
                 self.net_created -= 1
             except StoreError:
                 pass
-        await self._replace_and_recover(ev, rec, displaced, t0)
+        await self._replace_and_recover(ev, rec, displaced, t0,
+                                        wait_eviction=False)
         if ev.params.get("uncordon", True):
             await self._set_unschedulable(node, False)
 
@@ -442,14 +458,22 @@ class FaultInjector:
 
     async def _replace_and_recover(self, ev: FaultEvent, rec: dict,
                                    displaced: list[dict],
-                                   t0: float) -> None:
-        """The ReplicaSet's half of recovery: recreate a replacement per
-        displaced pod (its delete already landed); recovery = every
-        replacement bound + backlog back under threshold. (The
-        reference's node-death wait for the eviction delete comes with
-        nodeDeath.)"""
+                                   t0: float, *,
+                                   wait_eviction: bool) -> None:
+        """The ReplicaSet's half of recovery: once a displaced pod's
+        eviction delete lands (observed via the bound-key set), recreate
+        a replacement; recovery = every replacement bound + backlog back
+        under threshold."""
         keys = [namespaced_name(p) for p in displaced]
         deadline = t0 + self.recovery_timeout
+        if wait_eviction and keys:
+            # Node death: eviction is the lifecycle controller's move
+            # (taint after grace, evict after tolerationSeconds).
+            while any(k in self.bound_keys for k in keys) \
+                    and self.clock() < deadline:
+                await asyncio.sleep(_POLL)
+            self.net_created -= sum(
+                1 for k in keys if k not in self.bound_keys)
         suffix = f"r{round(ev.at * 1e3)}"
         names = [f"{k.rsplit('/', 1)[-1]}-{suffix}" for k in keys]
         await self._create_many(names, self.pod_template)

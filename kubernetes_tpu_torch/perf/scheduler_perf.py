@@ -29,24 +29,37 @@ node), startAgents (N in-process hollow-kubelet NodeAgents, agent/, which
 register their own Nodes, watch their pods through a field selector, mark
 them Running and renew their leases), createPods (with `podTemplate.claim`,
 one ResourceClaim `{pod}-c0` per pod, created before its pod),
-churnOpenLoop (perf/churn: a timed open-loop arrival window with an
-optional fault timeline; its `nodeDeath` and `killLeader` faults and a
-`descheduler` block raise NotImplementedError, as their modules are not
-ported), barrier and sleep. A workload's `schedulerConfig` builds the scheduler's profiles
-through the port's `config.load_config`. `WorkloadResult` keeps the fields this path fills, under the
-reference's names. A barrier raises the scheduler loop's own exception as
-soon as `Scheduler.run` ends with one (the port has no backend fallback),
-where the reference's would wait out its deadline. SchedulingBasic's
-workload is a constant here (`SCHEDULING_BASIC`, equal to the reference's
-YAML entry), so the harness needs no YAML parser unless `load_config` is
-given a path; so are the constraint families' SchedulingPodAntiAffinity,
-SchedulingPodAffinity and TopologySpreading (`SCHEDULING_POD_ANTI_AFFINITY`,
-`SCHEDULING_POD_AFFINITY`, `TOPOLOGY_SPREADING`), so is Preemption
-(`PREEMPTION`), whose preemptors wait on their own binds only: victims
-being deleted shrink the global bound count, so neither the warm-up nor
-the measured window can end on a global barrier, and so are the
-device-topology families (`DEVICE_TOPOLOGY`, `DEVICE_TOPOLOGY_DRA`) and
-the churn families `CHURN_DAY` and `CHURN_SLICE_PACKING`.
+ungatePods (strips every pod's schedulingGates; measured: gate removal to
+all bound), relistStorm (every agent tears down its watch, relists and
+re-watches at once: `NodeAgent.force_relist`), churn (delete and recreate
+a slice of pods), churnOpenLoop (perf/churn: a timed open-loop arrival
+window with an optional fault timeline; a `nodeDeath` fault runs the node
+lifecycle controller beside it, a `descheduler` block, or the
+KTPU_DESCHEDULER flag, runs the rebalance descheduler with its scores on
+the backend's device, and `sampleInterval` samples the fragmentation
+curve; `killLeader` raises NotImplementedError, as `multiproc/` is not
+ported), barrier and sleep. A workload's `schedulerConfig` builds the
+scheduler's profiles through the port's `config.load_config`.
+`WorkloadResult` keeps the fields this path fills, under the reference's
+names, with `solve_provenance` (`ops/backend.solve_provenance` of the
+backend's device) in every result of a run with a backend. With
+`profile_dir` the backend writes a torch.profiler trace of each measured
+window (createPods, ungatePods and churnOpenLoop alike; the reference
+brackets createPods). A barrier raises the scheduler loop's own exception
+as soon as `Scheduler.run` ends with one (the port has no backend
+fallback), where the reference's would wait out its deadline.
+SchedulingBasic's workload is a constant here (`SCHEDULING_BASIC`, equal
+to the reference's YAML entry), so the harness needs no YAML parser unless
+`load_config` is given a path; so are the constraint families'
+SchedulingPodAntiAffinity, SchedulingPodAffinity and TopologySpreading
+(`SCHEDULING_POD_ANTI_AFFINITY`, `SCHEDULING_POD_AFFINITY`,
+`TOPOLOGY_SPREADING`), so is Preemption (`PREEMPTION`), whose preemptors
+wait on their own binds only: victims being deleted shrink the global
+bound count, so neither the warm-up nor the measured window can end on a
+global barrier, and so are the device-topology families
+(`DEVICE_TOPOLOGY`, `DEVICE_TOPOLOGY_DRA`), the churn families
+`CHURN_DAY`, `CHURN_SLICE_PACKING`, `CHURN_DAY_FAULTS` and
+`CHURN_REBALANCE`, and `SCHEDULING_GATED` and `AGENT_RELIST_STORM`.
 
 Metrics over the measured phase: SchedulingThroughput (pods/s),
 scheduling_attempt_duration percentiles (exact order statistics of the
@@ -57,7 +70,8 @@ backend's and serving tier's counters.
 Run: `python -m kubernetes_tpu_torch.perf.scheduler_perf [config.yaml]
 --filter SchedulingBasic/5000Nodes` runs TorchBackend on cuda:0 with
 16384-pod pops (the reference bench's); `--device cpu` runs the kernels'
-plain versions and `--backend host` the host path alone.
+plain versions and `--backend host` the host path alone; `--profile-dir
+DIR` writes each measured window's trace there.
 """
 
 from __future__ import annotations
@@ -83,7 +97,12 @@ from kubernetes_tpu_torch.api.types import (
 )
 from kubernetes_tpu_torch.client import InformerFactory, ResourceEventHandler
 from kubernetes_tpu_torch.config import load_config as load_scheduler_config
+from kubernetes_tpu_torch.controllers import (
+    DeschedulerController,
+    NodeLifecycleController,
+)
 from kubernetes_tpu_torch.metrics.registry import ChurnMetrics, SchedulerMetrics
+from kubernetes_tpu_torch.ops.backend import solve_provenance
 from kubernetes_tpu_torch.perf.churn import (
     ChurnDriver,
     FaultInjector,
@@ -94,6 +113,7 @@ from kubernetes_tpu_torch.perf.churn import (
 from kubernetes_tpu_torch.scheduler import Scheduler
 from kubernetes_tpu_torch.store import (
     install_core_validation, new_cluster_store)
+from kubernetes_tpu_torch.utils import flags
 
 #: SchedulingBasic of the reference's performance-config.yaml.
 SCHEDULING_BASIC = {
@@ -380,6 +400,120 @@ CHURN_SLICE_PACKING = {
     ],
 }
 
+#: SchedulingGated of the reference's performance-config.yaml: pods enter
+#: with a scheduling gate and become schedulable only when the gate is
+#: removed (PreEnqueue -> gated tier -> gate-removal re-enqueue).
+SCHEDULING_GATED = {
+    "name": "SchedulingGated",
+    "workloadTemplate": [
+        {"opcode": "createNodes", "countParam": "$initNodes"},
+        {"opcode": "createPods", "countParam": "$gatedPods",
+         "podTemplate": {"scheduling_gates": ["wait-for-quota"]}},
+        {"opcode": "sleep", "duration": 0.3},
+        {"opcode": "ungatePods", "collectMetrics": True},
+        {"opcode": "barrier"},
+    ],
+    "workloads": [
+        {"name": "100Nodes", "params": {"initNodes": 100, "gatedPods": 1000}},
+    ],
+}
+
+#: AgentRelistStorm of the reference's performance-config.yaml: after the
+#: warm-up binds settle, every agent reconnects at once (watch torn down,
+#: cold LIST, re-watch), then a measured wave.
+AGENT_RELIST_STORM = {
+    "name": "AgentRelistStorm",
+    "workloadTemplate": [
+        {"opcode": "startAgents", "countParam": "$initNodes",
+         "leasePeriod": 10.0},
+        {"opcode": "createPods", "countParam": "$warmupPods"},
+        {"opcode": "barrier"},
+        {"opcode": "relistStorm"},
+        {"opcode": "createPods", "countParam": "$measurePods",
+         "collectMetrics": True},
+        {"opcode": "barrier"},
+    ],
+    "workloads": [
+        {"name": "2000Agents",
+         "params": {"initNodes": 2000, "warmupPods": 300,
+                    "measurePods": 1000}},
+        {"name": "5000Agents",
+         "params": {"initNodes": 5000, "warmupPods": 300,
+                    "measurePods": 1000}},
+    ],
+}
+
+#: ChurnDayFaults of the reference's performance-config.yaml: the open-loop
+#: wave with one agent killed mid-wave; the node lifecycle controller
+#: taints it unreachable after the grace period and evicts its pods, and
+#: the injector recreates and times their replacements.
+CHURN_DAY_FAULTS = {
+    "name": "ChurnDayFaults",
+    "workloadTemplate": [
+        {"opcode": "startAgents", "countParam": "$initNodes",
+         "leasePeriod": 0.5},
+        {"opcode": "createPods", "countParam": "$warmupPods"},
+        {"opcode": "barrier"},
+        {"opcode": "churnOpenLoop", "collectMetrics": True,
+         "arrival": {"model": "poisson", "rate": "$rate"},
+         "duration": "$duration", "seed": 17,
+         "nodeGracePeriod": "$grace", "tolerationSeconds": 0.25,
+         "recoveryThreshold": 10,
+         "faults": [{"at": "$faultAt", "kind": "nodeDeath"}]},
+    ],
+    "workloads": [
+        {"name": "500Agents-nodeDeath",
+         "params": {"initNodes": 500, "warmupPods": 300, "rate": 200,
+                    "duration": 10.0, "faultAt": 3.0, "grace": 2.0}},
+    ],
+}
+
+_REBALANCE_POD = {"requests": {"cpu": "500m", "memory": "1Gi"}}
+
+#: ChurnRebalance of the reference's performance-config.yaml: MostAllocated
+#: packing, strided delete-only rollout waves that strand survivors on
+#: half-empty nodes, and the descheduler off or on; the curve of occupied
+#: fragmentation over the window is the on/off comparison.
+CHURN_REBALANCE = {
+    "name": "ChurnRebalance",
+    "schedulerConfig": {
+        "apiVersion": "kubescheduler.config.k8s.io/v1",
+        "kind": "KubeSchedulerConfiguration",
+        "profiles": [{"schedulerName": "default-scheduler", "pluginConfig": [
+            {"name": "NodeResourcesFit", "args": {
+                "scoringStrategy": {"type": "MostAllocated"}}}]}]},
+    "workloadTemplate": [
+        {"opcode": "createNodes", "countParam": "$initNodes",
+         "nodeTemplate": {"allocatable": {"cpu": "4", "memory": "16Gi",
+                                          "pods": "16"}}},
+        {"opcode": "createPods", "countParam": "$warmupPods",
+         "podTemplate": _REBALANCE_POD},
+        {"opcode": "barrier"},
+        {"opcode": "churnOpenLoop", "collectMetrics": True,
+         "arrival": {"model": "poisson", "rate": "$rate"},
+         "duration": "$duration", "seed": 17,
+         "podTemplate": _REBALANCE_POD, "sampleInterval": 0.5,
+         "recoveryThreshold": 10, "recoveryTimeout": 15.0,
+         "descheduler": {"enabled": "$descheduler", "period": 0.25,
+                         "budget": "$budget", "threshold": 0.4},
+         "faults": [
+             {"at": 1.0, "kind": "rolloutWave", "count": "$waveCount",
+              "stride": 7, "replace": False},
+             {"at": 2.5, "kind": "rolloutWave", "count": "$waveCount",
+              "stride": 5, "replace": False}]},
+    ],
+    "workloads": [
+        {"name": "200Nodes-deschedulerOff",
+         "params": {"initNodes": 200, "warmupPods": 400, "rate": 8,
+                    "duration": 6.0, "descheduler": False, "budget": 8,
+                    "waveCount": 90}},
+        {"name": "200Nodes-deschedulerOn",
+         "params": {"initNodes": 200, "warmupPods": 400, "rate": 8,
+                    "duration": 6.0, "descheduler": True, "budget": 8,
+                    "waveCount": 90}},
+    ],
+}
+
 #: Per-family runner settings of the reference's suite that this harness
 #: does not have; a config naming one is refused, not run differently.
 _UNSUPPORTED_CASE_KEYS = ("throughApiserver", "policyCount",
@@ -430,6 +564,13 @@ class WorkloadResult:
         self.watch_predicate_checks_total = 0
         self.watch_cache_hits_total = 0
         self.watch_cache_misses_total = 0
+        #: relistStorm opcode results: wall time for every agent to tear
+        #: down its watch, LIST (off the shared snapshot) and re-watch at
+        #: once, plus the storm's own cache hit/miss deltas.
+        self.relist_storm_agents = 0
+        self.relist_storm_seconds = 0.0
+        self.relist_storm_cache_hits = 0
+        self.relist_storm_cache_misses = 0
         #: solve-side accounting over the measured phase: chunk count and
         #: total solve wall (scheduler_tpu_solve_seconds), the latest
         #: chunk's scan and wave widths, commits and replays, and the
@@ -442,6 +583,10 @@ class WorkloadResult:
         self.solver_wave_replays_total = 0
         self.solver_optimal_solves_total = 0
         self.solver_optimal_fallbacks_total = 0
+        #: ops/backend.solve_provenance() of the backend's device (empty
+        #: without a backend): the card, the versions and the solve route
+        #: that produced these numbers.
+        self.solve_provenance: dict = {}
         #: serving-tier accounting over the measured phase (zeros under
         #: KTPU_SERVING=0).
         self.serving_fast_path_pods_total = 0
@@ -480,6 +625,14 @@ class WorkloadResult:
         self.churn_faults: list[dict] = []
         self.churn_faults_injected: dict[str, int] = {}
         self.churn_recovery_seconds_max: float | None = None
+        #: the ChurnRebalance family's outputs: a [t_s, frag_pct,
+        #: frag_occupied_pct] curve sampled through the churn window
+        #: (`sampleInterval`), the descheduler's evict-and-replace moves,
+        #: and the post-churn backlog-drain recovery wall (descheduler
+        #: runs only).
+        self.churn_fragmentation_curve: list[list[float]] = []
+        self.churn_descheduler_evictions = 0
+        self.churn_rebalance_recovery_s: float | None = None
         #: topology-slice accounting over the measured phase: slice gangs
         #: Permit released as one contiguous sub-mesh, the slice
         #: fragmentation gauge after the last plan, and coordinate-plane
@@ -517,6 +670,10 @@ class WorkloadResult:
                 self.watch_predicate_checks_total,
             "watch_cache_hits_total": self.watch_cache_hits_total,
             "watch_cache_misses_total": self.watch_cache_misses_total,
+            "relist_storm_agents": self.relist_storm_agents,
+            "relist_storm_seconds": round(self.relist_storm_seconds, 3),
+            "relist_storm_cache_hits": self.relist_storm_cache_hits,
+            "relist_storm_cache_misses": self.relist_storm_cache_misses,
             "solver_solve_chunks": self.solver_solve_chunks,
             "solver_solve_seconds_total": round(
                 self.solver_solve_seconds_total, 3),
@@ -533,6 +690,7 @@ class WorkloadResult:
             "solver_optimal_solves_total": self.solver_optimal_solves_total,
             "solver_optimal_fallbacks_total":
                 self.solver_optimal_fallbacks_total,
+            "solve_provenance": self.solve_provenance,
             "serving_fast_path_pods_total": self.serving_fast_path_pods_total,
             "serving_coalesced_batches_total":
                 self.serving_coalesced_batches_total,
@@ -559,6 +717,10 @@ class WorkloadResult:
             "churn_faults": list(self.churn_faults),
             "churn_faults_injected": dict(self.churn_faults_injected),
             "churn_recovery_seconds_max": self.churn_recovery_seconds_max,
+            "churn_fragmentation_curve": [
+                list(s) for s in self.churn_fragmentation_curve],
+            "churn_descheduler_evictions": self.churn_descheduler_evictions,
+            "churn_rebalance_recovery_s": self.churn_rebalance_recovery_s,
             "slice_gangs_bound_total": self.slice_gangs_bound_total,
             "slice_fragmentation_pct": round(
                 self.slice_fragmentation_pct, 2),
@@ -579,13 +741,20 @@ class PerfRunner:
 
     def __init__(self, backend=None, batch_size: int = 1,
                  scheduler_kwargs: Mapping | None = None,
-                 scheduler_config: Mapping | None = None):
+                 scheduler_config: Mapping | None = None,
+                 profile_dir: str | None = None):
+        if profile_dir and backend is None:
+            raise ValueError("profile_dir needs a backend to profile "
+                             "(TorchBackend.start_profile)")
         self.backend = backend
         self.batch_size = batch_size
         self.scheduler_kwargs = dict(scheduler_kwargs or {})
         #: the workload's KubeSchedulerConfiguration (its
         #: `schedulerConfig`), or None for the default profile.
         self.scheduler_config = scheduler_config
+        #: where the backend writes a torch.profiler trace of each
+        #: MEASURED window (not the warm-up), or None for no trace.
+        self.profile_dir = profile_dir
 
     async def run(self, template_ops: list, params: Mapping[str, Any],
                   timeout: float = 600.0) -> WorkloadResult:
@@ -675,7 +844,7 @@ class PerfRunner:
                     # unbound pods (that backlog IS the measurement).
                     created_total += await self._run_churn_phase(
                         op, params, result, metrics, store, sched,
-                        agents, bound_keys, pod_seq)
+                        factory, agents, bound_keys, pod_seq)
                     pod_seq += result.churn_arrivals_total
 
                 elif opcode == "createNodes":
@@ -741,6 +910,7 @@ class PerfRunner:
                     measured = bool(op.get("collectMetrics"))
                     if measured:
                         window = self._begin_measure(metrics, store)
+                        self._start_profile()
                     names = [f"pod-{pod_seq + i}" for i in range(count)]
 
                     async def create_pod(name):
@@ -775,6 +945,48 @@ class PerfRunner:
                     if measured:
                         self._end_measure(result, metrics, store, window,
                                           count)
+                        self._stop_profile()
+
+                elif opcode == "ungatePods":
+                    # Strip schedulingGates from every gated pod (the
+                    # reference's gated-pods workload: a controller lifts
+                    # the gate; PreEnqueue re-admits). The measured
+                    # variant times gate removal -> all bound.
+                    measured = bool(op.get("collectMetrics"))
+                    if measured:
+                        window = self._begin_measure(metrics, store)
+                        self._start_profile()
+                    gated = [p for p in (await store.list("pods")).items
+                             if p["spec"].get("schedulingGates")]
+
+                    def strip(obj):
+                        obj["spec"].pop("schedulingGates", None)
+                        return obj
+                    for p in gated:
+                        await store.guaranteed_update(
+                            "pods", namespaced_name(p), strip)
+                    if measured:
+                        await self._wait_bound(bound_keys, created_total,
+                                               deadline, run_task)
+                        self._end_measure(result, metrics, store, window,
+                                          len(gated))
+                        self._stop_profile()
+
+                elif opcode == "relistStorm":
+                    # Every agent reconnects AT ONCE: tear down its
+                    # watch, full LIST, re-watch (NodeAgent.force_relist).
+                    # With the watch cache active the N LISTs are reads of
+                    # one shared snapshot (hit/miss deltas recorded); the
+                    # direct-mvcc path pays N table scans.
+                    h0, m0 = self._cache_totals(store)
+                    t0 = time.monotonic()
+                    await asyncio.gather(
+                        *(a.force_relist() for a in agents))
+                    result.relist_storm_seconds = time.monotonic() - t0
+                    result.relist_storm_agents = len(agents)
+                    h1, m1 = self._cache_totals(store)
+                    result.relist_storm_cache_hits = int(h1 - h0)
+                    result.relist_storm_cache_misses = int(m1 - m0)
 
                 elif opcode == "barrier":
                     await self._wait_bound(bound_keys, created_total,
@@ -784,9 +996,33 @@ class PerfRunner:
                     await asyncio.sleep(float(
                         _subst(op.get("duration", 0), params)))
 
+                elif opcode == "churn":
+                    # Delete + recreate a slice of pods: queue pressure
+                    # and cache-update load (the reference's churnOp).
+                    count = _resolve_count(op, params)
+                    pods = (await store.list("pods")).items[:count]
+                    for p in pods:
+                        await store.delete("pods", namespaced_name(p))
+                    created_total -= len(pods)
+                    # Wait for the deletions to reach the informer before
+                    # recreating, or the next barrier reads stale bound
+                    # keys.
+                    while len(bound_keys) > created_total \
+                            and time.monotonic() < deadline:
+                        await asyncio.sleep(0.01)
+                    tmpl = {**DEFAULT_POD_TEMPLATE,
+                            **(op.get("podTemplate") or {})}
+                    for i in range(len(pods)):
+                        await store.create("pods", make_pod(
+                            f"pod-{pod_seq + i}", **copy.deepcopy(tmpl)))
+                    pod_seq += len(pods)
+                    created_total += len(pods)
+
                 else:
                     raise ValueError(f"unknown opcode {opcode!r}")
         finally:
+            # A window an exception cut short still writes its trace.
+            self._stop_profile()
             if agents:
                 await asyncio.gather(
                     *(a.stop() for a in agents), return_exceptions=True)
@@ -815,21 +1051,24 @@ class PerfRunner:
         metrics.fragmentation_pct.set(result.fragmentation_occupied_pct)
         result.events_emitted_total = sched.recorder.emitted
         result.events_dropped_total = sched.recorder.dropped
+        if self.backend is not None:
+            result.solve_provenance = solve_provenance(self.backend.device)
         return result
+
+    def _start_profile(self) -> None:
+        if self.profile_dir:
+            self.backend.start_profile(self.profile_dir)
+
+    def _stop_profile(self) -> None:
+        if self.profile_dir:
+            self.backend.stop_profile()
 
     async def _run_churn_phase(self, op: Mapping, params: Mapping[str, Any],
                                result: WorkloadResult, metrics, store,
-                               sched: Scheduler, agents: list,
+                               sched: Scheduler, factory, agents: list,
                                bound_keys: set, pod_seq: int) -> int:
         """Execute one churnOpenLoop op; returns the net pod-count delta
         (arrivals + fault creates − fault deletes) for created_total."""
-        if op.get("descheduler"):
-            # The rebalance family's descheduler, and the fragmentation
-            # curve (`sampleInterval`) it is read by, wait for it.
-            raise NotImplementedError(
-                "churnOpenLoop: a descheduler block needs "
-                "controllers/descheduler.py, which is not ported (ROADMAP "
-                "queue 1 item 9)")
         duration = float(_subst(op.get("duration", 5.0), params))
         seed = int(_subst(op.get("seed", 0), params))
         arrival = {k: _subst(v, params)
@@ -858,6 +1097,7 @@ class PerfRunner:
 
         injector = None
         timeline = []
+        nlc = None
         fault_specs = op.get("faults") or []
         if fault_specs:
             timeline = build_fault_timeline(
@@ -875,17 +1115,97 @@ class PerfRunner:
                 recovery_timeout=float(_subst(
                     op.get("recoveryTimeout", 60.0), params)),
                 namespace=pod_ns)
+            if any(ev.kind == "nodeDeath" for ev in timeline):
+                # Node death needs the lease-expiry machinery live: a
+                # killed agent's Lease goes stale, the controller taints
+                # unreachable after the grace period, and the NoExecute
+                # manager evicts.
+                tol = float(_subst(op.get("tolerationSeconds", 0.25),
+                                   params))
+                nlc = NodeLifecycleController(
+                    store,
+                    node_monitor_period=0.1,
+                    node_monitor_grace_period=float(_subst(
+                        op.get("nodeGracePeriod", 1.0), params)),
+                    default_toleration_seconds=tol,
+                    # The admission default stamps 300s on every pod; the
+                    # scenario's toleration knob caps it so the eviction
+                    # clock runs at bench speed.
+                    toleration_seconds_cap=tol)
+                nlc.setup(factory)
+                factory.informer("leases").start()
+                await factory.informer("leases").wait_for_sync()
+                nlc.start()
+
+        # Rebalance family: an optional descheduler closes the
+        # consolidation loop DURING the churn window, and a fragmentation
+        # sampler records the over-time curve the on/off pair compares.
+        # `descheduler: {enabled, period, budget, threshold}` on the op
+        # pins it per workload; absent, the KTPU_DESCHEDULER flag rules.
+        desch = None
+        dcfg = op.get("descheduler")
+        if dcfg is None:
+            d_on = bool(flags.get("KTPU_DESCHEDULER"))
+            dcfg = {}
+        else:
+            dcfg = {k: _subst(v, params) for k, v in dcfg.items()}
+            d_on = bool(dcfg.get("enabled", True))
+        if d_on:
+            desch = DeschedulerController(
+                store,
+                period=float(dcfg.get("period", 0.25)),
+                budget=int(dcfg["budget"]) if "budget" in dcfg else None,
+                threshold=float(dcfg.get("threshold", 0.5)),
+                device=getattr(self.backend, "device", None))
+            desch.setup(factory)
+            for res in ("pods", "nodes"):
+                factory.informer(res).start()
+                await factory.informer(res).wait_for_sync()
+            desch.start()
+
+        curve: list[list[float]] = []
+        sample_every = float(_subst(op.get("sampleInterval", 0.0), params))
+
+        def _point(t0: float) -> list[float]:
+            return [round(time.monotonic() - t0, 3),
+                    round(self._fragmentation(sched), 2),
+                    round(self._fragmentation_occupied(sched), 2)]
+
+        async def _sample(t0: float) -> None:
+            while True:
+                curve.append(_point(t0))
+                await asyncio.sleep(sample_every)
 
         window = self._begin_measure(metrics, store) if measured else None
+        if measured:
+            self._start_profile()
         inj_task = None
+        sampler = None
         t0 = time.monotonic()
         try:
+            if sample_every > 0:
+                sampler = asyncio.ensure_future(_sample(t0))
             if injector is not None:
                 inj_task = asyncio.ensure_future(injector.run(timeline, t0))
             phase = await driver.run(t0)
             if inj_task is not None:
                 await inj_task
                 await injector.drain()
+            if desch is not None:
+                # Recovery: stop proposing moves, then the bounded wait
+                # for the backlog (evicted replacements included) to
+                # drain back under the threshold.
+                await desch.stop()
+                r0 = time.monotonic()
+                r_deadline = r0 + float(_subst(
+                    op.get("recoveryTimeout", 30.0), params))
+                thresh = int(_subst(op.get("recoveryThreshold", 10),
+                                    params))
+                while time.monotonic() < r_deadline \
+                        and sched.queue.backlog_depth() > thresh:
+                    await asyncio.sleep(0.05)
+                result.churn_rebalance_recovery_s = round(
+                    time.monotonic() - r0, 3)
         finally:
             # On an exception, stop the timeline and its handlers (a
             # no-op after a clean drain).
@@ -894,9 +1214,22 @@ class PerfRunner:
                 await asyncio.gather(inj_task, return_exceptions=True)
             if injector is not None:
                 await injector.cancel()
+            if sampler is not None:
+                sampler.cancel()
+                await asyncio.gather(sampler, return_exceptions=True)
+                # one last point so the curve shows the recovered state
+                curve.append(_point(t0))
+            if desch is not None:
+                if not desch._stopped:
+                    await desch.stop()
+                result.churn_descheduler_evictions = desch.evictions
+            if nlc is not None:
+                await nlc.stop()
+        result.churn_fragmentation_curve = curve
         if measured:
             self._end_measure(result, metrics, store, window,
                               phase.arrivals_total)
+            self._stop_profile()
         result.churn_offered_rate = phase.offered_rate
         result.churn_achieved_rate = phase.achieved_rate
         result.churn_arrival_model = phase.arrival_model
@@ -1112,8 +1445,8 @@ def load_config(path: str | None = None) -> list[dict]:
 
 
 def run_suite(config: list[dict], backend_factory=None, batch_size: int = 1,
-              filter_name: str | None = None,
-              timeout: float = 600.0) -> dict[str, dict]:
+              filter_name: str | None = None, timeout: float = 600.0,
+              profile_dir: str | None = None) -> dict[str, dict]:
     """Run every (testcase × workload) pair, like BenchmarkPerfScheduling."""
     out: dict[str, dict] = {}
     for case in config:
@@ -1127,7 +1460,8 @@ def run_suite(config: list[dict], backend_factory=None, batch_size: int = 1,
                     f"{full}: {bad} are not ported (in-process runs only)")
             backend = backend_factory() if backend_factory else None
             runner = PerfRunner(backend=backend, batch_size=batch_size,
-                                scheduler_config=case.get("schedulerConfig"))
+                                scheduler_config=case.get("schedulerConfig"),
+                                profile_dir=profile_dir)
             res = asyncio.run(runner.run(
                 case["workloadTemplate"], wl.get("params") or {},
                 timeout=timeout))
@@ -1157,6 +1491,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--filter", default=None)
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="per-workload deadline in seconds")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler Chrome trace of each "
+                         "measured window here (--backend torch only)")
     args = ap.parse_args(argv)
 
     factory = None
@@ -1172,7 +1509,7 @@ def main(argv: list[str] | None = None) -> int:
             device=args.device, max_batch=chunk)
     results = run_suite(load_config(args.config), backend_factory=factory,
                         batch_size=batch, filter_name=args.filter,
-                        timeout=args.timeout)
+                        timeout=args.timeout, profile_dir=args.profile_dir)
     print(json.dumps(results, indent=2))
     return 0
 

@@ -5,7 +5,8 @@ package reads: the batch solve (the greedy wavefront, the shortlist and
 its block index, and the Sinkhorn optimal mode) and its solve-mode
 policy, the serving tier (its kill switch, the resident planes' block
 index and the admission window), the store (the watch cache, the shard
-count, the debug freeze), the lock check, the trace threshold and the
+count, the debug freeze), the lock check, the trace threshold, the
+descheduler pair (its default and its disruption budget) and the
 topology pair (the slice placement kill switch and the mesh shape). Names,
 defaults and parsing are the reference's: every read is a LIVE
 `os.environ` lookup, and a malformed value degrades to the flag's
@@ -120,6 +121,14 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "block-sparse index; `0` disables it like KTPU_BLOCK_INDEX=0. "
          "Unset = the AdaptiveTuner's structural policy row picks the "
          "width from the node count."),
+    Flag("KTPU_DESCHEDULER", False, _parse_bool,
+         "Default-enable the rebalance descheduler "
+         "(controllers/descheduler.py) in churnOpenLoop phases that "
+         "don't pin it: periodic evict-and-replace consolidation "
+         "moves scored on the device (solver.consolidation_scores)."),
+    Flag("KTPU_DESCHEDULER_BUDGET", 8, _parse_int,
+         "Disruption budget: max evict-and-replace moves the "
+         "descheduler may issue per sync cycle."),
     Flag("KTPU_TOPOLOGY", True, _parse_bool,
          "Topology-aware slice placement (kubernetes_tpu_torch/topology): "
          "interconnect coordinate planes on the cluster tensors, the "

@@ -16,8 +16,10 @@ the CPU, and the open-loop families through the port's runner.
   created: the fault records (all but the measured recovery seconds),
   the net pod count, the agents stopped and the store's objects equal.
 - The departures: an exception inside a handler propagates out of
-  `drain()` (the reference records `recovered: False`); `nodeDeath`,
-  `killLeader` and a `descheduler` block raise NotImplementedError.
+  `drain()` (the reference records `recovered: False`); `killLeader`
+  raises NotImplementedError; a `descheduler` block on a runner with no
+  backend and no card is refused (the descheduler scores on a card or on
+  the device it is given, with no fallback).
 - NodeAgent: registration with a coordinate label and published
   devices, the lease, mark-Running of a bound pod and device allocation
   from its claim, equal to the reference's agent on its own store; a
@@ -231,20 +233,20 @@ def test_handler_exceptions_propagate_out_of_drain():
     assert isinstance(err, RuntimeError) and "create failed" in str(err)
     want, jerr = asyncio.run(_injector_script(JAX, spec, fail_create=True))
     assert jerr is None and want["records"][0]["recovered"] is False
-    for kind in ("nodeDeath", "killLeader"):
-        _, err = asyncio.run(_injector_script(
-            PORT, [{"at": 0.0, "kind": kind, "node": "node-1"}]))
-        assert isinstance(err, NotImplementedError) and "item 9" in str(err)
+    _, err = asyncio.run(_injector_script(
+        PORT, [{"at": 0.0, "kind": "killLeader", "node": "node-1"}]))
+    assert isinstance(err, NotImplementedError) and "item 9" in str(err)
     _, err = asyncio.run(_injector_script(PORT, [{"at": 0.0,
                                                   "kind": "meteor"}]))
     assert isinstance(err, ValueError)
 
 
-def test_descheduler_block_is_refused():
+def test_descheduler_block_is_refused(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     template = copy.deepcopy(tperf.CHURN_DAY["workloadTemplate"])
     template[-1]["descheduler"] = {"enabled": True}
     params = {"initNodes": 4, "warmupPods": 2, "rate": 5, "duration": 0.2}
-    with pytest.raises(NotImplementedError, match="descheduler"):
+    with pytest.raises(RuntimeError, match="Descheduler"):
         asyncio.run(asyncio.wait_for(tperf.PerfRunner().run(
             template, params, timeout=30.0), 60.0))
 

@@ -33,7 +33,10 @@ and on the CPU, its wait for the card running beside another task's CUDA
 graph captures; and the slice scan (`topology.device.device_scan`) on the
 card equals the CPU's on phase 16(a)'s fixtures, its sharded winner equal
 at 1, 4 and 8 shards, and the slice-gang chunks place on the card exactly
-as on the CPU.
+as on the CPU; and the descheduler's `consolidation_scores` on the card
+equal the CPU's bit for bit on `chip_smoke.consolidation_case`'s fixtures,
+and a `DeschedulerController` built with no device scores on the card and
+evicts the pods a CPU one evicts.
 """
 
 import numpy as np
@@ -702,3 +705,68 @@ def test_slice_chunk_on_card_matches_cpu(cuda, kind, mode):
     assert slice_chunk(api, TorchBackend(max_batch=64), kind, mode) == \
         slice_chunk(api, TorchBackend(device="cpu", max_batch=64), kind,
                     mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "at-threshold", "zero-alloc",
+                                  "empty", "invalid", "random"])
+def test_consolidation_scores_on_card_match_cpu(cuda, kind):
+    from chip_smoke import consolidation_case
+
+    free, alloc, used, valid, thr = consolidation_case(kind, 5, 5000)
+    args = tuple(map(torch.from_numpy, (free, alloc, used, valid)))
+    want = solver.consolidation_scores(*args, thr)
+    got = solver.consolidation_scores(*(a.to(cuda) for a in args), thr)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+async def _rebalance(device) -> tuple:
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.client import InformerFactory
+    from kubernetes_tpu_torch.controllers import DeschedulerController
+    from kubernetes_tpu_torch.store import new_cluster_store
+
+    store = new_cluster_store()
+    try:
+        for i in range(24):
+            await store.create("nodes", make_node(f"n{i}", allocatable={
+                "cpu": "4", "memory": "16Gi", "pods": "16"}))
+            for k in range(1 + i % 5):
+                await store.create("pods", make_pod(
+                    f"p{i}-{k}", requests={"cpu": "500m", "memory": "1Gi"},
+                    node_name=f"n{i}", phase="Running", uid=f"u{i}-{k}"))
+        factory = InformerFactory(store)
+        d = DeschedulerController(store, budget=6, threshold=0.4,
+                                  device=device)
+        d.setup(factory)
+        factory.start()
+        await factory.wait_for_sync()
+        seen = []
+        scores = solver.consolidation_scores
+
+        def recorded(*args):
+            seen.append(args[0].device.type)
+            return scores(*args)
+
+        solver.consolidation_scores = recorded
+        try:
+            evicted = await d.rebalance_once()
+        finally:
+            solver.consolidation_scores = scores
+        names = sorted(p["metadata"]["name"]
+                       for p in (await store.list("pods")).items)
+        factory.stop()
+        return d.device.type, seen, evicted, names
+    finally:
+        store.stop()
+
+
+@pytest.mark.cuda
+def test_descheduler_scores_on_the_card(cuda):
+    import asyncio
+
+    card = asyncio.run(_rebalance(None))
+    cpu = asyncio.run(_rebalance("cpu"))
+    assert card[:2] == ("cuda", ["cuda"]) and cpu[:2] == ("cpu", ["cpu"])
+    assert card[2:] == cpu[2:] and card[2] > 0
