@@ -166,7 +166,8 @@ Phases (any failure raises and the script exits non-zero with no result):
      counts within 1, spread chunks in the window; (d)
      SchedulingPodAffinity/500Nodes: every worker bound in a zone holding
      a hub. (b) and (c) print what 9(b) prints, with a torch.profiler
-     repeat each (10(c)'s runs TopologySpreading/300Nodes) and no cProfile
+     repeat each at the family's smaller workload (SchedulingPodAnti-
+     Affinity/500Nodes, TopologySpreading/300Nodes) and no cProfile
      repeat (cut, as in 12(c), 13(c) and 14(b)-(c), to keep the smoke
      inside half its time limit);
  12. gangs and preemption, under a scoped KTPU_SOLVE_MODE=auto with
@@ -198,8 +199,8 @@ Phases (any failure raises and the script exits non-zero with no result):
      its preemptor's, no node over capacity; SchedulingThroughput,
      DefaultPreemption's routes (device-primed, ranked host search,
      per-node host scan, in-flight), `propose_victims` calls, ms per call
-     and graph replays, and over a repeat under torch.profiler the idle
-     share;
+     and graph replays, and over a repeat under torch.profiler at
+     Preemption/100Nodes the idle share;
  13. large clusters (the shortlist and the block index), under a scoped
      KTPU_SOLVE_MODE=auto with serving on: (a) the shortlist route on the
      card against the CPU port on the eight `shortlist_case` fixtures
@@ -367,7 +368,25 @@ Phases (any failure raises and the script exits non-zero with no result):
      workload through a `PerfRunner` with a `profile_dir` under build/: one
      Chrome trace naming `wave_solve_kernel`, the result's provenance
      equal to the call's;
- 18. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 18. the apiserver boundary and the policy chain, through the port's
+     `PerfRunner` with `TorchBackend()` under a scoped
+     KTPU_SOLVE_MODE=auto with serving on, the card's name and power
+     limit printed first: (a) PolicyScale/5000Nodes-1kPolicies at the
+     YAML's params (5000 nodes, 1000 + 10000 pods, 1000
+     ValidatingAdmissionPolicies over 100 tenants) over the KTPU wire
+     (`WireServer.for_apiserver(host="unix:")`, msgpack frames): every
+     pod bound, no policy denial, `POLICY_SCALE_EVALS_PER_POD` evaluations
+     per measured pod (pinned against the JAX runner on the CPU), index
+     hits, `solve_provenance` naming the card and its power limit, a
+     wave_solve launch in the window; printed: SchedulingThroughput,
+     attempt p50/p99/p999, the index's hits, residue scans and rebuilds,
+     staging seconds and the codec; (b) SchedulingBasic/5000Nodes over
+     the same wire with no policies: every pod bound; its throughput and
+     (a)'s over it (printed, not gated); (c) SchedulingBasic's template
+     at 500 nodes, 100 + 1000 pods, through `RemoteStore` over HTTP with
+     10 uniform policies: every pod bound, 10 evaluations per measured
+     pod;
+ 19. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -391,15 +410,18 @@ Phases (any failure raises and the script exits non-zero with no result):
      phase 17's: `gated_launches`, `relist_storm_2000_launches`,
      `relist_storm_5000_launches`, `node_death_launches`,
      `rebalance_off_launches` and `rebalance_on_launches` (the measured
-     windows of 17(a)-(d)); the probe's, its
+     windows of 17(a)-(d)); and phase 18's: `policy_scale_launches`,
+     `wire_basic_launches` and `http_basic_launches` (the measured windows
+     of 18(a)-(c)); the probe's, its
      launches over phase 9(b)'s run and over 10(b)'s), the card's name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
 `--phase13-only` (or `--phase14-only`, `--phase15-only`,
-`--phase16-only`, `--phase17-only`) it builds the kernels and runs phase
-13 (or 14, 15, 16, 17) alone (no result lines). It needs one CUDA device;
+`--phase16-only`, `--phase17-only`, `--phase18-only`) it builds the
+kernels and runs phase 13 (or 14, 15, 16, 17, 18) alone (no result
+lines). It needs one CUDA device;
 without one, or outside a checkout of the repository, it exits non-zero.
 """
 
@@ -2313,18 +2335,20 @@ def counting_runner_cls(torch):
 
     class CountingRunner(PerfRunner):
         def __init__(self, backend, profile: str | None,
-                     scheduler_config=None):
+                     scheduler_config=None, **boundary):
             super().__init__(backend=backend, batch_size=LOOP_BATCH,
-                             scheduler_config=scheduler_config)
+                             scheduler_config=scheduler_config, **boundary)
             self.profile = profile
             self.routes = dict.fromkeys(
                 ("backend_dispatches", "backend_pods", "host_path_pods",
                  "early_binds"), 0)
             self.window: dict = {}
 
-        async def _drive(self, template_ops, params, timeout, store,
-                         metrics, sched, factory):
-            self.store = store
+        async def _drive(self, template_ops, params, timeout, backing,
+                         store, metrics, sched, factory, *boundary):
+            self.store = backing
+            #: the workload's store: `backing`, or the boundary's client
+            self.client = store
             count_backend_routes(sched, self.routes)
             host = sched._schedule_host_path
 
@@ -2334,7 +2358,8 @@ def counting_runner_cls(torch):
 
             sched._schedule_host_path = counted_host
             return await super()._drive(template_ops, params, timeout,
-                                        store, metrics, sched, factory)
+                                        backing, store, metrics, sched,
+                                        factory, *boundary)
 
         def _begin_measure(self, metrics, backing):
             torch.cuda.synchronize()
@@ -2925,7 +2950,7 @@ def anti_affinity_phase(torch) -> dict:
               "share a node")
         report_perf(torch, "constraint loop (greedy pinned)",
                     SCHEDULING_POD_ANTI_AFFINITY, "5000Nodes", first,
-                    "10(b)", t0)
+                    "10(b)", t0, device_workload="500Nodes")
     return {"launches": launches + probe["wave_solve_launches"],
             "probe_launches": first[2]}
 
@@ -3532,8 +3557,8 @@ def preemption_counts_cls(torch):
     base = counting_runner_cls(torch)
 
     class PreemptionRunner(base):
-        async def _drive(self, template_ops, params, timeout, store,
-                         metrics, sched, factory):
+        async def _drive(self, template_ops, params, timeout, backing,
+                         store, metrics, sched, factory, *boundary):
             self.evictions: list = []
             self.victim_prio: dict = {}
             self.scan = {"calls": 0, "ms": 0.0, "replays": 0}
@@ -3567,7 +3592,8 @@ def preemption_counts_cls(torch):
             solver.propose_victims = timed
             try:
                 return await super()._drive(template_ops, params, timeout,
-                                            store, metrics, sched, factory)
+                                            backing, store, metrics, sched,
+                                            factory, *boundary)
             finally:
                 solver.propose_victims = fn
 
@@ -3624,7 +3650,8 @@ def preemption_run(torch, workload: str, profile: str | None):
 def preemption_phase(torch) -> None:
     """Phase 12(c): Preemption/1000Nodes (1000 nodes, 4000 fillers, 100
     warm-up and 1000 measured preemptors; not cut) through the port's
-    PerfRunner, then a repeat under torch.profiler."""
+    PerfRunner, then a repeat of Preemption/100Nodes under
+    torch.profiler."""
     t0 = time.perf_counter()
     runner, result, pods = preemption_run(torch, "1000Nodes", None)
     w, r = runner.window, result.as_dict()
@@ -3648,10 +3675,10 @@ def preemption_phase(torch) -> None:
     if scan["calls"] == 0 or w["paths"]["primed"] == 0:
         raise RuntimeError("phase 12(c): no device-primed preemption in the "
                            "measured window")
-    prof_runner, prof_result, _ = preemption_run(torch, "1000Nodes", "device")
+    prof_runner, prof_result, _ = preemption_run(torch, "100Nodes", "device")
     pw = prof_runner.window
     busy_us = sum(device_us(e) for e in prof_runner.prof.key_averages())
-    print(f"profiled Preemption/1000Nodes measured window: wall "
+    print(f"profiled Preemption/100Nodes measured window: wall "
           f"{pw['wall']:.6f} s, throughput {prof_result.throughput:.1f} "
           f"pods/s, device busy {busy_us / 1e6:.6f} s" + (
               f", idle share {1 - busy_us / 1e6 / pw['wall']:.4f}"
@@ -6093,9 +6120,9 @@ def slice_runner_cls(base):
     from kubernetes_tpu_torch.client import ResourceEventHandler
 
     class SliceRunner(base):
-        async def _drive(self, template_ops, params, timeout, store,
-                         metrics, sched, factory):
-            self.store, self.sched = store, sched
+        async def _drive(self, template_ops, params, timeout, backing,
+                         store, metrics, sched, factory, *boundary):
+            self.store, self.sched = backing, sched
             self.gang_nodes: dict = {}
 
             def track(obj):
@@ -6108,7 +6135,8 @@ def slice_runner_cls(base):
             factory.informer("pods").add_event_handler(ResourceEventHandler(
                 on_add=track, on_update=lambda old, new: track(new)))
             return await super()._drive(template_ops, params, timeout,
-                                        store, metrics, sched, factory)
+                                        backing, store, metrics, sched,
+                                        factory, *boundary)
 
     return SliceRunner
 
@@ -6390,8 +6418,8 @@ def gated_runner_cls(base):
     from kubernetes_tpu_torch.client import ResourceEventHandler
 
     class GatedRunner(base):
-        async def _drive(self, template_ops, params, timeout, store,
-                         metrics, sched, factory):
+        async def _drive(self, template_ops, params, timeout, backing,
+                         store, metrics, sched, factory, *boundary):
             self.bound_names: set = set()
             self.bound_at_measure = None
 
@@ -6402,7 +6430,8 @@ def gated_runner_cls(base):
             factory.informer("pods").add_event_handler(ResourceEventHandler(
                 on_add=track, on_update=lambda old, new: track(new)))
             return await super()._drive(template_ops, params, timeout,
-                                        store, metrics, sched, factory)
+                                        backing, store, metrics, sched,
+                                        factory, *boundary)
 
         def _begin_measure(self, metrics, backing):
             if self.bound_at_measure is None:
@@ -6785,6 +6814,202 @@ def runner_families_phases(torch, seed: int) -> int:
     return 0
 
 
+# -- phase 18: the apiserver boundary and the policy chain -----------------
+
+#: Policy evaluations per pod create under PolicyScale's 1000/100 tenant
+#: layout: the measured pods ride "default", labeled tenant t0, whose
+#: shard holds 10 pod policies, one of them with a second, paramRef
+#: binding and a matchConditions prefilter (tests/test_torch_policy.py
+#: pins it against the JAX runner).
+POLICY_SCALE_EVALS_PER_POD = 12
+#: 18(c)'s HTTP cell: SchedulingBasic's template at 500 nodes, 100 + 1000
+#: pods, 10 uniform policies (each matches every pod create once).
+HTTP_CELL = {"initNodes": 500, "initPods": 100, "measurePods": 1000}
+HTTP_CELL_POLICIES = 10
+
+
+def policy_violations(runner, result, pods: list, want_pods: int,
+                      evals_per_pod: int) -> list[str]:
+    """Phase 18's gates on a boundary-crossing run: every pod bound, no
+    policy denial, the measured window's evaluations equal to its pods
+    times `evals_per_pod`, and the O(matching) index serving them (hits
+    when there are policies)."""
+    bad = []
+    bound = sum(bool((p.get("spec") or {}).get("nodeName")) for p in pods)
+    if bound != want_pods or len(pods) != want_pods:
+        bad.append(f"{bound}/{len(pods)} pods bound of {want_pods}")
+    engine = runner._policy_engine
+    if engine is None:
+        return bad + ["no PolicyEngine: the run did not cross the boundary"]
+    denied = sum(engine.rejections._values.values())
+    if denied:
+        bad.append(f"{denied} policy denials")
+    want = result.measured_pods * evals_per_pod
+    if result.policy_evaluations_total != want:
+        bad.append(f"policy_evaluations_total "
+                   f"{result.policy_evaluations_total} != {want}")
+    if evals_per_pod and result.policy_index_hits_total <= 0:
+        bad.append("no policy index hit in the window")
+    return bad
+
+
+def wire_codec(client) -> str:
+    """The frame codec a WireStore speaks ("msgpack" or "json"), or the
+    client's transport name for another store."""
+    from kubernetes_tpu_torch.apiserver import wire
+
+    if isinstance(client, wire.WireStore):
+        return "msgpack" if client._encode is wire._packb else "json"
+    return type(client).__name__
+
+
+def boundary_run(torch, family: dict, workload: str, params: dict | None,
+                 **boundary) -> tuple:
+    """One run of `family`'s workload through `counting_runner_cls`'s
+    PerfRunner with `TorchBackend()` across the apiserver boundary
+    (`through_apiserver`, `policy_count`, `policy_tenants`). Returns
+    (runner, result, the store's pods after the run)."""
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+
+    if params is None:
+        params = next(w["params"] for w in family["workloads"]
+                      if w["name"] == workload)
+    runner = counting_runner_cls(torch)(TorchBackend(), None, **boundary)
+    result = asyncio.run(runner.run(family["workloadTemplate"], params,
+                                    timeout=900.0))
+    pods = asyncio.run(runner.store.list("pods")).items
+    return runner, result, pods
+
+
+def boundary_line(label: str, runner, result) -> str:
+    r, w = result.as_dict(), runner.window
+    return (f"{label} (PerfRunner, Scheduler.run, TorchBackend(), "
+            f"batch_size {LOOP_BATCH}, {wire_codec(runner.client)}): "
+            f"SchedulingThroughput {r['throughput_pods_per_sec']} pods/s, "
+            f"measured_seconds {result.measured_seconds:.6f}, attempt ms "
+            f"p50 {r['attempt_p50_ms']} p99 {r['attempt_p99_ms']} p999 "
+            f"{r['attempt_p999_ms']}, staging_seconds "
+            f"{result.staging_seconds:.6f}; policy evaluations "
+            f"{result.policy_evaluations_total}, index hits "
+            f"{result.policy_index_hits_total}, residue scans "
+            f"{result.policy_index_residue_scans_total}, rebuilds "
+            f"{result.policy_index_rebuilds_total}, audit events "
+            f"{result.audit_events_total}; wave_solve launches in the "
+            f"window {w['launches']}, backend dispatches "
+            f"{w['routes']['backend_dispatches']} with "
+            f"{w['routes']['backend_pods']} pods, fast-path pods "
+            f"{r['serving_fast_path_pods_total']}")
+
+
+def policy_scale_phase(torch) -> tuple:
+    """Phase 18(a): PolicyScale/5000Nodes-1kPolicies at the YAML's
+    parameters over the KTPU wire. Returns (wave_solve's launches in the
+    window, the pods/s)."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import POLICY_SCALE
+
+    t0 = time.perf_counter()
+    fam = POLICY_SCALE
+    runner, result, pods = boundary_run(
+        torch, fam, "5000Nodes-1kPolicies", None,
+        through_apiserver=fam["throughApiserver"],
+        policy_count=fam["policyCount"], policy_tenants=fam["policyTenants"])
+    params = fam["workloads"][0]["params"]
+    bad = policy_violations(runner, result, pods,
+                            params["initPods"] + params["measurePods"],
+                            POLICY_SCALE_EVALS_PER_POD)
+    prov = result.solve_provenance
+    if not (prov.get("card_name") and prov.get("power_limit")):
+        bad.append(f"solve_provenance {prov}")
+    if not runner.window["launches"]:
+        bad.append("no wave_solve launch in the measured window")
+    if wire_codec(runner.client) not in ("msgpack", "json"):
+        bad.append(f"the run's store is {wire_codec(runner.client)}, "
+                   "not the KTPU wire")
+    print(boundary_line("policy scale PolicyScale/5000Nodes-1kPolicies",
+                        runner, result)
+          + f"; solve_provenance {json.dumps(prov)}; phase 18(a) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise RuntimeError(f"18(a): {bad}")
+    return runner.window["launches"], result.throughput
+
+
+def wire_basic_phase(torch, policy_rate: float) -> int:
+    """Phase 18(b): SchedulingBasic/5000Nodes over the same wire with no
+    policies: every pod bound; prints 18(a)'s throughput over it (a
+    number, not a gate). Returns wave_solve's launches in the window."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_BASIC
+
+    t0 = time.perf_counter()
+    runner, result, pods = boundary_run(
+        torch, SCHEDULING_BASIC, "5000Nodes", None,
+        through_apiserver="wire")
+    bad = policy_violations(runner, result, pods, 11000, 0)
+    print(boundary_line("wire SchedulingBasic/5000Nodes, no policies",
+                        runner, result)
+          + f"; PolicyScale over it {policy_rate / result.throughput:.4f} "
+          f"(printed, not gated); phase 18(b) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise RuntimeError(f"18(b): {bad}")
+    return runner.window["launches"]
+
+
+def http_phase(torch) -> int:
+    """Phase 18(c): SchedulingBasic at HTTP_CELL through `RemoteStore`
+    with 10 uniform policies: every pod bound, 10 evaluations per
+    measured pod. Pods cross HTTP one request at a time, so the serving
+    fast path may take all of them. Returns wave_solve's launches in the
+    window."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_BASIC
+
+    t0 = time.perf_counter()
+    runner, result, pods = boundary_run(
+        torch, SCHEDULING_BASIC, "", HTTP_CELL, through_apiserver="http",
+        policy_count=HTTP_CELL_POLICIES)
+    bad = policy_violations(runner, result, pods,
+                            HTTP_CELL["initPods"] + HTTP_CELL["measurePods"],
+                            HTTP_CELL_POLICIES)
+    print(boundary_line("http SchedulingBasic/500Nodes, 10 policies",
+                        runner, result)
+          + f"; phase 18(c) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise RuntimeError(f"18(c): {bad}")
+    return runner.window["launches"]
+
+
+def boundary_run_phases(torch) -> dict:
+    """Phase 18 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on. Returns the kernels line's phase
+    18 entries: wave_solve's launches in the measured windows of
+    18(a)-(c)."""
+    from kubernetes_tpu_torch.utils import flags
+
+    t18 = time.perf_counter()
+    print(f"phase 18 on {card_line()}")
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        launches, rate = policy_scale_phase(torch)
+        out = {"policy_scale_launches": launches,
+               "wire_basic_launches": wire_basic_phase(torch, rate),
+               "http_basic_launches": http_phase(torch)}
+    print(f"phase 18 {time.perf_counter() - t18:.1f} s")
+    return out
+
+
+def boundary_phases(torch) -> int:
+    """`--phase18-only`: build the kernels (phase 1), then phase 18."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(boundary_run_phases(torch)))
+    print_card()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -6810,6 +7035,9 @@ def main() -> int:
     parser.add_argument("--phase17-only", action="store_true",
                         help="build the kernels and run phase 17 alone "
                         "(prints no result lines)")
+    parser.add_argument("--phase18-only", action="store_true",
+                        help="build the kernels and run phase 18 alone "
+                        "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
     if not torch.cuda.is_available():
@@ -6831,6 +7059,8 @@ def main() -> int:
         return slice_topology_phases(torch, seed)
     if cli.phase17_only:
         return runner_families_phases(torch, seed)
+    if cli.phase18_only:
+        return boundary_phases(torch)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -6888,7 +7118,7 @@ def print_card() -> None:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-18 (see the module docstring)."""
+    """Phases 1-19 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -7263,8 +7493,11 @@ def smoke(torch, seed: int) -> int:
     # -- 17. the runner's last in-process families ------------------------
     families = runner_families_run(torch, seed)
 
-    # -- 18. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-17)")
+    # -- 18. the apiserver boundary and the policy chain -------------------
+    boundary = boundary_run_phases(torch)
+
+    # -- 19. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-18)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -7277,7 +7510,7 @@ def smoke(torch, seed: int) -> int:
          "constraint_launches": anti["launches"] + affinity_launches,
          "gang_launches": gang_launches,
          "gang_chunk_launches": gang_chunk_launches, **large, **device,
-         **stream_volume, **slice_topology, **families},
+         **stream_volume, **slice_topology, **families, **boundary},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,

@@ -7,7 +7,9 @@ Copy of `kubernetes_tpu/api/types.py`, cut to the pod, node and binding
 constructors, the volume objects (PersistentVolume, PersistentVolumeClaim,
 StorageClass), the device-topology objects (DeviceClass, ResourceSlice,
 ResourceClaim and its template, NodeResourceTopology), the device list a
-node agent publishes (`template_devices`), the accessors the
+node agent publishes (`template_devices`), the admission-policy objects
+(Namespace, ValidatingAdmissionPolicy and its binding, ConfigMap), the
+accessors the
 scheduler compiles its tensors from and the predicates its informers read.
 """
 
@@ -292,6 +294,55 @@ def split_node_topology(node_name: str, allocatable: Mapping[str, str],
         zones.append({"name": f"{node_name}-numa-{z}", "type": "Node",
                       "resources": res})
     return make_node_resource_topology(node_name, zones)
+
+
+def make_namespace(name: str) -> dict:
+    """core/v1 Namespace (deletion fans out via NamespaceController)."""
+    return new_object("Namespace", name, None, status={"phase": "Active"})
+
+
+def make_validating_admission_policy(
+        name: str,
+        validations: list[Mapping],
+        *,
+        failure_policy: str = "Fail",
+        param_kind: str | None = None,
+        match_constraints: Mapping | None = None) -> dict:
+    """admissionregistration.k8s.io/v1 ValidatingAdmissionPolicy
+    (policy/vap.py). `validations` entries: {"expression": ...,
+    "message": ...}; `match_constraints` carries resourceRules /
+    namespaceSelector. Inert until a binding references it."""
+    spec: dict[str, Any] = {
+        "failurePolicy": failure_policy,
+        "validations": [dict(v) for v in validations],
+    }
+    if param_kind:
+        spec["paramKind"] = {"kind": param_kind}
+    if match_constraints is not None:
+        spec["matchConstraints"] = dict(match_constraints)
+    return new_object("ValidatingAdmissionPolicy", name, None,
+                      api_version="admissionregistration.k8s.io/v1",
+                      spec=spec)
+
+
+def make_vap_binding(name: str, policy_name: str, *,
+                     param_ref: Mapping | None = None) -> dict:
+    """ValidatingAdmissionPolicyBinding: activates a policy; `param_ref`
+    ({"name": ..., "namespace": ...}) resolves against the policy's
+    paramKind."""
+    spec: dict[str, Any] = {"policyName": policy_name}
+    if param_ref is not None:
+        spec["paramRef"] = dict(param_ref)
+    return new_object("ValidatingAdmissionPolicyBinding", name, None,
+                      api_version="admissionregistration.k8s.io/v1",
+                      spec=spec)
+
+
+def make_config_map(name: str, namespace: str = "default",
+                    data: Mapping[str, Any] | None = None) -> dict:
+    """core/v1 ConfigMap — the usual VAP paramKind."""
+    return new_object("ConfigMap", name, namespace,
+                      data=dict(data or {}))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Client runtime: the reflector → informer triangle (client-go tools/cache
-equivalents), event recording and the rate-limited work queue. Counterpart
-of `kubernetes_tpu/client/`; the sharded informer and leader election
-wait."""
+equivalents), event recording, the rate-limited work queue and the
+conflict-retry helper the remote stores share. Counterpart of
+`kubernetes_tpu/client/`; the sharded informer and leader election wait."""
 
 from kubernetes_tpu_torch.client.informer import (
     Indexer,
@@ -11,6 +11,7 @@ from kubernetes_tpu_torch.client.informer import (
     namespace_index,
 )
 from kubernetes_tpu_torch.client.events import EventRecorder
+from kubernetes_tpu_torch.client.retry import retry_on_conflict
 from kubernetes_tpu_torch.client.workqueue import RateLimitingQueue
 
 __all__ = [
@@ -21,4 +22,5 @@ __all__ = [
     "namespace_index",
     "EventRecorder",
     "RateLimitingQueue",
+    "retry_on_conflict",
 ]

@@ -115,6 +115,8 @@ class EventRecorder:
         #: write per recurrence here).
         self._pending_by_key: dict[tuple, dict] = {}
         self._draining = False
+        #: the running drain, which `flush` waits on.
+        self._drain_task: asyncio.Future | None = None
         self.dropped = 0
         #: every event() call, dropped or not — dropped/emitted is the
         #: drop RATE consumers (the perf harness detail JSON) report.
@@ -224,8 +226,17 @@ class EventRecorder:
             asyncio.get_running_loop()
         except RuntimeError:
             return
-        asyncio.ensure_future(self._drain())
+        self._drain_task = asyncio.ensure_future(self._drain())
         self._draining = True
+
+    async def flush(self) -> None:
+        """Wait until every buffered event has been written or refused
+        by the store. A caller that is about to close the store calls
+        this first, so that no write is still in flight when it goes."""
+        self._kick_drain()
+        while self._draining:
+            await self._drain_task
+            self._kick_drain()
 
     async def _drain(self) -> None:
         try:

@@ -8,9 +8,9 @@ No prometheus_client dependency: a registry that renders the text exposition
 format is ~100 lines and keeps the zero-install constraint.
 
 Copy of `kubernetes_tpu/metrics/registry.py`, cut to the families the store,
-the watch cache, the scheduler loop, the churn harness and the
-descheduler fill (the durability, HA and apiserver families wait for the
-modules that fill them).
+the watch cache, the scheduler loop, the churn harness, the
+descheduler and the apiserver fill (the durability and HA families wait for
+the modules that fill them).
 The scheduler's family keeps every reference name, the device-solve ones
 included, so the exposition text is the reference's.
 """
@@ -405,6 +405,55 @@ class DeschedulerMetrics:
 
     def register_into(self, registry: Registry) -> None:
         registry._metrics.setdefault(self.evictions.name, self.evictions)
+
+
+#: verbs counted as mutating for apiserver_current_inflight_requests'
+#: request_kind label (the reference's mutating/readOnly split).
+_MUTATING_VERBS = frozenset(("create", "update", "patch", "delete"))
+
+
+class APIServerMetrics:
+    """The apiserver request metric families (SURVEY §5.5's dashboard
+    contract): request latency by verb/resource/code and the in-flight
+    gauge by request kind. Emitted from BOTH serving paths — the HTTP
+    middleware chain and the KTPU wire's frame handler — into one shared
+    instance, so /metrics shows the server's whole request load no matter
+    which wire carried it. Long-running requests (watches) are excluded
+    from both families: inflight like the reference, and duration
+    because a watch's "latency" is its stream lifetime (and the two
+    wires would otherwise report incompatible views of the same verb)."""
+
+    def __init__(self, registry: Registry | None = None):
+        r = registry or Registry()
+        self.registry = r
+        self.request_duration = r.histogram(
+            "apiserver_request_duration_seconds",
+            "Response latency distribution by verb, resource and "
+            "HTTP-equivalent status code",
+            labels=("verb", "resource", "code"))
+        self.inflight = r.gauge(
+            "apiserver_current_inflight_requests",
+            "Currently executing (non-long-running) requests",
+            labels=("request_kind",))
+
+    def register_into(self, registry: Registry) -> None:
+        for m in (self.request_duration, self.inflight):
+            registry._metrics.setdefault(m.name, m)
+
+    @staticmethod
+    def _kind(verb: str) -> str:
+        return "mutating" if verb in _MUTATING_VERBS else "readOnly"
+
+    def observe(self, verb: str, resource: str, code: int,
+                seconds: float) -> None:
+        self.request_duration.observe(
+            seconds, verb=verb, resource=resource, code=str(code))
+
+    def inc_inflight(self, verb: str) -> None:
+        self.inflight.inc(1, request_kind=self._kind(verb))
+
+    def dec_inflight(self, verb: str) -> None:
+        self.inflight.inc(-1, request_kind=self._kind(verb))
 
 
 class SchedulerMetrics:

@@ -21,8 +21,8 @@ nothing contradicts Bind. Same workload shape:
       - name: 5000Nodes
         params: {initNodes: 5000, initPods: 1000, measurePods: 10000}
 
-Copy of `kubernetes_tpu/perf/scheduler_perf.py`, cut to the in-process run
-(no apiserver, multi-process control plane or policy chain) and the
+Copy of `kubernetes_tpu/perf/scheduler_perf.py`, cut to the single-process
+control plane (no multi-process control plane or sharded store) and the
 opcodes createNodes (with `topologyTemplate`, a NodeResourceTopology per
 node, and `draTemplate`, the DeviceClass once and a ResourceSlice per
 node), startAgents (N in-process hollow-kubelet NodeAgents, agent/, which
@@ -40,6 +40,23 @@ the backend's device, and `sampleInterval` samples the fragmentation
 curve; `killLeader` raises NotImplementedError, as `multiproc/` is not
 ported), barrier and sleep. A workload's `schedulerConfig` builds the
 scheduler's profiles through the port's `config.load_config`.
+
+A run may cross the apiserver boundary as the reference's does
+(`through_apiserver`, a family's `throughApiserver`): `True`/`"http"`
+puts an `apiserver.APIServer` over the store and drives every write, the
+scheduler's informers and binds, and the agents through
+`apiserver.RemoteStore`; `"wire"` keeps the HTTP server up (the policy
+chain lives there) and drives all traffic over
+`apiserver.wire.WireStore` on a per-run unix socket
+(`WireServer.for_apiserver(host="unix:")`). Such a run always builds a
+`policy.PolicyEngine`, an `AuditPipeline` and the `WebhookAdmission`
+that carries the engine, installs `policy_count` ValidatingAdmissionPolicies
+(`policyCount`; sharded over `policy_tenants` tenant namespaces with
+`policyTenants`, the 1000/100 PolicyScale layout) and audits at
+`auditLevel`; the measured window's policy evaluations, index hits,
+residue scans, rebuilds and audit events land in `WorkloadResult`. A
+server that fails to start, or a request the chain refuses, fails the
+run.
 `WorkloadResult` keeps the fields this path fills, under the reference's
 names, with `solve_provenance` (`ops/backend.solve_provenance` of the
 backend's device) in every result of a run with a backend. With
@@ -59,7 +76,8 @@ bound count, so neither the warm-up nor the measured window can end on a
 global barrier, and so are the device-topology families
 (`DEVICE_TOPOLOGY`, `DEVICE_TOPOLOGY_DRA`), the churn families
 `CHURN_DAY`, `CHURN_SLICE_PACKING`, `CHURN_DAY_FAULTS` and
-`CHURN_REBALANCE`, and `SCHEDULING_GATED` and `AGENT_RELIST_STORM`.
+`CHURN_REBALANCE`, `SCHEDULING_GATED`, `AGENT_RELIST_STORM` and
+`POLICY_SCALE`.
 
 Metrics over the measured phase: SchedulingThroughput (pods/s),
 scheduling_attempt_duration percentiles (exact order statistics of the
@@ -71,7 +89,9 @@ Run: `python -m kubernetes_tpu_torch.perf.scheduler_perf [config.yaml]
 --filter SchedulingBasic/5000Nodes` runs TorchBackend on cuda:0 with
 16384-pod pops (the reference bench's); `--device cpu` runs the kernels'
 plain versions and `--backend host` the host path alone; `--profile-dir
-DIR` writes each measured window's trace there.
+DIR` writes each measured window's trace there; `--through-apiserver
+{http,wire}` runs every family through that boundary (a family's own
+`throughApiserver` wins).
 """
 
 from __future__ import annotations
@@ -88,13 +108,21 @@ from typing import Any, Mapping
 from kubernetes_tpu_torch.agent import NodeAgent
 from kubernetes_tpu_torch.api.meta import namespaced_name
 from kubernetes_tpu_torch.api.types import (
+    make_config_map,
     make_device_class,
+    make_namespace,
     make_node,
     make_pod,
     make_resource_claim,
     make_resource_slice,
+    make_validating_admission_policy,
+    make_vap_binding,
     split_node_topology,
 )
+from kubernetes_tpu_torch.apiserver.admission import WebhookAdmission
+from kubernetes_tpu_torch.apiserver.client import RemoteStore
+from kubernetes_tpu_torch.apiserver.server import APIServer
+from kubernetes_tpu_torch.apiserver.wire import WireServer, WireStore
 from kubernetes_tpu_torch.client import InformerFactory, ResourceEventHandler
 from kubernetes_tpu_torch.config import load_config as load_scheduler_config
 from kubernetes_tpu_torch.controllers import (
@@ -110,9 +138,14 @@ from kubernetes_tpu_torch.perf.churn import (
     is_saturated,
     make_arrival_process,
 )
+from kubernetes_tpu_torch.policy import (
+    AuditPipeline,
+    AuditPolicy,
+    PolicyEngine,
+)
 from kubernetes_tpu_torch.scheduler import Scheduler
 from kubernetes_tpu_torch.store import (
-    install_core_validation, new_cluster_store)
+    AlreadyExists, install_core_validation, new_cluster_store)
 from kubernetes_tpu_torch.utils import flags
 
 #: SchedulingBasic of the reference's performance-config.yaml.
@@ -514,10 +547,28 @@ CHURN_REBALANCE = {
     ],
 }
 
-#: Per-family runner settings of the reference's suite that this harness
-#: does not have; a config naming one is refused, not run differently.
-_UNSUPPORTED_CASE_KEYS = ("throughApiserver", "policyCount",
-                          "policyTenants", "auditLevel")
+#: PolicyScale of the reference's performance-config.yaml: SchedulingBasic's
+#: 5000Nodes shape through the KTPU wire with 1000 ValidatingAdmissionPolicies
+#: sharded over 100 tenant namespaces (~1% of them match a pod CREATE).
+POLICY_SCALE = {
+    "name": "PolicyScale",
+    "throughApiserver": "wire",
+    "policyCount": 1000,
+    "policyTenants": 100,
+    "workloadTemplate": [
+        {"opcode": "createNodes", "countParam": "$initNodes"},
+        {"opcode": "createPods", "countParam": "$initPods"},
+        {"opcode": "barrier"},
+        {"opcode": "createPods", "countParam": "$measurePods",
+         "collectMetrics": True},
+        {"opcode": "barrier"},
+    ],
+    "workloads": [
+        {"name": "5000Nodes-1kPolicies",
+         "params": {"initNodes": 5000, "initPods": 1000,
+                    "measurePods": 10000}},
+    ],
+}
 
 
 def _subst(value: Any, params: Mapping[str, Any]) -> Any:
@@ -571,6 +622,19 @@ class WorkloadResult:
         self.relist_storm_seconds = 0.0
         self.relist_storm_cache_hits = 0
         self.relist_storm_cache_misses = 0
+        #: policy-chain accounting over the measured phase (policy/vap.py
+        #: and policy/audit.py, boundary-crossing runs only): expression
+        #: evaluations and audit stage events. The index triple is the
+        #: O(matching) dispatch witness: hits = candidates served from
+        #: the (resource, operation) exact map, residue = wildcard
+        #: entries still scanned linearly, rebuilds = invalidations that
+        #: cost a rebuild.
+        self.policy_evaluations_total = 0
+        self.audit_events_total = 0
+        self.audit_events_dropped_total = 0
+        self.policy_index_hits_total = 0
+        self.policy_index_residue_scans_total = 0
+        self.policy_index_rebuilds_total = 0
         #: solve-side accounting over the measured phase: chunk count and
         #: total solve wall (scheduler_tpu_solve_seconds), the latest
         #: chunk's scan and wave widths, commits and replays, and the
@@ -674,6 +738,15 @@ class WorkloadResult:
             "relist_storm_seconds": round(self.relist_storm_seconds, 3),
             "relist_storm_cache_hits": self.relist_storm_cache_hits,
             "relist_storm_cache_misses": self.relist_storm_cache_misses,
+            "policy_evaluations_total": self.policy_evaluations_total,
+            "audit_events_total": self.audit_events_total,
+            "audit_events_dropped_total":
+                self.audit_events_dropped_total,
+            "policy_index_hits_total": self.policy_index_hits_total,
+            "policy_index_residue_scans_total":
+                self.policy_index_residue_scans_total,
+            "policy_index_rebuilds_total":
+                self.policy_index_rebuilds_total,
             "solver_solve_chunks": self.solver_solve_chunks,
             "solver_solve_seconds_total": round(
                 self.solver_solve_seconds_total, 3),
@@ -735,6 +808,20 @@ DEFAULT_POD_TEMPLATE = {
     "requests": {"cpu": "100m", "memory": "250Mi"}}
 
 
+class _ServerPair:
+    """The apiserver processes backing a boundary-crossing run: the HTTP
+    server (policy owner) and, in wire mode, the framed-wire listener."""
+
+    def __init__(self, api, wire):
+        self.api = api
+        self.wire = wire
+
+    async def stop(self) -> None:
+        if self.wire is not None:
+            await self.wire.stop()
+        await self.api.stop()
+
+
 class PerfRunner:
     """Executes one workload (template ops + params) against an in-process
     store + scheduler, mirroring mustSetupCluster → runWorkload."""
@@ -742,16 +829,43 @@ class PerfRunner:
     def __init__(self, backend=None, batch_size: int = 1,
                  scheduler_kwargs: Mapping | None = None,
                  scheduler_config: Mapping | None = None,
-                 profile_dir: str | None = None):
+                 through_apiserver: bool | str = False,
+                 profile_dir: str | None = None,
+                 policy_count: int = 0,
+                 policy_tenants: int = 0,
+                 audit_rules: list | None = None):
         if profile_dir and backend is None:
             raise ValueError("profile_dir needs a backend to profile "
                              "(TorchBackend.start_profile)")
+        if through_apiserver not in (False, True, "http", "wire"):
+            raise ValueError(
+                f"through_apiserver={through_apiserver!r}: expected "
+                "False, True, 'http' or 'wire'")
         self.backend = backend
         self.batch_size = batch_size
         self.scheduler_kwargs = dict(scheduler_kwargs or {})
         #: the workload's KubeSchedulerConfiguration (its
         #: `schedulerConfig`), or None for the default profile.
         self.scheduler_config = scheduler_config
+        #: Cross the process boundary like the reference's scheduler_perf
+        #: (in-process apiserver + a real wire): workload writes, the
+        #: scheduler's informers, binding POSTs and the agents go over the
+        #: apiserver instead of direct store calls. True/"http" = the
+        #: HTTP/1.1+JSON wire; "wire" = the KTPU multiplexed framed wire.
+        self.through_apiserver = through_apiserver
+        #: ValidatingAdmissionPolicies (+bindings) installed before the
+        #: run, evaluated on the servers (boundary-crossing runs only).
+        self.policy_count = policy_count
+        #: >0 shards the policy set across N tenant namespaces with
+        #: per-namespace selectors and disjoint resourceRules, so ~1% of
+        #: stored policies match a pod create at 1000/100; 0 keeps the
+        #: uniform all-matching set.
+        self.policy_tenants = policy_tenants
+        #: audit policy rules for the run's AuditPipeline ([] = level
+        #: None for everything).
+        self.audit_rules = list(audit_rules or [])
+        self._policy_engine = None
+        self._audit = None
         #: where the backend writes a torch.profiler trace of each
         #: MEASURED window (not the warm-up), or None for no trace.
         self.profile_dir = profile_dir
@@ -760,28 +874,66 @@ class PerfRunner:
                   timeout: float = 600.0) -> WorkloadResult:
         backing = new_cluster_store(shards=1)
         install_core_validation(backing)
+        server = None
+        client = None
         try:
+            api_kw = {}
+            if self.through_apiserver:
+                # The policy chain rides the servers: admission (webhooks
+                # + expression policies) and the audit pipeline are
+                # always built for a boundary-crossing run, so its policy
+                # and audit counters are measurements (zero when no
+                # policies or rules exist).
+                self._policy_engine = PolicyEngine(backing)
+                self._audit = AuditPipeline(AuditPolicy(self.audit_rules))
+                api_kw = {"admission": WebhookAdmission(
+                    backing, policy_engine=self._policy_engine),
+                    "audit": self._audit}
+                await self._install_policies(backing)
+                server = _ServerPair(APIServer(backing, **api_kw), None)
+                await server.api.start()
+            if self.through_apiserver == "wire":
+                # The core-component transport: the HTTP server stays up
+                # (policy lives there), store traffic rides the
+                # multiplexed wire on a per-run unix socket.
+                server.wire = WireServer.for_apiserver(
+                    server.api, host="unix:")
+                await server.wire.start()
+                client = WireStore(server.wire.target)
+            elif self.through_apiserver:
+                client = RemoteStore(server.api.url)
+            store = client if client is not None else backing
             metrics = SchedulerMetrics()
             profiles = None
             if self.scheduler_config is not None:
                 cfg = load_scheduler_config(self.scheduler_config)
                 profiles = {p.scheduler_name: p.build_framework(
-                    store=backing, metrics=metrics) for p in cfg.profiles}
-            sched = Scheduler(backing, seed=42, backend=self.backend,
+                    store=store, metrics=metrics) for p in cfg.profiles}
+            sched = Scheduler(store, seed=42, backend=self.backend,
                               metrics=metrics, profiles=profiles,
                               **self.scheduler_kwargs)
-            factory = InformerFactory(backing)
+            factory = InformerFactory(store)
             await sched.setup_informers(factory)
         except BaseException:
+            # Setup failed after the server or client came up: release
+            # the socket and the background tasks before raising.
+            if client is not None:
+                await client.close()
+            if server is not None:
+                await server.stop()
             backing.stop()
             raise
         return await self._drive(template_ops, params, timeout, backing,
-                                 metrics, sched, factory)
+                                 store, metrics, sched, factory, server,
+                                 client)
 
     async def _drive(self, template_ops: list, params: Mapping[str, Any],
-                     timeout: float, store, metrics: SchedulerMetrics,
-                     sched: Scheduler, factory) -> WorkloadResult:
-        """The opcode loop."""
+                     timeout: float, backing, store,
+                     metrics: SchedulerMetrics, sched: Scheduler, factory,
+                     server, client) -> WorkloadResult:
+        """The opcode loop. `store` carries the workload's traffic (the
+        backing store, or the boundary's client); the counters read
+        `backing`."""
         # Bound-pod accounting via watch events, not store LISTs: a LIST
         # deep-copies every object and was the harness's own hot spot.
         bound_keys: set[str] = set()
@@ -843,8 +995,8 @@ class PerfRunner:
                     # belongs after this op: a saturated run ends with
                     # unbound pods (that backlog IS the measurement).
                     created_total += await self._run_churn_phase(
-                        op, params, result, metrics, store, sched,
-                        factory, agents, bound_keys, pod_seq)
+                        op, params, result, metrics, backing, store,
+                        sched, factory, agents, bound_keys, pod_seq)
                     pod_seq += result.churn_arrivals_total
 
                 elif opcode == "createNodes":
@@ -909,7 +1061,7 @@ class PerfRunner:
                     claim_tmpl = tmpl.pop("claim", None)
                     measured = bool(op.get("collectMetrics"))
                     if measured:
-                        window = self._begin_measure(metrics, store)
+                        window = self._begin_measure(metrics, backing)
                         self._start_profile()
                     names = [f"pod-{pod_seq + i}" for i in range(count)]
 
@@ -943,7 +1095,7 @@ class PerfRunner:
                         await self._wait_keys(bound_keys, want, deadline,
                                               run_task)
                     if measured:
-                        self._end_measure(result, metrics, store, window,
+                        self._end_measure(result, metrics, backing, window,
                                           count)
                         self._stop_profile()
 
@@ -954,7 +1106,7 @@ class PerfRunner:
                     # variant times gate removal -> all bound.
                     measured = bool(op.get("collectMetrics"))
                     if measured:
-                        window = self._begin_measure(metrics, store)
+                        window = self._begin_measure(metrics, backing)
                         self._start_profile()
                     gated = [p for p in (await store.list("pods")).items
                              if p["spec"].get("schedulingGates")]
@@ -968,7 +1120,7 @@ class PerfRunner:
                     if measured:
                         await self._wait_bound(bound_keys, created_total,
                                                deadline, run_task)
-                        self._end_measure(result, metrics, store, window,
+                        self._end_measure(result, metrics, backing, window,
                                           len(gated))
                         self._stop_profile()
 
@@ -978,13 +1130,13 @@ class PerfRunner:
                     # With the watch cache active the N LISTs are reads of
                     # one shared snapshot (hit/miss deltas recorded); the
                     # direct-mvcc path pays N table scans.
-                    h0, m0 = self._cache_totals(store)
+                    h0, m0 = self._cache_totals(backing)
                     t0 = time.monotonic()
                     await asyncio.gather(
                         *(a.force_relist() for a in agents))
                     result.relist_storm_seconds = time.monotonic() - t0
                     result.relist_storm_agents = len(agents)
-                    h1, m1 = self._cache_totals(store)
+                    h1, m1 = self._cache_totals(backing)
                     result.relist_storm_cache_hits = int(h1 - h0)
                     result.relist_storm_cache_misses = int(m1 - m0)
 
@@ -1031,7 +1183,14 @@ class PerfRunner:
             await sched.stop()
             run_task.cancel()
             factory.stop()
-            store.stop()
+            # The recorder's last event writes go out before the client
+            # that carries them closes.
+            await sched.recorder.flush()
+            if client is not None:
+                await client.close()
+            if server is not None:
+                await server.stop()
+            backing.stop()
         if run_task.done() and not run_task.cancelled() \
                 and run_task.exception() is not None:
             raise run_task.exception()
@@ -1064,8 +1223,9 @@ class PerfRunner:
             self.backend.stop_profile()
 
     async def _run_churn_phase(self, op: Mapping, params: Mapping[str, Any],
-                               result: WorkloadResult, metrics, store,
-                               sched: Scheduler, factory, agents: list,
+                               result: WorkloadResult, metrics, backing,
+                               store, sched: Scheduler, factory,
+                               agents: list,
                                bound_keys: set, pod_seq: int) -> int:
         """Execute one churnOpenLoop op; returns the net pod-count delta
         (arrivals + fault creates − fault deletes) for created_total."""
@@ -1176,7 +1336,8 @@ class PerfRunner:
                 curve.append(_point(t0))
                 await asyncio.sleep(sample_every)
 
-        window = self._begin_measure(metrics, store) if measured else None
+        window = self._begin_measure(metrics, backing) if measured \
+            else None
         if measured:
             self._start_profile()
         inj_task = None
@@ -1227,7 +1388,7 @@ class PerfRunner:
                 await nlc.stop()
         result.churn_fragmentation_curve = curve
         if measured:
-            self._end_measure(result, metrics, store, window,
+            self._end_measure(result, metrics, backing, window,
                               phase.arrivals_total)
             self._stop_profile()
         result.churn_offered_rate = phase.offered_rate
@@ -1261,6 +1422,133 @@ class PerfRunner:
             net += injector.net_created
         return net
 
+    async def _install_policies(self, backing) -> None:
+        """The overhead knob: N pass-through pod policies + bindings.
+        With policy_tenants > 0 the set is tenant-sharded instead:
+        realistic multi-tenant matching for the O(matching) index."""
+        if not self.policy_count:
+            return
+        if self.policy_tenants:
+            await self._install_tenant_policies(backing)
+            return
+        for i in range(self.policy_count):
+            name = f"bench-policy-{i}"
+            await backing.create(
+                "validatingadmissionpolicies",
+                make_validating_admission_policy(name, [
+                    {"expression": "size(object.spec.containers) >= 1"
+                                   " and not has(object.spec.paused)",
+                     "message": "bench policy"}],
+                    match_constraints={"resourceRules": [
+                        {"resources": ["pods"],
+                         "operations": ["CREATE"]}]}))
+            await backing.create("validatingadmissionpolicybindings",
+                                 make_vap_binding(f"{name}-b", name))
+
+    async def _install_tenant_policies(self, backing) -> None:
+        """Realistic tenant shards (PolicyScale's shape): N policies
+        across T tenant namespaces — 4 of 5 are pod-CREATE policies
+        scoped by a per-tenant namespaceSelector (the bench's pods land
+        in "default", labeled tenant t0, so only ~N·0.8/T of them
+        match: ~1% at 1000/100), 1 of 5 carries disjoint non-pod
+        resourceRules the exact-key index never surfaces for a pod
+        create. A ~1% slice of pod policies (stride 97, coprime with
+        the tenant stride so breadth never correlates with one tenant's
+        whole shard) adds a matchConditions prefilter + a variables
+        entry (the breadth surface rides the measured path) and a
+        second, paramRef-carrying binding against a shared per-tenant
+        ConfigMap (prebuilt param closures exercised)."""
+        tenants = self.policy_tenants
+        other_rules = ["configmaps", "secrets", "services",
+                       "deployments", "leases", "replicasets",
+                       "statefulsets", "daemonsets"]
+        for t in range(tenants):
+            ns = make_namespace(f"tenant-{t}")
+            ns["metadata"]["labels"] = {"ktpu.io/tenant": f"t{t}"}
+            await backing.create("namespaces", ns)
+        # The measured pods ride the "default" namespace: label it as
+        # tenant t0 so exactly that tenant's shard applies.
+        default_ns = make_namespace("default")
+        default_ns["metadata"]["labels"] = {"ktpu.io/tenant": "t0"}
+        try:
+            await backing.create("namespaces", default_ns)
+        except AlreadyExists:
+            cur = await backing.get("namespaces", "default")
+            cur.setdefault("metadata", {})["labels"] = {
+                "ktpu.io/tenant": "t0"}
+            await backing.update("namespaces", cur)
+        for t in range(tenants):
+            await backing.create(
+                "configmaps",
+                make_config_map(f"tenant-caps-{t}",
+                                data={"maxPriority": "1000000"}))
+        for i in range(self.policy_count):
+            t = i % tenants
+            name = f"tenant-policy-{i}"
+            if i % 5 == 4:
+                # Disjoint non-pod rules: a pod CREATE never surfaces
+                # these from the exact-key index (and the linear scan
+                # pays for skipping them — the comparison's point).
+                constraints = {"resourceRules": [
+                    {"resources": [other_rules[i % len(other_rules)]],
+                     "operations": ["CREATE", "UPDATE"]}]}
+            else:
+                constraints = {
+                    "resourceRules": [{"resources": ["pods"],
+                                       "operations": ["CREATE"]}],
+                    "namespaceSelector": {
+                        "matchLabels": {"ktpu.io/tenant": f"t{t}"}},
+                }
+            kwargs = {}
+            validations = [
+                {"expression": "size(object.spec.containers) >= 1"
+                               " and not has(object.spec.paused)",
+                 "message": f"tenant t{t} policy"}]
+            spec_extra = {}
+            if i % 97 == 0 and i % 5 != 4:
+                spec_extra = {
+                    "matchConditions": [
+                        {"name": "has-spec",
+                         "expression": "has(object.spec)"}],
+                    "variables": [
+                        {"name": "cset",
+                         "expression": "object.spec.containers"}],
+                }
+                validations = [
+                    {"expression": "size(variables.cset) >= 1",
+                     "message": f"tenant t{t} policy"}]
+                kwargs["param_kind"] = "ConfigMap"
+            policy = make_validating_admission_policy(
+                name, validations, match_constraints=constraints,
+                **kwargs)
+            policy["spec"].update(spec_extra)
+            await backing.create("validatingadmissionpolicies", policy)
+            await backing.create("validatingadmissionpolicybindings",
+                                 make_vap_binding(f"{name}-b", name))
+            if kwargs:
+                await backing.create(
+                    "validatingadmissionpolicybindings",
+                    make_vap_binding(f"{name}-pb", name, param_ref={
+                        "name": f"tenant-caps-{t}",
+                        "namespace": "default"}))
+
+    def _policy_totals(self) -> tuple[float, ...]:
+        """(evals, index hits, residue scans, rebuilds, audit events,
+        audit drops) — the policy/audit counter snapshot the measured
+        window differences."""
+        evals = hits = residue = rebuilds = audits = dropped = 0.0
+        if self._policy_engine is not None:
+            eng = self._policy_engine
+            evals = sum(eng.evaluations._values.values())
+            hits = eng.index_hits.value()
+            residue = eng.index_residue_scans.value()
+            rebuilds = eng.index_rebuilds.value()
+        if self._audit is not None:
+            audits = sum(
+                self._audit.sink.events_total._values.values())
+            dropped = self._audit.sink.events_dropped.value()
+        return evals, hits, residue, rebuilds, audits, dropped
+
     @staticmethod
     def _cache_totals(backing) -> tuple[float, float]:
         """(hits, misses) of the store's watch-cache tier (0s when the
@@ -1280,6 +1568,7 @@ class PerfRunner:
             "dispatched": wm.events_dispatched.value(),
             "checks": wm.predicate_checks.value(),
             "cache_hits": hits, "cache_misses": misses,
+            "policy": self._policy_totals(),
             "solve_chunks": metrics.solve_duration.count(),
             "solve_s": metrics.solve_duration.sum(),
             "wave_commits": metrics.solver_wave_commits.value(),
@@ -1327,6 +1616,12 @@ class PerfRunner:
         hits, misses = self._cache_totals(backing)
         result.watch_cache_hits_total = int(hits - base["cache_hits"])
         result.watch_cache_misses_total = int(misses - base["cache_misses"])
+        (result.policy_evaluations_total, result.policy_index_hits_total,
+         result.policy_index_residue_scans_total,
+         result.policy_index_rebuilds_total, result.audit_events_total,
+         result.audit_events_dropped_total) = (
+            int(now - then) for now, then in zip(
+                self._policy_totals(), base["policy"]))
         result.solver_solve_chunks = int(
             metrics.solve_duration.count() - base["solve_chunks"])
         result.solver_solve_seconds_total = \
@@ -1446,22 +1741,30 @@ def load_config(path: str | None = None) -> list[dict]:
 
 def run_suite(config: list[dict], backend_factory=None, batch_size: int = 1,
               filter_name: str | None = None, timeout: float = 600.0,
-              profile_dir: str | None = None) -> dict[str, dict]:
-    """Run every (testcase × workload) pair, like BenchmarkPerfScheduling."""
+              profile_dir: str | None = None,
+              through_apiserver: bool | str = False) -> dict[str, dict]:
+    """Run every (testcase × workload) pair, like BenchmarkPerfScheduling.
+    A family's `throughApiserver`, `policyCount`, `policyTenants` and
+    `auditLevel` pin its boundary and its policy and audit load, so a
+    headline row is reproducible from the config alone;
+    `through_apiserver` is the boundary of families that name none."""
     out: dict[str, dict] = {}
     for case in config:
         for wl in case.get("workloads") or [{"name": "default", "params": {}}]:
             full = f"{case['name']}/{wl['name']}"
             if filter_name and filter_name not in full:
                 continue
-            bad = [k for k in _UNSUPPORTED_CASE_KEYS if case.get(k)]
-            if bad:
-                raise NotImplementedError(
-                    f"{full}: {bad} are not ported (in-process runs only)")
             backend = backend_factory() if backend_factory else None
             runner = PerfRunner(backend=backend, batch_size=batch_size,
                                 scheduler_config=case.get("schedulerConfig"),
-                                profile_dir=profile_dir)
+                                through_apiserver=case.get(
+                                    "throughApiserver", through_apiserver),
+                                profile_dir=profile_dir,
+                                policy_count=case.get("policyCount", 0),
+                                policy_tenants=case.get(
+                                    "policyTenants", 0),
+                                audit_rules=[{"level": case["auditLevel"]}]
+                                if case.get("auditLevel") else None)
             res = asyncio.run(runner.run(
                 case["workloadTemplate"], wl.get("params") or {},
                 timeout=timeout))
@@ -1494,6 +1797,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler Chrome trace of each "
                          "measured window here (--backend torch only)")
+    ap.add_argument("--through-apiserver", choices=["", "http", "wire"],
+                    default="",
+                    help="cross the process boundary: all traffic (agent "
+                         "watches included) rides the chosen apiserver "
+                         "wire instead of direct store calls")
     args = ap.parse_args(argv)
 
     factory = None
@@ -1507,9 +1815,12 @@ def main(argv: list[str] | None = None) -> int:
             else max(min(args.chunk, batch), 2)
         factory = lambda: TorchBackend(  # noqa: E731
             device=args.device, max_batch=chunk)
+    boundary = {"": False, "http": True, "wire": "wire"}[
+        args.through_apiserver]
     results = run_suite(load_config(args.config), backend_factory=factory,
                         batch_size=batch, filter_name=args.filter,
-                        timeout=args.timeout, profile_dir=args.profile_dir)
+                        timeout=args.timeout, profile_dir=args.profile_dir,
+                        through_apiserver=boundary)
     print(json.dumps(results, indent=2))
     return 0
 

@@ -1,8 +1,8 @@
 """The object store: the hub of the control plane (everything is
 hub-and-spoke through the store; components communicate only by
 reading/writing objects and watching for changes). Counterpart of
-`kubernetes_tpu/store/`: the MVCC store with its watch cache and the core
-validation; server-side apply, durability and the sharded store wait."""
+`kubernetes_tpu/store/`: the MVCC store with its watch cache, the core
+validation and server-side apply; durability and the sharded store wait."""
 
 from kubernetes_tpu_torch.store.mvcc import (
     AlreadyExists,
@@ -17,9 +17,12 @@ from kubernetes_tpu_torch.store.mvcc import (
     binding_subresource,
     new_cluster_store,
 )
+from kubernetes_tpu_torch.store.apply import ApplyConflict, server_side_apply
 from kubernetes_tpu_torch.store.validation import install_core_validation
 
 __all__ = [
+    "ApplyConflict",
+    "server_side_apply",
     "AlreadyExists",
     "Conflict",
     "Event",

@@ -22,9 +22,9 @@ Concurrency model: single asyncio loop owns all state (the analog of the
 reference's "one mutex around cacheImpl" discipline); the public API is async
 and must be called from that loop.
 
-Copy of `kubernetes_tpu/store/mvcc.py`. Server-side apply (`store/apply.py`)
-and the sharded store (`store/sharded.py`) wait: `MVCCStore.apply` is not
-here, and `new_cluster_store` raises for more than one shard.
+Copy of `kubernetes_tpu/store/mvcc.py`. The sharded store
+(`store/sharded.py`) waits: `new_cluster_store` raises for more than one
+shard.
 """
 
 from __future__ import annotations
@@ -933,6 +933,14 @@ class MVCCStore:
         if self._bookmark_task:
             self._bookmark_task.cancel()
             self._bookmark_task = None
+
+    async def apply(self, resource: str, obj: Mapping, *,
+                    field_manager: str, force: bool = False) -> dict:
+        """Server-side apply (store/apply.py): declarative field
+        ownership with managedFields + conflict detection."""
+        from kubernetes_tpu_torch.store.apply import server_side_apply
+        return await server_side_apply(
+            self, resource, obj, field_manager=field_manager, force=force)
 
     # -- subresources ------------------------------------------------------
 

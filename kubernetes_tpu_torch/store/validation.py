@@ -6,8 +6,7 @@ Parity target: pkg/apis/core/validation/validation.go (`ValidatePod`,
 framework relies on (full field-by-field validation is cosmetic for a
 scheduler-centric control plane; extend as controllers grow).
 
-Copy of `kubernetes_tpu/store/validation.py`. The ValidatingAdmissionPolicy
-validators wait for the policy engine they compile against.
+Copy of `kubernetes_tpu/store/validation.py`.
 """
 
 from __future__ import annotations
@@ -100,10 +99,70 @@ def default_pod(pod: dict) -> None:
 DEFAULT_CLASS_ANN = "storageclass.kubernetes.io/is-default-class"
 
 
+def validate_admission_policy(policy: dict) -> None:
+    """ValidatingAdmissionPolicy: every expression must COMPILE inside
+    the sandbox grammar at write time (the reference typechecks CEL at
+    admission of the policy object, not at first use)."""
+    _validate_meta(policy, "ValidatingAdmissionPolicy", namespaced=False)
+    spec = policy.get("spec") or {}
+    if spec.get("failurePolicy") not in (None, "Fail", "Ignore"):
+        raise Invalid("ValidatingAdmissionPolicy: failurePolicy must be "
+                      "Fail or Ignore")
+    validations = spec.get("validations")
+    if not validations:
+        raise Invalid("ValidatingAdmissionPolicy: spec.validations must "
+                      "be non-empty")
+    from kubernetes_tpu_torch.policy.expr import (
+        ExpressionError,
+        compile_expression,
+    )
+
+    def check(source: str, where: str) -> None:
+        try:
+            compile_expression(source)
+        except ExpressionError as e:
+            raise Invalid(
+                f"ValidatingAdmissionPolicy: {where}: {e}") from e
+
+    for i, v in enumerate(validations):
+        check(v.get("expression", ""), f"spec.validations[{i}]")
+        if v.get("messageExpression"):
+            check(v["messageExpression"],
+                  f"spec.validations[{i}].messageExpression")
+    for i, c in enumerate(spec.get("matchConditions") or []):
+        if not c.get("name"):
+            raise Invalid(f"ValidatingAdmissionPolicy: "
+                          f"spec.matchConditions[{i}].name is required")
+        check(c.get("expression", ""), f"spec.matchConditions[{i}]")
+    for i, var in enumerate(spec.get("variables") or []):
+        if not var.get("name"):
+            raise Invalid(f"ValidatingAdmissionPolicy: "
+                          f"spec.variables[{i}].name is required")
+        check(var.get("expression", ""), f"spec.variables[{i}]")
+    for i, a in enumerate(spec.get("auditAnnotations") or []):
+        if not a.get("key"):
+            raise Invalid(f"ValidatingAdmissionPolicy: "
+                          f"spec.auditAnnotations[{i}].key is required")
+        check(a.get("valueExpression", ""),
+              f"spec.auditAnnotations[{i}].valueExpression")
+
+
+def validate_vap_binding(binding: dict) -> None:
+    _validate_meta(binding, "ValidatingAdmissionPolicyBinding",
+                   namespaced=False)
+    if not (binding.get("spec") or {}).get("policyName"):
+        raise Invalid("ValidatingAdmissionPolicyBinding: spec.policyName "
+                      "is required")
+
+
 def install_core_validation(store) -> None:
     store.register_mutator("pods", default_pod)
     store.register_validator("pods", validate_pod)
     store.register_validator("nodes", validate_node)
+    store.register_validator("validatingadmissionpolicies",
+                             validate_admission_policy)
+    store.register_validator("validatingadmissionpolicybindings",
+                             validate_vap_binding)
 
     def default_storage_class(pvc: dict) -> None:
         """DefaultStorageClass admission (plugin/pkg/admission/storage/

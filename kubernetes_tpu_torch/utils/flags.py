@@ -7,7 +7,8 @@ policy, the serving tier (its kill switch, the resident planes' block
 index and the admission window), the store (the watch cache, the shard
 count, the debug freeze), the lock check, the trace threshold, the
 descheduler pair (its default and its disruption budget) and the
-topology pair (the slice placement kill switch and the mesh shape). Names,
+topology pair (the slice placement kill switch and the mesh shape), the
+admission-policy index and the apiserver's durability directory. Names,
 defaults and parsing are the reference's: every read is a LIVE
 `os.environ` lookup, and a malformed value degrades to the flag's
 default.
@@ -147,6 +148,12 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
     Flag("KTPU_WATCH_CACHE", True, _parse_bool,
          "Watch-cache serving tier (store/cacher.py). `0` degrades "
          "every LIST/watch to the direct-mvcc path."),
+    Flag("KTPU_POLICY_INDEX", True, _parse_bool,
+         "Pre-indexed ValidatingAdmissionPolicy matching (policy/"
+         "vap.py): exact (resource, operation) reverse maps + interned "
+         "namespace-selector signatures make admission O(matching "
+         "policies). `0` degrades structurally to the linear "
+         "all-policies scan, bit-identical verdicts."),
     Flag("KTPU_SHARDS", None, _parse_int,
          "Control-plane shard count override; `1` is the plain single "
          "MVCCStore. This package has no sharded store yet: "
@@ -160,6 +167,11 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "traces slower than this log a step breakdown. Unset = no "
          "tree dumps; the scheduler's per-attempt logger falls back "
          "to the reference's 100 ms."),
+    Flag("KTPU_DATA_DIR", None, _parse_str,
+         "Durability directory (WAL + snapshots). The reference's "
+         "apiserver recovers state from it on construction; this "
+         "package has no store/durable.py yet, so an APIServer built "
+         "without a store while it is set raises."),
     Flag("KTPU_LOCK_CHECK", False, _parse_bool,
          "Runtime lock-order / dispatch-hygiene detector "
          "(utils/locking.py): instrumented locks record per-thread "

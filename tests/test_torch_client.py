@@ -158,6 +158,30 @@ def record_events(pkg) -> tuple[dict, list]:
     return counts, stored
 
 
+def test_event_recorder_flush_writes_every_buffered_event():
+    """`flush` (the port's, which its runner calls before it closes the
+    store's client) returns once every buffered event is in the store,
+    those recorded while a drain is in flight included."""
+    mvcc, types, _, events = PACKAGES["port"]
+
+    async def run():
+        store = mvcc.MVCCStore()
+        rec = events.EventRecorder(store, "default-scheduler")
+        pods = [types.make_pod(f"p{i}") for i in range(3000)]
+        for p in pods[:2000]:
+            rec.event(p, "Normal", "Scheduled", "assigned")
+        await asyncio.sleep(0)  # the drain has started
+        for p in pods[2000:]:
+            rec.event(p, "Normal", "Scheduled", "assigned")
+        await rec.flush()
+        out = (len(store._table("events")), rec._draining, rec._pending)
+        await rec.flush()  # nothing buffered: returns at once
+        store.stop()
+        return out
+
+    assert asyncio.run(run()) == (3000, False, [])
+
+
 def test_event_recorder_drop_semantics_match_reference():
     want = record_events("jax")
     got = record_events("port")

@@ -36,7 +36,10 @@ at 1, 4 and 8 shards, and the slice-gang chunks place on the card exactly
 as on the CPU; and the descheduler's `consolidation_scores` on the card
 equal the CPU's bit for bit on `chip_smoke.consolidation_case`'s fixtures,
 and a `DeschedulerController` built with no device scores on the card and
-evicts the pods a CPU one evicts.
+evicts the pods a CPU one evicts; and a `PerfRunner` over the KTPU wire
+with `TorchBackend()` on a cut PolicyScale (50 nodes, 20 + 100 pods, 100
+policies over 10 tenants) binds every pod under phase 18(a)'s gates and
+launches `wave_solve` in the measured window.
 """
 
 import numpy as np
@@ -770,3 +773,39 @@ def test_descheduler_scores_on_the_card(cuda):
     cpu = asyncio.run(_rebalance("cpu"))
     assert card[:2] == ("cuda", ["cuda"]) and cpu[:2] == ("cpu", ["cpu"])
     assert card[2:] == cpu[2:] and card[2] > 0
+
+
+@pytest.mark.cuda
+def test_policy_scale_over_the_wire_on_the_card(cuda):
+    import asyncio
+    import copy
+
+    from chip_smoke import POLICY_SCALE_EVALS_PER_POD, policy_violations
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.perf import scheduler_perf as tperf
+
+    class Counting(tperf.PerfRunner):
+        async def _drive(self, *args):
+            self.backing = args[3]
+            return await super()._drive(*args)
+
+        def _begin_measure(self, metrics, backing):
+            wave_kernel.wave_solve.launches = 0
+            return super()._begin_measure(metrics, backing)
+
+        def _end_measure(self, result, metrics, backing, base, count):
+            super()._end_measure(result, metrics, backing, base, count)
+            self.launches = wave_kernel.wave_solve.launches
+
+    runner = Counting(backend=TorchBackend(), batch_size=16384,
+                      through_apiserver="wire", policy_count=100,
+                      policy_tenants=10)
+    res = asyncio.run(runner.run(
+        copy.deepcopy(tperf.POLICY_SCALE["workloadTemplate"]),
+        {"initNodes": 50, "initPods": 20, "measurePods": 100},
+        timeout=300.0))
+    pods = asyncio.run(runner.backing.list("pods")).items
+    assert policy_violations(runner, res, pods, 120,
+                             POLICY_SCALE_EVALS_PER_POD) == []
+    assert res.solve_provenance["solve_kernel"] == "cuda"
+    assert runner.launches > 0

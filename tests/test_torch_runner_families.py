@@ -181,11 +181,12 @@ def test_node_death_window():
         [{k: r[k] for k in keys} for r in want]
 
     class Keeping(tperf.PerfRunner):
-        async def _drive(self, template_ops, params, timeout, store,
-                         metrics, sched, factory):
-            self.store = store
+        async def _drive(self, template_ops, params, timeout, backing,
+                         store, metrics, sched, factory, *boundary):
+            self.store = backing
             return await super()._drive(template_ops, params, timeout,
-                                        store, metrics, sched, factory)
+                                        backing, store, metrics, sched,
+                                        factory, *boundary)
 
     runner = _port(Keeping, TorchBackend(device="cpu"))
     res = _run(runner, template, DEATH)

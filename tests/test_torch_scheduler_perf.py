@@ -11,8 +11,9 @@
   measured, scheduled and unschedulable counts and the same all-nodes
   fragmentation (placement-invariant once every pod places).
 - `main` runs a YAML config on the torch backend, and with no options
-  runs TorchBackend on cuda:0 (raising without CUDA); an opcode or a family
-  setting that is not ported raises; a barrier raises the loop's own
+  runs TorchBackend on cuda:0 (raising without CUDA); an opcode or a
+  boundary that is not ported raises, and a family naming the KTPU wire
+  (`throughApiserver: wire`) runs through it; a barrier raises the loop's own
   exception when a backend raises, in `assign`, at its chunk stream's
   first chunk or mid-stream (no fallback).
 
@@ -154,7 +155,14 @@ def test_unported_opcodes_and_settings_raise():
     with pytest.raises(ValueError, match="createNamespaces"):
         asyncio.run(tperf.PerfRunner().run([{"opcode": "createNamespaces"}],
                                            {}))
+    # A boundary neither package has (the gRPC service is not ported).
+    with pytest.raises(ValueError, match="grpc"):
+        tperf.PerfRunner(through_apiserver="grpc")
+    # The KTPU wire is ported: a family naming it runs through it.
     suite = small_suite()
     suite[0]["throughApiserver"] = "wire"
-    with pytest.raises(NotImplementedError, match="throughApiserver"):
-        tperf.run_suite(suite)
+    suite[0]["workloads"][0]["params"] = {
+        "initNodes": 5, "initPods": 10, "measurePods": 20}
+    got = tperf.run_suite(suite)["SchedulingBasic/small"]
+    assert got["measured_pods"] == 20 and got["scheduled_total"] == 30
+    assert got["policy_evaluations_total"] == 0
