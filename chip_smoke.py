@@ -28,7 +28,10 @@ nodes and the open-loop churn harness (ChurnSlicePacking at 64 and 256
 agents, ChurnDay/5000Nodes-trickle); and the runner's last in-process
 families (SchedulingGated, AgentRelistStorm at 2000 and 5000 agents,
 ChurnDayFaults with a node death and the node lifecycle controller,
-ChurnRebalance with the descheduler off and on) —
+ChurnRebalance with the descheduler off and on); and the apiserver
+boundary with the policy chain; and the control plane as processes (the
+apiserver with its write-ahead log, two leader-elected schedulers with
+the batched solve on the card, node agents) —
 after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
@@ -188,9 +191,9 @@ Phases (any failure raises and the script exits non-zero with no result):
      profile plus Coscheduling: every assembling gang bound whole, the
      two failing gangs unbound after their scheduleTimeoutSeconds (5 s),
      no partial gang, no node over capacity; pods/s over the window, the
-     optimal solves and wave_solve launches, gang_overflow, `assign`'s
-     share of the window, and over a repeat under torch.profiler the
-     idle share; (c) one `propose_victims` bucket (128 preemptors) on the
+     optimal solves and wave_solve launches, gang_overflow and `assign`'s
+     share of the window (its torch.profiler repeat is cut to keep the
+     smoke inside half its time limit); (c) one `propose_victims` bucket (128 preemptors) on the
      card under sync debug "error" against the CPU port at N=1000 and
      N=5000 and on priorities near 2^31 (printed, not required equal),
      then Preemption/1000Nodes (1000 nodes, 4000 fillers, 100 warm-up and
@@ -241,7 +244,8 @@ Phases (any failure raises and the script exits non-zero with no result):
      batch_size 16384, bench.py's template: createNodes, createPods
      (warm-up), barrier, createPods (measured), barrier), flagless: all
      5500 pods bound, no node over capacity, the full-width route in the
-     window; printed as 9(b), with the node staging seconds; (d) one
+     window; printed as 9(b), with the node staging seconds, without the
+     torch.profiler repeat (cut, like 12(b)'s); (d) one
      chunk of 512 hard zone-spread pods on 9000 nodes in three zones
      through `TorchBackend()` with KTPU_SHORTLIST_K=1024 (the
      spread-shortlist route, W=1) and `TorchBackend(device="cpu")`:
@@ -275,7 +279,8 @@ Phases (any failure raises and the script exits non-zero with no result):
      4 per numa; one claim per pod for 2 devices matching on numa; not
      cut): all 3100 bound, every claim allocated on its pod's node on one
      numa, 6200 devices in use, none twice. (b) and (c) print what 9(b)
-     prints (the torch.profiler repeat at 100Nodes), with the optimal
+     prints ((b)'s torch.profiler repeat at 100Nodes; (c)'s is cut to keep
+     the smoke inside its time), with the optimal
      and greedy dispatches and verify rejects of the measured window,
      whose wave_solve launches must be above 0;
  15. the chunk stream and the volume plugins, under a scoped
@@ -289,10 +294,10 @@ Phases (any failure raises and the script exits non-zero with no result):
      `assign_stream` on the card and `assign` on the CPU: identical
      assignments, diagnostics, counters and solver metrics, the stream's
      chunk order `assign`'s finalize order, each yielded chunk's keys
-     final; (b) SchedulingBasic/5000Nodes (not cut) through the loop in
-     turns, through the stream and through `AssignOnly` (`assign` alone):
-     stream, assign, assign, stream, the second pair under torch.profiler;
-     printed: pods/s, the `assign` share, the idle share and the binds
+     final; (b) SchedulingBasic/5000Nodes (not cut) through the loop
+     through the stream and through `AssignOnly` (`assign` alone), each
+     under torch.profiler (one pair: the unprofiled pair is cut to keep
+     the smoke inside its time); printed: pods/s, the `assign` share, the idle share and the binds
      that began before their dispatch's last chunk fetch returned; then
      the same 11000 pods pre-created (queued before the loop starts: one
      dispatch of 11 chunks), stream, assign, assign, stream, the stream's
@@ -308,8 +313,8 @@ Phases (any failure raises and the script exits non-zero with no result):
      provisions beside the loop): every pod bound, every claim bound to a
      PV admitting its pod's node, no node over its volume limit, no
      ReadWriteOncePod claim used twice; printed: pods/s, the `assign`
-     share, prep and verify, the PreBind waits, and the idle share of a
-     profiled repeat at 1000 nodes;
+     share, prep and verify and the PreBind waits (the profiled repeat is
+     cut to keep the smoke inside its time);
  16. slice topology, the node agents and the churn harness, under a
      scoped KTPU_SOLVE_MODE=auto with serving on, the card's name and
      power limit printed first: (a) `topology.device.device_scan` on the
@@ -336,8 +341,8 @@ Phases (any failure raises and the script exits non-zero with no result):
      off the dead node, no node over capacity; printed: recovery, attempt
      p50/p99/p999, arrivals, backlog peak, slice fragmentation, plans
      (oracle plans), wave_solve launches and solve_one calls in the
-     window, and for the 64-agent cell the idle share of a profiled
-     repeat; (d) ChurnDay/5000Nodes-trickle (5000 nodes, 300 warm-up
+     window (the 64-agent cell's profiled repeat is cut to keep the smoke
+     inside its time); (d) ChurnDay/5000Nodes-trickle (5000 nodes, 300 warm-up
      pods, 250/s for 10 s; not cut): no node over capacity, no create
      error; the attempt percentiles and the fast-path share;
  17. the runner's last in-process families, at the YAML's own params
@@ -386,7 +391,34 @@ Phases (any failure raises and the script exits non-zero with no result):
      at 500 nodes, 100 + 1000 pods, through `RemoteStore` over HTTP with
      10 uniform policies: every pod bound, 10 evaluations per measured
      pod;
- 19. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 19. the control plane as processes, each started with `python -m` as a
+     fresh interpreter under a scoped KTPU_SOLVE_MODE=auto with serving on
+     (logs, the data dir and the audit log under build/phase19/):
+     `kubernetes_tpu_torch.apiserver` with `--data-dir` (fsync batch),
+     bearer tokens and an audit policy on the schedulers' pod updates, 4
+     `kubernetes_tpu_torch.agent` processes registering their nodes, and
+     two `kubernetes_tpu_torch.scheduler` processes with `TPUScorer=true`,
+     `--batch-size 16384` and leader election on a 6 s lease; the parent
+     stages SchedulingBasic/5000Nodes over `WireStore` (4996 nodes and
+     the agents' 4; 1000 init pods, then 10000 measured). (a) pods/s from
+     the first measured create to the last bind the parent's informer
+     sees: every pod bound once, no node over capacity, the Lease naming
+     the one leader, whose line shows `solve_kernel: cuda`; the leader is
+     then stopped with SIGTERM and its stop line must show wave_solve
+     launches above 0, and a third scheduler is started; (b) SIGKILL
+     whichever of the standby and the third scheduler took the lease,
+     create 100 canaries after its exit, and time the kill to the last
+     canary bound: the other holds the Lease, every canary bound once, by
+     its user in the audit log, no pod rebound; (d) 4 pods pinned to the agents' nodes: the nodes
+     registered, every pod bound to them marked Running; (c) three flush
+     intervals after the last read (and after the newest snapshot on
+     disk), SIGKILL the apiserver and restart it on the same data dir and
+     ports: every pod back with its nodeName and resource version, the
+     highest RV back, and a watch resumed from the last RV sees the next
+     write and nothing before it, no 410; then SIGTERM every process,
+     each exiting 0, the remaining scheduler's stop line giving its
+     launch counts;
+ 20. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -412,16 +444,19 @@ Phases (any failure raises and the script exits non-zero with no result):
      `rebalance_off_launches` and `rebalance_on_launches` (the measured
      windows of 17(a)-(d)); and phase 18's: `policy_scale_launches`,
      `wire_basic_launches` and `http_basic_launches` (the measured windows
-     of 18(a)-(c)); the probe's, its
-     launches over phase 9(b)'s run and over 10(b)'s), the card's name
+     of 18(a)-(c)); and phase 19's: `control_plane_launches` (19(a)'s
+     leader process, over its life) and `control_plane_failover_launches`
+     (19(b)-(d)'s remaining scheduler process); the probe's, its
+     launches over phase 9(b)'s run and over 10(b)'s, and phase 19's two
+     processes' under the same keys), the card's name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
 `--phase13-only` (or `--phase14-only`, `--phase15-only`,
-`--phase16-only`, `--phase17-only`, `--phase18-only`) it builds the
-kernels and runs phase 13 (or 14, 15, 16, 17, 18) alone (no result
-lines). It needs one CUDA device;
+`--phase16-only`, `--phase17-only`, `--phase18-only`,
+`--phase19-only`) it builds the kernels and runs phase 13 (or 14, 15, 16,
+17, 18, 19) alone (no result lines). It needs one CUDA device;
 without one, or outside a checkout of the repository, it exits non-zero.
 """
 
@@ -433,6 +468,8 @@ import copy
 import json
 import math
 import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -2432,11 +2469,13 @@ def perf_run(torch, family: dict, workload: str, profile: str | None,
 
 def report_perf(torch, label: str, family: dict, workload: str, first,
                 phase: str, t0: float, device_workload: str | None = None,
-                host_profile: bool = False) -> None:
-    """Print a family run's numbers (`first` from perf_run), then repeat
-    it under torch.profiler (the device's busy time and idle share; of
-    `device_workload` where given, a smaller workload of the family whose
-    trace the profiler processes in seconds) and, with `host_profile`,
+                host_profile: bool = False,
+                device_profile: bool = True) -> None:
+    """Print a family run's numbers (`first` from perf_run), then, with
+    `device_profile`, repeat it under torch.profiler (the device's busy
+    time and idle share; of `device_workload` where given, a smaller
+    workload of the family whose trace the profiler processes in seconds)
+    and, with `host_profile`,
     under cProfile (the host's own time by area, the busiest functions and
     the cumulative time of the loop's stages; 9(b) alone keeps it, so the
     smoke stays inside half its time limit)."""
@@ -2474,6 +2513,10 @@ def report_perf(torch, label: str, family: dict, workload: str, first,
                            f"routes {routes}, fast-path pods "
                            f"{r['serving_fast_path_pods_total']}, probe "
                            f"launches {probe_launches}")
+    if not device_profile:
+        print(f"{label}: no profiled repeat; phase {phase} "
+              f"{time.perf_counter() - t0:.1f} s")
+        return
     prof_workload = device_workload or workload
     prof_runner, prof_result, _, _ = perf_run(torch, family, prof_workload,
                                               "device")
@@ -3457,8 +3500,8 @@ def gang_loop_phase(torch) -> int:
     profile plus Coscheduling: every assembling gang bound whole, the two
     failing gangs unbound, no partial gang, no node over capacity; pods/s
     over the window, the routes, the optimal solves and wave_solve
-    launches, gang_overflow, `assign`'s share of the window, and the
-    device's idle share over a repeat under torch.profiler. Returns
+    launches, gang_overflow and `assign`'s share of the window (no profiled
+    repeat: cut to keep the smoke inside half its time limit). Returns
     wave_solve's launches in the window."""
     from kubernetes_tpu_torch.ops import wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend
@@ -3478,12 +3521,9 @@ def gang_loop_phase(torch) -> int:
         return {"default-scheduler": gang_framework(
             registry, framework, make_pod_group, None, {}, store=store)}
 
-    def run(profile: bool) -> tuple:
+    def run() -> tuple:
         backend = TorchBackend()
         w: dict = {}
-        prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) if profile else None
 
         def hook(start: bool) -> None:
             torch.cuda.synchronize()
@@ -3491,11 +3531,7 @@ def gang_loop_phase(torch) -> int:
                 wave_kernel.wave_solve.launches = 0
                 w["timings"] = dict(backend.timings)
                 w["counters"] = dict(backend.counters)
-                if prof is not None:
-                    prof.start()
                 return
-            if prof is not None:
-                prof.stop()
             w["launches"] = wave_kernel.wave_solve.launches
             w["timings"] = {k: v - w["timings"][k]
                             for k, v in backend.timings.items()}
@@ -3507,9 +3543,9 @@ def gang_loop_phase(torch) -> int:
             api, profiles, make_pod_group, nodes, init, groups, pods,
             backend, LOOP_BATCH, precreate=False,
             settle_s=GANG_TIMEOUT_S + 1.0, window_hook=hook))
-        return out, w, prof
+        return out, w
 
-    out, w, _ = run(False)
+    out, w = run()
     outcome = gang_outcome(out["assignments"], pods)
     whole = sum(k == n for k, n in outcome.values())
     rejected = sorted(g for g, (k, _) in outcome.items() if k == 0)
@@ -3528,20 +3564,12 @@ def gang_loop_phase(torch) -> int:
           f"launches {w['launches']}, gang_overflow {overflow}; "
           f"TorchBackend.timings {json.dumps(w['timings'])}, assign share "
           f"{w['timings']['assign_s'] / out['window']:.4f}; nodes over "
-          f"capacity {len(bad)}")
+          f"capacity {len(bad)}; phase 12(b) {time.perf_counter() - t0:.1f} s")
     if partial or bad or whole != N_GANGS \
             or rejected != ["held", "stranded"]:
         raise RuntimeError(f"phase 12(b): partial {partial[:5]}, whole "
                            f"{whole}, rejected {rejected}, over capacity "
                            f"{bad[:5]}")
-    prof_out, pw, prof = run(True)
-    busy_us = sum(device_us(e) for e in prof.key_averages())
-    print(f"profiled gang loop window: wall {prof_out['window']:.6f} s, "
-          f"{n_good / prof_out['window']:.1f} pods/s, device busy "
-          f"{busy_us / 1e6:.6f} s" + (
-              f", idle share {1 - busy_us / 1e6 / prof_out['window']:.4f}"
-              if busy_us else ", device time not measured by the profiler")
-          + f"; phase 12(b) {time.perf_counter() - t0:.1f} s")
     return w["launches"]
 
 
@@ -4347,7 +4375,7 @@ def large_loop_phase(torch) -> int:
         raise RuntimeError("the 50k loop's window missed the card's "
                            "full-width route")
     report_perf(torch, "50k loop", BENCH_50K, "50000Nodes", first, "13(c)",
-                t0)
+                t0, device_profile=False)
     return runner.window["launches"]
 
 
@@ -4910,7 +4938,8 @@ def device_loop_phase(torch, family: dict, phase: str) -> int:
           f"verify rejects {c['verify_rejects']}; wave_solve launches "
           f"{w['launches']}")
     report_perf(torch, label, family, "1000Nodes", first, phase, t0,
-                device_workload="100Nodes")
+                device_workload="100Nodes",
+                device_profile=family["name"] != "DeviceTopologyDRA")
     return w["launches"]
 
 
@@ -5125,17 +5154,15 @@ def stream_chunks_phase(torch) -> None:
 
 
 def stream_loop_phase(torch) -> None:
-    """Phase 15(b): SchedulingBasic/5000Nodes through the loop, in turns
-    in one process: through the chunk stream and through `AssignOnly` (the
-    backend's `assign` alone), stream, assign, assign, stream, the second
-    pair under torch.profiler for the idle share. Prints each run's
-    throughput, `assign` share, idle share and the binds that began before
-    their dispatch's last chunk fetch returned."""
+    """Phase 15(b): SchedulingBasic/5000Nodes through the loop, in one
+    process: through the chunk stream and through `AssignOnly` (the
+    backend's `assign` alone), each under torch.profiler for the idle
+    share. Prints each run's throughput, `assign` share, idle share and the
+    binds that began before their dispatch's last chunk fetch returned."""
     from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_BASIC
 
     t0 = time.perf_counter()
-    for entry, profile in (("stream", None), ("assign", None),
-                           ("assign", "device"), ("stream", "device")):
+    for entry, profile in (("stream", "device"), ("assign", "device")):
         wrap = AssignOnly if entry == "assign" else None
         runner, result, _, _ = perf_run(torch, SCHEDULING_BASIC, "5000Nodes",
                                         profile, wrap=wrap)
@@ -5639,9 +5666,8 @@ def volume_loop_phase(torch) -> int:
     """Phase 15(d): `volume_loop` at SchedulingBasic's 5000 nodes, 500
     init and 1000 measured pods, through `TorchBackend()`; the gates of
     `volume_violations`; throughput, the `assign` share, prep and verify,
-    the PreBind waits; then a profiled repeat at 1000 nodes (100 + 200
-    pods) for the idle share. Returns wave_solve's launches in the
-    measured window."""
+    the PreBind waits (no profiled repeat: cut to keep the smoke inside
+    its time). Returns wave_solve's launches in the measured window."""
     from kubernetes_tpu_torch.ops import wave_kernel
     from kubernetes_tpu_torch.ops.backend import TorchBackend
 
@@ -5698,31 +5724,8 @@ def volume_loop_phase(torch) -> int:
           f"with {window['routes']['backend_pods']} pods, wave_solve "
           f"launches {window['launches']}; PreBind waits: {len(waits)} "
           f"pods, mean {sum(waits) / max(1, len(waits)) * 1e3:.3f} ms, max "
-          f"{max(waits, default=0.0) * 1e3:.3f} ms")
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-    walls = {}
-
-    def prof_hook(start):
-        torch.cuda.synchronize()
-        if start:
-            prof.start()
-            walls["t0"] = time.perf_counter()
-        else:
-            walls["wall"] = time.perf_counter() - walls["t0"]
-            prof.stop()
-
-    small = asyncio.run(volume_loop(api, TorchBackend(), 1000, 100, 200,
-                                    window_hook=prof_hook))
-    if volume_violations(api, small):
-        raise RuntimeError("15(d): the profiled repeat broke a gate")
-    busy = sum(device_us(e) for e in prof.key_averages())
-    print(f"profiled volume loop 15(d) (1000 nodes, 100 + 200 pods): wall "
-          f"{walls['wall']:.6f} s, device busy {busy / 1e6:.6f} s, "
-          + (f"idle share {1 - busy / 1e6 / walls['wall']:.4f}" if busy
-             else "device time not measured by the profiler")
-          + f"; phase 15(d) {time.perf_counter() - t0:.1f} s")
+          f"{max(waits, default=0.0) * 1e3:.3f} ms; phase 15(d) "
+          f"{time.perf_counter() - t0:.1f} s")
     return window["launches"]
 
 
@@ -6261,9 +6264,9 @@ def churn_run(torch, family: dict, workload: str, profile: str | None,
 
 def churn_slice_phase(torch) -> dict:
     """Phase 16(c): ChurnSlicePacking's two cells through `churn_run`, each
-    held to `churn_slice_violations`, then the 64-agent cell again under
-    torch.profiler for the idle share. Returns wave_solve's launches in
-    each cell's window."""
+    held to `churn_slice_violations` (no profiled repeat: cut to keep the
+    smoke inside its time). Returns wave_solve's launches in each cell's
+    window."""
     from kubernetes_tpu_torch.perf.scheduler_perf import CHURN_SLICE_PACKING
 
     t0 = time.perf_counter()
@@ -6283,20 +6286,7 @@ def churn_slice_phase(torch) -> dict:
         if bad:
             raise RuntimeError(f"16(c) {workload}: {bad}")
         launches[workload] = runner.window["launches"]
-    runner, result = churn_run(torch, CHURN_SLICE_PACKING, "64Agents-2x2",
-                               "device")
-    bad = churn_slice_violations(runner, result, next(
-        w["params"] for w in CHURN_SLICE_PACKING["workloads"]
-        if w["name"] == "64Agents-2x2"))
-    if bad:
-        raise RuntimeError(f"16(c) profiled repeat: {bad}")
-    w = runner.window
-    busy = sum(device_us(e) for e in runner.prof.key_averages())
-    print(f"profiled churn slice packing window (64Agents-2x2): wall "
-          f"{w['wall']:.6f} s, device busy {busy / 1e6:.6f} s, "
-          + (f"idle share {1 - busy / 1e6 / w['wall']:.4f}" if busy
-             else "device time not measured by the profiler")
-          + f"; phase 16(c) {time.perf_counter() - t0:.1f} s")
+    print(f"phase 16(c) {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -7010,6 +7000,585 @@ def boundary_phases(torch) -> int:
     return 0
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: Phase 19's KubeSchedulerConfiguration: leader election on a 6 s lease
+#: (the lease of the reference's r22 failover row), the renew deadline and
+#: retry period in the reference's 15/10/2 proportions.
+CONTROL_PLANE_CONFIG = """\
+apiVersion: kubescheduler.config.k8s.io/v1
+kind: KubeSchedulerConfiguration
+leaderElection:
+  leaderElect: true
+  leaseDuration: 6s
+  renewDeadline: 4s
+  retryPeriod: 0.8s
+"""
+#: Audit only the schedulers' pod updates (their bindings), so 19(b) can
+#: name the process that bound each canary.
+CONTROL_PLANE_AUDIT = """\
+apiVersion: audit.k8s.io/v1
+kind: Policy
+rules:
+- level: Metadata
+  users: [sched-a, sched-b, sched-c]
+  verbs: [update]
+  resources: [pods]
+  omitStages: [RequestReceived]
+"""
+N_AGENTS = 4
+N_CANARIES = 100
+AGENT_ALLOCATABLE = "cpu=8,memory=32Gi,pods=110"
+LEASE_KEY = "kube-system/kube-scheduler"
+#: the apiserver's group-commit tick (DurabilityManager's flush interval).
+FLUSH_INTERVAL_S = 0.05
+LEADING = r"scheduler (\S+) started leading; solve_provenance (.*)"
+STOPPING = r"scheduler stopping on SIGTERM; kernel launches (\{.*\})"
+
+
+class Child:
+    """A control-plane process started as a fresh interpreter (`python -m
+    <module> <args>` from the repository root; never a fork of a parent
+    that holds a CUDA context). Its stdout and stderr go to one log file,
+    which `line` scans. A child that exits early is reported with its exit
+    code and the tail of its log."""
+
+    def __init__(self, name: str, module: str, args, log_dir: str,
+                 env: dict | None = None):
+        self.name = name
+        self.log_path = os.path.join(log_dir, f"{name}.log")
+        self._log = open(self.log_path, "ab")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", module, *map(str, args)], cwd=REPO,
+            stdin=subprocess.DEVNULL, stdout=self._log,
+            stderr=subprocess.STDOUT, env={**os.environ, **(env or {})})
+
+    def text(self) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return f.read()
+
+    def failure(self, what: str) -> RuntimeError:
+        tail = "\n".join(self.text().splitlines()[-30:])
+        return RuntimeError(f"{self.name} (pid {self.proc.pid}, exit code "
+                            f"{self.proc.poll()}): {what}; log tail:\n{tail}")
+
+    async def line(self, pattern: str, timeout: float) -> re.Match:
+        """The first match of `pattern` in the log, waiting up to
+        `timeout` s; raises if the child exits or the time runs out."""
+        rx = re.compile(pattern)
+        deadline = time.monotonic() + timeout
+        while True:
+            m = rx.search(self.text())
+            if m:
+                return m
+            if self.proc.poll() is not None:
+                raise self.failure(f"exited before logging {pattern!r}")
+            if time.monotonic() > deadline:
+                raise self.failure(f"no {pattern!r} within {timeout} s")
+            await asyncio.sleep(0.05)
+
+    def check_alive(self) -> None:
+        if self.proc.poll() is not None:
+            raise self.failure("exited")
+
+    async def exit_code(self, timeout: float) -> int:
+        deadline = time.monotonic() + timeout
+        while self.proc.poll() is None:
+            if time.monotonic() > deadline:
+                self.proc.kill()
+                self.proc.wait(10)
+                raise self.failure(f"still running {timeout} s after a signal")
+            await asyncio.sleep(0.05)
+        return self.proc.returncode
+
+    async def stop(self, timeout: float = 60.0) -> int:
+        """SIGTERM and the exit code (the entry points exit 0 on it)."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        return await self.exit_code(timeout)
+
+    async def kill(self) -> int:
+        self.proc.send_signal(signal.SIGKILL)
+        return await self.exit_code(30.0)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(10)
+        self._log.close()
+
+
+def apiserver_child(log_dir: str, name: str, *args) -> Child:
+    return Child(name, "kubernetes_tpu_torch.apiserver", args, log_dir)
+
+
+async def apiserver_addresses(child: Child, timeout: float) -> tuple:
+    """(HTTP port, wire target) from the child's "listening" lines."""
+    http = await child.line(r"root:apiserver listening on "
+                            r"http://127\.0\.0\.1:(\d+)", timeout)
+    wire = await child.line(r"root:wire listening on (\S+)", timeout)
+    return int(http.group(1)), wire.group(1)
+
+
+def scheduler_child(log_dir: str, name: str, wire: str, config: str,
+                    token: str | None = None, gates: str = "TPUScorer=true",
+                    env: dict | None = None) -> Child:
+    args = ["--wire", wire, "--config", config, "--batch-size", LOOP_BATCH,
+            "--feature-gates", gates]
+    if token:
+        args += ["--token", token]
+    return Child(name, "kubernetes_tpu_torch.scheduler", args, log_dir,
+                 env=env)
+
+
+def agent_child(log_dir: str, node: str, wire: str) -> Child:
+    return Child(node, "kubernetes_tpu_torch.agent", [
+        "--node", node, "--server", wire,
+        "--checkpoint-dir", os.path.join(log_dir, node),
+        "--allocatable", AGENT_ALLOCATABLE], log_dir)
+
+
+class BindLog:
+    """What the parent's pod informer saw: per pod, every distinct
+    nodeName in order and the host time of the first."""
+
+    def __init__(self):
+        self.nodes: dict[str, list[str]] = {}
+        self.bound_at: dict[str, float] = {}
+
+    def see(self, pod: dict) -> None:
+        name = pod["metadata"]["name"]
+        node = (pod.get("spec") or {}).get("nodeName")
+        seq = self.nodes.setdefault(name, [])
+        if node and (not seq or seq[-1] != node):
+            seq.append(node)
+            self.bound_at.setdefault(name, time.perf_counter())
+
+    def handler(self):
+        from kubernetes_tpu_torch.client import ResourceEventHandler
+
+        return ResourceEventHandler(on_add=self.see,
+                                    on_update=lambda _old, new: self.see(new))
+
+    def unbound(self, names) -> list[str]:
+        return [n for n in names if not self.nodes.get(n)]
+
+    def rebound(self) -> list[str]:
+        return [n for n, seq in self.nodes.items() if len(seq) > 1]
+
+
+async def create_all(store, resource: str, objs: list,
+                     window: int = 512) -> None:
+    for i in range(0, len(objs), window):
+        await asyncio.gather(*(store.create(resource, o)
+                               for o in objs[i:i + window]))
+
+
+async def wait_bound(log: BindLog, names, children, timeout: float) -> None:
+    """Until the informer saw every pod of `names` bound; every child must
+    stay alive meanwhile."""
+    deadline = time.monotonic() + timeout
+    while True:
+        left = log.unbound(names)
+        if not left:
+            return
+        for c in children:
+            c.check_alive()
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{len(left)} pods unbound after {timeout} s, "
+                               f"e.g. {left[:5]}")
+        await asyncio.sleep(0.05)
+
+
+async def first_leader(scheds: dict, timeout: float) -> tuple:
+    """(name, identity, solve_provenance) of the scheduler child that logs
+    that it started leading first."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for name, child in scheds.items():
+            m = re.search(LEADING, child.text())
+            if m:
+                return name, m.group(1), json.loads(m.group(2))
+            child.check_alive()
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no scheduler started leading in {timeout} s")
+        await asyncio.sleep(0.05)
+
+
+async def stop_launches(child: Child) -> dict:
+    """SIGTERM a scheduler child; its launch counts from its stop line."""
+    rc = await child.stop()
+    m = re.search(STOPPING, child.text())
+    if rc != 0 or m is None:
+        raise child.failure(f"exit code {rc} on SIGTERM, stop line "
+                            f"{'found' if m else 'missing'}")
+    return json.loads(m.group(1))
+
+
+def binding_users(audit_path: str) -> dict[str, list[str]]:
+    """{pod name: the users of its successful binding updates}, from an
+    apiserver's audit log."""
+    out: dict[str, list[str]] = {}
+    if not os.path.exists(audit_path):
+        return out
+    with open(audit_path) as f:
+        for line in f:
+            ev = json.loads(line)
+            if ev.get("stage") == "ResponseComplete" and \
+                    ev["responseStatus"]["code"] < 300:
+                out.setdefault(ev["objectRef"]["name"], []).append(
+                    ev["user"]["username"])
+    return out
+
+
+def newest_snapshot_rv(data_dir: str) -> int:
+    rvs = [int(fn[len("snapshot-"):-len(".json")])
+           for fn in os.listdir(data_dir)
+           if fn.startswith("snapshot-") and fn.endswith(".json")]
+    return max(rvs, default=0)
+
+
+def pod_view(pods) -> dict:
+    return {p["metadata"]["name"]: ((p.get("spec") or {}).get("nodeName"),
+                                    int(p["metadata"]["resourceVersion"]))
+            for p in pods}
+
+
+async def control_plane(torch, log_dir: str) -> dict:
+    """Phase 19 (see the module docstring). Returns its numbers and the
+    schedulers' launch counts; raises on a failed gate or child."""
+    from kubernetes_tpu_torch.api.types import make_node, make_pod
+    from kubernetes_tpu_torch.apiserver.wire import WireStore
+    from kubernetes_tpu_torch.client import InformerFactory
+    from kubernetes_tpu_torch.store import Expired
+
+    data_dir = os.path.join(log_dir, "data")
+    os.makedirs(data_dir)
+    config = os.path.join(log_dir, "scheduler-config.yaml")
+    audit_policy = os.path.join(log_dir, "audit-policy.yaml")
+    for path, text in ((config, CONTROL_PLANE_CONFIG),
+                       (audit_policy, CONTROL_PLANE_AUDIT)):
+        with open(path, "w") as f:
+            f.write(text)
+    tokens = ["--token", "admin-token=admin"]
+    for s in "abc":
+        tokens += ["--token", f"sched-{s}-token=sched-{s}"]
+
+    def apiserver_args(audit_log: str, port: int, wire_port: int) -> list:
+        return ["--port", port, "--wire-port", wire_port, "--data-dir",
+                data_dir, "--fsync", "batch", *tokens, "--audit-policy",
+                audit_policy, "--audit-log-path",
+                os.path.join(log_dir, audit_log), "--audit-log-maxsize-mb",
+                1024]
+
+    out: dict = {}
+    children: list[Child] = []
+    store = factory = None
+    try:
+        # -- the apiserver, the agents, the cluster, two schedulers ---------
+        t0 = time.perf_counter()
+        api = apiserver_child(log_dir, "apiserver",
+                              *apiserver_args("audit.log", 0, 0))
+        children.append(api)
+        http_port, wire = await apiserver_addresses(api, 120.0)
+        # The schedulers boot (torch, the card, the probe) while the
+        # cluster is staged; their informers see the nodes arrive.
+        scheds = {s: scheduler_child(log_dir, f"scheduler-{s}", wire, config,
+                                     f"sched-{s}-token") for s in "ab"}
+        children += scheds.values()
+        agents = [agent_child(log_dir, f"agent-node-{i}", wire)
+                  for i in range(N_AGENTS)]
+        children += agents
+        store = WireStore(wire, token="admin-token", user_agent="chip-smoke")
+        await create_all(store, "nodes", [
+            make_node(f"node-{i}") for i in range(N_NODES - N_AGENTS)])
+        for a in agents:
+            await a.line(r"agent \S+ running against", 120.0)
+        log = BindLog()
+        factory = InformerFactory(store)
+        factory.informer("pods").add_event_handler(log.handler())
+        factory.start()
+        await factory.wait_for_sync(60.0)
+        for c in scheds.values():
+            await c.line(r"scheduler running \(batch=", 300.0)
+        lead, lead_id, prov = await first_leader(scheds, 60.0)
+        standby = "b" if lead == "a" else "a"
+        out["staging_s"] = time.perf_counter() - t0
+
+        # -- 19(a) ------------------------------------------------------------
+        init = [make_pod(f"init-{i}", requests=POD_REQUESTS)
+                for i in range(N_INIT)]
+        await create_all(store, "pods", init)
+        await wait_bound(log, [p["metadata"]["name"] for p in init],
+                         children, 300.0)
+        measured = [make_pod(f"pod-{i}", requests=POD_REQUESTS)
+                    for i in range(N_MEASURED)]
+        names = [p["metadata"]["name"] for p in measured]
+        t1 = time.perf_counter()
+        await create_all(store, "pods", measured)
+        await wait_bound(log, names, children, 300.0)
+        window = max(log.bound_at[n] for n in names) - t1
+        pods = (await store.list("pods")).items
+        nodes = (await store.list("nodes")).items
+        lease = await store.get("leases", LEASE_KEY)
+        bad = []
+        if len(pods) != N_INIT + N_MEASURED or log.rebound():
+            bad.append(f"{len(pods)} pods, rebound {log.rebound()[:5]}")
+        bad += [f"{p['metadata']['name']} on {p['spec'].get('nodeName')}, "
+                f"informer saw {log.nodes.get(p['metadata']['name'])}"
+                for p in pods
+                if [p["spec"].get("nodeName")]
+                != log.nodes.get(p["metadata"]["name"])][:5]
+        over = over_capacity(nodes, pods)
+        if over:
+            bad.append(f"nodes over capacity {over[:5]}")
+        holder = lease["spec"]["holderIdentity"]
+        if holder != lead_id or re.search(LEADING, scheds[standby].text()):
+            bad.append(f"lease holder {holder}, leader {lead_id}, the "
+                       f"standby's log names itself leader too")
+        if prov is None or prov.get("solve_kernel") != "cuda":
+            bad.append(f"the leader's solve_provenance {prov}")
+        # The leader's launch counts come from its stop line: a SIGTERM
+        # hands the lease to the standby on expiry.
+        t_term = time.perf_counter()
+        launches = await stop_launches(scheds[lead])
+        if launches["wave_solve"] <= 0:
+            bad.append(f"the leader launched no wave_solve: {launches}")
+        out.update(rate=N_MEASURED / window, window_s=window,
+                   leader_launches=launches)
+        print(f"control plane 19(a) SchedulingBasic/5000Nodes through "
+              f"processes (apiserver --data-dir, fsync batch; scheduler-a "
+              f"and -b leader-elected on a 6 s lease, TorchBackend() on "
+              f"cuda:0, batch_size {LOOP_BATCH}; {N_AGENTS} agents; the "
+              f"parent creates over the KTPU wire): {out['rate']:.2f} pods/s "
+              f"({N_MEASURED} measured pods, {window:.6f} s from the first "
+              f"measured create to the last bind the parent's informer saw);"
+              f" staging {out['staging_s']:.3f} s; leader scheduler-{lead} "
+              f"({lead_id}), lease holder {holder}; every pod bound once "
+              f"({len(pods)}), nodes over capacity {len(over)}; leader "
+              f"solve_provenance {json.dumps(prov)}; leader kernel launches "
+              f"{json.dumps(launches)}")
+        if bad:
+            raise RuntimeError(f"19(a): {bad}")
+
+        # -- a third scheduler; the standby or it takes the lease ------------
+        # Whichever of the two leads next is 19(b)'s victim; the other must
+        # take over from it.
+        scheds["c"] = scheduler_child(log_dir, "scheduler-c", wire, config,
+                                      "sched-c-token")
+        children.append(scheds["c"])
+        pair = {s: scheds[s] for s in (standby, "c")}
+        victim, dead_id, _ = await first_leader(pair, 60.0)
+        out["handover_s"] = time.perf_counter() - t_term
+        survivor = standby if victim == "c" else "c"
+        live = scheds[survivor]
+        await live.line(r"scheduler running \(batch=", 300.0)
+
+        # -- 19(b) ------------------------------------------------------------
+        t_kill = time.perf_counter()
+        rc = await scheds[victim].kill()
+        canaries = [make_pod(f"canary-{i}", requests=POD_REQUESTS)
+                    for i in range(N_CANARIES)]
+        cnames = [p["metadata"]["name"] for p in canaries]
+        await create_all(store, "pods", canaries)
+        await wait_bound(log, cnames, [api, live, *agents], 120.0)
+        out["failover_s"] = max(log.bound_at[n] for n in cnames) - t_kill
+        m = await live.line(LEADING, 10.0)
+        holder = (await store.get("leases", LEASE_KEY))["spec"][
+            "holderIdentity"]
+        deadline = time.monotonic() + 30.0
+        while True:
+            users = binding_users(os.path.join(log_dir, "audit.log"))
+            if all(n in users for n in cnames) or \
+                    time.monotonic() > deadline:
+                break
+            await asyncio.sleep(0.2)
+        bad = []
+        if rc != -9:
+            bad.append(f"scheduler-{victim} exit code {rc} on SIGKILL")
+        if holder != m.group(1):
+            bad.append(f"lease holder {holder}, scheduler-{survivor} is "
+                       f"{m.group(1)}")
+        wrong = {n: users.get(n) for n in cnames
+                 if users.get(n) != [f"sched-{survivor}"]}
+        if wrong:
+            bad.append(f"canary bindings not by sched-{survivor} alone: "
+                       f"{dict(list(wrong.items())[:5])}")
+        if log.rebound():
+            bad.append(f"rebound after the kill: {log.rebound()[:5]}")
+        print(f"control plane 19(b) failover: SIGKILL of scheduler-{victim} "
+              f"({dead_id}, the lease holder {out['handover_s']:.3f} s after "
+              f"the SIGTERM of scheduler-{lead}), {N_CANARIES} canary pods "
+              f"created after its exit: {out['failover_s']:.3f} s from the "
+              f"kill to the last canary bound; lease holder {holder} "
+              f"(scheduler-{survivor}); every canary bound once, by "
+              f"sched-{survivor} (audit log), no pod rebound")
+        if bad:
+            raise RuntimeError(f"19(b): {bad}")
+
+        # -- 19(d) ------------------------------------------------------------
+        # No requests: the flagless route packs 80 pods of cpu 100m onto
+        # a node, and the agents' nodes sort first.
+        agent_nodes = [f"agent-node-{i}" for i in range(N_AGENTS)]
+        pinned = [make_pod(f"agent-pod-{i}",
+                           node_selector={"kubernetes.io/hostname": n})
+                  for i, n in enumerate(agent_nodes)]
+        t_pin = time.perf_counter()
+        await create_all(store, "pods", pinned)
+        deadline = time.monotonic() + 60.0
+        while True:
+            pods = (await store.list("pods")).items
+            on_agents = [p for p in pods
+                         if p["spec"].get("nodeName") in agent_nodes]
+            waiting = [p["metadata"]["name"] for p in on_agents
+                       if (p.get("status") or {}).get("phase") != "Running"]
+            pinned_on = {p["metadata"]["name"]: p["spec"].get("nodeName")
+                         for p in pods
+                         if p["metadata"]["name"].startswith("agent-pod-")}
+            if not waiting and all(pinned_on.values()):
+                break
+            for c in (api, live, *agents):
+                c.check_alive()
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"19(d): not Running {waiting[:5]}, "
+                                   f"pinned {pinned_on}")
+            await asyncio.sleep(0.1)
+        registered = {n["metadata"]["name"]
+                      for n in (await store.list("nodes")).items}
+        bad = [n for n in agent_nodes if n not in registered]
+        bad += [f"agent-pod-{i} on {pinned_on[f'agent-pod-{i}']}"
+                for i, n in enumerate(agent_nodes)
+                if pinned_on[f"agent-pod-{i}"] != n]
+        print(f"control plane 19(d) agents: {len(agent_nodes)} nodes "
+              f"registered by agent processes, {len(on_agents)} pods bound "
+              f"to them all marked Running (the {N_AGENTS} pinned pods "
+              f"{time.perf_counter() - t_pin:.3f} s from create)")
+        if bad:
+            raise RuntimeError(f"19(d): {bad}")
+
+        # -- 19(c) ------------------------------------------------------------
+        # Quiescent pods; the last RV read after the newest snapshot on
+        # disk, then two flush intervals and more before the kill.
+        while True:
+            before = await store.list("pods")
+            await asyncio.sleep(3 * FLUSH_INTERVAL_S)
+            if newest_snapshot_rv(data_dir) <= before.resource_version:
+                break
+        t_down = time.perf_counter()
+        rc = await api.kill()
+        api2 = apiserver_child(log_dir, "apiserver-2", *apiserver_args(
+            "audit-2.log", http_port, int(wire.rpartition(":")[2])))
+        children.append(api2)
+        await apiserver_addresses(api2, 120.0)
+        out["restart_s"] = time.perf_counter() - t_down
+        after = await store.list("pods")
+        want, got = pod_view(before.items), pod_view(after.items)
+        bad = []
+        if rc != -9:
+            bad.append(f"apiserver exit code {rc} on SIGKILL")
+        if got != want:
+            diff = sorted(n for n in set(want) | set(got)
+                          if want.get(n) != got.get(n))
+            bad.append(f"{len(diff)} pods differ after the restart, e.g. "
+                       f"{[(n, want.get(n), got.get(n)) for n in diff[:3]]}")
+        top = max(rv for _, rv in want.values())
+        if max(rv for _, rv in got.values()) != top or \
+                after.resource_version < before.resource_version:
+            bad.append(f"highest pod RV {top} -> "
+                       f"{max(rv for _, rv in got.values())}, list RV "
+                       f"{before.resource_version} -> "
+                       f"{after.resource_version}")
+        watch = await store.watch("pods",
+                                  resource_version=before.resource_version)
+        await store.create("pods", make_pod("after-restart",
+                                            requests=POD_REQUESTS))
+        seen: list = []
+        try:
+            async with asyncio.timeout(30.0):
+                async for ev in watch:
+                    if ev.type == "BOOKMARK":
+                        continue
+                    seen.append((ev.type, ev.object["metadata"]["name"],
+                                 ev.rv))
+                    if ev.object["metadata"]["name"] == "after-restart":
+                        break
+        except Expired as e:
+            bad.append(f"the watch from RV {before.resource_version} "
+                       f"expired: {e}")
+        rvs = [rv for *_, rv in seen]
+        if not seen or seen[-1][:2] != ("ADDED", "after-restart") or \
+                rvs != sorted(rvs) or rvs[0] <= before.resource_version:
+            bad.append(f"resumed watch saw {seen[:5]}")
+        print(f"control plane 19(c) apiserver SIGKILL "
+              f"{FLUSH_INTERVAL_S * 3:.2f} s after the last read, restart on the same data dir: "
+              f"{out['restart_s']:.3f} s from the kill to listening again; "
+              f"{len(got)} pods back with their nodeName and RV (highest "
+              f"{top}), list RV {before.resource_version} -> "
+              f"{after.resource_version}; the watch resumed from RV "
+              f"{before.resource_version} saw {len(seen)} events, the first "
+              f"{seen[:1]}")
+        if bad:
+            raise RuntimeError(f"19(c): {bad}")
+
+        # -- stop every process; the survivor's launch counts -----------------
+        out["failover_launches"] = await stop_launches(live)
+        factory.stop()
+        factory = None
+        await store.close()
+        store = None
+        rcs = {a.name: await a.stop() for a in agents}
+        rcs[api2.name] = await api2.stop()
+        if any(rcs.values()):
+            raise RuntimeError(f"19: exit codes on SIGTERM {rcs}")
+        print(f"control plane stop: scheduler-{survivor} kernel launches "
+              f"{json.dumps(out['failover_launches'])}; agents and "
+              f"apiserver exit codes {rcs}")
+        return out
+    finally:
+        if factory is not None:
+            factory.stop()
+        if store is not None:
+            await store.close()
+        for c in children:
+            c.close()
+
+
+def control_plane_run(torch) -> dict:
+    """Phase 19 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on (the children inherit both).
+    Returns the kernels line's phase 19 entries."""
+    import shutil
+
+    from kubernetes_tpu_torch.utils import flags
+
+    t19 = time.perf_counter()
+    print(f"phase 19 on {card_line()}")
+    log_dir = os.path.join(REPO, "build", "phase19")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    os.makedirs(log_dir)
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        out = asyncio.run(control_plane(torch, log_dir))
+    print(f"phase 19 {time.perf_counter() - t19:.1f} s")
+    lead, fail = out["leader_launches"], out["failover_launches"]
+    return {"wave_solve": {"control_plane_launches": lead["wave_solve"],
+                           "control_plane_failover_launches":
+                               fail["wave_solve"]},
+            "probe": {"control_plane_launches": lead["probe"],
+                      "control_plane_failover_launches": fail["probe"]}}
+
+
+def control_plane_phases(torch) -> int:
+    """`--phase19-only`: build the kernels (phase 1), then phase 19."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(control_plane_run(torch)))
+    print_card()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -7038,6 +7607,9 @@ def main() -> int:
     parser.add_argument("--phase18-only", action="store_true",
                         help="build the kernels and run phase 18 alone "
                         "(prints no result lines)")
+    parser.add_argument("--phase19-only", action="store_true",
+                        help="build the kernels and run phase 19 alone "
+                        "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
     if not torch.cuda.is_available():
@@ -7061,6 +7633,8 @@ def main() -> int:
         return runner_families_phases(torch, seed)
     if cli.phase18_only:
         return boundary_phases(torch)
+    if cli.phase19_only:
+        return control_plane_phases(torch)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -7118,7 +7692,7 @@ def print_card() -> None:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-19 (see the module docstring)."""
+    """Phases 1-20 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -7496,8 +8070,11 @@ def smoke(torch, seed: int) -> int:
     # -- 18. the apiserver boundary and the policy chain -------------------
     boundary = boundary_run_phases(torch)
 
-    # -- 19. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-18)")
+    # -- 19. the control plane as processes ---------------------------------
+    processes = control_plane_run(torch)
+
+    # -- 20. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-19)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -7510,14 +8087,16 @@ def smoke(torch, seed: int) -> int:
          "constraint_launches": anti["launches"] + affinity_launches,
          "gang_launches": gang_launches,
          "gang_chunk_launches": gang_chunk_launches, **large, **device,
-         **stream_volume, **slice_topology, **families, **boundary},
+         **stream_volume, **slice_topology, **families, **boundary,
+         **processes["wave_solve"]},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,
          "ms": probe_ms, "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
          "bound_by": "bytes", "library_ms": probe_plain_ms,
          "loop_launches": loop["loop_probe_launches"],
-         "constraint_launches": anti["probe_launches"]},
+         "constraint_launches": anti["probe_launches"],
+         **processes["probe"]},
         *sharded_entries,
     ]}))
     print_card()

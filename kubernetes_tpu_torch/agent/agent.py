@@ -16,12 +16,10 @@ PreBind (plugins/dynamicresources.py `pre_bind`): the agent performs the
 kubelet-side Allocate — claim devices -> local ledger -> checkpoint —
 and releases on termination.
 
-Copy of `kubernetes_tpu/agent/agent.py`. The reference also runs an
-agent as a process of its own over the apiserver wire
-(`kubernetes_tpu/agent/__main__.py`, with the read-only kubelet server of
-`agent/server.py`); those wait for the apiserver's port, so here an agent
-runs in process against a store object, and what only the server
-serves (the local pod view of `/pods`) is left out.
+Run as a process:  python -m kubernetes_tpu_torch.agent --node n0 \
+    --server unix:/tmp/ktpu.sock --checkpoint-dir /var/lib/ktpu-agent
+
+Copy of `kubernetes_tpu/agent/agent.py`.
 """
 
 from __future__ import annotations
@@ -105,6 +103,9 @@ class NodeAgent:
         #: workers drain this map serially per key, latest state wins
         #: (pod_workers.go UpdatePod semantics).
         self._latest: dict[str, dict | None] = {}
+        #: pod key -> last observed object — the agent's LOCAL pod view
+        #: the kubelet server's /pods endpoint serves.
+        self._pods: dict[str, dict] = {}
         self._active: set[str] = set()
         #: pod keys with a staged-completion timer armed (restart-safe:
         #: _sync_pod re-arms for Running pods found after a relist).
@@ -150,6 +151,11 @@ class NodeAgent:
         self.device_driver = cfg["deviceDriver"]
         self.device_zones = max(1, int(cfg["deviceZones"]))
         self.topology_coord = cfg["topologyCoord"]
+
+    def resident_pods(self) -> list[dict]:
+        """This agent's local view of its bound pods (the /pods
+        endpoint's payload), stable key order."""
+        return [self._pods[k] for k in sorted(self._pods)]
 
     async def _start_register(self) -> None:
         """Phase 1: config resolve + local checkpoint restore + Node
@@ -223,6 +229,7 @@ class NodeAgent:
         self._workers.clear()
         if not graceful:
             self._latest.clear()
+            self._pods.clear()
             self._armed.clear()
             self._active.clear()
 
@@ -378,6 +385,10 @@ class NodeAgent:
 
     def _observe(self, key: str, obj: dict | None) -> None:
         self._latest[key] = obj
+        if obj is None:
+            self._pods.pop(key, None)
+        else:
+            self._pods[key] = obj
         if key in self._active or self._stopped:
             return
         self._active.add(key)

@@ -21,9 +21,7 @@ The apiserver source is a `kubeletconfigs` object named after the
 node, falling back to the cluster-wide `default` object; neither
 existing is normal (defaults + file apply).
 
-Copy of `kubernetes_tpu/agent/config.py`, without `as_configz` (the
-payload of the reference's `/configz` endpoint, `agent/server.py`, not
-ported).
+Copy of `kubernetes_tpu/agent/config.py`.
 """
 
 from __future__ import annotations
@@ -67,6 +65,10 @@ class ResolvedConfig:
     def __getitem__(self, field: str) -> Any:
         return self.values[field]
 
+    def as_configz(self) -> dict:
+        """The /configz payload: values + per-field attribution."""
+        return {"kubeletconfig": dict(self.values),
+                "sources": dict(self.sources)}
 
 
 def merge_config(*sources: tuple[str, Mapping[str, Any] | None]) \

@@ -11,9 +11,10 @@ get/update/delete/guaranteed_update/subresource), so every component gains a
 remote mode with zero changes — the §3.2 PROCESS BOUNDARY made real.
 
 Copy of `kubernetes_tpu/apiserver/`: the HTTP server, its client, the KTPU
-wire (`wire.WireServer`, `wire.WireStore`), admission and RBAC. The gRPC
-service (`grpc_server.py`) and the process entry point (`__main__.py`)
-wait; `server.py` and `client.py` say what they refuse meanwhile.
+wire (`wire.WireServer`, `wire.WireStore`), admission, RBAC and the
+process entry point (`python -m kubernetes_tpu_torch.apiserver`). The gRPC
+service (`grpc_server.py`) waits; `server.py` and `client.py` say what they
+refuse meanwhile.
 """
 
 from kubernetes_tpu_torch.apiserver.client import RemoteStore

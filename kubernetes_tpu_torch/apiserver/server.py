@@ -18,13 +18,11 @@ Parity targets:
 Paths accept both core (`/api/v1/...`) and group (`/apis/<g>/<v>/...`)
 prefixes; resources map 1:1 onto store tables.
 
-Copy of `kubernetes_tpu/apiserver/server.py`, with two refusals where the
-reference reaches a module this package does not have yet. A request that
+Copy of `kubernetes_tpu/apiserver/server.py`, with one refusal where the
+reference reaches a module this package does not have yet: a request that
 accepts `application/vnd.kubernetes.protobuf` gets a 406 naming
 `apiserver/grpc_server.py` (whose envelope the protobuf content type
-carries), and an APIServer given a `data_dir`, or built without a store
-while KTPU_DATA_DIR is set, raises NotImplementedError naming
-`store/durable.py`. Neither falls back to JSON or to a memory-only store.
+carries); it does not fall back to JSON.
 """
 
 from __future__ import annotations
@@ -229,22 +227,33 @@ class APIServer:
                  tracer=None,
                  data_dir: str | None = None,
                  fsync: str | None = None):
-        # The reference's durability bootstrap: `data_dir` (or
-        # KTPU_DATA_DIR when no store is injected) recovers the newest
-        # snapshot + WAL tail and runs the flusher for the server's
-        # lifetime. Its store/durable.py is not in this package, so a
-        # durable server is refused rather than run from memory.
+        #: Durability bootstrap: `data_dir` (or KTPU_DATA_DIR when no
+        #: store is injected) recovers the newest snapshot + WAL tail on
+        #: construction and runs the background flusher/snapshotter for
+        #: the server's lifetime (started in start(), final snapshot in
+        #: stop()). Passing a store AND a data_dir attaches the WAL to
+        #: that store without recovery (the caller owns its contents).
+        self.durability = None
         if store is None:
             from kubernetes_tpu_torch.utils import flags
             data_dir = data_dir or flags.get("KTPU_DATA_DIR")
             if not data_dir:
                 raise ValueError(
                     "APIServer needs a store, a data_dir, or KTPU_DATA_DIR")
+        #: remembered so a stop()/start() cycle of the same instance
+        #: re-attaches a fresh WAL instead of silently running without
+        #: durability (stop closes the log file and detaches the sink).
+        self._data_dir = data_dir
+        self._fsync = fsync
         if data_dir:
-            raise NotImplementedError(
-                "APIServer durability (data_dir / KTPU_DATA_DIR) "
-                "needs store/durable.py, which this package does not "
-                "have yet; pass a store")
+            from kubernetes_tpu_torch.store import (
+                install_core_validation,
+                new_cluster_store,
+                recover_store,
+            )
+            if store is None:
+                store = recover_store(data_dir, factory=new_cluster_store)
+                install_core_validation(store)
         self.store = store
         self.host = host
         self.port = port
@@ -1095,6 +1104,12 @@ class APIServer:
     # -- lifecycle ---------------------------------------------------------
 
     async def start(self) -> None:
+        if self.durability is None and self._data_dir:
+            from kubernetes_tpu_torch.store import DurabilityManager
+            self.durability = DurabilityManager(
+                self.store, self._data_dir, fsync=self._fsync)
+        if self.durability is not None:
+            self.durability.start()
         self._runner = web.AppRunner(self.app, access_log=None)
         await self._runner.setup()
         site = web.TCPSite(self._runner, self.host, self.port)
@@ -1120,3 +1135,8 @@ class APIServer:
         if self._runner is not None:
             await self._runner.cleanup()
             self._runner = None
+        if self.durability is not None:
+            # Final snapshot: a clean shutdown leaves one compact
+            # snapshot file, so the next boot replays no WAL tail.
+            await self.durability.stop(final_snapshot=True)
+            self.durability = None

@@ -8,16 +8,22 @@ per-extension-point enable/disable and score weights), typed per-plugin args
 `extenders:` list, `percentageOfNodesToScore`, `parallelism`,
 `podInitialBackoffSeconds` / `podMaxBackoffSeconds`, `leaderElection`.
 
-Copy of `kubernetes_tpu/config/scheduler.py`, cut to what a caller needs to
-build a profile's Framework from a configuration (`load_config` →
-`SchedulerConfig.profiles` → `ProfileConfig.build_framework`), as the
-port's scheduler_perf runner does for a workload's `schedulerConfig`.
-`build_scheduler` waits for extenders and leader election (ROADMAP queue 1
-item 9); the `TPUScorer` pluginConfig entry is accepted and ignored here.
+North-star seam #3 (SURVEY §5.6): `build_scheduler` hangs the batched
+device backend off the `TPUScorer` feature gate — default off, flippable
+with `--feature-gates=TPUScorer=true`, and removable per-profile with a
+`pluginConfig` entry `{name: TPUScorer, args: {enabled: false}}` (our
+extension; the reference reserves pluginConfig names for plugins, and
+TPUScorer is exactly that: the fused device "plugin set").
+
+Copy of `kubernetes_tpu/config/scheduler.py`. Where the reference's
+`build_scheduler` builds `TPUBackend()`, this one builds `TorchBackend()`:
+cuda:0, raising without a CUDA device (no host-path fallback); pass
+`backend=TorchBackend(device="cpu")` to run its plain versions.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Mapping
 
 from kubernetes_tpu_torch.scheduler.framework import Framework
@@ -27,6 +33,9 @@ from kubernetes_tpu_torch.scheduler.plugins.registry import (
     IN_TREE,
     build_plugins,
 )
+from kubernetes_tpu_torch.utils.featuregate import DEFAULT_FEATURE_GATES, FeatureGate
+
+logger = logging.getLogger(__name__)
 
 GROUP = "kubescheduler.config.k8s.io"
 SUPPORTED_VERSIONS = {f"{GROUP}/v1", f"{GROUP}/v1beta3", f"{GROUP}/v1beta2"}
@@ -148,6 +157,12 @@ class ProfileConfig:
                          profile_name=self.scheduler_name,
                          metrics=metrics, disabled=disabled)
 
+    def tpu_scorer_override(self) -> bool | None:
+        args = self.plugin_config.get("TPUScorer")
+        if args is None:
+            return None
+        return bool(args.get("enabled", True))
+
 
 class SchedulerConfig:
     """Parsed KubeSchedulerConfiguration."""
@@ -222,3 +237,77 @@ def load_config(source) -> SchedulerConfig:
     if not isinstance(data, Mapping):
         raise ConfigError("config must be a YAML mapping")
     return SchedulerConfig(data)
+
+
+def build_scheduler(store, config=None, *, feature_gates: FeatureGate | None = None,
+                    backend=None, metrics=None, seed: int = 0):
+    """Config → running-shape Scheduler.
+
+    The `TPUScorer` feature gate selects the batched device backend per
+    profile: gate default (off) < `--feature-gates=TPUScorer=true` <
+    per-profile `pluginConfig {name: TPUScorer, args: {enabled: ...}}`.
+    Profiles with the gate off keep the reference-shaped host path.
+    """
+    cfg = load_config(config)
+    # Resolve gates per call on a private copy: one config's featureGates
+    # must not leak into the process-wide defaults or later builds.
+    gates = (feature_gates or DEFAULT_FEATURE_GATES).clone()
+    for name, val in cfg.feature_gates.items():
+        if name not in gates.known():
+            # Reference configs carry gates far beyond the ones registered
+            # here; unknown names are registered-as-given, not fatal.
+            logger.info("registering unknown feature gate %s=%s from config",
+                        name, val)
+            gates.add(name, "Alpha", bool(val))
+            continue
+        try:
+            gates.set(name, val)
+        except ValueError as e:
+            raise ConfigError(f"featureGates: {e}") from e
+
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+
+    profiles = {}
+    for p in cfg.profiles:
+        fwk = p.build_framework(store=store, metrics=metrics)
+        if p.percentage_of_nodes_to_score is not None:
+            # Per-profile override (reference scopes this field to its
+            # profile; the global value covers the rest).
+            fwk.percentage_of_nodes_to_score = p.percentage_of_nodes_to_score
+        profiles[p.scheduler_name] = fwk
+    sched = Scheduler(
+        store, profiles=profiles,
+        percentage_of_nodes_to_score=cfg.percentage_of_nodes_to_score,
+        seed=seed, metrics=metrics,
+        pod_initial_backoff=cfg.pod_initial_backoff,
+        pod_max_backoff=cfg.pod_max_backoff,
+    )
+    from kubernetes_tpu_torch.scheduler.extender import HTTPExtender
+    sched.extenders = [HTTPExtender.from_config(e) for e in cfg.extenders]
+
+    gate_default = gates.enabled("TPUScorer")
+    backend_profiles = set()
+    for p in cfg.profiles:
+        override = p.tpu_scorer_override()
+        if override if override is not None else gate_default:
+            backend_profiles.add(p.scheduler_name)
+    if backend_profiles:
+        if backend is None:
+            from kubernetes_tpu_torch.ops.backend import TorchBackend
+            backend = TorchBackend()
+        sched.attach_backend(backend)
+        sched.backend_profiles = backend_profiles
+    if cfg.leader_elect:
+        # leaderElection.leaderElect: true → the caller runs the scheduler
+        # via sched.run_with_leader_election(sched.leader_elector).
+        import uuid
+
+        from kubernetes_tpu_torch.client.leaderelection import LeaderElector
+        sched.leader_elector = LeaderElector(
+            store, cfg.leader_lock_name,
+            identity=f"scheduler-{uuid.uuid4().hex[:8]}",
+            lease_duration=cfg.leader_lease_duration,
+            renew_deadline=cfg.leader_renew_deadline,
+            retry_period=cfg.leader_retry_period)
+    sched.config = cfg
+    return sched

@@ -9,7 +9,8 @@ resync forces full reconciliation.
 Copy of `kubernetes_tpu/controllers/base.py` without what the port's
 controllers (the PV binder, the node lifecycle controller and the
 descheduler) do not use: the owner-reference watches, the enqueue helpers
-and the leader-elected lifetime (leader election is not ported).
+and the leader-elected lifetime (no process entry point runs a
+controller manager yet).
 """
 
 from __future__ import annotations

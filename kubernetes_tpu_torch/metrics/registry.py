@@ -9,8 +9,7 @@ format is ~100 lines and keeps the zero-install constraint.
 
 Copy of `kubernetes_tpu/metrics/registry.py`, cut to the families the store,
 the watch cache, the scheduler loop, the churn harness, the
-descheduler and the apiserver fill (the durability and HA families wait for
-the modules that fill them).
+descheduler, the apiserver, the write-ahead log and leader election fill.
 The scheduler's family keeps every reference name, the device-solve ones
 included, so the exposition text is the reference's.
 """
@@ -385,6 +384,55 @@ class ChurnMetrics:
     def register_into(self, registry: Registry) -> None:
         for m in (self.arrivals, self.faults_injected,
                   self.recovery_seconds, self.backlog_peak):
+            registry._metrics.setdefault(m.name, m)
+
+
+class DurabilityMetrics:
+    """WAL + recovery counters (store/durable.py — SURVEY §5.4): events
+    appended to the write-ahead log, fsync wall per group commit (the
+    durability tax the fsync policy trades), and events replayed from
+    WAL segments on recovery."""
+
+    def __init__(self, registry: Registry | None = None):
+        r = registry or Registry()
+        self.registry = r
+        self.appends = r.counter(
+            "wal_appends_total",
+            "Committed events appended to the write-ahead log")
+        self.fsync_seconds = r.histogram(
+            "wal_fsync_seconds",
+            "Wall time of each WAL fsync (per commit under "
+            "fsync=always, per group-commit flush under fsync=batch)")
+        self.replayed = r.counter(
+            "wal_replay_entries_total",
+            "WAL events replayed into a store during crash recovery")
+
+    def register_into(self, registry: Registry) -> None:
+        for m in (self.appends, self.fsync_seconds, self.replayed):
+            registry._metrics.setdefault(m.name, m)
+
+
+class HAMetrics:
+    """Leader-election observability (client/leaderelection.py — SURVEY
+    §5.3): elections won by this process and whether it currently holds
+    the lease. An active/standby scheduler pair exposes these so a
+    failover (standby's elections counter incrementing, the old
+    leader's gauge dropping) is data, not log noise."""
+
+    def __init__(self, registry: Registry | None = None):
+        r = registry or Registry()
+        self.registry = r
+        self.elections = r.counter(
+            "leader_elections_total",
+            "Lease acquisitions won by this elector (first acquisition "
+            "and every re-acquisition after losing the lease)")
+        self.is_leader = r.gauge(
+            "scheduler_is_leader",
+            "1 while this scheduler process holds the leader lease, "
+            "else 0")
+
+    def register_into(self, registry: Registry) -> None:
+        for m in (self.elections, self.is_leader):
             registry._metrics.setdefault(m.name, m)
 
 

@@ -42,8 +42,8 @@ Copy of `kubernetes_tpu/scheduler/scheduler.py`, with these departures:
   PreBind never writes the selected node nor waits, and a
   WaitForFirstConsumer claim of a pod the backend placed is never
   provisioned (a fault of the reference, ROADMAP queue 3).
-- not here yet: extenders (`extenders` stays empty), leader election and
-  a remote store's topology probe.
+- not here yet: a remote store's topology probe (it sizes the
+  reference's sharded-store accounting, which this package does not have).
 """
 
 from __future__ import annotations
@@ -173,8 +173,6 @@ class Scheduler:
         #: Profiles the batched backend serves (per-profile gate);
         #: None = all profiles (constructor-injected backend, old behavior).
         self.backend_profiles: set[str] | None = None
-        #: scheduler extenders (HTTP webhooks) are not ported: always
-        #: empty, read by the routing checks as in the reference.
         self.extenders: list = []
         #: serving.ServingTier (admission window + resident planes +
         #: single-pod fast path), attached lazily at run()-loop entry by
@@ -393,6 +391,18 @@ class Scheduler:
                         break
                 else:
                     statuses[node.name] = st
+        # findNodesThatPassExtenders: HTTP webhooks narrow the feasible set.
+        for ext in self.extenders:
+            if not feasible:
+                break
+            feasible, failed, failed_unresolvable = \
+                await ext.filter(pod, feasible)
+            for name, reason in failed.items():
+                statuses[name] = Status.unschedulable(
+                    reason).with_plugin(ext.name)
+            for name, reason in failed_unresolvable.items():
+                statuses[name] = Status.unschedulable(
+                    reason, resolvable=False).with_plugin(ext.name)
         return feasible, statuses
 
     async def prioritize_nodes(
@@ -402,7 +412,16 @@ class Scheduler:
         st = fwk.run_pre_score(state, pod, nodes)
         if not st.is_success():
             raise RuntimeError(f"PreScore error: {st.message()}")
-        return fwk.run_scores(state, pod, nodes)
+        scores = fwk.run_scores(state, pod, nodes)
+        if self.extenders:
+            # Parallel fan-out like extender.go's Prioritize goroutines;
+            # scores are summed so order doesn't matter.
+            results = await asyncio.gather(
+                *(ext.prioritize(pod, nodes) for ext in self.extenders))
+            for ext_scores in results:
+                for name, s in ext_scores.items():
+                    scores[name] = scores.get(name, 0.0) + s
+        return scores
 
     def select_host(self, scores: Mapping[str, float]) -> str:
         """selectHost: max score with reservoir-sampled random tiebreak
@@ -847,7 +866,16 @@ class Scheduler:
 
     async def _bind(self, fwk: Framework, state: CycleState, pi: PodInfo,
                     node_name: str) -> Status:
-        """schedule_one.go bind: the framework's Bind plugins."""
+        """schedule_one.go bind: a bind-capable extender interested in the
+        pod binds INSTEAD of the framework's Bind plugins."""
+        for ext in self.extenders:
+            if getattr(ext, "is_binder", lambda: False)() \
+                    and ext.is_interested(pi):
+                try:
+                    await ext.bind(pi, node_name)
+                    return Status.success()
+                except Exception as e:
+                    return Status.error(f"extender bind failed: {e}")
         return await fwk.run_bind(state, pi, node_name)
 
     # Permit wait support (gang scheduling parks here) ------------------
@@ -966,9 +994,35 @@ class Scheduler:
             flusher.cancel()
             janitor.cancel()
 
+    async def run_with_leader_election(self, elector,
+                                       batch_size: int = 1) -> None:
+        """Leader-elected run (cmd/kube-scheduler app/server.go `Run`):
+        schedule only while holding the lease. Losing it stops the loop
+        AND awaits stop() — which cancels in-flight binding tasks — before
+        returning (fencing: a deposed leader must not write stale binds
+        while the standby schedules the same pods)."""
+        async def lead():
+            await self.run(batch_size=batch_size)
+
+        def lost():
+            self._stop = True
+
+        try:
+            await elector.run(on_started_leading=lead,
+                              on_stopped_leading=lost)
+        finally:
+            await self.stop()
+
     async def stop(self) -> None:
         self._stop = True
         await self.queue.close()
         for t in list(self._binding_tasks):
             t.cancel()
         await asyncio.gather(*self._binding_tasks, return_exceptions=True)
+        for ext in self.extenders:
+            close = getattr(ext, "close", None)
+            if close is not None:
+                try:
+                    await close()
+                except Exception:
+                    pass

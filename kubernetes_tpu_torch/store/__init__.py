@@ -2,7 +2,8 @@
 hub-and-spoke through the store; components communicate only by
 reading/writing objects and watching for changes). Counterpart of
 `kubernetes_tpu/store/`: the MVCC store with its watch cache, the core
-validation and server-side apply; durability and the sharded store wait."""
+validation, server-side apply and durability (the write-ahead log, its
+snapshots and recovery); the sharded store waits."""
 
 from kubernetes_tpu_torch.store.mvcc import (
     AlreadyExists,
@@ -18,11 +19,19 @@ from kubernetes_tpu_torch.store.mvcc import (
     new_cluster_store,
 )
 from kubernetes_tpu_torch.store.apply import ApplyConflict, server_side_apply
+from kubernetes_tpu_torch.store.durable import (
+    DurabilityManager,
+    WriteAheadLog,
+    recover_store,
+)
 from kubernetes_tpu_torch.store.validation import install_core_validation
 
 __all__ = [
     "ApplyConflict",
     "server_side_apply",
+    "DurabilityManager",
+    "WriteAheadLog",
+    "recover_store",
     "AlreadyExists",
     "Conflict",
     "Event",

@@ -8,7 +8,8 @@ index and the admission window), the store (the watch cache, the shard
 count, the debug freeze), the lock check, the trace threshold, the
 descheduler pair (its default and its disruption budget) and the
 topology pair (the slice placement kill switch and the mesh shape), the
-admission-policy index and the apiserver's durability directory. Names,
+admission-policy index, the apiserver's durability directory with its
+write-ahead log and fsync policy, and the leader-election lease. Names,
 defaults and parsing are the reference's: every read is a LIVE
 `os.environ` lookup, and a malformed value degrades to the flag's
 default.
@@ -44,6 +45,13 @@ def _parse_ms(raw: str) -> float:
 
 def _parse_str(raw: str) -> str:
     return raw
+
+
+def _parse_wal_fsync(raw: str) -> str:
+    v = raw.strip().lower()
+    if v not in ("batch", "always"):
+        raise ValueError(raw)  # degrades to the default, per read()
+    return v
 
 
 def _parse_solve_mode(raw: str) -> str:
@@ -167,11 +175,25 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "traces slower than this log a step breakdown. Unset = no "
          "tree dumps; the scheduler's per-attempt logger falls back "
          "to the reference's 100 ms."),
+    Flag("KTPU_WAL", True, _parse_bool,
+         "Write-ahead log between KTPU_DATA_DIR snapshots (store/"
+         "durable.py): append every committed mvcc write, replay from "
+         "the snapshot RV on recovery. `0` degrades durability to "
+         "snapshot-only (the pre-WAL r16 shape)."),
+    Flag("KTPU_WAL_FSYNC", "batch", _parse_wal_fsync,
+         "WAL fsync policy: `always` fsyncs per commit (the etcd "
+         "posture: an acknowledged write is on disk), `batch` group-"
+         "commits on the flush tick (durability window = one flush "
+         "interval, fsync off the commit path)."),
+    Flag("KTPU_LEASE_DURATION", 15.0, _parse_float,
+         "Leader-election lease duration in seconds (client/"
+         "leaderelection.py). Renew deadline and retry period scale "
+         "with it (2/3 and 2/15 of the lease, the reference's "
+         "15/10/2 shape): shorter lease = faster failover detection "
+         "at more lease-write traffic."),
     Flag("KTPU_DATA_DIR", None, _parse_str,
-         "Durability directory (WAL + snapshots). The reference's "
-         "apiserver recovers state from it on construction; this "
-         "package has no store/durable.py yet, so an APIServer built "
-         "without a store while it is set raises."),
+         "Durability directory (WAL + snapshots); the apiserver "
+         "recovers state from it on construction when set."),
     Flag("KTPU_LOCK_CHECK", False, _parse_bool,
          "Runtime lock-order / dispatch-hygiene detector "
          "(utils/locking.py): instrumented locks record per-thread "

@@ -19,11 +19,10 @@ without a field manager, a 401, a 403 and a 410 watch). Results, bodies
 with their resource versions, error types and messages and event
 sequences must be identical; uids, timestamps and audit ids are masked.
 
-The port's two refusals raise: a request accepting the protobuf content
-type gets 406 naming `apiserver/grpc_server.py` (and
-`RemoteStore(protobuf=True)` raises), and an `APIServer` given a
-`data_dir`, or built without a store while KTPU_DATA_DIR is set, raises
-NotImplementedError naming `store/durable.py`.
+The port's refusal: a request accepting the protobuf content type gets
+406 naming `apiserver/grpc_server.py` (and `RemoteStore(protobuf=True)`
+raises). The `data_dir` bootstrap is held against the reference in
+`test_torch_durability.py`.
 
 Tolerance: none (exact host logic).
 """
@@ -525,24 +524,3 @@ def test_protobuf_is_refused():
     assert body["message"] == PROTOBUF_NOT_PORTED and listed == []
 
 
-def test_data_dir_is_refused(tmp_path, monkeypatch):
-    from kubernetes_tpu_torch.apiserver import APIServer
-    from kubernetes_tpu_torch.store import new_cluster_store
-
-    monkeypatch.delenv("KTPU_DATA_DIR", raising=False)
-    with pytest.raises(ValueError, match="needs a store"):
-        APIServer()
-    with pytest.raises(NotImplementedError, match="store/durable.py"):
-        APIServer(data_dir=str(tmp_path))
-    store = new_cluster_store()
-    try:
-        with pytest.raises(NotImplementedError, match="store/durable.py"):
-            APIServer(store, data_dir=str(tmp_path))
-        monkeypatch.setenv("KTPU_DATA_DIR", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="store/durable.py"):
-            APIServer()
-        # A store given with the variable set: the variable is not read,
-        # as in the reference.
-        assert APIServer(store).store is store
-    finally:
-        store.stop()

@@ -1,8 +1,13 @@
 """The port stands alone: no file of `kubernetes_tpu_torch/`, nor
 `chip_smoke.py`, imports `jax` or the JAX package `kubernetes_tpu`; and
-its backend runs on the card by default, refusing to start without one."""
+its backend runs on the card by default, refusing to start without one.
+The control plane's process modules (the entry points, durability, leader
+election, extenders, `build_scheduler`) are named one by one, and
+importing all of them in a fresh interpreter loads neither package."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -60,3 +65,38 @@ def test_backend_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchBackend()
     assert TorchBackend(device="cpu").device == torch.device("cpu")
+
+
+#: The modules the control-plane slice added or changed.
+CONTROL_PLANE_MODULES = (
+    "agent/__init__.py", "agent/__main__.py", "agent/agent.py",
+    "agent/config.py", "agent/server.py", "apiserver/__init__.py",
+    "apiserver/__main__.py", "apiserver/server.py", "client/__init__.py",
+    "client/leaderelection.py", "config/scheduler.py",
+    "controllers/base.py", "metrics/registry.py", "scheduler/__main__.py",
+    "scheduler/extender.py", "scheduler/scheduler.py", "store/__init__.py",
+    "store/durable.py", "utils/flags.py",
+)
+
+
+@pytest.mark.parametrize("rel", CONTROL_PLANE_MODULES)
+def test_control_plane_module_imports_nothing_of_the_reference(rel):
+    f = ROOT / "kubernetes_tpu_torch" / rel
+    assert f in _port_files()
+    mods = list(_imported_modules(ast.parse(f.read_text(), str(f))))
+    assert mods
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
+
+
+def test_control_plane_modules_load_neither_package():
+    names = [f"kubernetes_tpu_torch.{rel[:-3].replace('/', '.')}"
+             for rel in CONTROL_PLANE_MODULES]
+    code = ("import importlib, sys\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
