@@ -10,7 +10,7 @@ greedy wavefront batch solve, W=32), the node-sharded solver of
 (each wave two kernel launches, no host sync), flagless
 `TorchBackend.assign` (KTPU_SOLVE_MODE=auto, the reference's default:
 every chunk through the Sinkhorn plan, rounded by one W=1 launch of
-wave_solve), and the serving fast path (2000 lone pods, one at a time,
+wave_solve), and the serving fast path (1000 lone pods, one at a time,
 through `SinglePodFastPath.try_schedule` over a `SchedulerCache`), and the
 scheduler loop (`Scheduler.run` through the port's scheduler_perf
 `PerfRunner`, pods created in a store and bound through informers, the
@@ -31,7 +31,10 @@ ChurnDayFaults with a node death and the node lifecycle controller,
 ChurnRebalance with the descheduler off and on); and the apiserver
 boundary with the policy chain; and the control plane as processes (the
 apiserver with its write-ahead log, two leader-elected schedulers with
-the batched solve on the card, node agents) —
+the batched solve on the card, node agents); and the sharded control
+plane (bench.py's 200k preset over 8 store shards) and the multi-process
+control plane (a shard apiserver process per store shard, a
+leader-elected scheduler pair, a killed leader) —
 after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
@@ -115,7 +118,7 @@ Phases (any failure raises and the script exits non-zero with no result):
      torch.cuda.set_sync_debug_mode("error"); the resident pack equal to a
      fresh pack and the placed/ineligible/no_fit counts equal to the
      CPU's; (b) SchedulingBasic/5000Nodes: the 1000 init pods by flagless
-     `TorchBackend.assign`, assumed, `warm`, then 2000 lone pods of the
+     `TorchBackend.assign`, assumed, `warm`, then 1000 lone pods of the
      measured template through light_snapshot -> try_schedule ->
      assume_pod, every placement equal to the CPU port's over the same
      sequence and every 50th to `TorchBackend.assign([pi])`; the
@@ -142,10 +145,10 @@ Phases (any failure raises and the script exits non-zero with no result):
      launched; printed: SchedulingThroughput, measured_seconds, the exact
      attempt p50/p90/p99/p999, fragmentation_pct and
      fragmentation_occupied_pct, the route counts, `TorchBackend.timings`
-     over the window, events emitted and dropped, over a repeat under
-     torch.profiler the device's busy time and idle share, and over a
-     repeat under cProfile the host's own time by area, the busiest
-     functions and the cumulative time of the loop's stages;
+     over the window, events emitted and dropped, and over a repeat under
+     torch.profiler the device's busy time and idle share (the repeat
+     under cProfile that gave the host's own time by area is cut to keep
+     the smoke inside its time);
  10. the constraint families (InterPodAffinity and PodTopologySpread),
      under a scoped KTPU_SOLVE_MODE=auto with serving on: (a) the spread
      scans (W=1 and W=32, two strategies, 600 nodes, 256 pods, three
@@ -224,9 +227,10 @@ Phases (any failure raises and the script exits non-zero with no result):
      `TorchBackend.assign` at bench.py's 50k preset (50000 nodes of cpu 8
      / memory 32Gi / pods 110, 500 + 5000 pods of cpu 100m / memory
      250Mi, every device pass under sync debug "error" but the host
-     reads), three times: flagless (the card's tuner keeps the full-width
-     wave_solve at W=64: shortlist pods 0, scan width 50000, at least one
-     launch per measured chunk), with KTPU_SHORTLIST_K=1024 (shortlist
+     reads), flagless (the card's tuner keeps the full-width wave_solve
+     at W=64: shortlist pods 0, scan width 50000, at least one launch per
+     measured chunk), then on the first measured chunk alone (a cut of
+     depth for the smoke's time) with KTPU_SHORTLIST_K=1024 (shortlist
      pods = pods solved, scan width 2048, W=64, the full-width
      prefilter: no block scanned) and with KTPU_BLOCK_WIDTH=128 as well
      (the reference's route: blocks scanned and pruned > 0); each run:
@@ -239,7 +243,8 @@ Phases (any failure raises and the script exits non-zero with no result):
      full-width prefilter's and the narrow scans' ms per chunk and the
      full-width wave_solve's against its bound (CUDA events), the busy
      and idle share over a profiled repeat of the first measured chunk on
-     each route, fallbacks and host reads; (c) the same preset through
+     the flagless route (the forced routes' repeats are cut), fallbacks
+     and host reads; (c) the same preset through
      the port's `PerfRunner` (`Scheduler.run`, `TorchBackend()`,
      batch_size 16384, bench.py's template: createNodes, createPods
      (warm-up), barrier, createPods (measured), barrier), flagless: all
@@ -308,7 +313,7 @@ Phases (any failure raises and the script exits non-zero with no result):
      `TorchBackend()` and `TorchBackend(device="cpu")`, flagless and
      greedy: identical assignments, diagnostics, verify rejects and
      host-fallback counts; (d) `volume_loop` at 5000 nodes in three zones
-     (500 + 1000 pods of one claim each, half bound in advance to zonal
+     (500 + 500 pods of one claim each, half bound in advance to zonal
      PVs, half WaitForFirstConsumer claims the ported PV binder
      provisions beside the loop): every pod bound, every claim bound to a
      PV admitting its pod's node, no node over its volume limit, no
@@ -418,7 +423,40 @@ Phases (any failure raises and the script exits non-zero with no result):
      write and nothing before it, no 410; then SIGTERM every process,
      each exiting 0, the remaining scheduler's stop line giving its
      launch counts;
- 20. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 20. the sharded and the multi-process control plane, under a scoped
+     KTPU_SOLVE_MODE=auto with serving on (the shard processes' WALs under
+     build/phase20/): (a) bench.py's 200k preset (200000 nodes, 500 +
+     5000 pods) through the port's `PerfRunner` in process, flagless:
+     `store.control_plane_shards` gives 8 shards (KTPU_SHARD_THRESHOLD),
+     the runner builds the `ShardedNodeStore`; every pod bound, no node
+     over capacity, `shard_count` 8, `shard_tensor_rebuilds_total` above
+     0 and at most 8 x the window's ClusterTensors builds with at least
+     one delta build (`ClusterTensors.delta_build`), a wave_solve launch
+     in the window, `solve_provenance` naming the card; then one full
+     chunk at the loop's launch shape (the backend's `max_batch` pods,
+     its K multistart orders, poison on) over the run's 200000 nodes (its
+     scheduler's last snapshot), on the run's backend's own prep, through
+     wave_solve and wave_solve_reference: identical assignments and
+     counters (poison flags included), every pod placed by each order
+     not poisoned, the
+     kernel's ms against `wave_bound_ms`; printed: pods/s, attempt
+     p50/p99/p999, staging seconds, the four shard counters, the solve
+     route and the launches; (b) SchedulingBasic/5000Nodes (not cut)
+     through `PerfRunner(processes=4)`: 4 shard apiserver processes with
+     their WALs, a leader-elected scheduler pair with `TorchBackend` on
+     cuda:0, the parent through `ProcessShardedStore`: every pod bound
+     once (the parent's informer sees no pod change nodes), no node over
+     capacity, `process_count` 4, `leader_elections_total` >= 1, a
+     wave_solve launch in the leader, and, before the processes stop,
+     the merged LISTs of nodes and pods equal to what the shards hold,
+     name by name and RV by RV, each node on its crc32 shard; (c)
+     ChurnDay/1000Nodes-r100 (1000 nodes, 300 warm-up pods, Poisson
+     100/s for 10 s, seed 17) with a `killLeader` fault at 3 s,
+     processes=2, KTPU_LEASE_DURATION=6 and a trailing barrier: the fault
+     names the killed leader and recovers, every canary and arrival bound
+     once, one live Lease holder (not the killed one) at the end,
+     `leader_elections_total` >= 2; printed: the time to recovery;
+ 21. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -446,17 +484,23 @@ Phases (any failure raises and the script exits non-zero with no result):
      `wire_basic_launches` and `http_basic_launches` (the measured windows
      of 18(a)-(c)); and phase 19's: `control_plane_launches` (19(a)'s
      leader process, over its life) and `control_plane_failover_launches`
-     (19(b)-(d)'s remaining scheduler process); the probe's, its
-     launches over phase 9(b)'s run and over 10(b)'s, and phase 19's two
-     processes' under the same keys), the card's name
+     (19(b)-(d)'s remaining scheduler process); and phase 20's:
+     `sharded_200k_launches` (20(a)'s measured window), `huge_chunk_ms`,
+     `huge_chunk_plain_ms`, `huge_chunk_bound_ms` and
+     `huge_chunk_bound_by` (20(a)'s full chunk at N=200000 with the
+     loop's K orders),
+     `multiproc_launches` (20(b)'s leader process, over its life) and
+     `kill_leader_launches` (20(c)'s surviving leader); the probe's, its
+     launches over phase 9(b)'s run and over 10(b)'s, phase 19's two
+     processes' and phase 20's under the same keys), the card's name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
 `--phase13-only` (or `--phase14-only`, `--phase15-only`,
 `--phase16-only`, `--phase17-only`, `--phase18-only`,
-`--phase19-only`) it builds the kernels and runs phase 13 (or 14, 15, 16,
-17, 18, 19) alone (no result lines). It needs one CUDA device;
+`--phase19-only`, `--phase20-only`) it builds the kernels and runs phase
+13 (or 14, 15, 16, 17, 18, 19, 20) alone (no result lines). It needs one CUDA device;
 without one, or outside a checkout of the repository, it exits non-zero.
 """
 
@@ -1568,7 +1612,7 @@ def optimal_phase(torch, dev, fwk, init_pods, measured, node_infos,
 SERVING_SHAPES = ({"cpu": "8", "memory": "32Gi", "pods": "110"},
                   {"cpu": "16", "memory": "64Gi", "pods": "110"},
                   {"cpu": "4", "memory": "16Gi", "pods": "32"})
-N_LONE_CHECKED, N_TRICKLE, N_PROFILED = 256, 2000, 100
+N_LONE_CHECKED, N_TRICKLE, N_PROFILED = 256, 1000, 100
 
 
 def solve_one_case(torch, seed: int, n: int, strategy: str,
@@ -2268,45 +2312,6 @@ def loop_equality_phase(torch, seed: int) -> None:
                            f"{fast}, over capacity {bad}")
 
 
-#: Functions whose cumulative host time phase 9(b)'s host profile prints:
-#: the harness's create, the store's commit and watch fan-out, the
-#: informers, the queue, the serving tier's dispatch, the batch backend,
-#: assume, the binding cycle and its write, and the event drain.
-LOOP_STAGES = ("create", "_record", "_dispatch", "_apply", "add",
-               "schedule_next", "_schedule_pods", "assign",
-               "_assume_and_bind", "_binding_cycle_traced",
-               "binding_subresource", "_drain", "update_snapshot")
-
-
-def host_breakdown(prof) -> tuple[dict, list, dict]:
-    """A cProfile of the loop's measured window: own seconds by area (the
-    port's subpackages, asyncio, torch, numpy, builtins), the ten functions
-    with the most own time, and the cumulative seconds of LOOP_STAGES."""
-    import pstats
-
-    areas: dict[str, float] = {}
-    top, cum = [], {}
-    for (path, line, fn), (_, calls, own, total, _) in \
-            pstats.Stats(prof).stats.items():
-        if "kubernetes_tpu_torch/" in path:
-            sub = path.split("kubernetes_tpu_torch/")[1].split("/")[0]
-            area, where = sub.removesuffix(".py"), \
-                path.split("kubernetes_tpu_torch/")[1]
-        else:
-            area = next((a for a in ("asyncio", "torch", "numpy")
-                         if f"/{a}/" in path), "builtins" if path == "~"
-                        else "other")
-            where = path.rsplit("/", 1)[-1]
-        areas[area] = round(areas.get(area, 0.0) + own, 6)
-        top.append((round(own, 6), f"{where}:{line}({fn})", calls))
-        if fn in LOOP_STAGES and "kubernetes_tpu_torch/" in path:
-            key = f"{where}:{fn}"
-            cum[key] = round(cum.get(key, 0.0) + total, 6)
-    top.sort(reverse=True)
-    return dict(sorted(areas.items(), key=lambda kv: -kv[1])), top[:10], \
-        dict(sorted(cum.items(), key=lambda kv: -kv[1]))
-
-
 def count_backend_routes(sched, routes: dict) -> None:
     """Count the loop's backend dispatches and their pods in `routes`,
     whichever entry the loop takes (`assign_stream`, else `assign_async`,
@@ -2366,7 +2371,7 @@ def counting_runner_cls(torch):
     """PerfRunner that counts each route's pods over the measured window,
     sets the launch counters to 0 just before the measured createPods and
     reads them just after, and, when asked, profiles that window:
-    `profile` "device" (torch.profiler) or "host" (cProfile)."""
+    `profile` "device" (torch.profiler)."""
     from kubernetes_tpu_torch.ops import wave_kernel
     from kubernetes_tpu_torch.perf.scheduler_perf import PerfRunner
 
@@ -2410,10 +2415,6 @@ def counting_runner_cls(torch):
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
                 self.prof.start()
-            elif self.profile == "host":
-                import cProfile
-                self.prof = cProfile.Profile()
-                self.prof.enable()
             self.window["t0"] = time.perf_counter()
             return super()._begin_measure(metrics, backing)
 
@@ -2469,16 +2470,12 @@ def perf_run(torch, family: dict, workload: str, profile: str | None,
 
 def report_perf(torch, label: str, family: dict, workload: str, first,
                 phase: str, t0: float, device_workload: str | None = None,
-                host_profile: bool = False,
                 device_profile: bool = True) -> None:
     """Print a family run's numbers (`first` from perf_run), then, with
     `device_profile`, repeat it under torch.profiler (the device's busy
     time and idle share; of `device_workload` where given, a smaller
-    workload of the family whose trace the profiler processes in seconds)
-    and, with `host_profile`,
-    under cProfile (the host's own time by area, the busiest functions and
-    the cumulative time of the loop's stages; 9(b) alone keeps it, so the
-    smoke stays inside half its time limit)."""
+    workload of the family whose trace the profiler processes in
+    seconds)."""
     runner, result, probe_launches, _ = first
     w, r = runner.window, result.as_dict()
     routes = w["routes"]
@@ -2529,17 +2526,6 @@ def report_perf(torch, label: str, family: dict, workload: str, first,
               f", idle share {1 - busy_us / 1e6 / pw['wall']:.4f}"
               if busy_us else ", device time not measured by the profiler")
           + f"; phase {phase} {time.perf_counter() - t0:.1f} s")
-    if not host_profile:
-        return
-    host_runner, host_result, _, _ = perf_run(torch, family, workload,
-                                              "host")
-    areas, top, cum = host_breakdown(host_runner.prof)
-    print(f"host profile of the {label} measured window (cProfile, wall "
-          f"{host_runner.window['wall']:.6f} s, throughput "
-          f"{host_result.throughput:.1f} pods/s): own seconds by area "
-          f"{json.dumps(areas)}; cumulative seconds {json.dumps(cum)}")
-    print(f"host profile top functions by own seconds: {json.dumps(top)}; "
-          f"phase {phase} {time.perf_counter() - t0:.1f} s")
 
 
 def scheduler_perf_phase(torch) -> dict:
@@ -2554,7 +2540,7 @@ def scheduler_perf_phase(torch) -> dict:
         raise RuntimeError("phase 9(b): no wave_solve launch in the "
                            "measured window")
     report_perf(torch, "scheduler loop", SCHEDULING_BASIC, "5000Nodes",
-                first, "9(b)", t0, host_profile=True)
+                first, "9(b)", t0)
     return {"loop_launches": launches, "loop_probe_launches": first[2]}
 
 
@@ -4160,12 +4146,13 @@ LARGE_K = 1024
 def large_assign_phase(torch, dev, fwk) -> dict:
     """Phase 13(b): bench.py's 50k preset through `TorchBackend.assign`,
     flagless (every chunk greedy at that size; the card's tuner keeps the
-    full-width wave_solve at W=64), then with the shortlist forced
-    (KTPU_SHORTLIST_K=1024: the full-width prefilter and the narrow
-    scans) and with the block prefilter forced too (KTPU_BLOCK_WIDTH=128:
-    the reference's route at this size); the identity checks, the
-    per-chunk times of both prefilters, the narrow scans and the
-    full-width kernel, and the busy share of one chunk of each route.
+    full-width wave_solve at W=64), then, on the first measured chunk
+    alone, with the shortlist forced (KTPU_SHORTLIST_K=1024: the
+    full-width prefilter and the narrow scans) and with the block
+    prefilter forced too (KTPU_BLOCK_WIDTH=128: the reference's route at
+    this size); the identity checks, the per-chunk times of both
+    prefilters, the narrow scans and the full-width kernel, and the busy
+    share of the flagless route's first chunk.
     Returns the kernels line's phase 13 entries for wave_solve."""
     from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
     from kubernetes_tpu_torch.ops import kernels, solver, wave_kernel
@@ -4188,24 +4175,28 @@ def large_assign_phase(torch, dev, fwk) -> dict:
               (f"KTPU_SHORTLIST_K={LARGE_K} KTPU_BLOCK_WIDTH=128", blocks))
     runs = {}
     for label, env in routes:
+        # The forced routes run the first measured chunk alone (a cut of
+        # depth: the smoke's time), held to the flagless assign's.
+        pods = measured if not env else measured[:1024]
         with contextlib.ExitStack() as stack:
             for flag, value in env:
                 stack.enter_context(flags.scoped_set(flag, value))
             backend = TorchBackend()
             backend.metrics = SchedulerMetrics()
             t_build = time.perf_counter()
-            run = large_assign(torch, backend, fwk, warm, measured,
+            run = large_assign(torch, backend, fwk, warm, pods,
                                guard=True)
         run["scan_width"] = backend.metrics.solver_scan_width.value()
         run["wave_width"] = backend.metrics.solver_wave_width.value()
         runs[label] = run
         c = run["counters"]
-        same = run["warm"] == runs["flagless"]["warm"] \
-            and run["assign"] == runs["flagless"]["assign"]
+        same = run["warm"] == runs["flagless"]["warm"] and all(
+            v == runs["flagless"]["assign"][k]
+            for k, v in run["assign"].items())
         print(f"50k assign, {label} (bench.py preset: {LARGE_NODES} nodes, "
               f"{LARGE_WARMUP} + {LARGE_MEASURED} pods of cpu 100m / memory "
-              f"250Mi): {LARGE_MEASURED} measured pods in "
-              f"{run['wall']:.6f} s = {LARGE_MEASURED / run['wall']:.1f} "
+              f"250Mi): {len(pods)} measured pods in "
+              f"{run['wall']:.6f} s = {len(pods) / run['wall']:.1f} "
               f"pods/s; measured phase timings {json.dumps(run['timings'])}"
               f"; counters {json.dumps(c)}; scan width {run['scan_width']}, "
               f"wave width {run['wave_width']}; wave_solve launches in the "
@@ -4223,7 +4214,7 @@ def large_assign_phase(torch, dev, fwk) -> dict:
                   and run["scan_width"] == LARGE_NODES
                   and run["launches"] >= chunks)
         else:
-            ok = (c["shortlist_pods"] == LARGE_MEASURED
+            ok = (c["shortlist_pods"] == len(pods)
                   and run["scan_width"] == LARGE_K + 1024
                   and ((c["blocks_scanned"] > 0 and c["blocks_pruned"] > 0)
                        if env == blocks else c["blocks_scanned"] == 0))
@@ -4327,9 +4318,10 @@ def large_assign_phase(torch, dev, fwk) -> dict:
           f"nodes {full_ms:.5f} ms per chunk, bound {full_bound:.6f} ms "
           f"({full_by})")
     # Busy and idle share: the first measured chunk's assign again under
-    # the profiler, on each route (a whole measured assign's trace takes a
-    # minute to read).
-    for label, env in routes:
+    # the profiler, on the flagless route (a whole measured assign's trace
+    # takes a minute to read; the forced routes' repeats are cut to keep
+    # the smoke inside its time).
+    for label, env in routes[:1]:
         with contextlib.ExitStack() as stack:
             for flag, value in env:
                 stack.enter_context(flags.scoped_set(flag, value))
@@ -5479,8 +5471,9 @@ def volume_chunks_phase(torch, seed: int) -> int:
 
 #: Phase 15(d)'s sizes, after upstream scheduler_perf's volume families
 #: (SchedulingInTreePVs, SchedulingWaitForFirstConsumerPVs): 500 init and
-#: 1000 measured pods, one claim each, on SchedulingBasic's 5000 nodes.
-VOLUME_LOOP_INIT, VOLUME_LOOP_MEASURED = 500, 1000
+#: 500 measured pods (1000 before the cut that keeps the smoke inside its
+#: time), one claim each, on SchedulingBasic's 5000 nodes.
+VOLUME_LOOP_INIT, VOLUME_LOOP_MEASURED = 500, 500
 #: Each node's `attachable-volumes-csi` limit in 15(d): None, so that the
 #: nodes keep SchedulingBasic's shape and NodeVolumeLimits its default of
 #: 256 volumes (above the 110 pods a node holds).
@@ -5664,7 +5657,7 @@ def volume_violations(api, out: dict) -> list[str]:
 
 def volume_loop_phase(torch) -> int:
     """Phase 15(d): `volume_loop` at SchedulingBasic's 5000 nodes, 500
-    init and 1000 measured pods, through `TorchBackend()`; the gates of
+    init and 500 measured pods, through `TorchBackend()`; the gates of
     `volume_violations`; throughput, the `assign` share, prep and verify,
     the PreBind waits (no profiled repeat: cut to keep the smoke inside
     its time). Returns wave_solve's launches in the measured window."""
@@ -7579,6 +7572,471 @@ def control_plane_phases(torch) -> int:
     return 0
 
 
+# -- phase 20: the sharded and the multi-process control plane ---------------
+
+#: bench.py's 200k preset (`PRESETS["200k"]`): nodes, warm-up pods, measured
+#: pods, SchedulingBasic's node and pod templates.
+HUGE_NODES, HUGE_WARMUP, HUGE_MEASURED = 200000, 500, 5000
+#: Phase 20(c)'s lease (r22's failover row) and its fault.
+KILL_LEADER_LEASE_S = 6.0
+KILL_LEADER_AT_S = 3.0
+
+
+def bench_preset(nodes: int, warmup: int, measured: int) -> dict:
+    """A bench.py preset as a workload family (BENCH_50K's template)."""
+    return {"name": "bench", "workloadTemplate":
+            copy.deepcopy(BENCH_50K["workloadTemplate"]),
+            "workloads": [{"name": f"{nodes}Nodes", "params": {
+                "nodes": nodes, "warmup": warmup, "measured": measured}}]}
+
+
+def huge_chunk_compare(torch, b, snapshot, fwk) -> dict:
+    """20(a)'s kernel check at the loop's own launch shape: one full chunk
+    (backend `b`'s `max_batch` pods) over the snapshot's nodes (the
+    loop's 200,000 after its run), on the class planes, wave width and
+    multistart orders (`dev_perms`, K of them) that the port's prep builds
+    in `b`, through wave_solve and wave_solve_reference with the loop's
+    poison contract: assignments and counters identical. Returns the
+    kernel's and the plain version's ms per chunk, the bound and what
+    bounds it."""
+    from kubernetes_tpu_torch.api.types import make_pod
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import chunk_planes
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+
+    t0 = time.perf_counter()
+    pods = [PodInfo(make_pod(f"chunk-{i}", requests=POD_REQUESTS))
+            for i in range(b.max_batch)]
+    ctx = b._start(pods, snapshot, fwk)
+    prep = b._prep_chunk(ctx.chunks[0], ctx)
+    st, prm = b.ensure_static(ctx.ct), ctx.params
+    pl = chunk_planes(st["alloc_q"], b.used.pack, st["alloc_pods"],
+                      prep["dev_pack"], prep["dev_cls"], st["taint_f"],
+                      st["taint_p"], prep["dev_mask"], prep["dev_scores"],
+                      prm["w_taint"], prm["taint_filter_on"])
+    args = (pl["req_q"], pl["req_nz_q"], pl["free_q"], pl["free_pods"],
+            pl["used_nz_q"], st["alloc_q"], pl["mask"], pl["static_scores"],
+            prm["fit_col_w"], prm["bal_col_mask"], prm["shape_u"],
+            prm["shape_s"], prm["w_fit"], prm["w_bal"], prm["strategy"])
+    kw = dict(wave_w=prep["wave_w"], rows=prep["dev_cls"],
+              exc=prep["dev_exc"], poison=True, perms=prep["dev_perms"])
+    (p, r), n = pl["req_q"].shape, pl["free_q"].shape[0]
+    k = kw["perms"].shape[0]
+    plan = wave_kernel.wave_launch_plan(n, r, max(1, min(kw["wave_w"], p)))
+    got = wave_kernel.wave_solve(*args, plan=plan, **kw)
+    ref = wave_kernel.wave_solve_reference(*args, **kw)
+    torch.cuda.synchronize()
+    diff = int((got[0] - ref[0]).abs().max())
+    same = all(torch.equal(g, w) for g, w in zip(got[1:], ref[1:]))
+    clean = ~got[3]
+    placed = int((got[0][clean] >= 0).sum())
+    if p != len(pods) or diff or not same \
+            or placed != int(clean.sum()) * len(pods):
+        raise RuntimeError(f"20(a): wave_solve at N={n} differs from its "
+                           f"plain version (max |assign diff| {diff}, "
+                           f"counters identical {same}, placed {placed} "
+                           f"by the orders not poisoned "
+                           f"{clean.tolist()}, rows {p})")
+    kernel_ms = cuda_ms(torch, lambda: wave_kernel.wave_solve(
+        *args, plan=plan, **kw), 5)
+    plain_ms = cuda_ms(torch, lambda: wave_kernel.wave_solve_reference(
+        *args, **kw), 1)
+    class_req = prep["dev_pack"][:, :r]
+    feasible = pl["mask"] & (pl["free_pods"] >= 1)[None, :] & torch.all(
+        class_req[:, None, :] <= pl["free_q"][None, :, :], dim=-1)
+    evals = k * int(feasible.sum(dim=1)[prep["dev_cls"].long()].sum())
+    bound_ms, bound_by = wave_bound_ms(p, n, r, pl["mask"].shape[0], k,
+                                       prm["shape_u"].shape[0], evals)
+    print(f"compare wave_solve 20(a) chunk ({p} pods, N={n} nodes, K={k} "
+          f"multistart orders, W={kw['wave_w']}, poison on: the loop's "
+          f"launch shape from the port's prep): max |assign diff| {diff}, "
+          f"counters identical (commits {got[1].tolist()}, replays "
+          f"{got[2].tolist()}, poisoned {got[3].tolist()}); plan {plan}; "
+          f"kernel {kernel_ms:.5f} ms per "
+          f"chunk, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); {time.perf_counter() - t0:.1f} s")
+    return {"huge_chunk_ms": kernel_ms, "huge_chunk_plain_ms": plain_ms,
+            "huge_chunk_bound_ms": bound_ms, "huge_chunk_bound_by": bound_by}
+
+
+def shard_runner_cls(torch):
+    """PerfRunner that counts, over the measured window, wave_solve's
+    launches (set to 0 just before the measured createPods, read just
+    after), the backend's ClusterTensors builds, and those of them that
+    took the delta path (`ClusterTensors.delta_build`: the static arrays
+    shared with the build before, only the changed nodes' rows
+    rewritten)."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.perf.scheduler_perf import PerfRunner
+
+    class ShardRunner(PerfRunner):
+        def __init__(self, backend, **kw):
+            super().__init__(backend=backend, batch_size=LOOP_BATCH, **kw)
+            self.window: dict = {}
+            self.builds = self.delta_builds = 0
+            tensors = backend._tensors
+
+            def counted(snapshot):
+                before = backend._ct
+                ct = tensors(snapshot)
+                if ct is not before:
+                    self.builds += 1
+                    self.delta_builds += ct.delta_build
+                return ct
+
+            backend._tensors = counted
+
+        async def _drive(self, template_ops, params, timeout, backing,
+                         store, metrics, sched, *rest):
+            self.store, self.sched = backing, sched
+            return await super()._drive(template_ops, params, timeout,
+                                        backing, store, metrics, sched,
+                                        *rest)
+
+        def _begin_measure(self, metrics, backing):
+            torch.cuda.synchronize()
+            wave_kernel.wave_solve.launches = 0
+            self.window = {"builds": self.builds,
+                           "delta_builds": self.delta_builds}
+            return super()._begin_measure(metrics, backing)
+
+        def _end_measure(self, result, metrics, backing, base, count):
+            super()._end_measure(result, metrics, backing, base, count)
+            torch.cuda.synchronize()
+            self.window["launches"] = wave_kernel.wave_solve.launches
+            self.window["builds"] = self.builds - self.window["builds"]
+            self.window["delta_builds"] = \
+                self.delta_builds - self.window["delta_builds"]
+
+    return ShardRunner
+
+
+def sharded_200k_phase(torch, backend_factory, nodes: int = HUGE_NODES,
+                       warmup: int = HUGE_WARMUP,
+                       measured: int = HUGE_MEASURED) -> dict:
+    """Phase 20(a): bench.py's 200k preset through the port's PerfRunner
+    in process, flagless: `control_plane_shards` picks the shard count
+    (8 above KTPU_SHARD_THRESHOLD) as bench.py does, and the runner builds
+    the ShardedNodeStore; then `huge_chunk_compare` over the run's nodes,
+    on its backend. Returns the kernels line's 20(a) entries."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.store import control_plane_shards
+
+    t0 = time.perf_counter()
+    shards = control_plane_shards(nodes)
+    if shards != 8:
+        raise RuntimeError(f"20(a): control_plane_shards({nodes}) = "
+                           f"{shards}, not 8")
+    family = bench_preset(nodes, warmup, measured)
+    wave_kernel.probe.launches = 0
+    backend = backend_factory()
+    runner = shard_runner_cls(torch)(backend, shards=shards)
+    result = asyncio.run(runner.run(
+        family["workloadTemplate"], family["workloads"][0]["params"],
+        timeout=900.0))
+    pods = asyncio.run(runner.store.list("pods")).items
+    used = {(p.get("spec") or {}).get("nodeName") for p in pods}
+    node_objs = [n for n in asyncio.run(runner.store.list("nodes")).items
+                 if n["metadata"]["name"] in used]
+    bound = sum(bool((p.get("spec") or {}).get("nodeName")) for p in pods)
+    over = over_capacity(node_objs, pods)
+    r, w = result.as_dict(), runner.window
+    prov = result.solve_provenance
+    print(f"sharded 200k 20(a) bench.py's 200k preset ({nodes} nodes, "
+          f"{warmup} + {measured} pods of cpu 100m / memory 250Mi; "
+          f"PerfRunner, Scheduler.run, TorchBackend(), batch_size "
+          f"{LOOP_BATCH}, in process, {shards} store shards flagless): "
+          f"SchedulingThroughput {r['throughput_pods_per_sec']} pods/s, "
+          f"measured_seconds {result.measured_seconds:.6f}, attempt ms p50 "
+          f"{r['attempt_p50_ms']} p99 {r['attempt_p99_ms']} p999 "
+          f"{r['attempt_p999_ms']} (exact {r['attempt_percentiles_exact']}); "
+          f"staging {result.staging_seconds:.3f} s; shard_count "
+          f"{r['shard_count']}, shard_tensor_rebuilds_total "
+          f"{r['shard_tensor_rebuilds_total']} over {w['builds']} "
+          f"ClusterTensors builds in the window ({w['delta_builds']} of "
+          f"them delta builds), shard_solve_seconds "
+          f"{r['shard_solve_seconds']}, cross_shard_reductions_total "
+          f"{r['cross_shard_reductions_total']}; solve route "
+          f"{prov.get('solve_kernel')} on {prov.get('card_name')}, "
+          f"wave_solve launches in the window {w['launches']}, probe "
+          f"launches over the run {wave_kernel.probe.launches}; bound "
+          f"{bound}/{warmup + measured}, nodes over capacity {len(over)}; "
+          f"phase 20(a) {time.perf_counter() - t0:.1f} s")
+    bad = []
+    if bound != warmup + measured or len(pods) != warmup + measured:
+        bad.append(f"{bound}/{warmup + measured} bound")
+    if over:
+        bad.append(f"nodes over capacity {over[:5]}")
+    if result.shard_count != 8:
+        bad.append(f"shard_count {result.shard_count}")
+    # The delta build's witness: a full build rewrites all 8 shards, a
+    # delta build only the shards of the nodes whose pods changed (all 8
+    # when a dispatch's binds spread over every shard), and at least one
+    # build of the window took the delta path.
+    if not 0 < result.shard_tensor_rebuilds_total <= 8 * w["builds"] \
+            or not w["delta_builds"]:
+        bad.append(f"shard_tensor_rebuilds_total "
+                   f"{result.shard_tensor_rebuilds_total} over "
+                   f"{w['builds']} builds, {w['delta_builds']} delta")
+    if not w["launches"]:
+        bad.append("no wave_solve launch in the window")
+    if prov.get("solve_kernel") != "cuda" \
+            or prov.get("card_name") != torch.cuda.get_device_name(0):
+        bad.append(f"solve_provenance {prov}")
+    if bad:
+        raise RuntimeError(f"20(a): {bad}")
+    return {"sharded_200k_launches": w["launches"],
+            "sharded_200k_probe_launches": wave_kernel.probe.launches,
+            **huge_chunk_compare(
+                torch, backend, runner.sched.cache.update_snapshot(),
+                runner.sched.profiles["default-scheduler"])}
+
+
+def process_runner_cls(base):
+    """`base` (a PerfRunner) that records, for a multi-process run, every
+    pod's first node and any later change of it (a rebind) from the
+    parent's informer, and before the processes stop: the merged LISTs of
+    nodes and pods, each shard's, the Lease holder and the live scheduler
+    processes."""
+    from kubernetes_tpu_torch.client import ResourceEventHandler
+
+    class ProcessRunner(base):
+        async def _drive(self, template_ops, params, timeout, backing,
+                         store, metrics, sched, factory, *rest):
+            self.binds: dict[str, str] = {}
+            self.rebinds: list[str] = []
+
+            def track(obj):
+                node = (obj.get("spec") or {}).get("nodeName")
+                if not node:
+                    return
+                key = f"{obj['metadata'].get('namespace')}/" \
+                      f"{obj['metadata']['name']}"
+                first = self.binds.setdefault(key, node)
+                if first != node:
+                    self.rebinds.append(key)
+
+            factory.informer("pods").add_event_handler(ResourceEventHandler(
+                on_add=track, on_update=lambda old, new: track(new)))
+            return await super()._drive(template_ops, params, timeout,
+                                        backing, store, metrics, sched,
+                                        factory, *rest)
+
+        async def _finalize_multiproc(self, result, backing):
+            await super()._finalize_multiproc(result, backing)
+            shards = backing.node_shards
+            self.final = {
+                "nodes": (await backing.list("nodes")).items,
+                "pods": (await backing.list("pods")).items,
+                "shard_nodes": [(await backing.list(
+                    "nodes", shard=i)).items for i in range(shards)],
+                "meta_pods": (await backing.wires[0].list("pods")).items,
+                "leader": await self._cp.leader_identity(),
+                "live": sorted(self._cp.sched_procs),
+            }
+
+    return ProcessRunner
+
+
+def process_violations(runner, result, want_pods: int, want_nodes: int,
+                       processes: int) -> list[str]:
+    """20(b)'s and 20(c)'s gates on a ProcessRunner's run: every pod bound
+    once, no node over capacity, the merged LISTs equal to what the
+    shards hold key by key and RV by RV (each node on its crc32 shard),
+    `process_count`, one live Lease holder."""
+    from kubernetes_tpu_torch.store import shard_of
+
+    f = runner.final
+
+    def rvs(objs):
+        return {o["metadata"]["name"]: o["metadata"]["resourceVersion"]
+                for o in objs}
+
+    bad = []
+    pods, nodes = f["pods"], f["nodes"]
+    bound = [p for p in pods if (p.get("spec") or {}).get("nodeName")]
+    if len(pods) != want_pods or len(bound) != want_pods:
+        bad.append(f"{len(bound)}/{want_pods} pods bound ({len(pods)} "
+                   "listed)")
+    if len(runner.binds) != want_pods or runner.rebinds:
+        bad.append(f"binds seen {len(runner.binds)}, rebinds "
+                   f"{runner.rebinds[:5]}")
+    over = over_capacity(nodes, pods)
+    if over:
+        bad.append(f"nodes over capacity {over[:5]}")
+    held = {}
+    for i, objs in enumerate(f["shard_nodes"]):
+        misplaced = [o["metadata"]["name"] for o in objs
+                     if shard_of(o["metadata"]["name"], processes) != i]
+        if misplaced:
+            bad.append(f"shard {i} holds {misplaced[:3]}")
+        held.update(rvs(objs))
+    if len(nodes) != want_nodes or rvs(nodes) != held:
+        bad.append(f"merged node LIST ({len(nodes)}) differs from the "
+                   f"shards' ({len(held)})")
+    if rvs(pods) != rvs(f["meta_pods"]):
+        bad.append("merged pod LIST differs from the meta shard's")
+    if result.process_count != processes:
+        bad.append(f"process_count {result.process_count}")
+    if f["leader"] is None or f["leader"] not in f["live"]:
+        bad.append(f"lease holder {f['leader']}, live {f['live']}")
+    return bad
+
+
+def multiproc_phase(torch, backend_factory, data_dir: str,
+                    workload: str = "5000Nodes", processes: int = 4) -> dict:
+    """Phase 20(b): SchedulingBasic/5000Nodes through
+    `PerfRunner(processes=4)`: 4 shard apiserver processes with their WALs
+    under `data_dir`, a leader-elected scheduler pair with TorchBackend on
+    the backend's device, the parent through ProcessShardedStore. Returns
+    the leader's kernel launches."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        SCHEDULING_BASIC, PerfRunner)
+
+    t0 = time.perf_counter()
+    params = next(w["params"] for w in SCHEDULING_BASIC["workloads"]
+                  if w["name"] == workload)
+    runner = process_runner_cls(PerfRunner)(
+        backend=backend_factory(), batch_size=LOOP_BATCH,
+        processes=processes, data_dir=data_dir)
+    result = asyncio.run(runner.run(SCHEDULING_BASIC["workloadTemplate"],
+                                    params, timeout=900.0))
+    r = result.as_dict()
+    launches = result.leader_kernel_launches
+    want = params["initPods"] + params["measurePods"]
+    bad = process_violations(runner, result, want, params["initNodes"],
+                             processes)
+    print(f"multiproc 20(b) SchedulingBasic/{workload} through "
+          f"PerfRunner(processes={processes}) ({processes} shard apiserver "
+          f"processes with WALs, a leader-elected scheduler pair with "
+          f"TorchBackend, batch_size {LOOP_BATCH}; the parent through "
+          f"ProcessShardedStore): SchedulingThroughput "
+          f"{r['throughput_pods_per_sec']} pods/s, measured_seconds "
+          f"{result.measured_seconds:.6f}, attempt ms p50 "
+          f"{r['attempt_p50_ms']} p99 {r['attempt_p99_ms']} p999 "
+          f"{r['attempt_p999_ms']} (exact {r['attempt_percentiles_exact']}, "
+          f"the leader's); staging {result.staging_seconds:.3f} s; "
+          f"process_count {r['process_count']}, leader_elections_total "
+          f"{r['leader_elections_total']}, leader {runner.final['leader']}, "
+          f"WAL appends {r['wal_appends_total']}, fsync seconds "
+          f"{r['wal_fsync_seconds_total']}; the leader's kernel launches "
+          f"{launches}, solve route "
+          f"{result.solve_provenance.get('solve_kernel')}; merged LISTs "
+          f"equal to the shards' key by key and RV by RV: "
+          f"{'yes' if not bad else 'see below'}; phase 20(b) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if result.leader_elections_total < 1:
+        bad.append(f"leader_elections_total {result.leader_elections_total}")
+    if not launches.get("wave_solve"):
+        bad.append(f"no wave_solve launch in the leader: {launches}")
+    if bad:
+        raise RuntimeError(f"20(b): {bad}")
+    return launches
+
+
+def kill_leader_phase(torch, backend_factory, data_dir: str,
+                      workload: str = "1000Nodes-r100",
+                      processes: int = 2) -> dict:
+    """Phase 20(c): ChurnDay/1000Nodes-r100's template and params with a
+    killLeader fault at 3 s, processes=2 and KTPU_LEASE_DURATION=6, then a
+    barrier. Returns the surviving leader's kernel launches."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import CHURN_DAY, PerfRunner
+    from kubernetes_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    params = next(w["params"] for w in CHURN_DAY["workloads"]
+                  if w["name"] == workload)
+    template = copy.deepcopy(CHURN_DAY["workloadTemplate"])
+    template[-1]["faults"] = [{"at": KILL_LEADER_AT_S, "kind": "killLeader"}]
+    template.append({"opcode": "barrier"})
+    with flags.scoped_set("KTPU_LEASE_DURATION", KILL_LEADER_LEASE_S):
+        runner = process_runner_cls(PerfRunner)(
+            backend=backend_factory(), batch_size=LOOP_BATCH,
+            processes=processes, data_dir=data_dir)
+        result = asyncio.run(runner.run(template, params, timeout=900.0))
+    r = result.as_dict()
+    faults = r["churn_faults"]
+    rec = faults[0] if faults else {}
+    want = params["warmupPods"] + r["churn_arrivals_total"] + \
+        rec.get("replacements", 0)
+    bad = process_violations(runner, result, want, params["initNodes"],
+                             processes)
+    print(f"kill leader 20(c) ChurnDay/{workload} (Poisson "
+          f"{params['rate']}/s for {params['duration']} s, seed 17) with "
+          f"killLeader at {KILL_LEADER_AT_S} s, processes={processes}, "
+          f"KTPU_LEASE_DURATION={KILL_LEADER_LEASE_S}: fault {rec}; time to "
+          f"recovery {rec.get('recovery_s')} s (the kill to the last of "
+          f"{rec.get('replacements')} canaries bound with the backlog "
+          f"under {10}); leader_elections_total "
+          f"{r['leader_elections_total']}, lease holder "
+          f"{runner.final['leader']}, live schedulers "
+          f"{runner.final['live']}; arrivals {r['churn_arrivals_total']}, "
+          f"attempt ms p50 {r['attempt_p50_ms']} p99 {r['attempt_p99_ms']} "
+          f"p999 {r['attempt_p999_ms']} (the new leader's window); the "
+          f"survivor's kernel launches {result.leader_kernel_launches}; "
+          f"every pod bound once: {not bad}; phase 20(c) "
+          f"{time.perf_counter() - t0:.1f} s")
+    others = {f"ktpu-sched-{i}" for i in range(2)}
+    if rec.get("kind") != "killLeader" or rec.get("leader") not in others \
+            or rec.get("recovered") is not True:
+        bad.append(f"fault record {rec}")
+    if runner.final["live"] != [runner.final["leader"]] \
+            or runner.final["leader"] == rec.get("leader"):
+        bad.append(f"lease holder {runner.final['leader']}, live "
+                   f"{runner.final['live']}")
+    if result.leader_elections_total < 2:
+        bad.append(f"leader_elections_total {result.leader_elections_total}")
+    if bad:
+        raise RuntimeError(f"20(c): {bad}")
+    return result.leader_kernel_launches
+
+
+def sharded_processes_run(torch) -> dict:
+    """Phase 20 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on (the children inherit both).
+    Returns the kernels line's phase 20 entries."""
+    import shutil
+
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.utils import flags
+
+    t20 = time.perf_counter()
+    print(f"phase 20 on {card_line()}")
+    data = os.path.join(REPO, "build", "phase20")
+    shutil.rmtree(data, ignore_errors=True)
+    os.makedirs(data)
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        huge = sharded_200k_phase(torch, TorchBackend)
+        multi = multiproc_phase(torch, TorchBackend,
+                                os.path.join(data, "shards-b"))
+        kill = kill_leader_phase(torch, TorchBackend,
+                                 os.path.join(data, "shards-c"))
+    print(f"phase 20 {time.perf_counter() - t20:.1f} s")
+    chunk = {k: v for k, v in huge.items() if k.startswith("huge_")}
+    return {"wave_solve": {"sharded_200k_launches":
+                           huge["sharded_200k_launches"],
+                           "multiproc_launches": multi["wave_solve"],
+                           "kill_leader_launches": kill["wave_solve"],
+                           **chunk},
+            "probe": {"sharded_200k_launches":
+                      huge["sharded_200k_probe_launches"],
+                      "multiproc_launches": multi["probe"],
+                      "kill_leader_launches": kill["probe"]}}
+
+
+def sharded_processes_phases(torch) -> int:
+    """`--phase20-only`: build the kernels (phase 1), then phase 20."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(sharded_processes_run(torch)))
+    print_card()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -7610,6 +8068,9 @@ def main() -> int:
     parser.add_argument("--phase19-only", action="store_true",
                         help="build the kernels and run phase 19 alone "
                         "(prints no result lines)")
+    parser.add_argument("--phase20-only", action="store_true",
+                        help="build the kernels and run phase 20 alone "
+                        "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
     if not torch.cuda.is_available():
@@ -7635,6 +8096,8 @@ def main() -> int:
         return boundary_phases(torch)
     if cli.phase19_only:
         return control_plane_phases(torch)
+    if cli.phase20_only:
+        return sharded_processes_phases(torch)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -7692,7 +8155,7 @@ def print_card() -> None:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-20 (see the module docstring)."""
+    """Phases 1-21 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -8073,8 +8536,11 @@ def smoke(torch, seed: int) -> int:
     # -- 19. the control plane as processes ---------------------------------
     processes = control_plane_run(torch)
 
-    # -- 20. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-19)")
+    # -- 20. the sharded and the multi-process control plane ----------------
+    sharded_cp = sharded_processes_run(torch)
+
+    # -- 21. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-20)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -8088,7 +8554,7 @@ def smoke(torch, seed: int) -> int:
          "gang_launches": gang_launches,
          "gang_chunk_launches": gang_chunk_launches, **large, **device,
          **stream_volume, **slice_topology, **families, **boundary,
-         **processes["wave_solve"]},
+         **processes["wave_solve"], **sharded_cp["wave_solve"]},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,
@@ -8096,7 +8562,7 @@ def smoke(torch, seed: int) -> int:
          "bound_by": "bytes", "library_ms": probe_plain_ms,
          "loop_launches": loop["loop_probe_launches"],
          "constraint_launches": anti["probe_launches"],
-         **processes["probe"]},
+         **processes["probe"], **sharded_cp["probe"]},
         *sharded_entries,
     ]}))
     print_card()

@@ -1,12 +1,13 @@
 """Client runtime: the reflector → informer triangle (client-go tools/cache
 equivalents), event recording, the rate-limited work queue and the
 conflict-retry helper the remote stores share, and leader election.
-Counterpart of `kubernetes_tpu/client/`; the sharded informer waits."""
+Counterpart of `kubernetes_tpu/client/`, with the sharded informer."""
 
 from kubernetes_tpu_torch.client.informer import (
     Indexer,
     InformerFactory,
     ResourceEventHandler,
+    ShardedInformer,
     SharedInformer,
     namespace_index,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "Indexer",
     "InformerFactory",
     "ResourceEventHandler",
+    "ShardedInformer",
     "SharedInformer",
     "namespace_index",
     "EventRecorder",

@@ -13,8 +13,7 @@ cache and dispatched to handlers in the same tick, which preserves the ordering
 guarantees DeltaFIFO exists to protect (cache is updated *before* handlers see
 the event — same as HandleDeltas).
 
-Copy of `kubernetes_tpu/client/informer.py`. `ShardedInformer`, which
-consumes a sharded store shard by shard, waits with the sharded store.
+Copy of `kubernetes_tpu/client/informer.py`.
 """
 
 from __future__ import annotations
@@ -217,9 +216,13 @@ class SharedInformer:
                     self.resource, self.last_rv)
                 await asyncio.sleep(0.2)
 
-    def _replace(self, objs: list[dict]) -> None:
-        """Relist reconciliation."""
+    def _replace(self, objs: list[dict], key_filter=None) -> None:
+        """Relist reconciliation. `key_filter` scopes the deletion sweep
+        to a subset of the key space (a sharded informer relisting ONE
+        shard must not delete the other shards' objects)."""
         old_keys = set(self.indexer.keys())
+        if key_filter is not None:
+            old_keys = {k for k in old_keys if key_filter(k)}
         new_keys = {namespaced_name(o) for o in objs}
         for obj in objs:
             self._apply("MODIFIED" if namespaced_name(obj) in old_keys else "ADDED", obj)
@@ -245,9 +248,118 @@ class SharedInformer:
                 self._call(h.on_update, old, obj)
 
 
+class ShardedInformer(SharedInformer):
+    """Per-shard reflectors behind one indexer + handler set.
+
+    Against a sharded control plane (store/sharded.ShardedNodeStore, or
+    a wire client whose server advertises shards via `control_topology`)
+    a partitioned resource is consumed as S independent LIST+WATCH
+    loops — one per shard — so watch establishment, backfill, and
+    Expired relists stay SHARD-LOCAL: a relist storm re-reads one
+    shard's snapshot, not the cluster's. The initial sync is ONE merged
+    LIST (the facade merge-sorts by key — the same order a single
+    store's sorted scan yields, which is what keeps sharded-vs-unsharded
+    scheduling assignments bit-identical under the index tie rule).
+    Stores without shards (plain MVCCStore, HTTP/gRPC clients) degrade
+    to the classic single-reflector path untouched."""
+
+    async def _topology(self) -> tuple[int, tuple[str, ...]]:
+        fn = getattr(self.store, "control_topology", None)
+        if fn is not None:
+            t = await fn()
+            return (int(t.get("nodeShards", 1) or 1),
+                    tuple(t.get("partitioned") or ()))
+        return (int(getattr(self.store, "node_shards", 1) or 1),
+                tuple(getattr(self.store, "partitioned_resources", ())))
+
+    async def _run(self) -> None:
+        try:
+            shards, partitioned = await self._topology()
+        except asyncio.CancelledError:
+            return
+        except Exception:
+            logger.exception("informer %s: topology probe failed; "
+                             "using the single-stream path", self.resource)
+            shards, partitioned = 1, ()
+        if shards <= 1 or self.resource not in partitioned:
+            return await super()._run()
+        self._shard_count = shards
+        # ONE merged LIST seeds the cache in global key order; each
+        # shard's watch then resumes from the list's (global) RV.
+        while True:
+            try:
+                lst = await self.store.list(
+                    self.resource, selector=self.selector)
+                break
+            except asyncio.CancelledError:
+                return
+            except Exception:
+                logger.exception("informer %s: initial sharded LIST "
+                                 "failed; retrying", self.resource)
+                await asyncio.sleep(0.2)
+        self._replace(lst.items)
+        self.last_rv = lst.resource_version
+        self._synced.set()
+        loops = [asyncio.ensure_future(
+            self._shard_loop(i, shards, lst.resource_version))
+            for i in range(shards)]
+        try:
+            await asyncio.gather(*loops)
+        finally:
+            for t in loops:
+                t.cancel()
+
+    async def _shard_loop(self, i: int, shards: int, from_rv: int) -> None:
+        """One shard's reflector: watch with bookmark-driven resume;
+        only Expired forces a relist — and the relist is SHARD-SCOPED
+        (list(shard=i) replaces only this shard's keys)."""
+        rv = from_rv
+        while True:
+            try:
+                watch = await self.store.watch(
+                    self.resource, resource_version=rv,
+                    selector=self.selector, shard=i)
+                async for ev in watch:
+                    if ev.type == "BOOKMARK":
+                        rv = max(rv, ev.rv)
+                        continue
+                    self._apply(ev.type, ev.object)
+                    rv = max(rv, ev.rv)
+                    self.last_rv = max(self.last_rv, ev.rv)
+            except Expired:
+                logger.info("informer %s[shard %d]: watch expired, "
+                            "shard-scoped relist", self.resource, i)
+                try:
+                    lst = await self.store.list(
+                        self.resource, selector=self.selector, shard=i)
+                except asyncio.CancelledError:
+                    return
+                except Exception:
+                    await asyncio.sleep(0.2)
+                    continue
+                self._replace_shard(lst.items, i, shards)
+                rv = lst.resource_version
+            except asyncio.CancelledError:
+                return
+            except Exception:
+                logger.exception(
+                    "informer %s[shard %d]: reflector error, resuming "
+                    "from rv %d", self.resource, i, rv)
+                await asyncio.sleep(0.2)
+
+    def _replace_shard(self, objs: list[dict], i: int, shards: int) -> None:
+        """_replace scoped to shard i's key space: other shards' objects
+        must survive this shard's relist."""
+        from kubernetes_tpu_torch.store.sharded import _name_of_key, shard_of
+        self._replace(objs, key_filter=lambda k: shard_of(
+            _name_of_key(k), shards) == i)
+
+
 class InformerFactory:
     """SharedInformerFactory: one informer per resource, shared across
-    consumers (controllers + scheduler share pod/node informers)."""
+    consumers (controllers + scheduler share pod/node informers).
+    Partitionable resources get a ShardedInformer, which degrades to
+    the classic reflector when the store advertises no shards."""
 
     def __init__(self, store: MVCCStore):
         self.store = store
@@ -255,8 +367,12 @@ class InformerFactory:
 
     def informer(self, resource: str, **kwargs: Any) -> SharedInformer:
         if resource not in self._informers:
-            self._informers[resource] = SharedInformer(
-                self.store, resource, **kwargs)
+            from kubernetes_tpu_torch.store.sharded import (
+                PARTITIONED_RESOURCES,
+            )
+            cls = ShardedInformer if resource in PARTITIONED_RESOURCES \
+                else SharedInformer
+            self._informers[resource] = cls(self.store, resource, **kwargs)
         return self._informers[resource]
 
     def start(self) -> None:

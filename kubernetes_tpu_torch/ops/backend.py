@@ -104,11 +104,15 @@ When the scheduler attaches its metrics (`metrics`, `tracer`), each chunk
 observes `scheduler_tpu_solve_seconds` (dispatch to fetched) and the
 solver_* counters the reference's chunk finalization updates, for the
 counters this backend keeps, the shortlist's and the block index's
-among them. For perf output, `solve_provenance(device)` names the card
-and the solve route, and `start_profile` / `stop_profile` write a
-torch.profiler Chrome trace of a window (raising where the reference
-logs and goes on). Multi-device sharding of the node axis is a later
-slice.
+among them, and the control-plane shard accounting: per-shard tensor
+rebuilds (`scheduler_tpu_shard_tensor_rebuilds_total`, only the shards
+whose rows a build rewrote), and, above one shard (`control_shards`, set
+by the scheduler from its store), the solve wall labelled with the shard
+count and one cross-shard reduction per pod. For perf output,
+`solve_provenance(device)` names the card and the solve route, and
+`start_profile` / `stop_profile` write a torch.profiler Chrome trace of
+a window (raising where the reference logs and goes on). Multi-device
+sharding of the node axis is a later slice.
 """
 
 from __future__ import annotations
@@ -833,6 +837,10 @@ class TorchBackend:
             wave_kernel.probe_check()
         self.max_batch = max_batch if max_batch is not None \
             else _DEFAULT_CHUNK
+        #: control-plane shard count of the backing store, injected by
+        #: Scheduler.attach_backend when the store advertises one
+        #: (ShardedNodeStore.node_shards); None = the flagless policy.
+        self.control_shards = None
         #: parallel permuted-order solves per chunk (1 = queue order only).
         self.multistart = max(1, int(multistart))
         self._tuner = AdaptiveTuner(prune_auto=self.device.type != "cuda")
@@ -946,13 +954,19 @@ class TorchBackend:
 
     def _tensors(self, snapshot: Snapshot) -> ClusterTensors:
         if self._ct is None or self._ct.generation != snapshot.generation:
-            self._ct = ClusterTensors(snapshot, prev=self._ct)
+            self._ct = ClusterTensors(snapshot, prev=self._ct,
+                                      shards=self.control_shards)
             self._affinity = None  # resident pods changed: recompile
-            # Coordinate-plane rebuilds: reuse does not count.
-            topo = self._ct.topology
-            if self.metrics is not None and topo is not None \
-                    and topo.rebuilt:
-                self.metrics.topology_plane_rebuilds.inc()
+            if self.metrics is not None:
+                # Per-shard host-prep accounting: only shards whose rows
+                # this build rewrote count a rebuild (the delta build's
+                # witness). Coordinate-plane rebuilds: reuse does not
+                # count.
+                for sh in self._ct.shard_rebuilds:
+                    self.metrics.shard_tensor_rebuilds.inc(shard=str(sh))
+                topo = self._ct.topology
+                if topo is not None and topo.rebuilt:
+                    self.metrics.topology_plane_rebuilds.inc()
         if self._row_fp != self._ct._static_fp:
             self._row_cache.clear()
             self._row_fp = self._ct._static_fp
@@ -1385,9 +1399,9 @@ class TorchBackend:
                 others = await self._await_event(run.get("assign_ev"))
                 assign_np = self._host_assign(run)
             t3 = time.perf_counter()
+            run["solve_wall_s"] = run["dispatch_s"] + t3 - t2
             if self.metrics is not None:
-                self.metrics.solve_duration.observe(
-                    run["dispatch_s"] + t3 - t2)
+                self.metrics.solve_duration.observe(run["solve_wall_s"])
             diag_others = 0.0
             if (assign_np[: run["batch"].p_real] < 0).any():
                 # Solver failures: _finalize_chunk's diagnostics read the
@@ -1495,8 +1509,9 @@ class TorchBackend:
         t2 = time.perf_counter()
         assign_np = self._fetch_assign(run)
         t3 = time.perf_counter()
+        run["solve_wall_s"] = run["dispatch_s"] + t3 - t2
         if self.metrics is not None:
-            self.metrics.solve_duration.observe(run["dispatch_s"] + t3 - t2)
+            self.metrics.solve_duration.observe(run["solve_wall_s"])
         self._finalize_chunk(run, assign_np, ctx)
         tm["device_s"] += t3 - t2
         tm["verify_s"] += time.perf_counter() - t3
@@ -2595,6 +2610,13 @@ class TorchBackend:
                 m.solver_sinkhorn_iterations.set(run["sink_iters"])
             elif run["optimal_fallback"]:
                 m.solver_optimal_fallbacks.inc()
+            if ctx.ct.prep_shards > 1:
+                # Sharded-path solve accounting: one solve spans every
+                # shard, so the wall is labelled with the shard COUNT;
+                # the cross-shard argmax merges once per pod step.
+                m.shard_solve_seconds.inc(run.get("solve_wall_s", 0.0),
+                                          shards=str(ctx.ct.prep_shards))
+                m.cross_shard_reductions.inc(batch.p_real)
 
         rejects = self._verify(pods, assign, ctx, run["stateful_pods"])
         self.counters["verify_rejects"] += len(rejects)

@@ -32,8 +32,9 @@ so node add/remove churn keeps the device buffers' shapes stable.
 Copy of `kubernetes_tpu/ops/tensorize.py` with the same quantization, the
 same incremental builds (the full build's copy of the previous arrays, and
 the O(changed) `_init_delta` off a `SchedulerCache` snapshot) and the same
-topology coordinate planes (`topology`, under `KTPU_TOPOLOGY`). Left out:
-the control-plane shard accounting and the caller-pinned resource prefix.
+topology coordinate planes (`topology`, under `KTPU_TOPOLOGY`) and the
+same control-plane shard accounting (`prep_shards`, `shard_ids`,
+`shard_rebuilds`). Left out: the caller-pinned resource prefix.
 """
 
 from __future__ import annotations
@@ -142,14 +143,29 @@ class ClusterTensors:
     """
 
     def __init__(self, snapshot: Snapshot,
-                 prev: "ClusterTensors | None" = None):
+                 prev: "ClusterTensors | None" = None,
+                 shards: int | None = None):
         nodes = snapshot.nodes
         self.generation = snapshot.generation
+        #: control-plane shard count for the prep accounting: the
+        #: backing store's actual S when the caller knows it (the
+        #: scheduler threads it from an in-process ShardedNodeStore),
+        #: else resolved from the flagless policy.
+        self._shards_override = shards
         #: incremental-prep handles (SchedulerCache stamps them on its
         #: snapshots; -1 = unknown, the full-walk path).
         self.set_epoch = getattr(snapshot, "set_epoch", -1)
         self.spec_seq = getattr(snapshot, "spec_seq", -1)
-        if self._init_delta(snapshot, prev):
+        #: per-shard prep accounting (filled by both build paths):
+        #: control-plane shard ids over the node axis and which shards'
+        #: rows this build actually rewrote.
+        self.prep_shards = 1
+        self.shard_ids: np.ndarray | None = None
+        self.shard_rebuilds: list[int] = []
+        #: True when this build took `_init_delta` (static arrays shared
+        #: with `prev`, only the changed nodes' rows rewritten).
+        self.delta_build = self._init_delta(snapshot, prev)
+        if self.delta_build:
             return
         self.node_names = [ni.name for ni in nodes]
         self.name_to_idx = {n: i for i, n in enumerate(self.node_names)}
@@ -237,6 +253,11 @@ class ClusterTensors:
             build_topology_planes(
                 nodes, N, getattr(prev, "topology", None))
             if flags.get("KTPU_TOPOLOGY") else None)
+        self._shard_accounting(
+            prev=prev if incremental else None,
+            changed=changed if incremental else None)
+
+    # -- shard-local delta build (the 200k control-plane path) --------------
 
     def _init_delta(self, snapshot: Snapshot,
                     prev: "ClusterTensors | None") -> bool:
@@ -248,10 +269,11 @@ class ClusterTensors:
         is skipped: the static pieces (names, resource columns, scales,
         allocatable, taints) are SHARED with prev — spec_seq pins them
         identical — while the used-state arrays are copied and only the
-        rows of nodes whose generation advanced are re-quantized.
-        O(changed) per generation instead of O(N). Node order is
-        untouched, so assignments (and the index tie rule) stay
-        identical to the full build."""
+        rows of nodes whose generation advanced are re-quantized, grouped
+        by control-plane shard for the rebuild accounting. O(changed) per
+        generation instead of O(N). Node order is untouched, so
+        assignments (and the index tie rule) stay identical to the full
+        build."""
         if prev is None or self.set_epoch < 0 \
                 or self.set_epoch != getattr(prev, "set_epoch", -2) \
                 or self.spec_seq != getattr(prev, "spec_seq", -2):
@@ -298,7 +320,41 @@ class ClusterTensors:
             build_topology_planes(
                 nodes, self.n_pad, getattr(prev, "topology", None))
             if flags.get("KTPU_TOPOLOGY") else None)
+        self._shard_accounting(prev=prev, changed=changed)
         return True
+
+    def _shard_accounting(self, prev: "ClusterTensors | None",
+                          changed) -> None:
+        """Which control-plane shards' rows this build rewrote.
+        `changed=None` means a full rebuild (every shard). Shard ids
+        are computed once per node-set epoch and shared with prev."""
+        from kubernetes_tpu_torch.store.sharded import (
+            control_plane_shards,
+            shard_of,
+        )
+        S = control_plane_shards(self.n_real, self._shards_override)
+        self.prep_shards = S
+        if S <= 1:
+            self.shard_rebuilds = [0] if (changed is None or changed) \
+                else []
+            return
+        if prev is not None and prev.shard_ids is not None \
+                and prev.prep_shards == S \
+                and len(prev.shard_ids) == self.n_real:
+            self.shard_ids = prev.shard_ids
+        else:
+            self.shard_ids = np.fromiter(
+                (shard_of(n, S) for n in self.node_names),
+                dtype=np.int32, count=self.n_real)
+        if changed is None:
+            self.shard_rebuilds = list(range(S))
+        elif changed:
+            self.shard_rebuilds = sorted(
+                int(s) for s in np.unique(
+                    self.shard_ids[np.fromiter(
+                        changed, dtype=np.intp, count=len(changed))]))
+        else:
+            self.shard_rebuilds = []
 
     # -- per-pod compilation -------------------------------------------------
 

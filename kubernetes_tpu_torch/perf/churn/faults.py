@@ -36,11 +36,12 @@ Kinds (performance-config.yaml `faults:` entries / bench --churn-fault):
   on a fresh contiguous sub-mesh that avoids the dead cell — the
   ChurnSlicePacking family's time-to-re-coalesce headline.
 - killLeader  — SIGKILL the ACTIVE scheduler process mid-wave
-  (multi-process runs only: multiproc/controlplane.py). The standby must win the lease
+  (multi-process runs only: needs the injector's `control_plane`
+  seam — multiproc/controlplane.py). The standby must win the lease
   by EXPIRY, rebuild its assume-cache from fresh informer LISTs, and
   resume; recovery = `count` canary pods created at kill time all
   bound + backlog under threshold — the end-to-end failover
-  time-to-recovery the r22 ChurnDay row records.
+  time-to-recovery.
 
 Each fault runs as its own task so recovery tracking never delays later
 timeline events; `churn_faults_injected_total{kind}` counts injections
@@ -53,10 +54,8 @@ Copy of `kubernetes_tpu/perf/churn/faults.py`, with these departures:
   such exception propagates out of `drain()` once every handler has
   ended; a handler's own store errors are still absorbed as in the
   reference (a create or delete that races the run);
-- not here yet: `killLeader` needs the multi-process control plane
-  (`multiproc/`), ROADMAP queue 1 item 9; its handler raises
-  NotImplementedError. `build_fault_timeline` resolves every kind as the
-  reference does.
+- `killLeader` with no control plane (an in-process run) raises, where
+  the reference logs an error and records `recovered: False`.
 """
 
 from __future__ import annotations
@@ -166,7 +165,8 @@ class FaultInjector:
                  recovery_threshold: int = 10,
                  recovery_timeout: float = 60.0,
                  namespace: str = "default",
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 control_plane=None):
         self.store = store
         self.agents = {a.node_name: a for a in agents}
         self.bound_keys = bound_keys
@@ -178,6 +178,9 @@ class FaultInjector:
         self.recovery_timeout = float(recovery_timeout)
         self.namespace = namespace
         self.clock = clock
+        #: MultiProcessControlPlane (multiproc/) or None — the
+        #: killLeader seam; in-process runs have no leader to kill.
+        self.control_plane = control_plane
         #: one record per injected fault, timeline order:
         #: {kind, at, node?, displaced_pods, replacements, recovery_s,
         #:  recovered}
@@ -423,9 +426,27 @@ class FaultInjector:
                            POD_GROUP_LABEL: group}}
 
     async def _do_killLeader(self, ev: FaultEvent, rec: dict) -> None:
-        raise NotImplementedError(
-            "killLeader needs the multi-process control plane "
-            "(multiproc/), which is not ported (ROADMAP queue 1 item 9)")
+        cp = self.control_plane
+        if cp is None:
+            raise RuntimeError("killLeader fault needs a multi-process "
+                               "run (processes >= 2)")
+        t0 = self.clock()
+        killed = await cp.kill_leader()
+        rec["leader"] = killed
+        if killed is None:
+            # No replica held the lease (already mid-election):
+            # nothing to kill, nothing to recover.
+            rec["recovered"] = False
+            return
+        # Canary gang created AT kill time: they can only bind once the
+        # standby holds the lease and has rebuilt its assume-cache, so
+        # their time-to-bound IS the failover time-to-recovery.
+        count = int(ev.params.get("count", 8))
+        names = [f"failover-{round(ev.at * 1e3)}-{i}"
+                 for i in range(count)]
+        await self._create_many(names, self.pod_template)
+        rec["replacements"] = count
+        await self._await_bound(names, rec, t0)
 
     async def _pods_on(self, node: str) -> list[dict]:
         try:

@@ -21,9 +21,8 @@ nothing contradicts Bind. Same workload shape:
       - name: 5000Nodes
         params: {initNodes: 5000, initPods: 1000, measurePods: 10000}
 
-Copy of `kubernetes_tpu/perf/scheduler_perf.py`, cut to the single-process
-control plane (no multi-process control plane or sharded store) and the
-opcodes createNodes (with `topologyTemplate`, a NodeResourceTopology per
+Copy of `kubernetes_tpu/perf/scheduler_perf.py`, with the opcodes
+createNodes (with `topologyTemplate`, a NodeResourceTopology per
 node, and `draTemplate`, the DeviceClass once and a ResourceSlice per
 node), startAgents (N in-process hollow-kubelet NodeAgents, agent/, which
 register their own Nodes, watch their pods through a field selector, mark
@@ -37,8 +36,8 @@ window with an optional fault timeline; a `nodeDeath` fault runs the node
 lifecycle controller beside it, a `descheduler` block, or the
 KTPU_DESCHEDULER flag, runs the rebalance descheduler with its scores on
 the backend's device, and `sampleInterval` samples the fragmentation
-curve; `killLeader` raises NotImplementedError, as `multiproc/` is not
-ported), barrier and sleep. A workload's `schedulerConfig` builds the
+curve; `killLeader` SIGKILLs the leader scheduler process of a
+multi-process run), barrier and sleep. A workload's `schedulerConfig` builds the
 scheduler's profiles through the port's `config.load_config`.
 
 A run may cross the apiserver boundary as the reference's does
@@ -79,6 +78,19 @@ global barrier, and so are the device-topology families
 `CHURN_REBALANCE`, `SCHEDULING_GATED`, `AGENT_RELIST_STORM` and
 `POLICY_SCALE`.
 
+The control plane may be sharded (`shards`, or KTPU_SHARDS: a
+`store.ShardedNodeStore` of that many node shards, whose per-shard
+tensor rebuilds, solve wall and cross-shard reductions land in the
+result) or split into processes (`processes` >= 2, or KTPU_PROCESSES: one
+apiserver process per shard with its WAL under `data_dir`, a
+leader-elected scheduler pair with the backend's `TorchBackend` on the
+same device, and the parent driving the workload through
+`multiproc.ProcessShardedStore`; `process_count`, `leader_elections_total`,
+the WAL counters and the leader's kernel launches land in the result).
+A multi-process run refuses `scheduler_config`, `through_apiserver`,
+`profile_dir` and policies (the reference ignores them there), and fails
+when a child process the run did not kill exits.
+
 Metrics over the measured phase: SchedulingThroughput (pods/s),
 scheduling_attempt_duration percentiles (exact order statistics of the
 measured window, p50/p90/p99/p999), node fragmentation % (all nodes and
@@ -91,7 +103,8 @@ Run: `python -m kubernetes_tpu_torch.perf.scheduler_perf [config.yaml]
 plain versions and `--backend host` the host path alone; `--profile-dir
 DIR` writes each measured window's trace there; `--through-apiserver
 {http,wire}` runs every family through that boundary (a family's own
-`throughApiserver` wins).
+`throughApiserver` wins). KTPU_SHARDS and KTPU_PROCESSES shape the
+control plane of every run.
 """
 
 from __future__ import annotations
@@ -704,6 +717,29 @@ class WorkloadResult:
         self.slice_gangs_bound_total = 0
         self.slice_fragmentation_pct = 0.0
         self.topology_plane_rebuilds_total = 0
+        #: sharded-control-plane accounting: the run's shard count (1 =
+        #: the classic single store), per-shard host-prep rebuilds over
+        #: the measured phase (the incremental path keeps this at
+        #: dirty-shards-only), the solve wall attributed to the sharded
+        #: path, and the top-level cross-shard argmax steps.
+        self.shard_count = 1
+        self.shard_tensor_rebuilds_total = 0
+        self.shard_solve_seconds = 0.0
+        self.cross_shard_reductions_total = 0
+        #: multi-process control plane accounting: OS processes behind
+        #: the run (1 = the classic in-process tree), WAL appends /
+        #: replayed entries / fsync wall summed across the shard
+        #: apiserver processes, scheduler leader elections observed (1 =
+        #: the initial acquisition; >1 means a failover happened
+        #: mid-run), and the leader's kernel launches over its life
+        #: (empty for an in-process run; an attribute only, so the
+        #: detail dict keeps the reference's keys).
+        self.process_count = 1
+        self.wal_appends_total = 0
+        self.wal_replay_entries_total = 0
+        self.wal_fsync_seconds_total = 0.0
+        self.leader_elections_total = 0
+        self.leader_kernel_launches: dict[str, int] = {}
 
     def as_dict(self) -> dict:
         def ms(v: float):
@@ -799,6 +835,17 @@ class WorkloadResult:
                 self.slice_fragmentation_pct, 2),
             "topology_plane_rebuilds_total":
                 self.topology_plane_rebuilds_total,
+            "shard_count": self.shard_count,
+            "shard_tensor_rebuilds_total": self.shard_tensor_rebuilds_total,
+            "shard_solve_seconds": round(self.shard_solve_seconds, 6),
+            "cross_shard_reductions_total":
+                self.cross_shard_reductions_total,
+            "process_count": self.process_count,
+            "wal_appends_total": self.wal_appends_total,
+            "wal_replay_entries_total": self.wal_replay_entries_total,
+            "wal_fsync_seconds_total": round(
+                self.wal_fsync_seconds_total, 4),
+            "leader_elections_total": self.leader_elections_total,
         }
 
 
@@ -822,6 +869,72 @@ class _ServerPair:
         await self.api.stop()
 
 
+class _SchedulerProxy:
+    """Stands in for the in-process Scheduler when scheduling happens
+    in child processes (processes >= 2): the harness keeps reading the
+    same seams — queue depth, event-recorder counters, the cache
+    snapshot — but the answers come from the parent's own pod informer
+    (backlog = pods without a nodeName) or are structurally empty (the
+    assume-cache lives in the leader replica; fragmentation over it is
+    reported as 0 here and the exact attempt percentiles come over the
+    measure-marker protocol instead). Its `run` ends with an exception
+    when a child process the run did not kill exits."""
+
+    class _Recorder:
+        emitted = 0
+        dropped = 0
+
+        async def flush(self) -> None:
+            pass
+
+    class _Cache:
+        @staticmethod
+        def update_snapshot() -> list:
+            return []
+
+    def __init__(self, cp):
+        self.cp = cp
+        self.queue = self
+        self.recorder = self._Recorder()
+        self.cache = self._Cache()
+        self._unbound: set[str] = set()
+
+    async def setup_informers(self, factory) -> None:
+        def _upd(obj):
+            key = namespaced_name(obj)
+            if obj.get("spec", {}).get("nodeName"):
+                self._unbound.discard(key)
+            else:
+                self._unbound.add(key)
+
+        factory.informer("pods").add_event_handler(ResourceEventHandler(
+            on_add=_upd, on_update=lambda old, new: _upd(new),
+            on_delete=lambda obj: self._unbound.discard(
+                namespaced_name(obj))))
+
+    # -- queue surface (self.queue is self) --------------------------------
+
+    def stats(self) -> dict:
+        return {"active": len(self._unbound), "backoff": 0,
+                "unschedulable": 0, "gated": 0, "in_flight": 0}
+
+    def backlog_depth(self) -> int:
+        return len(self._unbound)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def run(self, batch_size: int = 1) -> None:
+        # The replicas schedule; the proxy holds the task slot the
+        # harness cancels on teardown, and ends with the exception of a
+        # child that died on its own.
+        while True:
+            self.cp.check_alive()
+            await asyncio.sleep(0.1)
+
+    async def stop(self) -> None:
+        pass
+
+
 class PerfRunner:
     """Executes one workload (template ops + params) against an in-process
     store + scheduler, mirroring mustSetupCluster → runWorkload."""
@@ -833,7 +946,10 @@ class PerfRunner:
                  profile_dir: str | None = None,
                  policy_count: int = 0,
                  policy_tenants: int = 0,
-                 audit_rules: list | None = None):
+                 audit_rules: list | None = None,
+                 shards: int | None = None,
+                 processes: int | None = None,
+                 data_dir: str | None = None):
         if profile_dir and backend is None:
             raise ValueError("profile_dir needs a backend to profile "
                              "(TorchBackend.start_profile)")
@@ -869,10 +985,43 @@ class PerfRunner:
         #: where the backend writes a torch.profiler trace of each
         #: MEASURED window (not the warm-up), or None for no trace.
         self.profile_dir = profile_dir
+        #: control-plane shard count for the backing store (>1 builds a
+        #: ShardedNodeStore; None resolves KTPU_SHARDS, default 1).
+        self.shards = shards
+        #: OS-process count for the control plane. >1 spawns one
+        #: apiserver process per shard plus a leader-elected scheduler
+        #: pair and drives them through the cross-process facade; None
+        #: resolves KTPU_PROCESSES; <=1 builds the in-process tree
+        #: exactly (nothing multiproc is constructed).
+        self.processes = processes
+        #: KTPU_DATA_DIR override for the shard processes (per-shard
+        #: snapshot + WAL directories live under it).
+        self.data_dir = data_dir
+        #: measure-marker protocol client and control plane, live only
+        #: during a multi-process run (see multiproc/controlplane.py).
+        self._mp = None
+        self._cp = None
 
     async def run(self, template_ops: list, params: Mapping[str, Any],
                   timeout: float = 600.0) -> WorkloadResult:
-        backing = new_cluster_store(shards=1)
+        if self.shards is None:
+            return await self._run_inner(template_ops, params, timeout)
+        # The host prep's per-shard accounting resolves the same
+        # flagless policy (control_plane_shards); an explicit shard
+        # request must reach it too — scoped to this run.
+        with flags.scoped_set("KTPU_SHARDS", self.shards):
+            return await self._run_inner(template_ops, params, timeout)
+
+    async def _run_inner(self, template_ops: list,
+                         params: Mapping[str, Any],
+                         timeout: float) -> WorkloadResult:
+        nproc = self.processes
+        if nproc is None:
+            nproc = int(flags.get("KTPU_PROCESSES") or 1)
+        if int(nproc) > 1:
+            return await self._run_processes(template_ops, params,
+                                             timeout, int(nproc))
+        backing = new_cluster_store(shards=self.shards)
         install_core_validation(backing)
         server = None
         client = None
@@ -927,13 +1076,56 @@ class PerfRunner:
                                  store, metrics, sched, factory, server,
                                  client)
 
+    async def _run_processes(self, template_ops: list,
+                             params: Mapping[str, Any], timeout: float,
+                             nproc: int) -> WorkloadResult:
+        """One apiserver OS process per shard plus a leader-elected
+        scheduler pair; the parent only stages the workload and reads
+        results through the cross-process facade."""
+        from kubernetes_tpu_torch.multiproc import (
+            MeasureProtocol,
+            MultiProcessControlPlane,
+        )
+        if self.scheduler_config is not None or self.through_apiserver \
+                or self.profile_dir or self.policy_count:
+            raise ValueError(
+                "a multi-process run takes no scheduler_config, "
+                "through_apiserver, profile_dir or policies")
+        backend_spec = None
+        if self.backend is not None:
+            backend_spec = {"kind": "torch",
+                            "chunk": int(self.backend.max_batch),
+                            "device": str(self.backend.device)}
+        cp = MultiProcessControlPlane(
+            nproc, data_dir=self.data_dir or flags.get("KTPU_DATA_DIR"),
+            backend_spec=backend_spec, batch_size=self.batch_size,
+            scheduler_kwargs=self.scheduler_kwargs)
+        try:
+            await cp.start()
+            await cp.start_schedulers(2)
+            backing = cp.client()
+            metrics = SchedulerMetrics()
+            sched = _SchedulerProxy(cp)
+            factory = InformerFactory(backing)
+            await sched.setup_informers(factory)
+            self._mp = MeasureProtocol(backing)
+            self._cp = cp
+        except BaseException:
+            await cp.stop()
+            raise
+        return await self._drive(template_ops, params, timeout, backing,
+                                 backing, metrics, sched, factory, None,
+                                 None, cp)
+
     async def _drive(self, template_ops: list, params: Mapping[str, Any],
                      timeout: float, backing, store,
                      metrics: SchedulerMetrics, sched: Scheduler, factory,
-                     server, client) -> WorkloadResult:
+                     server, client, cp=None) -> WorkloadResult:
         """The opcode loop. `store` carries the workload's traffic (the
         backing store, or the boundary's client); the counters read
-        `backing`."""
+        `backing`. `cp` is the MultiProcessControlPlane of a
+        multi-process run (`sched` is then a `_SchedulerProxy`), else
+        None."""
         # Bound-pod accounting via watch events, not store LISTs: a LIST
         # deep-copies every object and was the harness's own hot spot.
         bound_keys: set[str] = set()
@@ -959,6 +1151,7 @@ class PerfRunner:
         agents: list = []
         agent_dir: str | None = None
         deadline = time.monotonic() + timeout
+        finalize_error = None
         try:
             for op in template_ops:
                 opcode = op["opcode"]
@@ -1062,6 +1255,7 @@ class PerfRunner:
                     measured = bool(op.get("collectMetrics"))
                     if measured:
                         window = self._begin_measure(metrics, backing)
+                        await self._mp_begin()
                         self._start_profile()
                     names = [f"pod-{pod_seq + i}" for i in range(count)]
 
@@ -1097,6 +1291,7 @@ class PerfRunner:
                     if measured:
                         self._end_measure(result, metrics, backing, window,
                                           count)
+                        await self._mp_end(result)
                         self._stop_profile()
 
                 elif opcode == "ungatePods":
@@ -1107,6 +1302,7 @@ class PerfRunner:
                     measured = bool(op.get("collectMetrics"))
                     if measured:
                         window = self._begin_measure(metrics, backing)
+                        await self._mp_begin()
                         self._start_profile()
                     gated = [p for p in (await store.list("pods")).items
                              if p["spec"].get("schedulingGates")]
@@ -1122,6 +1318,7 @@ class PerfRunner:
                                                deadline, run_task)
                         self._end_measure(result, metrics, backing, window,
                                           len(gated))
+                        await self._mp_end(result)
                         self._stop_profile()
 
                 elif opcode == "relistStorm":
@@ -1186,15 +1383,36 @@ class PerfRunner:
             # The recorder's last event writes go out before the client
             # that carries them closes.
             await sched.recorder.flush()
+            if cp is not None:
+                # WAL/HA counters live in the children: pull them while
+                # the shard sockets still answer (best effort on an
+                # exception path — the primary failure must surface).
+                try:
+                    await self._finalize_multiproc(result, backing)
+                except Exception as e:
+                    finalize_error = e
             if client is not None:
                 await client.close()
             if server is not None:
                 await server.stop()
-            backing.stop()
+            if cp is not None:
+                await backing.close()
+                await cp.stop()
+                self._cp = None
+                self._mp = None
+            else:
+                backing.stop()
         if run_task.done() and not run_task.cancelled() \
                 and run_task.exception() is not None:
             raise run_task.exception()
+        if finalize_error is not None:
+            raise finalize_error
 
+        result.shard_count = int(getattr(backing, "node_shards", 1))
+        if cp is not None:
+            # The leader's status row gave the counts; its assume-cache,
+            # which fragmentation reads, stays in its process.
+            return result
         if result.measured_pods == 0:
             h = metrics.attempt_duration
             labels = {"result": "scheduled",
@@ -1269,6 +1487,7 @@ class PerfRunner:
                 store=store, agents=agents, bound_keys=bound_keys,
                 create_pod=create_arrival,
                 backlog_fn=sched.queue.backlog_depth,
+                control_plane=self._cp,
                 metrics=churn_metrics, pod_template=tmpl,
                 recovery_threshold=int(_subst(
                     op.get("recoveryThreshold", 10), params)),
@@ -1339,6 +1558,7 @@ class PerfRunner:
         window = self._begin_measure(metrics, backing) if measured \
             else None
         if measured:
+            await self._mp_begin()
             self._start_profile()
         inj_task = None
         sampler = None
@@ -1390,6 +1610,7 @@ class PerfRunner:
         if measured:
             self._end_measure(result, metrics, backing, window,
                               phase.arrivals_total)
+            await self._mp_end(result)
             self._stop_profile()
         result.churn_offered_rate = phase.offered_rate
         result.churn_achieved_rate = phase.achieved_rate
@@ -1558,6 +1779,61 @@ class PerfRunner:
             return 0.0, 0.0
         return cacher.metrics.hits.value(), cacher.metrics.misses.value()
 
+    async def _mp_begin(self) -> None:
+        """Open the child-side measured window (multi-process runs
+        only): the leader marks its exact attempt recorder."""
+        if self._mp is not None:
+            await self._mp.begin()
+
+    async def _mp_end(self, result: WorkloadResult) -> None:
+        """Close the child-side window: the leader's exact attempt
+        percentiles override the parent's recorder (which never saw an
+        attempt — scheduling happened in another process). A failover
+        mid-window can eat the marker; the parent-side wall-clock
+        throughput from _end_measure then stands alone."""
+        if self._mp is None:
+            return
+        row = await self._mp.end()
+        try:
+            pcts = {q: float(row[k]) for q, k in (
+                (0.50, "p50"), (0.90, "p90"),
+                (0.99, "p99"), (0.999, "p999"))}
+        except (KeyError, TypeError, ValueError):
+            return
+        if math.isnan(pcts[0.50]):
+            return
+        result.attempt_p50 = pcts[0.50]
+        result.attempt_p90 = pcts[0.90]
+        result.attempt_p99 = pcts[0.99]
+        result.attempt_p999 = pcts[0.999]
+        result.attempt_percentiles_exact = True
+
+    async def _finalize_multiproc(self, result: WorkloadResult,
+                                  backing) -> None:
+        """Pull the run's child-process counters (leader status row +
+        per-shard WAL stats) — must run BEFORE the control plane stops:
+        the sums live in the children, not the parent."""
+
+        def _i(v) -> int:
+            try:
+                return int(v)
+            except (TypeError, ValueError):
+                return 0
+
+        row = await self._mp.status()
+        result.process_count = int(backing.node_shards)
+        result.scheduled_total = _i(row.get("scheduledTotal"))
+        result.leader_elections_total = _i(row.get("elections"))
+        if row.get("launches"):
+            result.leader_kernel_launches = json.loads(row["launches"])
+        if row.get("solveProvenance"):
+            result.solve_provenance = json.loads(row["solveProvenance"])
+        total = (await backing.control_stats()).get("total") or {}
+        result.wal_appends_total = _i(total.get("walAppends"))
+        result.wal_replay_entries_total = _i(total.get("walReplayed"))
+        result.wal_fsync_seconds_total = float(
+            total.get("walFsyncSeconds") or 0.0)
+
     def _begin_measure(self, metrics: SchedulerMetrics, backing) -> dict:
         wm = backing.watch_metrics
         hits, misses = self._cache_totals(backing)
@@ -1581,6 +1857,11 @@ class PerfRunner:
             "refresh_s": metrics.resident_plane_refresh.sum(),
             "slice_gangs": metrics.slice_gangs_bound.value(),
             "topo_rebuilds": metrics.topology_plane_rebuilds.value(),
+            "shard_rebuilds": sum(
+                metrics.shard_tensor_rebuilds._values.values()),
+            "shard_solve_s": sum(
+                metrics.shard_solve_seconds._values.values()),
+            "cross_shard": metrics.cross_shard_reductions.value(),
             "window": metrics.attempt_window().mark(),
         }
 
@@ -1653,6 +1934,14 @@ class PerfRunner:
             metrics.slice_fragmentation_pct.value()
         # Gauge is base-unit seconds; the field keeps its ms name.
         result.admission_window_ms = 1e3 * metrics.admission_window.value()
+        result.shard_tensor_rebuilds_total = int(
+            sum(metrics.shard_tensor_rebuilds._values.values())
+            - base["shard_rebuilds"])
+        result.shard_solve_seconds = sum(
+            metrics.shard_solve_seconds._values.values()) \
+            - base["shard_solve_s"]
+        result.cross_shard_reductions_total = int(
+            metrics.cross_shard_reductions.value() - base["cross_shard"])
 
     @staticmethod
     async def _wait_bound(bound_keys: set, want: int, deadline: float,

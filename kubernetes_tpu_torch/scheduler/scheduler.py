@@ -42,8 +42,6 @@ Copy of `kubernetes_tpu/scheduler/scheduler.py`, with these departures:
   PreBind never writes the selected node nor waits, and a
   WaitForFirstConsumer claim of a pod the backend placed is never
   provisioned (a fault of the reference, ROADMAP queue 3).
-- not here yet: a remote store's topology probe (it sizes the
-  reference's sharded-store accounting, which this package does not have).
 """
 
 from __future__ import annotations
@@ -224,6 +222,21 @@ class Scheduler:
 
     async def setup_informers(self, factory: InformerFactory) -> None:
         self._informer_factory = factory
+        if self.backend is not None \
+                and getattr(self.backend, "control_shards", 0) is None:
+            # Remote store: ask the server for the control-plane shape
+            # so the host prep's shard accounting matches the backing
+            # store instead of re-deriving it from node count.
+            probe = getattr(self.store, "control_topology", None)
+            if probe is not None:
+                try:
+                    topo = await probe()
+                    self.backend.control_shards = int(
+                        topo.get("nodeShards", 1) or 1)
+                except Exception:
+                    logger.warning("control-plane topology probe failed; "
+                                   "shard accounting falls back to the "
+                                   "flagless policy", exc_info=True)
         pods = factory.informer("pods")
         nodes = factory.informer("nodes")
         for fwk in self.profiles.values():
@@ -333,6 +346,19 @@ class Scheduler:
             backend.metrics = self.metrics
         if backend is not None and hasattr(backend, "tracer"):
             backend.tracer = self.tracer
+        if backend is not None and hasattr(backend, "control_shards"):
+            # Thread the backing store's ACTUAL shard count into the
+            # host prep's per-shard accounting: a ShardedNodeStore
+            # advertises node_shards, a plain in-process MVCCStore is
+            # known unsharded (1). Remote stores resolve via the async
+            # topology probe in setup_informers; until something
+            # answers, the flagless policy is the fallback.
+            from kubernetes_tpu_torch.store.mvcc import MVCCStore
+            shards = getattr(self.store, "node_shards", None)
+            if shards is not None:
+                backend.control_shards = int(shards)
+            elif isinstance(self.store, MVCCStore):
+                backend.control_shards = 1
 
     def _responsible(self, pi: PodInfo) -> bool:
         return pi.scheduler_name in self.profiles

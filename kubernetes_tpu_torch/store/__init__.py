@@ -2,8 +2,8 @@
 hub-and-spoke through the store; components communicate only by
 reading/writing objects and watching for changes). Counterpart of
 `kubernetes_tpu/store/`: the MVCC store with its watch cache, the core
-validation, server-side apply and durability (the write-ahead log, its
-snapshots and recovery); the sharded store waits."""
+validation, server-side apply, durability (the write-ahead log, its
+snapshots and recovery) and the sharded store."""
 
 from kubernetes_tpu_torch.store.mvcc import (
     AlreadyExists,
@@ -17,6 +17,12 @@ from kubernetes_tpu_torch.store.mvcc import (
     StoreError,
     binding_subresource,
     new_cluster_store,
+)
+from kubernetes_tpu_torch.store.sharded import (
+    PARTITIONED_RESOURCES,
+    ShardedNodeStore,
+    control_plane_shards,
+    shard_of,
 )
 from kubernetes_tpu_torch.store.apply import ApplyConflict, server_side_apply
 from kubernetes_tpu_torch.store.durable import (
@@ -44,4 +50,8 @@ __all__ = [
     "binding_subresource",
     "new_cluster_store",
     "install_core_validation",
+    "PARTITIONED_RESOURCES",
+    "ShardedNodeStore",
+    "control_plane_shards",
+    "shard_of",
 ]

@@ -22,9 +22,7 @@ Concurrency model: single asyncio loop owns all state (the analog of the
 reference's "one mutex around cacheImpl" discipline); the public API is async
 and must be called from that loop.
 
-Copy of `kubernetes_tpu/store/mvcc.py`. The sharded store
-(`store/sharded.py`) waits: `new_cluster_store` raises for more than one
-shard.
+Copy of `kubernetes_tpu/store/mvcc.py`.
 """
 
 from __future__ import annotations
@@ -1026,17 +1024,17 @@ async def binding_subresource(store: MVCCStore, key: str, binding: Mapping) -> d
 
 
 def new_cluster_store(shards: int | None = None):
-    """Store with the core subresources registered. None resolves the
-    KTPU_SHARDS override, default 1 — the classic single store. The
-    reference builds its partitioned control plane for `shards > 1`
-    (store/sharded.py ShardedNodeStore), which this package does not have
-    yet: it raises."""
+    """Store with the core subresources registered. `shards > 1` builds
+    the partitioned control plane (store/sharded.py ShardedNodeStore:
+    node-keyed resources hash-partition across per-shard mvcc stores
+    under one global RV counter); None resolves the KTPU_SHARDS
+    override, default 1 — the classic single store."""
     if shards is None:
         shards = flags.get("KTPU_SHARDS") or 1
     if shards > 1:
-        raise NotImplementedError(
-            f"{shards} control-plane shards need ShardedNodeStore, which "
-            "this package does not have yet; use one shard")
-    store = MVCCStore()
+        from kubernetes_tpu_torch.store.sharded import ShardedNodeStore
+        store = ShardedNodeStore(shards)
+    else:
+        store = MVCCStore()
     store.register_subresource("pods", "binding", binding_subresource)
     return store

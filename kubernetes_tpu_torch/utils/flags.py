@@ -5,7 +5,8 @@ package reads: the batch solve (the greedy wavefront, the shortlist and
 its block index, and the Sinkhorn optimal mode) and its solve-mode
 policy, the serving tier (its kill switch, the resident planes' block
 index and the admission window), the store (the watch cache, the shard
-count, the debug freeze), the lock check, the trace threshold, the
+count and its threshold, the debug freeze), the control plane's process
+count, the lock check, the trace threshold, the
 descheduler pair (its default and its disruption budget) and the
 topology pair (the slice placement kill switch and the mesh shape), the
 admission-policy index, the apiserver's durability directory with its
@@ -163,9 +164,18 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "policies). `0` degrades structurally to the linear "
          "all-policies scan, bit-identical verdicts."),
     Flag("KTPU_SHARDS", None, _parse_int,
-         "Control-plane shard count override; `1` is the plain single "
-         "MVCCStore. This package has no sharded store yet: "
-         "new_cluster_store raises for more than one shard."),
+         "Control-plane shard count override; `1` is the kill switch "
+         "(plain single MVCCStore). Unset = the node-count threshold "
+         "policy picks."),
+    Flag("KTPU_SHARD_THRESHOLD", 100_000, _parse_int,
+         "Node count at which the flagless shard policy switches from "
+         "1 shard to 8 (store/sharded.control_plane_shards)."),
+    Flag("KTPU_PROCESSES", None, _parse_int,
+         "Control-plane OS-process count (multiproc/): each store "
+         "shard becomes its own apiserver process on a unix-socket "
+         "KTPU wire, the scheduler an active/standby process pair. "
+         "`1` is the kill switch — the classic in-process tree, "
+         "identical call graph. Unset = in-process."),
     Flag("KTPU_ADMISSION_WINDOW", None, _parse_ms,
          "Serving admission coalesce window in MILLISECONDS (pinned "
          "for sweeps; `0` = always dispatch immediately). Unset = the "

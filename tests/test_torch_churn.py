@@ -17,7 +17,8 @@ the CPU, and the open-loop families through the port's runner.
   the net pod count, the agents stopped and the store's objects equal.
 - The departures: an exception inside a handler propagates out of
   `drain()` (the reference records `recovered: False`); `killLeader`
-  raises NotImplementedError; a `descheduler` block on a runner with no
+  with no control plane raises, naming `processes >= 2` (the reference
+  records `recovered: False`); a `descheduler` block on a runner with no
   backend and no card is refused (the descheduler scores on a card or on
   the device it is given, with no fallback).
 - NodeAgent: registration with a coordinate label and published
@@ -233,9 +234,11 @@ def test_handler_exceptions_propagate_out_of_drain():
     assert isinstance(err, RuntimeError) and "create failed" in str(err)
     want, jerr = asyncio.run(_injector_script(JAX, spec, fail_create=True))
     assert jerr is None and want["records"][0]["recovered"] is False
-    _, err = asyncio.run(_injector_script(
-        PORT, [{"at": 0.0, "kind": "killLeader", "node": "node-1"}]))
-    assert isinstance(err, NotImplementedError) and "item 9" in str(err)
+    kill = [{"at": 0.0, "kind": "killLeader", "node": "node-1"}]
+    _, err = asyncio.run(_injector_script(PORT, kill))
+    assert isinstance(err, RuntimeError) and "processes >= 2" in str(err)
+    want, jerr = asyncio.run(_injector_script(JAX, kill))
+    assert jerr is None and want["records"][0]["recovered"] is False
     _, err = asyncio.run(_injector_script(PORT, [{"at": 0.0,
                                                   "kind": "meteor"}]))
     assert isinstance(err, ValueError)

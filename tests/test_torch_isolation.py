@@ -3,7 +3,10 @@
 its backend runs on the card by default, refusing to start without one.
 The control plane's process modules (the entry points, durability, leader
 election, extenders, `build_scheduler`) are named one by one, and
-importing all of them in a fresh interpreter loads neither package."""
+importing all of them in a fresh interpreter loads neither package. So are
+the sharded control plane's and the multi-process control plane's modules,
+and a shard apiserver process (`multiproc.shardproc` with the store, the
+wire and the WAL it serves) loads no torch either."""
 
 import ast
 import subprocess
@@ -100,3 +103,53 @@ def test_control_plane_modules_load_neither_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+#: The modules the sharded and multi-process control plane added or changed.
+SHARDED_MODULES = (
+    "client/__init__.py", "client/informer.py", "multiproc/__init__.py",
+    "multiproc/client.py", "multiproc/controlplane.py", "multiproc/rv.py",
+    "multiproc/schedproc.py", "multiproc/shardproc.py", "ops/backend.py",
+    "ops/tensorize.py", "perf/churn/faults.py", "perf/scheduler_perf.py",
+    "scheduler/scheduler.py", "store/__init__.py", "store/mvcc.py",
+    "store/sharded.py", "utils/flags.py",
+)
+
+
+def _loaded(names, prefixes) -> list:
+    code = ("import importlib, sys\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{prefixes!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return eval(out.stdout.strip())
+
+
+@pytest.mark.parametrize("rel", SHARDED_MODULES)
+def test_sharded_module_imports_nothing_of_the_reference(rel):
+    f = ROOT / "kubernetes_tpu_torch" / rel
+    assert f in _port_files()
+    mods = list(_imported_modules(ast.parse(f.read_text(), str(f))))
+    assert mods
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
+
+
+def test_sharded_modules_load_neither_package():
+    names = [f"kubernetes_tpu_torch.{rel[:-3].replace('/', '.')}"
+             for rel in SHARDED_MODULES]
+    assert _loaded(names, FORBIDDEN) == []
+
+
+def test_shard_process_loads_no_torch():
+    names = ["kubernetes_tpu_torch.multiproc.shardproc",
+             "kubernetes_tpu_torch.multiproc.rv",
+             "kubernetes_tpu_torch.multiproc.client",
+             "kubernetes_tpu_torch.apiserver.wire",
+             "kubernetes_tpu_torch.metrics.registry",
+             "kubernetes_tpu_torch.store",
+             "kubernetes_tpu_torch.store.durable",
+             "kubernetes_tpu_torch.store.sharded"]
+    assert _loaded(names, ("torch", "numpy") + FORBIDDEN) == []

@@ -13,6 +13,9 @@
   (KTPU_WATCH_CACHE=0) the same as with it on.
 - A tiny event window: an informer whose resourceVersion was compacted
   relists and converges to the store, in both packages.
+- `new_cluster_store(shards=S)`: the plain store at S=1, the sharded
+  store above it, with the same lists, RVs, routing and binding as the
+  JAX package's.
 
 Objects are compared without `metadata.uid` and
 `metadata.creationTimestamp` (a random epoch and the wall clock).
@@ -244,6 +247,31 @@ def test_tiny_event_window_relists_and_converges():
     assert ("delete", "p0") in seen and ("add", "p19") in seen
 
 
-def test_sharded_store_is_refused():
-    with pytest.raises(NotImplementedError, match="ShardedNodeStore"):
-        tmvcc.new_cluster_store(shards=2)
+async def _sharded_script(mvcc, types, shards: int) -> dict:
+    store = mvcc.new_cluster_store(shards=shards)
+    out = {"type": type(store).__name__,
+           "node_shards": getattr(store, "node_shards", 1)}
+    for i in range(12):
+        await store.create("nodes", types.make_node(f"node-{i}"))
+    await store.create("pods", types.make_pod("p"))
+    await store.subresource("pods", "default/p", "binding",
+                            {"target": {"name": "node-3"}})
+    lst = await store.list("nodes")
+    out["nodes"] = [(o["metadata"]["name"], o["metadata"]["resourceVersion"])
+                    for o in lst.items]
+    out["rv"] = lst.resource_version
+    out["bound"] = (await store.get("pods", "default/p"))["spec"]["nodeName"]
+    if shards > 1:
+        out["per_shard"] = [sorted(s._table("nodes")) for s in store.shards]
+    store.stop()
+    return out
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_new_cluster_store_builds_the_sharded_store(shards):
+    got = asyncio.run(_sharded_script(tmvcc, ttypes, shards))
+    want = asyncio.run(_sharded_script(jmvcc, jtypes, shards))
+    assert got == want
+    assert got["type"] == ("MVCCStore" if shards == 1
+                           else "ShardedNodeStore")
+    assert got["node_shards"] == shards and got["bound"] == "node-3"
