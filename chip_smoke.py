@@ -34,7 +34,10 @@ apiserver with its write-ahead log, two leader-elected schedulers with
 the batched solve on the card, node agents); and the sharded control
 plane (bench.py's 200k preset over 8 store shards) and the multi-process
 control plane (a shard apiserver process per store shard, a
-leader-elected scheduler pair, a killed leader) —
+leader-elected scheduler pair, a killed leader); and the controller
+manager (Deployments, ReplicaSets, the garbage collector and an Indexed
+Job over 5000 KWOK nodes, every pod placed by the scheduler process on
+the card) —
 after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
@@ -171,11 +174,11 @@ Phases (any failure raises and the script exits non-zero with no result):
      under sync debug "error": every pod bound, the app=spread-me zone
      counts within 1, spread chunks in the window; (d)
      SchedulingPodAffinity/500Nodes: every worker bound in a zone holding
-     a hub. (b) and (c) print what 9(b) prints, with a torch.profiler
-     repeat each at the family's smaller workload (SchedulingPodAnti-
-     Affinity/500Nodes, TopologySpreading/300Nodes) and no cProfile
-     repeat (cut, as in 12(c), 13(c) and 14(b)-(c), to keep the smoke
-     inside half its time limit);
+     a hub. (b) and (c) print what 9(b) prints, (b) with a torch.profiler
+     repeat at the family's smaller workload (SchedulingPodAnti-
+     Affinity/500Nodes); no cProfile repeat, and none of the profiler
+     for (c) (cut, as in 12(c), 13(c) and 14(b)-(c), to keep the smoke
+     inside its time);
  12. gangs and preemption, under a scoped KTPU_SOLVE_MODE=auto with
      serving on: (a) the five gang chunk shapes of `gang_chunk` (gangs
      that fit; a 64-member gang with one member no node holds; a gang
@@ -292,11 +295,12 @@ Phases (any failure raises and the script exits non-zero with no result):
      KTPU_SOLVE_MODE=auto with serving on, the card's name and power limit
      printed first (every loop phase above already takes
      `TorchBackend.assign_stream`, as the reference's loop does): (a)
-     SchedulingBasic/5000Nodes' first three measured 1024-pod chunks after
-     its 1000 init pods, flagless and greedy, a conflict storm (48 nodes
-     of 2 CPUs, 256 pods, greedy: replays) and a chunk with failures (200
-     nodes, 512 pods, one in eight fitting nowhere) through `assign` and
-     `assign_stream` on the card and `assign` on the CPU: identical
+     SchedulingBasic/5000Nodes' first measured 1024-pod chunk after its
+     1000 init pods flagless and its first three greedy, a conflict
+     storm (48 nodes of 2 CPUs, 256 pods, greedy: replays) and a chunk
+     with failures (200 nodes, 512 pods, one in eight fitting nowhere)
+     through `assign` and `assign_stream` on the card and `assign` on
+     the CPU: identical
      assignments, diagnostics, counters and solver metrics, the stream's
      chunk order `assign`'s finalize order, each yielded chunk's keys
      final; (b) SchedulingBasic/5000Nodes (not cut) through the loop
@@ -456,7 +460,40 @@ Phases (any failure raises and the script exits non-zero with no result):
      names the killed leader and recovers, every canary and arrival bound
      once, one live Lease holder (not the killed one) at the end,
      `leader_elections_total` >= 2; printed: the time to recovery;
- 21. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 21. the controller manager, each process started with `python -m` as
+     a fresh interpreter under a scoped KTPU_SOLVE_MODE=auto with serving
+     on, the card's name and power limit printed first (logs, the data
+     dir and the audit log under build/phase21/): one
+     `kubernetes_tpu_torch.apiserver` with `--data-dir` (fsync batch),
+     bearer tokens and an audit policy on every pod create and delete;
+     one `kubernetes_tpu_torch.scheduler` with `TPUScorer=true` and
+     `--batch-size 16384`; two `kubernetes_tpu_torch.controllers`
+     processes over the KTPU wire, each with its own token,
+     `--leader-elect` (KTPU_LEASE_DURATION=6) and `--controllers
+     deployment,replicaset,job,gc,podgc` (printed); the parent runs
+     `KwokController(node_count=5000, lease_period=10.0)` over `WireStore`
+     with SchedulingBasic's node. (a) 40 Deployments of 250 replicas
+     (SchedulingBasic's pod, RollingUpdate 25%/25%): pods/s from the
+     first create to the last pod Running the parent's informer sees;
+     each Deployment one ReplicaSet at 250 replicas and 250 ready, 10000
+     live pods each owned by its ReplicaSet, bound once and Running, no
+     node over capacity, every live pod's create in the audit log by a
+     controller-manager user and none by another, the scheduler's line
+     showing `solve_kernel: cuda`; printed: the pods the ReplicaSets
+     created and deleted; (b) SIGKILL the lease holder: seconds until
+     the other holds the `kube-controller-manager` Lease; (c) every
+     template bumped once: seconds until each new ReplicaSet has 250
+     ready, each old one 0 and no old pod is left, the end state of (a)
+     again; printed, not gated: each Deployment's peak of live pods and
+     low of bound pods against 250 + 63 and 250 - 62, the creates and
+     deletes; (d) delete 20 Deployments: seconds until the garbage
+     collector has removed their ReplicaSets and 5000 pods, the other 20
+     Deployments' pods with their names, nodes and RVs; (e) an Indexed
+     Job (completions 1024, parallelism 256, KWOK's complete-after 1 s):
+     seconds to its Complete condition, `succeeded` 1024, each index
+     Succeeded once; then SIGTERM every process, each exiting 0, the
+     scheduler's stop line showing wave_solve launches above 0;
+ 22. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -490,17 +527,20 @@ Phases (any failure raises and the script exits non-zero with no result):
      `huge_chunk_bound_by` (20(a)'s full chunk at N=200000 with the
      loop's K orders),
      `multiproc_launches` (20(b)'s leader process, over its life) and
-     `kill_leader_launches` (20(c)'s surviving leader); the probe's, its
-     launches over phase 9(b)'s run and over 10(b)'s, phase 19's two
-     processes' and phase 20's under the same keys), the card's name
+     `kill_leader_launches` (20(c)'s surviving leader); and phase 21's:
+     `controller_manager_launches` (its scheduler process, over its
+     life); the probe's, its launches over phase 9(b)'s run and over
+     10(b)'s, phase 19's two processes', phase 20's and phase 21's under
+     the same keys), the card's name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
 `--phase13-only` (or `--phase14-only`, `--phase15-only`,
 `--phase16-only`, `--phase17-only`, `--phase18-only`,
-`--phase19-only`, `--phase20-only`) it builds the kernels and runs phase
-13 (or 14, 15, 16, 17, 18, 19, 20) alone (no result lines). It needs one CUDA device;
+`--phase19-only`, `--phase20-only`, `--phase21-only`) it builds the
+kernels and runs phase 13 (or 14, 15, 16, 17, 18, 19, 20, 21) alone (no
+result lines). It needs one CUDA device;
 without one, or outside a checkout of the repository, it exits non-zero.
 """
 
@@ -2987,10 +3027,9 @@ def anti_affinity_phase(torch) -> dict:
 def topology_spreading_phase(torch) -> None:
     """Phase 10(c): TopologySpreading/3000Nodes, flagless, every spread
     scan under sync debug "error": every pod bound, the final zone counts
-    of app=spread-me within 1 of each other. Its torch.profiler repeat
-    runs TopologySpreading/300Nodes (1000 measured pods): the spread
-    scan's ~70 small kernels per pod make a 3000Nodes trace of hundreds of
-    thousands of events, which the profiler takes minutes to process."""
+    of app=spread-me within 1 of each other. No torch.profiler repeat
+    (its TopologySpreading/300Nodes repeat went to keep the smoke in its
+    time)."""
     from kubernetes_tpu_torch.perf.scheduler_perf import TOPOLOGY_SPREADING
 
     t0 = time.perf_counter()
@@ -3013,7 +3052,7 @@ def topology_spreading_phase(torch) -> None:
         raise RuntimeError(f"phase 10(c): zone skew {skew}, spread chunks "
                            f"{counters['spread_chunks']}")
     report_perf(torch, "constraint loop", TOPOLOGY_SPREADING, "3000Nodes",
-                first, "10(c)", t0, device_workload="300Nodes")
+                first, "10(c)", t0, device_profile=False)
 
 
 def pod_affinity_phase(torch) -> int:
@@ -5092,8 +5131,8 @@ def compare_stream(torch, label: str, make_snapshot, pods, fwk,
 
 
 def stream_chunks_phase(torch) -> None:
-    """Phase 15(a): SchedulingBasic/5000Nodes' first three measured
-    1024-pod chunks after its 1000 init pods, flagless and greedy, the
+    """Phase 15(a): SchedulingBasic/5000Nodes' first measured 1024-pod
+    chunk after its 1000 init pods flagless, and its first three greedy, the
     storm chunk and the failures chunk, through `assign` and
     `assign_stream` on the card and `assign` on the CPU
     (`compare_stream`)."""
@@ -5125,10 +5164,13 @@ def stream_chunks_phase(torch) -> None:
 
     measured = [PodInfo(make_pod(f"pod-{i}", requests=POD_REQUESTS))
                 for i in range(3 * 1024)]
-    for mode in ("auto", "greedy"):
-        compare_stream(torch, "SchedulingBasic/5000Nodes first three "
-                       "measured chunks", basic_snapshot, measured, fwk,
-                       1024, mode, "")
+    # Flagless, the first measured chunk alone: the CPU's plain W=1
+    # rounding takes seconds a chunk.
+    for mode, chunks, what in (("auto", 1, "first measured chunk"),
+                               ("greedy", 3, "first three measured chunks")):
+        compare_stream(torch, f"SchedulingBasic/5000Nodes {what}",
+                       basic_snapshot, measured[:chunks * 1024], fwk, 1024,
+                       mode, "")
     for kind, need, modes in (("storm", "replays", ("greedy",)),
                               ("failures", "failures", ("auto", "greedy"))):
         nodes, pods, batch = stream_case(kind)
@@ -7207,19 +7249,28 @@ async def stop_launches(child: Child) -> dict:
     return json.loads(m.group(1))
 
 
-def binding_users(audit_path: str) -> dict[str, list[str]]:
-    """{pod name: the users of its successful binding updates}, from an
-    apiserver's audit log."""
-    out: dict[str, list[str]] = {}
-    if not os.path.exists(audit_path):
+def audit_events(path: str, verb: str) -> list[dict]:
+    """The ResponseComplete events of `verb` in an apiserver's audit log."""
+    out = []
+    if not os.path.exists(path):
         return out
-    with open(audit_path) as f:
+    with open(path) as f:
         for line in f:
             ev = json.loads(line)
             if ev.get("stage") == "ResponseComplete" and \
-                    ev["responseStatus"]["code"] < 300:
-                out.setdefault(ev["objectRef"]["name"], []).append(
-                    ev["user"]["username"])
+                    ev.get("verb") == verb:
+                out.append(ev)
+    return out
+
+
+def binding_users(audit_path: str) -> dict[str, list[str]]:
+    """{pod name: the users of its successful binding updates}, from an
+    apiserver's audit log (its policy audits the schedulers' updates)."""
+    out: dict[str, list[str]] = {}
+    for ev in audit_events(audit_path, "update"):
+        if ev["responseStatus"]["code"] < 300:
+            out.setdefault(ev["objectRef"]["name"], []).append(
+                ev["user"]["username"])
     return out
 
 
@@ -8037,6 +8088,567 @@ def sharded_processes_phases(torch) -> int:
     return 0
 
 
+# -- phase 21: the controller manager ---------------------------------------
+
+#: The controllers phase 21's controller managers run (hazard: the default
+#: set's node lifecycle controller, with its 4 s grace, would taint KWOK's
+#: 5,000 nodes on any lease lag).
+CM_CONTROLLERS = "deployment,replicaset,job,gc,podgc"
+#: 40 Deployments of 250 (clusterloader2's load test gives its big
+#: Deployments 250 replicas), SchedulingBasic's pod template.
+CM_DEPLOYMENTS, CM_REPLICAS = 40, 250
+CM_NODES = 5000
+#: KWOK's node-lease renew period: the kubelet's 10 s for a 40 s lease.
+CM_KWOK_LEASE_S = 10.0
+#: The controller managers' own lease (KTPU_LEASE_DURATION in their
+#: environment; renew deadline and retry period scale with it).
+CM_LEASE_S = 6.0
+CM_LEASE_KEY = "kube-system/kube-controller-manager"
+CM_JOB_COMPLETIONS, CM_JOB_PARALLELISM = 1024, 256
+CM_IDENTITY = r"controller-manager (\S+) \(leader-elected\)"
+#: Audit every pod create and delete, whoever makes it.
+CM_AUDIT = """\
+apiVersion: audit.k8s.io/v1
+kind: Policy
+rules:
+- level: Metadata
+  verbs: [create, delete]
+  resources: [pods]
+  omitStages: [RequestReceived]
+"""
+
+
+def controller_manager_child(log_dir: str, name: str, wire: str, token: str,
+                             controllers: str = CM_CONTROLLERS,
+                             lease_s: float = CM_LEASE_S) -> Child:
+    """`python -m kubernetes_tpu_torch.controllers --wire ... --leader-elect`
+    with its own bearer token and KTPU_LEASE_DURATION=`lease_s`."""
+    return Child(name, "kubernetes_tpu_torch.controllers", [
+        "--wire", wire, "--token", token, "--controllers", controllers,
+        "--leader-elect"], log_dir,
+        env={"KTPU_LEASE_DURATION": str(lease_s)})
+
+
+async def lease_holder(store, key: str) -> str | None:
+    from kubernetes_tpu_torch.store.mvcc import NotFound
+
+    try:
+        return (await store.get("leases", key))["spec"].get("holderIdentity")
+    except NotFound:
+        return None
+
+
+async def until(pred, children, timeout: float, what: str) -> float:
+    """Poll the coroutine function `pred` until it is true; every child
+    must stay alive meanwhile. Returns the host time it first held."""
+    deadline = time.monotonic() + timeout
+    while True:
+        if await pred():
+            return time.perf_counter()
+        for c in children:
+            c.check_alive()
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no {what} within {timeout} s")
+        await asyncio.sleep(0.05)
+
+
+class RolloutLog:
+    """What the parent's pod informer saw of phase 21's pods: each pod's
+    nodes (a `BindLog`), the host time it was first Running, each live
+    pod's `app` and `pod-template-hash` labels, and per `app` the live and
+    the bound pods, with each one's peak and low since `track_extremes`."""
+
+    def __init__(self):
+        self.binds = BindLog()
+        self.running_at: dict[str, float] = {}
+        self._live: dict[str, tuple] = {}
+        self.live: dict[str, int] = {}
+        self.bound: dict[str, int] = {}
+        self.peak: dict[str, int] | None = None
+        self.low: dict[str, int] | None = None
+
+    def _set(self, pod: dict, present: bool) -> None:
+        name = pod["metadata"]["name"]
+        old = self._live.pop(name, None)
+        if old is not None:
+            self.live[old[0]] -= 1
+            self.bound[old[0]] -= old[1]
+        labels = pod["metadata"].get("labels") or {}
+        app = labels.get("app")
+        if present:
+            on = int(bool((pod.get("spec") or {}).get("nodeName")))
+            self._live[name] = (app, on, labels.get("pod-template-hash"))
+            self.live[app] = self.live.get(app, 0) + 1
+            self.bound[app] = self.bound.get(app, 0) + on
+        for a in {app, old[0] if old else app}:
+            if self.peak is not None:
+                self.peak[a] = max(self.peak.get(a, 0), self.live.get(a, 0))
+                self.low[a] = min(self.low.get(a, 1 << 30),
+                                  self.bound.get(a, 0))
+
+    def see(self, pod: dict) -> None:
+        self.binds.see(pod)
+        if (pod.get("status") or {}).get("phase") == "Running":
+            self.running_at.setdefault(pod["metadata"]["name"],
+                                       time.perf_counter())
+        self._set(pod, True)
+
+    def gone(self, pod: dict) -> None:
+        self._set(pod, False)
+
+    def handler(self):
+        from kubernetes_tpu_torch.client import ResourceEventHandler
+
+        return ResourceEventHandler(
+            on_add=self.see, on_update=lambda _old, new: self.see(new),
+            on_delete=self.gone)
+
+    def track_extremes(self) -> None:
+        self.peak, self.low = dict(self.live), dict(self.bound)
+
+
+def cm_template(app: str, image: str) -> dict:
+    """SchedulingBasic's pod (cpu 100m, memory 250Mi) as a Deployment's
+    template."""
+    return {"metadata": {"labels": {"app": app}},
+            "spec": {"containers": [{
+                "name": "main", "image": image,
+                "resources": {"requests": dict(POD_REQUESTS)}}]}}
+
+
+def cm_deployments(image: str) -> list[dict]:
+    from kubernetes_tpu_torch.controllers import make_deployment
+
+    return [make_deployment(
+        f"web-{i:02d}", CM_REPLICAS, {"matchLabels": {"app": f"web-{i:02d}"}},
+        cm_template(f"web-{i:02d}", image),
+        strategy={"type": "RollingUpdate", "rollingUpdate": {
+            "maxSurge": "25%", "maxUnavailable": "25%"}})
+        for i in range(CM_DEPLOYMENTS)]
+
+
+def rollout_violations(deps, rses, pods, nodes) -> list[str]:
+    """The end state of a rollout: each Deployment with one ReplicaSet of
+    its current template's hash at `CM_REPLICAS` replicas and as many ready,
+    every other ReplicaSet of it at 0 with no pod left, each live pod owned
+    by its Deployment's current ReplicaSet (uid and all) and Running, no
+    node over capacity."""
+    from kubernetes_tpu_torch.controllers.deployment import pod_template_hash
+
+    bad = []
+    by_uid = {r["metadata"]["uid"]: r for r in rses}
+    current = {}
+    for d in deps:
+        name = d["metadata"]["name"]
+        thash = pod_template_hash(d["spec"]["template"])
+        owned = [r for r in rses
+                 if any(ref.get("uid") == d["metadata"]["uid"]
+                        for ref in r["metadata"].get("ownerReferences") or [])]
+        new = [r for r in owned
+               if r["metadata"]["labels"].get("pod-template-hash") == thash]
+        if len(new) != 1:
+            bad.append(f"{name}: {len(new)} ReplicaSets of hash {thash}")
+            continue
+        rs = new[0]
+        current[rs["metadata"]["uid"]] = name
+        if rs["spec"]["replicas"] != CM_REPLICAS or \
+                rs["status"].get("readyReplicas") != CM_REPLICAS:
+            bad.append(f"{rs['metadata']['name']}: spec.replicas "
+                       f"{rs['spec']['replicas']}, readyReplicas "
+                       f"{rs['status'].get('readyReplicas')}")
+        for r in owned:
+            if r is not rs and (r["spec"]["replicas"] or
+                                r["status"].get("replicas")):
+                bad.append(f"old {r['metadata']['name']}: spec.replicas "
+                           f"{r['spec']['replicas']}, status.replicas "
+                           f"{r['status'].get('replicas')}")
+    apps = {d["metadata"]["name"] for d in deps}
+    mine = [p for p in pods if p["metadata"]["labels"].get("app") in apps]
+    if len(mine) != CM_REPLICAS * len(deps):
+        bad.append(f"{len(mine)} live pods, want {CM_REPLICAS * len(deps)}")
+    for p in mine:
+        refs = p["metadata"].get("ownerReferences") or []
+        owner = by_uid.get(refs[0].get("uid")) if len(refs) == 1 else None
+        app = p["metadata"]["labels"]["app"]
+        if owner is None or not refs[0].get("controller") or \
+                current.get(owner["metadata"]["uid"]) != app:
+            bad.append(f"{p['metadata']['name']} owned by {refs}")
+        elif p["status"].get("phase") != "Running" or \
+                not p["spec"].get("nodeName"):
+            bad.append(f"{p['metadata']['name']} {p['status'].get('phase')} "
+                       f"on {p['spec'].get('nodeName')}")
+    over = over_capacity(nodes, pods)
+    if over:
+        bad.append(f"nodes over capacity {over[:5]}")
+    return bad
+
+
+async def controller_manager(torch, log_dir: str, card: bool = True) -> dict:
+    """Phase 21 (see the module docstring). Returns its numbers and the
+    scheduler process's launch counts; raises on a failed gate or child.
+    `card=False` runs the scheduler process on the host path (TPUScorer
+    off) and drops the gates on the card's solve, for a run at a small
+    size (the `CM_*` constants) without one."""
+    from kubernetes_tpu_torch.apiserver.wire import WireStore
+    from kubernetes_tpu_torch.controllers import (ControllerManager,
+                                                  KwokController, make_job)
+    from kubernetes_tpu_torch.controllers.deployment import (
+        _resolve_bound, pod_template_hash)
+
+    data_dir = os.path.join(log_dir, "data")
+    os.makedirs(data_dir)
+    config = os.path.join(log_dir, "scheduler-config.yaml")
+    audit_policy = os.path.join(log_dir, "audit-policy.yaml")
+    audit_log = os.path.join(log_dir, "audit.log")
+    for path, text in ((config, CONTROL_PLANE_CONFIG),
+                       (audit_policy, CM_AUDIT)):
+        with open(path, "w") as f:
+            f.write(text)
+    tokens = ["--token", "admin-token=admin", "--token", "sched-token=sched"]
+    for s in "ab":
+        tokens += ["--token", f"cm-{s}-token=cm-{s}"]
+    print(f"phase 21 controllers: {CM_CONTROLLERS}")
+    out: dict = {}
+    children: list[Child] = []
+    store = kwok_mgr = None
+    try:
+        # -- the apiserver, the scheduler, two controller managers, KWOK ----
+        t0 = time.perf_counter()
+        api = apiserver_child(
+            log_dir, "apiserver", "--port", 0, "--wire-port", 0,
+            "--data-dir", data_dir, "--fsync", "batch", *tokens,
+            "--audit-policy", audit_policy, "--audit-log-path", audit_log,
+            "--audit-log-maxsize-mb", 4096)
+        children.append(api)
+        _, wire = await apiserver_addresses(api, 120.0)
+        sched = scheduler_child(
+            log_dir, "scheduler", wire, config, "sched-token",
+            gates="TPUScorer=true" if card else "TPUScorer=false")
+        cms = {s: controller_manager_child(log_dir, f"cm-{s}", wire,
+                                           f"cm-{s}-token") for s in "ab"}
+        children += [sched, *cms.values()]
+        store = WireStore(wire, token="admin-token", user_agent="chip-smoke")
+        kwok = KwokController(
+            store, node_count=CM_NODES, lease_period=CM_KWOK_LEASE_S,
+            node_template={"allocatable": {"cpu": "8", "memory": "32Gi",
+                                           "pods": "110"}})
+        await kwok.register_nodes()
+        log = RolloutLog()
+        kwok_mgr = ControllerManager(store, [kwok])
+        kwok_mgr.factory.informer("pods").add_event_handler(log.handler())
+        await kwok_mgr.start()
+        ids = {s: (await c.line(CM_IDENTITY, 120.0)).group(1)
+               for s, c in cms.items()}
+        await sched.line(r"scheduler running \(batch=", 300.0)
+        prov = json.loads((await sched.line(LEADING, 60.0)).group(2))
+
+        async def held() -> bool:
+            return await lease_holder(store, CM_LEASE_KEY) in ids.values()
+        await until(held, children, 60.0, "controller-manager lease holder")
+        out["staging_s"] = time.perf_counter() - t0
+
+        # -- 21(a) rollout ---------------------------------------------------
+        deps = cm_deployments("web:v1")
+        want = CM_DEPLOYMENTS * CM_REPLICAS
+        apps = [d["metadata"]["name"] for d in deps]
+
+        def running_total() -> int:
+            return sum(1 for name, (app, *_) in log._live.items()
+                       if app in apps and name in log.running_at)
+
+        async def rolled_out() -> bool:
+            return sum(log.live.get(a, 0) for a in apps) == want and \
+                running_total() == want and all(
+                    log.bound.get(a, 0) == CM_REPLICAS for a in apps)
+
+        t1 = time.perf_counter()
+        await create_all(store, "deployments", deps)
+        await until(rolled_out, children, 600.0, "rollout of 10,000 pods")
+
+        async def statuses_settled() -> bool:
+            rses = (await store.list("replicasets")).items
+            return len(rses) == CM_DEPLOYMENTS and all(
+                r["status"].get("readyReplicas") == CM_REPLICAS
+                for r in rses)
+        await until(statuses_settled, children, 120.0,
+                    "ReplicaSet statuses at readyReplicas 250")
+        names = [n for n, (app, *_) in log._live.items() if app in apps]
+        window = max(log.running_at[n] for n in names) - t1
+        deps = (await store.list("deployments")).items
+        rses = (await store.list("replicasets")).items
+        pods = (await store.list("pods")).items
+        nodes = (await store.list("nodes")).items
+        bad = rollout_violations(deps, rses, pods, nodes)
+        if log.binds.rebound():
+            bad.append(f"rebound {log.binds.rebound()[:5]}")
+        creates = audit_events(audit_log, "create")
+        deletes = audit_events(audit_log, "delete")
+        by_user = {}
+        for ev in creates:
+            by_user.setdefault(ev["user"]["username"], 0)
+            by_user[ev["user"]["username"]] += 1
+        made = {ev["objectRef"]["name"] for ev in creates
+                if ev["responseStatus"]["code"] < 300}
+        if set(by_user) - {"cm-a", "cm-b"}:
+            bad.append(f"pod creates by {by_user}")
+        missing = [p["metadata"]["name"] for p in pods
+                   if p["metadata"]["name"] not in made]
+        if missing:
+            bad.append(f"{len(missing)} live pods with no create in the "
+                       f"audit log, e.g. {missing[:3]}")
+        if card and (prov is None or prov.get("solve_kernel") != "cuda"):
+            bad.append(f"the scheduler's solve_provenance {prov}")
+        ok_creates = sum(1 for ev in creates
+                         if ev["responseStatus"]["code"] < 300)
+        ok_deletes = sum(1 for ev in deletes
+                         if ev["responseStatus"]["code"] < 300)
+        out.update(rollout_rate=want / window, rollout_s=window,
+                   rollout_creates=ok_creates, rollout_deletes=ok_deletes)
+        print(f"controller manager 21(a) rollout: {CM_DEPLOYMENTS} "
+              f"Deployments x {CM_REPLICAS} replicas (RollingUpdate 25%/25%,"
+              f" cpu 100m memory 250Mi) over {CM_NODES} KWOK nodes; "
+              f"{out['rollout_rate']:.2f} pods/s ({want} pods, {window:.6f} "
+              f"s from the first Deployment create to the last pod Running "
+              f"the parent's informer saw); staging {out['staging_s']:.3f} "
+              f"s; the ReplicaSets created {ok_creates} pods and deleted "
+              f"{ok_deletes} in all (pod creates by user {by_user}); "
+              f"{len(rses)} ReplicaSets; every pod bound once, nodes over "
+              f"capacity {len(over_capacity(nodes, pods))}; the scheduler's "
+              f"solve_provenance {json.dumps(prov)}")
+        if bad:
+            raise RuntimeError(f"21(a): {bad[:10]}")
+
+        # -- 21(b) failover --------------------------------------------------
+        holder = await lease_holder(store, CM_LEASE_KEY)
+        lead = next(s for s, i in ids.items() if i == holder)
+        standby = "b" if lead == "a" else "a"
+        t_kill = time.perf_counter()
+        rc = await cms[lead].kill()
+        live = [api, sched, cms[standby]]
+
+        async def moved() -> bool:
+            return await lease_holder(store, CM_LEASE_KEY) == ids[standby]
+        out["failover_s"] = await until(moved, live, 120.0,
+                                        "lease handover") - t_kill
+        holder = await lease_holder(store, CM_LEASE_KEY)
+        print(f"controller manager 21(b) failover: SIGKILL of cm-{lead} "
+              f"({ids[lead]}, the lease holder; KTPU_LEASE_DURATION="
+              f"{CM_LEASE_S}): {out['failover_s']:.3f} s until cm-{standby} "
+              f"({ids[standby]}) held the lease; exit code {rc}")
+        if rc != -9 or holder != ids[standby]:
+            raise RuntimeError(f"21(b): exit code {rc}, holder {holder}")
+
+        # -- 21(c) roll over -------------------------------------------------
+        old_hash = {d["metadata"]["name"]:
+                    pod_template_hash(d["spec"]["template"]) for d in deps}
+
+        def bump(dep):
+            dep["spec"]["template"]["spec"]["containers"][0]["image"] = \
+                "web:v2"
+            return dep
+        log.track_extremes()
+        t2 = time.perf_counter()
+        await asyncio.gather(*(store.guaranteed_update(
+            "deployments", f"default/{a}", bump) for a in apps))
+
+        async def rolled_over() -> bool:
+            rses = (await store.list("replicasets")).items
+            done = 0
+            for r in rses:
+                app = r["metadata"]["labels"].get("app")
+                h = r["metadata"]["labels"].get("pod-template-hash")
+                if h == old_hash.get(app):
+                    continue
+                if r["spec"]["replicas"] == CM_REPLICAS and \
+                        r["status"].get("readyReplicas") == CM_REPLICAS:
+                    done += 1
+            if done != CM_DEPLOYMENTS:
+                return False
+            old = [r for r in rses if r["metadata"]["labels"].get(
+                "pod-template-hash") == old_hash.get(
+                r["metadata"]["labels"].get("app"))]
+            if any(r["spec"]["replicas"] or r["status"].get("replicas")
+                   for r in old):
+                return False
+            return not any(h == old_hash.get(app)
+                           for app, _on, h in log._live.values())
+        t_over = await until(rolled_over, live, 600.0, "rollover")
+        out["rollover_s"] = t_over - t2
+        await until(rolled_out, live, 120.0, "the new pods Running")
+        deps = (await store.list("deployments")).items
+        rses = (await store.list("replicasets")).items
+        pods = (await store.list("pods")).items
+        bad = rollout_violations(deps, rses, pods, nodes)
+        if log.binds.rebound():
+            bad.append(f"rebound {log.binds.rebound()[:5]}")
+        surge = _resolve_bound("25%", CM_REPLICAS)
+        unavail = _resolve_bound("25%", CM_REPLICAS)
+        made = sum(1 for ev in audit_events(audit_log, "create")
+                   if ev["responseStatus"]["code"] < 300) - ok_creates
+        gone_ = sum(1 for ev in audit_events(audit_log, "delete")
+                    if ev["responseStatus"]["code"] < 300) - ok_deletes
+        peaks = [log.peak.get(a, 0) for a in apps]
+        lows = [log.low.get(a, 0) for a in apps]
+        print(f"controller manager 21(c) rollover (all {CM_DEPLOYMENTS} "
+              f"templates to web:v2 at once, led by cm-{standby}): "
+              f"{out['rollover_s']:.6f} s until every new ReplicaSet had "
+              f"{CM_REPLICAS} ready, every old one 0 and no old pod left; "
+              f"live pods per Deployment peak {max(peaks)} (min of the "
+              f"peaks {min(peaks)}) against {CM_REPLICAS} + 63 = "
+              f"{CM_REPLICAS + 63}, bound low {min(lows)} (max of the lows "
+              f"{max(lows)}) against {CM_REPLICAS} - 62 = {CM_REPLICAS - 62}"
+              f" (the controller resolves maxSurge {surge}, maxUnavailable "
+              f"{unavail}); the ReplicaSets created {made} pods and "
+              f"deleted {gone_}; Deployments over the surge "
+              f"{sum(p > CM_REPLICAS + surge for p in peaks)}, under the "
+              f"availability floor "
+              f"{sum(lo < CM_REPLICAS - unavail for lo in lows)}; every new "
+              f"pod bound once, nodes over capacity "
+              f"{len(over_capacity(nodes, pods))}")
+        if bad:
+            raise RuntimeError(f"21(c): {bad[:10]}")
+
+        # -- 21(d) cascade ---------------------------------------------------
+        gone, kept = apps[:CM_DEPLOYMENTS // 2], apps[CM_DEPLOYMENTS // 2:]
+        before = pod_view(p for p in pods
+                          if p["metadata"]["labels"]["app"] in kept)
+        t3 = time.perf_counter()
+        for a in gone:
+            await store.delete("deployments", f"default/{a}")
+
+        async def collected() -> bool:
+            if any(log.live.get(a, 0) for a in gone):
+                return False
+            rses = (await store.list("replicasets")).items
+            return not any(r["metadata"]["labels"].get("app") in gone
+                           for r in rses)
+        out["cascade_s"] = await until(collected, live, 600.0,
+                                       "cascade") - t3
+        pods = (await store.list("pods")).items
+        rses = (await store.list("replicasets")).items
+        after = pod_view(p for p in pods
+                         if p["metadata"]["labels"].get("app") in kept)
+        bad = [p["metadata"]["name"] for p in pods
+               if p["metadata"]["labels"].get("app") in gone]
+        bad += [r["metadata"]["name"] for r in rses
+                if r["metadata"]["labels"].get("app") in gone]
+        if after != before:
+            diff = sorted(n for n in set(before) | set(after)
+                          if before.get(n) != after.get(n))
+            bad.append(f"{len(diff)} kept pods changed, e.g. " + str(
+                [(n, before.get(n), after.get(n)) for n in diff[:3]]))
+        print(f"controller manager 21(d) cascade: delete {len(gone)} "
+              f"Deployments; {out['cascade_s']:.6f} s until the garbage "
+              f"collector had removed their ReplicaSets and "
+              f"{len(gone) * CM_REPLICAS} pods; the other {len(kept)} "
+              f"Deployments' {len(after)} pods kept their names, nodes and "
+              f"RVs")
+        if bad:
+            raise RuntimeError(f"21(d): {bad[:10]}")
+
+        # -- 21(e) Indexed Job -----------------------------------------------
+        tmpl = cm_template("indexed", "batch:v1")
+        tmpl["metadata"]["annotations"] = {
+            "kwok.x-k8s.io/complete-after": "1"}
+        t4 = time.perf_counter()
+        await store.create("jobs", make_job(
+            "indexed", parallelism=CM_JOB_PARALLELISM,
+            completions=CM_JOB_COMPLETIONS, template=tmpl,
+            completion_mode="Indexed"))
+
+        async def complete() -> bool:
+            job = await store.get("jobs", "default/indexed")
+            return any(c.get("type") == "Complete" and c.get("status") ==
+                       "True" for c in job["status"].get("conditions") or [])
+        out["job_s"] = await until(complete, live, 600.0,
+                                   "the Job's Complete condition") - t4
+        job = await store.get("jobs", "default/indexed")
+        pods = (await store.list("pods")).items
+        done: dict[str, int] = {}
+        for p in pods:
+            if p["metadata"]["labels"].get("job-name") == "indexed" and \
+                    p["status"].get("phase") == "Succeeded":
+                i = p["metadata"]["annotations"][
+                    "batch.kubernetes.io/job-completion-index"]
+                done[i] = done.get(i, 0) + 1
+        want_idx = {str(i) for i in range(CM_JOB_COMPLETIONS)}
+        bad = []
+        if job["status"].get("succeeded") != CM_JOB_COMPLETIONS:
+            bad.append(f"succeeded {job['status'].get('succeeded')}")
+        if set(job["status"].get("completedIndexes") or []) != want_idx:
+            bad.append(f"completedIndexes "
+                       f"{len(job['status'].get('completedIndexes') or [])}")
+        if set(done) != want_idx or any(v != 1 for v in done.values()):
+            bad.append(f"{len(done)} indexes Succeeded, "
+                       f"{sum(v > 1 for v in done.values())} more than once")
+        print(f"controller manager 21(e) Indexed Job (completions "
+              f"{CM_JOB_COMPLETIONS}, parallelism {CM_JOB_PARALLELISM}, "
+              f"complete-after 1 s): {out['job_s']:.6f} s from the create "
+              f"to the Complete condition; succeeded "
+              f"{job['status'].get('succeeded')}, indexes 0-"
+              f"{CM_JOB_COMPLETIONS - 1} each Succeeded once: {not bad}")
+        if bad:
+            raise RuntimeError(f"21(e): {bad}")
+
+        # -- stop every process ----------------------------------------------
+        await kwok_mgr.stop()
+        kwok_mgr = None
+        await store.close()
+        store = None
+        launches = await stop_launches(sched)
+        rcs = {c.name: await c.stop() for c in (cms[standby], api)}
+        if any(rcs.values()) or (card and launches["wave_solve"] <= 0):
+            raise RuntimeError(f"21: exit codes on SIGTERM {rcs}, the "
+                               f"scheduler's launches {launches}")
+        out["launches"] = launches
+        print(f"controller manager stop: the scheduler's kernel launches "
+              f"{json.dumps(launches)}; cm-{standby} and apiserver exit "
+              f"codes {rcs}")
+        return out
+    finally:
+        if kwok_mgr is not None:
+            await kwok_mgr.stop()
+        if store is not None:
+            await store.close()
+        for c in children:
+            c.close()
+
+
+def controller_manager_run(torch) -> dict:
+    """Phase 21 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on (the children inherit both).
+    Returns the kernels line's phase 21 entries."""
+    import shutil
+
+    from kubernetes_tpu_torch.utils import flags
+
+    t21 = time.perf_counter()
+    print(f"phase 21 on {card_line()}")
+    log_dir = os.path.join(REPO, "build", "phase21")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    os.makedirs(log_dir)
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        out = asyncio.run(controller_manager(torch, log_dir))
+    print(f"phase 21 {time.perf_counter() - t21:.1f} s")
+    return {"wave_solve": {"controller_manager_launches":
+                           out["launches"]["wave_solve"]},
+            "probe": {"controller_manager_launches":
+                      out["launches"]["probe"]}}
+
+
+def controller_manager_phases(torch) -> int:
+    """`--phase21-only`: build the kernels (phase 1), then phase 21."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(controller_manager_run(torch)))
+    print_card()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -8071,6 +8683,9 @@ def main() -> int:
     parser.add_argument("--phase20-only", action="store_true",
                         help="build the kernels and run phase 20 alone "
                         "(prints no result lines)")
+    parser.add_argument("--phase21-only", action="store_true",
+                        help="build the kernels and run phase 21 alone "
+                        "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
     if not torch.cuda.is_available():
@@ -8098,6 +8713,8 @@ def main() -> int:
         return control_plane_phases(torch)
     if cli.phase20_only:
         return sharded_processes_phases(torch)
+    if cli.phase21_only:
+        return controller_manager_phases(torch)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -8155,7 +8772,7 @@ def print_card() -> None:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-21 (see the module docstring)."""
+    """Phases 1-22 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -8539,8 +9156,11 @@ def smoke(torch, seed: int) -> int:
     # -- 20. the sharded and the multi-process control plane ----------------
     sharded_cp = sharded_processes_run(torch)
 
-    # -- 21. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-20)")
+    # -- 21. the controller manager -----------------------------------------
+    cm = controller_manager_run(torch)
+
+    # -- 22. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-21)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -8554,7 +9174,8 @@ def smoke(torch, seed: int) -> int:
          "gang_launches": gang_launches,
          "gang_chunk_launches": gang_chunk_launches, **large, **device,
          **stream_volume, **slice_topology, **families, **boundary,
-         **processes["wave_solve"], **sharded_cp["wave_solve"]},
+         **processes["wave_solve"], **sharded_cp["wave_solve"],
+         **cm["wave_solve"]},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,
@@ -8562,7 +9183,7 @@ def smoke(torch, seed: int) -> int:
          "bound_by": "bytes", "library_ms": probe_plain_ms,
          "loop_launches": loop["loop_probe_launches"],
          "constraint_launches": anti["probe_launches"],
-         **processes["probe"], **sharded_cp["probe"]},
+         **processes["probe"], **sharded_cp["probe"], **cm["probe"]},
         *sharded_entries,
     ]}))
     print_card()

@@ -6,11 +6,15 @@ rate-limited workqueue, N worker tasks pop keys and run `sync(key)`
 level-triggered; failures re-enqueue with exponential backoff; periodic
 resync forces full reconciliation.
 
-Copy of `kubernetes_tpu/controllers/base.py` without what the port's
-controllers (the PV binder, the node lifecycle controller and the
-descheduler) do not use: the owner-reference watches, the enqueue helpers
-and the leader-elected lifetime (no process entry point runs a
-controller manager yet).
+Copy of `kubernetes_tpu/controllers/base.py`, with `status_writer`: the
+reference's workload controllers rewrite their object's status on every
+sync even when nothing in it changed, and since each watches its own
+resource, the write's event queues the same key again: a sync loop that
+never rests. At 10,000 pods, where a ReplicaSet sync scans every pod, it
+held a controller manager's loop and stalled the garbage collector's
+cascade (17 pods/s). The port's controllers write a status only when it
+changes (what the apiserver does with an unchanged update upstream); the
+objects are the reference's after every sync.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import asyncio
 import logging
 from typing import Iterable
 
-from kubernetes_tpu_torch.api.meta import namespaced_name
+from kubernetes_tpu_torch.api.meta import deep_copy, namespaced_name
 from kubernetes_tpu_torch.client import (
     InformerFactory,
     RateLimitingQueue,
@@ -29,9 +33,21 @@ from kubernetes_tpu_torch.client import (
 logger = logging.getLogger(__name__)
 
 
+def status_writer(mutate):
+    """`mutate` for `guaranteed_update`, aborted (None: no write, no
+    event) when it leaves the object's status as it was."""
+    def write(obj):
+        before = deep_copy(obj.get("status"))
+        out = mutate(obj)
+        if out is not None and out.get("status") == before:
+            return None
+        return out
+    return write
+
+
 class Controller:
     """Subclass contract: set NAME, implement `sync(key)`, and wire
-    informers in `setup(factory)` (`watch_resource` enqueues keys)."""
+    informers in `setup(factory)` using `enqueue`/`enqueue_obj`."""
 
     NAME = "controller"
     WORKERS = 2
@@ -58,6 +74,32 @@ class Controller:
 
         factory.informer(resource).add_event_handler(ResourceEventHandler(
             on_add=enq, on_update=lambda old, new: enq(new), on_delete=enq))
+
+    def watch_owned(self, factory: InformerFactory, resource: str,
+                    kind: str) -> None:
+        """Events of `resource` map back to the owning controller's key
+        via the controllerRef (the addPod/deletePod pattern every
+        workload controller shares — generalized for Job→CronJob etc.)."""
+        def to_owner(obj):
+            for ref in obj.get("metadata", {}).get("ownerReferences") or []:
+                if ref.get("controller") and ref.get("kind") == kind:
+                    ns = obj["metadata"].get("namespace", "default")
+                    asyncio.ensure_future(
+                        self.queue.add(f"{ns}/{ref['name']}"))
+                    return
+
+        factory.informer(resource).add_event_handler(ResourceEventHandler(
+            on_add=to_owner, on_update=lambda o, n: to_owner(n),
+            on_delete=to_owner))
+
+    def watch_owned_pods(self, factory: InformerFactory, kind: str) -> None:
+        self.watch_owned(factory, "pods", kind)
+
+    async def enqueue(self, key: str) -> None:
+        await self.queue.add(key)
+
+    async def enqueue_after(self, key: str, delay: float) -> None:
+        await self.queue.add_after(key, delay)
 
     # -- run loop ----------------------------------------------------------
 
@@ -126,3 +168,17 @@ class ControllerManager:
         for c in self.controllers:
             await c.stop()
         self.factory.stop()
+
+    async def run_with_leader_election(self, elector) -> None:
+        """Leader-elected controller-manager lifetime: controllers run only
+        while holding the lease (kube-controller-manager's
+        leaderElectAndRun); losing it stops every controller so the
+        standby replica converges instead of fighting."""
+        async def lead():
+            await self.start()
+            await asyncio.Event().wait()  # run until cancelled
+
+        try:
+            await elector.run(on_started_leading=lead)
+        finally:
+            await self.stop()

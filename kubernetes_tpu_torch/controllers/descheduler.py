@@ -37,16 +37,15 @@ computed on an explicit `device` (cuda:0 by default; the perf runner
 passes its backend's), or the controller raises: there is no host
 fallback. The candidate order stays the reference's host
 `np.argsort(-scores)` on the fetched scores, whose tie order
-`torch.argsort` does not share (uniform nodes tie all the time).
+`torch.argsort` does not share (uniform nodes tie all the time). Like
+the reference, it imports its array libraries and the solver where it
+computes, so a controller manager that runs no descheduler loads no torch.
 """
 
 from __future__ import annotations
 
 import logging
 from typing import Iterable
-
-import numpy as np
-import torch
 
 from kubernetes_tpu_torch.api.meta import deep_copy, namespaced_name, new_uid
 from kubernetes_tpu_torch.api.types import (
@@ -58,7 +57,6 @@ from kubernetes_tpu_torch.api.types import (
 from kubernetes_tpu_torch.client import InformerFactory
 from kubernetes_tpu_torch.controllers.base import Controller
 from kubernetes_tpu_torch.metrics.registry import DeschedulerMetrics
-from kubernetes_tpu_torch.ops import solver
 from kubernetes_tpu_torch.store.mvcc import StoreError
 from kubernetes_tpu_torch.utils import flags
 
@@ -76,6 +74,8 @@ class DeschedulerController(Controller):
     def __init__(self, store, *, period: float = 0.5,
                  budget: int | None = None, threshold: float = 0.5,
                  metrics: DeschedulerMetrics | None = None, device=None):
+        import torch
+
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -115,6 +115,11 @@ class DeschedulerController(Controller):
 
     async def rebalance_once(self) -> int:
         """One bounded consolidation pass; returns evictions issued."""
+        import numpy as np
+        import torch
+
+        from kubernetes_tpu_torch.ops import solver
+
         nodes = [n for n in self.node_informer.indexer.list()
                  if not node_is_unschedulable(n)]
         if not nodes:
@@ -147,7 +152,7 @@ class DeschedulerController(Controller):
                 free_q[i, j] -= req.get(r, 0)
             victims_by_node.setdefault(i, []).append(pod)
 
-        def put(a: np.ndarray) -> torch.Tensor:
+        def put(a):
             return torch.from_numpy(a).to(self.device)
 
         scores = solver.consolidation_scores(

@@ -6,7 +6,8 @@ election, extenders, `build_scheduler`) are named one by one, and
 importing all of them in a fresh interpreter loads neither package. So are
 the sharded control plane's and the multi-process control plane's modules,
 and a shard apiserver process (`multiproc.shardproc` with the store, the
-wire and the WAL it serves) loads no torch either."""
+wire and the WAL it serves) loads no torch either; nor does the
+controller manager (`controllers/`, every module of the reference's)."""
 
 import ast
 import subprocess
@@ -152,4 +153,40 @@ def test_shard_process_loads_no_torch():
              "kubernetes_tpu_torch.store",
              "kubernetes_tpu_torch.store.durable",
              "kubernetes_tpu_torch.store.sharded"]
+    assert _loaded(names, ("torch", "numpy") + FORBIDDEN) == []
+
+
+#: The controller manager's modules: `controllers/` whole, as the
+#: controller-manager slice left it.
+CONTROLLER_MODULES = tuple(sorted(
+    f"controllers/{f.name}"
+    for f in (ROOT / "kubernetes_tpu_torch" / "controllers").glob("*.py")))
+
+
+def test_controllers_mirror_the_reference_modules():
+    ref = sorted(f"controllers/{f.name}" for f in (
+        ROOT / "kubernetes_tpu" / "controllers").glob("*.py"))
+    assert list(CONTROLLER_MODULES) == ref and len(ref) == 21
+
+
+@pytest.mark.parametrize("rel", CONTROLLER_MODULES)
+def test_controller_module_imports_nothing_of_the_reference(rel):
+    f = ROOT / "kubernetes_tpu_torch" / rel
+    assert f in _port_files()
+    mods = list(_imported_modules(ast.parse(f.read_text(), str(f))))
+    assert mods
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
+
+
+def test_controller_manager_loads_no_torch():
+    """`python -m kubernetes_tpu_torch.controllers` imports every
+    controller module, the wire and HTTP clients and the elector: none of
+    them loads torch or numpy (the descheduler imports them where it
+    scores)."""
+    names = ["kubernetes_tpu_torch.controllers.__main__",
+             "kubernetes_tpu_torch.apiserver.wire",
+             "kubernetes_tpu_torch.apiserver.client",
+             "kubernetes_tpu_torch.client.leaderelection"]
+    names += [f"kubernetes_tpu_torch.{rel[:-3].replace('/', '.')}"
+              for rel in CONTROLLER_MODULES]
     assert _loaded(names, ("torch", "numpy") + FORBIDDEN) == []
