@@ -37,7 +37,8 @@ control plane (a shard apiserver process per store shard, a
 leader-elected scheduler pair, a killed leader); and the controller
 manager (Deployments, ReplicaSets, the garbage collector and an Indexed
 Job over 5000 KWOK nodes, every pod placed by the scheduler process on
-the card) —
+the card); and the gRPC service, the protobuf content type over HTTP and
+the CLI —
 after
 building the hand-written kernels from
 `kubernetes_tpu_torch/csrc/` with nvcc and holding each against its plain
@@ -309,7 +310,7 @@ Phases (any failure raises and the script exits non-zero with no result):
      the smoke inside its time); printed: pods/s, the `assign` share, the idle share and the binds
      that began before their dispatch's last chunk fetch returned; then
      the same 11000 pods pre-created (queued before the loop starts: one
-     dispatch of 11 chunks), stream, assign, assign, stream, the stream's
+     dispatch of 11 chunks), stream then assign, the stream's
      early binds required above 0 and `assign`'s 0; (c)
      `volume_case`'s chunk (200 nodes in three zones, pre-bound zonal,
      WaitForFirstConsumer and local claims, a shared ReadWriteOncePod
@@ -317,7 +318,7 @@ Phases (any failure raises and the script exits non-zero with no result):
      `TorchBackend()` and `TorchBackend(device="cpu")`, flagless and
      greedy: identical assignments, diagnostics, verify rejects and
      host-fallback counts; (d) `volume_loop` at 5000 nodes in three zones
-     (500 + 500 pods of one claim each, half bound in advance to zonal
+     (250 + 250 pods of one claim each, half bound in advance to zonal
      PVs, half WaitForFirstConsumer claims the ported PV binder
      provisions beside the loop): every pod bound, every claim bound to a
      PV admitting its pod's node, no node over its volume limit, no
@@ -472,10 +473,10 @@ Phases (any failure raises and the script exits non-zero with no result):
      `--leader-elect` (KTPU_LEASE_DURATION=6) and `--controllers
      deployment,replicaset,job,gc,podgc` (printed); the parent runs
      `KwokController(node_count=5000, lease_period=10.0)` over `WireStore`
-     with SchedulingBasic's node. (a) 40 Deployments of 250 replicas
+     with SchedulingBasic's node. (a) 20 Deployments of 250 replicas
      (SchedulingBasic's pod, RollingUpdate 25%/25%): pods/s from the
      first create to the last pod Running the parent's informer sees;
-     each Deployment one ReplicaSet at 250 replicas and 250 ready, 10000
+     each Deployment one ReplicaSet at 250 replicas and 250 ready, 5000
      live pods each owned by its ReplicaSet, bound once and Running, no
      node over capacity, every live pod's create in the audit log by a
      controller-manager user and none by another, the scheduler's line
@@ -486,14 +487,36 @@ Phases (any failure raises and the script exits non-zero with no result):
      ready, each old one 0 and no old pod is left, the end state of (a)
      again; printed, not gated: each Deployment's peak of live pods and
      low of bound pods against 250 + 63 and 250 - 62, the creates and
-     deletes; (d) delete 20 Deployments: seconds until the garbage
-     collector has removed their ReplicaSets and 5000 pods, the other 20
+     deletes; (d) delete 10 Deployments: seconds until the garbage
+     collector has removed their ReplicaSets and 2500 pods, the other 10
      Deployments' pods with their names, nodes and RVs; (e) an Indexed
      Job (completions 1024, parallelism 256, KWOK's complete-after 1 s):
      seconds to its Complete condition, `succeeded` 1024, each index
      Succeeded once; then SIGTERM every process, each exiting 0, the
      scheduler's stop line showing wave_solve launches above 0;
- 22. the result lines (phase 11 before phase 12 existed, phase 13 before
+ 22. the gRPC service, protobuf over HTTP and the CLI, through the port's
+     `PerfRunner` with `TorchBackend()` (`transport_runner_cls`: the
+     runner itself has no such transport) under a scoped
+     KTPU_SOLVE_MODE=auto with serving on, the card's name and power
+     limit printed first: (a) SchedulingBasic/5000Nodes (not cut), every
+     workload write, informer list and watch, and bind through
+     `GRPCRemoteStore` to a `GRPCAPIServer` over the backing store with
+     the `WebhookAdmission` and the `AuditPipeline`, the admission window
+     pinned (GRPC_ADMISSION_WINDOW_MS): every pod bound, no
+     node over capacity, a wave_solve launch in the measured window,
+     `solve_provenance` naming the card and its power limit, the store a
+     `GRPCRemoteStore`; printed: pods/s, the window, launches, dispatches
+     and 18(b)'s wire rate over this one; (b) SchedulingBasic's template
+     at 500 nodes, 100 + 1000 pods, with 10 uniform policies through
+     `RemoteStore(url, protobuf=True)`: 18(c)'s gates, no node over
+     capacity, protobuf responses above 0; (c) before (b)'s `APIServer`
+     stops, `python -m kubernetes_tpu_torch.cli --server URL`
+     subprocesses, each exiting 0: `get nodes` (a row per node), `get
+     pods -o json` (the store's names and nodeNames), `describe nodes` of
+     the busiest node (its object), `cordon` then `uncordon` (the store's
+     `spec.unschedulable` flips), `top nodes` (each node's requests the
+     sum of `pod_requests` of its pods);
+ 23. the result lines (phase 11 before phase 12 existed, phase 13 before
      phase 14): the whole smoke's wall time, a `kernels` JSON line
      (wave_solve's entry also carries the flagless path's W=1 launches,
      ms, device ms, plain ms and bound, the loop's launches in phase
@@ -529,17 +552,19 @@ Phases (any failure raises and the script exits non-zero with no result):
      `multiproc_launches` (20(b)'s leader process, over its life) and
      `kill_leader_launches` (20(c)'s surviving leader); and phase 21's:
      `controller_manager_launches` (its scheduler process, over its
-     life); the probe's, its launches over phase 9(b)'s run and over
-     10(b)'s, phase 19's two processes', phase 20's and phase 21's under
-     the same keys), the card's name
+     life); and phase 22's: `grpc_launches` and `protobuf_launches` (the
+     measured windows of 22(a) and 22(b)); the probe's, its launches over
+     phase 9(b)'s run and over 10(b)'s, phase 19's two processes', phase
+     20's, phase 21's and phase 22's runs under the same keys), the card's
+     name
      and power limit from nvidia-smi, and last {"ok": true, "device":
      {...}}.
 
 Run from the repository root: `python3 chip_smoke.py [--seed N]`; with
 `--phase13-only` (or `--phase14-only`, `--phase15-only`,
 `--phase16-only`, `--phase17-only`, `--phase18-only`,
-`--phase19-only`, `--phase20-only`, `--phase21-only`) it builds the
-kernels and runs phase 13 (or 14, 15, 16, 17, 18, 19, 20, 21) alone (no
+`--phase19-only`, `--phase20-only`, `--phase21-only`, `--phase22-only`)
+it builds the kernels and runs phase 13 (or 14, 15, ..., 22) alone (no
 result lines). It needs one CUDA device;
 without one, or outside a checkout of the repository, it exits non-zero.
 """
@@ -4005,56 +4030,96 @@ def block_kernels_on(torch, case, block_w: int, strategy: str,
     return [t.cpu().numpy() for t in (fold, *agg, *stat, ub, gathered)]
 
 
+#: 13(a)'s fixture shape: nodes, pods, K, block width, wave width.
+SHORTLIST_SHAPE = (8257, 128, 64, 128, 32)
+SHORTLIST_STRATEGIES = ("LeastAllocated", "MostAllocated",
+                        "RequestedToCapacityRatio")
+
+
+def shortlist_jobs() -> list[tuple]:
+    """13(a)'s fixture runs: (kind, seed, strategy, block width)."""
+    bw = SHORTLIST_SHAPE[3]
+    return [(kind, 70 + i, SHORTLIST_STRATEGIES[i % 3], width)
+            for i, kind in enumerate(SHORTLIST_CASES)
+            for width in ((bw, 0) if kind == "uniform" else (bw,))]
+
+
+def shortlist_cpu_run(job: tuple) -> dict:
+    """One 13(a) fixture run through the port on the CPU, in a worker
+    process of the phase's pool (two torch threads each)."""
+    import torch
+
+    torch.set_num_threads(2)
+    kind, seed, strategy, width = job
+    n, p, k, bw, w = SHORTLIST_SHAPE
+    return run_shortlist(torch, shortlist_case(kind, seed, n, p, bw),
+                         strategy, k, width, w, "cpu")
+
+
+def shortlist_fixtures_on_card(torch, dev, cpu_runs: dict) -> int:
+    """13(a)'s fixture runs on the card, each held to its CPU run (the
+    futures of `cpu_runs`, by job). Returns the counted host reads."""
+    n, p, k, bw, w = SHORTLIST_SHAPE
+    reads = 0
+    for job, future in cpu_runs.items():
+        kind, seed, strategy, width = job
+        case = shortlist_case(kind, seed, n, p, bw)
+        with no_host_sync_in_shortlist(torch) as r:
+            card = run_shortlist(torch, case, strategy, k, width, w, dev)
+        reads += r[0]
+        cpu = future.result()
+        differ = [key for key in card if not _same(card[key], cpu[key])]
+        print(f"compare shortlist route, {kind} ({strategy}, N={n}, "
+              f"{p} pods, K={k}, block width {width}), card vs CPU: "
+              f"{'identical' if not differ else 'DIFFER ' + str(differ)}"
+              f"; blocks scanned/pruned {card['scanned']}/"
+              f"{card['pruned']}, fallbacks identity "
+              f"{card['identity'][1]}, waves (fallbacks, commits, "
+              f"replays) {card['wave'][1:]}, multistart "
+              f"{card['multistart'][1]}, multistart waves "
+              f"{card['multistart_wave'][1:]}, placed "
+              f"{int((card['identity'][0] >= 0).sum())}; host reads "
+              f"{r[0]}")
+        if differ:
+            raise RuntimeError(f"the shortlist route on the card "
+                               f"differs from the CPU on {kind}")
+    return reads
+
+
 def shortlist_scan_phase(torch, dev) -> int:
     """Phase 13(a): the shortlist route on the card against the CPU port
     on the eight `shortlist_case` fixtures (N = 8257, a ragged last block
     of 65 columns, 128 pods, K=64, block width 128, waves of 32), the
     full-width prefilter on the uniform fleet, the five block kernels, and
     the spread shortlist scan; the card's scans under sync debug "error"
-    except the counted host reads. Returns the wave_solve launches (the poisoned
-    chunks' reruns)."""
+    except the counted host reads. The fixtures' CPU runs go to four
+    worker processes (spawned, CPU only) while the card runs its own.
+    Returns the wave_solve launches (the poisoned chunks' reruns)."""
+    import concurrent.futures
+    import multiprocessing
+
     from kubernetes_tpu_torch.ops import kernels, solver, wave_kernel
 
     t0 = time.perf_counter()
     launches0 = wave_kernel.wave_solve.launches
-    n, p, k, bw, w = 8257, 128, 64, 128, 32
-    strategies = ("LeastAllocated", "MostAllocated",
-                  "RequestedToCapacityRatio")
-    reads = 0
-    for i, kind in enumerate(SHORTLIST_CASES):
-        strategy = strategies[i % 3]
-        case = shortlist_case(kind, 70 + i, n, p, bw)
-        for width in ((bw, 0) if kind == "uniform" else (bw,)):
-            with no_host_sync_in_shortlist(torch) as r:
-                card = run_shortlist(torch, case, strategy, k, width, w, dev)
-            reads += r[0]
-            cpu = run_shortlist(torch, case, strategy, k, width, w, "cpu")
-            differ = [key for key in card if not _same(card[key], cpu[key])]
-            print(f"compare shortlist route, {kind} ({strategy}, N={n}, "
-                  f"{p} pods, K={k}, block width {width}), card vs CPU: "
-                  f"{'identical' if not differ else 'DIFFER ' + str(differ)}"
-                  f"; blocks scanned/pruned {card['scanned']}/"
-                  f"{card['pruned']}, fallbacks identity "
-                  f"{card['identity'][1]}, waves (fallbacks, commits, "
-                  f"replays) {card['wave'][1:]}, multistart "
-                  f"{card['multistart'][1]}, multistart waves "
-                  f"{card['multistart_wave'][1:]}, placed "
-                  f"{int((card['identity'][0] >= 0).sum())}; host reads "
-                  f"{r[0]}")
-            if differ:
-                raise RuntimeError(f"the shortlist route on the card "
-                                   f"differs from the CPU on {kind}")
-        if kind == "uniform":
-            got = [block_kernels_on(torch, case, bw, s, dev)
-                   for s in strategies]
-            want = [block_kernels_on(torch, case, bw, s, "cpu")
-                    for s in strategies]
-            same = all(_same(tuple(g), tuple(c)) for g, c in zip(got, want))
-            print(f"compare block kernels (fold, aggregates, feasible "
-                  f"stat, upper bound, gathered scores; 3 strategies), card "
-                  f"vs CPU: {'identical' if same else 'DIFFER'}")
-            if not same:
-                raise RuntimeError("a block kernel differs on the card")
+    n, p, k, bw, w = SHORTLIST_SHAPE
+    with concurrent.futures.ProcessPoolExecutor(
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = {job: pool.submit(shortlist_cpu_run, job)
+                    for job in shortlist_jobs()}
+        reads = shortlist_fixtures_on_card(torch, dev, cpu_runs)
+    case = shortlist_case("uniform", 70 + SHORTLIST_CASES.index("uniform"),
+                          n, p, bw)
+    got = [block_kernels_on(torch, case, bw, s, dev)
+           for s in SHORTLIST_STRATEGIES]
+    want = [block_kernels_on(torch, case, bw, s, "cpu")
+            for s in SHORTLIST_STRATEGIES]
+    same = all(_same(tuple(g), tuple(c)) for g, c in zip(got, want))
+    print(f"compare block kernels (fold, aggregates, feasible stat, upper "
+          f"bound, gathered scores; 3 strategies), card vs CPU: "
+          f"{'identical' if same else 'DIFFER'}")
+    if not same:
+        raise RuntimeError("a block kernel differs on the card")
     # The spread shortlist scan, per-pod shortlists over a spread case.
     case = spread_case(seed=13, n=600, p=256)
     arrays, table, counts, applies, contrib, rows, exc = case
@@ -5264,15 +5329,15 @@ async def precreated_loop(api, backend, n_nodes: int, n_pods: int,
 def precreated_stream_phase(torch) -> None:
     """Phase 15(b), pre-created: SchedulingBasic/5000Nodes' 11000 pods
     queued before the loop starts, so one dispatch streams 11 chunks,
-    through the stream and through `AssignOnly`, in turns (stream,
-    assign, assign, stream). Prints each run's wall, pods/s, `assign`
+    through the stream, then through `AssignOnly` (two runs, not four in
+    turns: cut to keep the smoke inside its time). Prints each run's wall, pods/s, `assign`
     share and the binds begun before the dispatch's last chunk fetch
     returned, which must be above 0 through the stream."""
     from kubernetes_tpu_torch.ops.backend import TorchBackend
 
     api = port_loop_api()
     n_pods = N_INIT + N_MEASURED
-    for entry in ("stream", "assign", "assign", "stream"):
+    for entry in ("stream", "assign"):
         backend = TorchBackend()
         routes = dict.fromkeys(("backend_dispatches", "backend_pods",
                                 "early_binds"), 0)
@@ -5512,10 +5577,11 @@ def volume_chunks_phase(torch, seed: int) -> int:
 
 
 #: Phase 15(d)'s sizes, after upstream scheduler_perf's volume families
-#: (SchedulingInTreePVs, SchedulingWaitForFirstConsumerPVs): 500 init and
-#: 500 measured pods (1000 before the cut that keeps the smoke inside its
-#: time), one claim each, on SchedulingBasic's 5000 nodes.
-VOLUME_LOOP_INIT, VOLUME_LOOP_MEASURED = 500, 500
+#: (SchedulingInTreePVs, SchedulingWaitForFirstConsumerPVs): 250 init and
+#: 250 measured pods (1000 + 1000, then 500 + 500, before the cuts that
+#: keep the smoke inside its time), one claim each, on SchedulingBasic's
+#: 5000 nodes.
+VOLUME_LOOP_INIT, VOLUME_LOOP_MEASURED = 250, 250
 #: Each node's `attachable-volumes-csi` limit in 15(d): None, so that the
 #: nodes keep SchedulingBasic's shape and NodeVolumeLimits its default of
 #: 256 volumes (above the 110 pods a node holds).
@@ -5698,8 +5764,8 @@ def volume_violations(api, out: dict) -> list[str]:
 
 
 def volume_loop_phase(torch) -> int:
-    """Phase 15(d): `volume_loop` at SchedulingBasic's 5000 nodes, 500
-    init and 500 measured pods, through `TorchBackend()`; the gates of
+    """Phase 15(d): `volume_loop` at SchedulingBasic's 5000 nodes, 250
+    init and 250 measured pods, through `TorchBackend()`; the gates of
     `volume_violations`; throughput, the `assign` share, prep and verify,
     the PreBind waits (no profiled repeat: cut to keep the smoke inside
     its time). Returns wave_solve's launches in the measured window."""
@@ -6959,10 +7025,11 @@ def policy_scale_phase(torch) -> tuple:
     return runner.window["launches"], result.throughput
 
 
-def wire_basic_phase(torch, policy_rate: float) -> int:
+def wire_basic_phase(torch, policy_rate: float) -> tuple:
     """Phase 18(b): SchedulingBasic/5000Nodes over the same wire with no
     policies: every pod bound; prints 18(a)'s throughput over it (a
-    number, not a gate). Returns wave_solve's launches in the window."""
+    number, not a gate). Returns (wave_solve's launches in the window, the
+    pods/s)."""
     from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_BASIC
 
     t0 = time.perf_counter()
@@ -6977,7 +7044,7 @@ def wire_basic_phase(torch, policy_rate: float) -> int:
           f"{time.perf_counter() - t0:.1f} s")
     if bad:
         raise RuntimeError(f"18(b): {bad}")
-    return runner.window["launches"]
+    return runner.window["launches"], result.throughput
 
 
 def http_phase(torch) -> int:
@@ -7004,11 +7071,11 @@ def http_phase(torch) -> int:
     return runner.window["launches"]
 
 
-def boundary_run_phases(torch) -> dict:
+def boundary_run_phases(torch) -> tuple:
     """Phase 18 (see the module docstring), under a scoped
     KTPU_SOLVE_MODE=auto with serving on. Returns the kernels line's phase
-    18 entries: wave_solve's launches in the measured windows of
-    18(a)-(c)."""
+    18 entries (wave_solve's launches in the measured windows of
+    18(a)-(c)) and 18(b)'s pods/s."""
     from kubernetes_tpu_torch.utils import flags
 
     t18 = time.perf_counter()
@@ -7016,11 +7083,12 @@ def boundary_run_phases(torch) -> dict:
     with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
             flags.scoped_set("KTPU_SERVING", "1"):
         launches, rate = policy_scale_phase(torch)
+        wire_launches, wire_rate = wire_basic_phase(torch, rate)
         out = {"policy_scale_launches": launches,
-               "wire_basic_launches": wire_basic_phase(torch, rate),
+               "wire_basic_launches": wire_launches,
                "http_basic_launches": http_phase(torch)}
     print(f"phase 18 {time.perf_counter() - t18:.1f} s")
-    return out
+    return out, wire_rate
 
 
 def boundary_phases(torch) -> int:
@@ -7030,7 +7098,7 @@ def boundary_phases(torch) -> int:
     t0 = time.perf_counter()
     lib = wave_kernel.LIBRARY.build()
     print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
-    print(json.dumps(boundary_run_phases(torch)))
+    print(json.dumps(boundary_run_phases(torch)[0]))
     print_card()
     return 0
 
@@ -8094,9 +8162,10 @@ def sharded_processes_phases(torch) -> int:
 #: set's node lifecycle controller, with its 4 s grace, would taint KWOK's
 #: 5,000 nodes on any lease lag).
 CM_CONTROLLERS = "deployment,replicaset,job,gc,podgc"
-#: 40 Deployments of 250 (clusterloader2's load test gives its big
-#: Deployments 250 replicas), SchedulingBasic's pod template.
-CM_DEPLOYMENTS, CM_REPLICAS = 40, 250
+#: 20 Deployments of 250 (clusterloader2's load test gives its big
+#: Deployments 250 replicas; 40 before the cut that keeps the smoke
+#: inside its time), SchedulingBasic's pod template.
+CM_DEPLOYMENTS, CM_REPLICAS = 20, 250
 CM_NODES = 5000
 #: KWOK's node-lease renew period: the kubelet's 10 s for a 40 s lease.
 CM_KWOK_LEASE_S = 10.0
@@ -8649,6 +8718,357 @@ def controller_manager_phases(torch) -> int:
     return 0
 
 
+# -- phase 22: the gRPC service, protobuf over HTTP and the CLI --------------
+
+#: 22(a)'s admission window (KTPU_ADMISSION_WINDOW, ms). Flagless, the
+#: policy coalesces nothing below 300 pods/s; over gRPC every message costs
+#: the shared event loop several iterations, so single-pod pops take the
+#: 25 ms host path, the loop blocks, arrivals slow and the rate stays
+#: below 300 (31.36 pods/s on an H100, every pop one pod). At the
+#: policy's own largest window, 16 ms, each dispatch of ~10 pods held the
+#: loop ~72 ms (114.08 pods/s); 64 ms, about that hold, leaves the
+#: transport the loop for half of each cycle.
+GRPC_ADMISSION_WINDOW_MS = 64.0
+
+
+def transport_runner_cls(base, transport: str, before_stop=None):
+    """`base` (the port's PerfRunner or a subclass of it) whose workload
+    crosses the apiserver boundary on `transport`: "grpc" puts a
+    `GRPCAPIServer` over the backing store and drives every write, the
+    informers' lists and watches and every bind through one
+    `GRPCRemoteStore`; "protobuf" puts an `APIServer` there and drives it
+    through `RemoteStore(url, protobuf=True)`. Either server carries the
+    run's `WebhookAdmission` (its PolicyEngine) and `AuditPipeline`, as the
+    runner's own boundary does, and the run's policies are installed
+    first. `self.server` is the run's server, `self.protobuf_responses`
+    counts the responses whose body came back as protobuf, and
+    `before_stop(runner, server, backing)`, when given, runs after the
+    workload and before the server stops (its exception fails the run).
+    The runner itself keeps refusing a transport it does not have."""
+    from kubernetes_tpu_torch.apiserver.admission import WebhookAdmission
+    from kubernetes_tpu_torch.apiserver.client import RemoteStore
+    from kubernetes_tpu_torch.apiserver.grpc_server import (
+        GRPCAPIServer, GRPCRemoteStore)
+    from kubernetes_tpu_torch.apiserver.server import PROTOBUF_CT, APIServer
+    from kubernetes_tpu_torch.client import InformerFactory
+    from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
+    from kubernetes_tpu_torch.policy import (
+        AuditPipeline, AuditPolicy, PolicyEngine)
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.store import (
+        install_core_validation, new_cluster_store)
+
+    if transport not in ("grpc", "protobuf"):
+        raise ValueError(f"transport {transport!r}")
+
+    class StopHook:
+        """The run's server; `stop` runs `before_stop` first."""
+
+        def __init__(self, runner, server, backing):
+            self.runner, self.server, self.backing = runner, server, backing
+
+        async def stop(self):
+            try:
+                if before_stop is not None:
+                    await before_stop(self.runner, self.server, self.backing)
+            finally:
+                await self.server.stop()
+
+    class TransportRunner(base):
+        async def _run_inner(self, template_ops, params, timeout):
+            backing = new_cluster_store(shards=self.shards)
+            install_core_validation(backing)
+            self._policy_engine = PolicyEngine(backing)
+            self._audit = AuditPipeline(AuditPolicy(self.audit_rules))
+            admission = WebhookAdmission(backing,
+                                         policy_engine=self._policy_engine)
+            self.protobuf_responses = 0
+            self.server = client = None
+            try:
+                await self._install_policies(backing)
+                if transport == "grpc":
+                    self.server = GRPCAPIServer(backing, admission=admission,
+                                                audit=self._audit)
+                    await self.server.start()
+                    client = GRPCRemoteStore(self.server.target)
+                else:
+                    self.server = APIServer(backing, admission=admission,
+                                            audit=self._audit)
+                    await self.server.start()
+                    client = RemoteStore(self.server.url, protobuf=True)
+                    decode = client._json
+
+                    async def counted(resp):
+                        if resp.content_type == PROTOBUF_CT:
+                            self.protobuf_responses += 1
+                        return await decode(resp)
+
+                    client._json = counted
+                #: the backing store and the workload's client
+                self.store, self.client = backing, client
+                metrics = SchedulerMetrics()
+                sched = Scheduler(client, seed=42, backend=self.backend,
+                                  metrics=metrics, **self.scheduler_kwargs)
+                factory = InformerFactory(client)
+                await sched.setup_informers(factory)
+            except BaseException:
+                if client is not None:
+                    await client.close()
+                if self.server is not None:
+                    await self.server.stop()
+                backing.stop()
+                raise
+            return await self._drive(
+                template_ops, params, timeout, backing, client, metrics,
+                sched, factory, StopHook(self, self.server, backing), client)
+
+    return TransportRunner
+
+
+def transport_violations(runner, result, pods, nodes, want_pods: int,
+                         evals_per_pod: int, store_cls) -> list[str]:
+    """Phase 22's gates on a run: phase 18's (`policy_violations`), no
+    node over capacity, and the workload's store a `store_cls`."""
+    bad = policy_violations(runner, result, pods, want_pods, evals_per_pod)
+    over = over_capacity(nodes, pods)
+    if over:
+        bad.append(f"nodes over capacity: {over[:5]}")
+    if type(runner.client).__name__ != store_cls:
+        bad.append(f"the run's store is {type(runner.client).__name__}, "
+                   f"not {store_cls}")
+    return bad
+
+
+async def cli(url: str, *argv) -> tuple:
+    """`python -m kubernetes_tpu_torch.cli --server url argv...` as a fresh
+    interpreter from the repository root: (exit code, stdout, stderr)."""
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "kubernetes_tpu_torch.cli", "--server", url,
+        *argv, cwd=REPO, stdout=asyncio.subprocess.PIPE,
+        stderr=asyncio.subprocess.PIPE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), 120)
+    except asyncio.TimeoutError:
+        proc.kill()
+        await proc.wait()
+        raise
+    return proc.returncode, out.decode(), err.decode()
+
+
+async def cli_phase(url: str, backing) -> dict:
+    """Phase 22(c): the CLI against a live `APIServer` over `backing`,
+    each command a `python -m kubernetes_tpu_torch.cli` subprocess that
+    must exit 0: `get nodes` (a row per node), `get pods -o json` (the
+    store's names and nodeNames), `describe nodes` of the busiest node (its
+    object), `cordon` then `uncordon` (the store's `spec.unschedulable`
+    flips), `top nodes` (each node's CPU and memory requests the sum of
+    `pod_requests` of its pods). Returns the commands' seconds; raises on
+    a failed check."""
+    from kubernetes_tpu_torch.api.resource import format_quantity
+    from kubernetes_tpu_torch.api.types import pod_is_terminal, pod_requests
+
+    nodes = (await backing.list("nodes")).items
+    pods = (await backing.list("pods")).items
+    times, bad = {}, []
+    per_node: dict = {}
+    for p in pods:
+        node = p["spec"].get("nodeName")
+        if node and not pod_is_terminal(p):
+            agg = per_node.setdefault(node, {"cpu": 0, "memory": 0})
+            for r, v in pod_requests(p).items():
+                if r in agg:
+                    agg[r] += v
+
+    async def run(*argv):
+        t0 = time.perf_counter()
+        rc, out, err = await cli(url, *argv)
+        times[" ".join(argv)] = round(time.perf_counter() - t0, 3)
+        if rc != 0:
+            raise RuntimeError(f"22(c): `{' '.join(argv)}` exited {rc}: "
+                               f"{err.strip()[-500:]}")
+        return out
+
+    # The reads at once (the checks compare each with the store), then the
+    # cordon and the uncordon in turn.
+    busiest = max(sorted(per_node), key=lambda n: (
+        per_node[n]["cpu"], per_node[n]["memory"]))
+    nodes_out, pods_out, described, top_out = await asyncio.gather(
+        run("get", "nodes"), run("get", "pods", "-o", "json"),
+        run("describe", "nodes", busiest), run("top", "nodes"))
+    rows = nodes_out.splitlines()
+    if rows[0].split()[:2] != ["NAME", "STATUS"] \
+            or sorted(r.split()[0] for r in rows[1:]) != \
+            sorted(n["metadata"]["name"] for n in nodes):
+        bad.append(f"get nodes: {len(rows) - 1} rows for {len(nodes)} nodes")
+    listed = json.loads(pods_out)["items"]
+    view = sorted((p["metadata"]["name"], p["spec"].get("nodeName"))
+                  for p in listed)
+    want = sorted((p["metadata"]["name"], p["spec"].get("nodeName"))
+                  for p in pods)
+    if view != want:
+        bad.append(f"get pods -o json: {len(view)} pods, "
+                   f"{sum(a != b for a, b in zip(view, want))} differ")
+    import yaml
+
+    got = yaml.safe_load(described.split("\nEvents:")[0])
+    live = next(n for n in nodes if n["metadata"]["name"] == busiest)
+    if got["metadata"]["name"] != busiest or got["status"]["allocatable"] \
+            != live["status"]["allocatable"]:
+        bad.append(f"describe nodes {busiest}: {got['metadata']}")
+    flips = []
+    for verb in ("cordon", "uncordon"):
+        await run(verb, busiest)
+        node = await backing.get("nodes", busiest)
+        flips.append(bool(node["spec"].get("unschedulable")))
+    if flips != [True, False]:
+        bad.append(f"cordon, uncordon: spec.unschedulable {flips}")
+    top = top_out.splitlines()
+    seen = 0
+    for row in top[1:]:
+        name, cpu, _, mem, _ = row.split()
+        use = per_node.get(name, {"cpu": 0, "memory": 0})
+        if cpu.split("/")[0] != format_quantity(use["cpu"]) \
+                or mem.split("/")[0] != format_quantity(use["memory"]):
+            bad.append(f"top nodes {name}: {cpu} {mem}, want {use}")
+        seen += 1
+    if seen != len(nodes):
+        bad.append(f"top nodes: {seen} rows for {len(nodes)} nodes")
+    if bad:
+        raise RuntimeError(f"22(c): {bad[:5]}")
+    return {"seconds": times, "nodes": len(nodes), "pods": len(pods),
+            "busiest": busiest, "busiest_pods": sum(
+                p["spec"].get("nodeName") == busiest for p in pods)}
+
+
+def grpc_phase(torch, wire_rate: float | None) -> tuple:
+    """Phase 22(a): SchedulingBasic/5000Nodes (not cut) over the gRPC
+    service with the admission chain and the audit pipeline: every pod
+    bound, no node over capacity, a wave_solve launch in the window,
+    `solve_provenance` naming the card, the store a `GRPCRemoteStore`.
+    Printed: 18(b)'s wire rate over this one when phase 18 ran. The
+    admission window is pinned to GRPC_ADMISSION_WINDOW_MS. Returns
+    (wave_solve's launches in the window, probe launches over the run)."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_BASIC
+    from kubernetes_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    params = next(w["params"] for w in SCHEDULING_BASIC["workloads"]
+                  if w["name"] == "5000Nodes")
+    wave_kernel.probe.launches = 0
+    runner = transport_runner_cls(counting_runner_cls(torch), "grpc")(
+        TorchBackend(), None)
+    with flags.scoped_set("KTPU_ADMISSION_WINDOW", GRPC_ADMISSION_WINDOW_MS):
+        result = asyncio.run(runner.run(
+            SCHEDULING_BASIC["workloadTemplate"], params, timeout=900.0))
+    probe_launches = wave_kernel.probe.launches
+    pods = asyncio.run(runner.store.list("pods")).items
+    nodes = asyncio.run(runner.store.list("nodes")).items
+    bad = transport_violations(runner, result, pods, nodes, 11000, 0,
+                               "GRPCRemoteStore")
+    prov = result.solve_provenance
+    if not (prov.get("card_name") and prov.get("power_limit")):
+        bad.append(f"solve_provenance {prov}")
+    if not runner.window["launches"]:
+        bad.append("no wave_solve launch in the measured window")
+    ratio = ("18(b) not run" if wire_rate is None
+             else f"{wire_rate / result.throughput:.4f}")
+    print(boundary_line("grpc SchedulingBasic/5000Nodes, no policies",
+                        runner, result)
+          + f"; admission window {GRPC_ADMISSION_WINDOW_MS} ms, host-path "
+          f"pods {runner.window['routes']['host_path_pods']}, "
+          f"TorchBackend.timings over the window "
+          f"{json.dumps(runner.window['timings'])}; window wall {runner.window['wall']:.6f} s, probe launches "
+          f"over the run {probe_launches}; 18(b)'s wire rate over this "
+          f"{ratio} (printed, not gated); solve_provenance "
+          f"{json.dumps(prov)}; phase 22(a) "
+          f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise RuntimeError(f"22(a): {bad}")
+    return runner.window["launches"], probe_launches
+
+
+def protobuf_phase(torch) -> tuple:
+    """Phase 22(b): SchedulingBasic at HTTP_CELL with 10 uniform policies
+    through `RemoteStore(url, protobuf=True)`: 18(c)'s gates, no node over
+    capacity and protobuf responses above 0; then (22(c)) the CLI against
+    the run's `APIServer` before it stops. Returns (wave_solve's launches
+    in the window, probe launches over the run)."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+    from kubernetes_tpu_torch.ops.backend import TorchBackend
+    from kubernetes_tpu_torch.perf.scheduler_perf import SCHEDULING_BASIC
+
+    t0 = time.perf_counter()
+    cli_out = {}
+
+    async def before_stop(runner, server, backing):
+        t_cli = time.perf_counter()
+        cli_out.update(await cli_phase(server.url, backing))
+        cli_out["wall"] = time.perf_counter() - t_cli
+
+    wave_kernel.probe.launches = 0
+    runner = transport_runner_cls(counting_runner_cls(torch), "protobuf",
+                                  before_stop)(
+        TorchBackend(), None, policy_count=HTTP_CELL_POLICIES)
+    result = asyncio.run(runner.run(SCHEDULING_BASIC["workloadTemplate"],
+                                    HTTP_CELL, timeout=900.0))
+    probe_launches = wave_kernel.probe.launches
+    pods = asyncio.run(runner.store.list("pods")).items
+    nodes = asyncio.run(runner.store.list("nodes")).items
+    want = HTTP_CELL["initPods"] + HTTP_CELL["measurePods"]
+    bad = transport_violations(runner, result, pods, nodes, want,
+                               HTTP_CELL_POLICIES, "RemoteStore")
+    if not runner.client.protobuf or runner.protobuf_responses <= 0:
+        bad.append(f"protobuf responses {runner.protobuf_responses}")
+    print(boundary_line("protobuf SchedulingBasic/500Nodes, 10 policies",
+                        runner, result)
+          + f"; protobuf responses {runner.protobuf_responses}; phase "
+          f"22(b) {time.perf_counter() - t0 - cli_out.get('wall', 0):.1f} s")
+    if bad:
+        raise RuntimeError(f"22(b): {bad}")
+    print(f"cli 22(c) against 22(b)'s APIServer ({cli_out['nodes']} nodes, "
+          f"{cli_out['pods']} pods; busiest node {cli_out['busiest']} with "
+          f"{cli_out['busiest_pods']} pods): get nodes, get pods -o json, "
+          f"describe nodes, cordon, uncordon and top nodes all exit 0 and "
+          f"agree with the store; seconds per command "
+          f"{json.dumps(cli_out['seconds'])}; phase 22(c) "
+          f"{cli_out['wall']:.1f} s")
+    return runner.window["launches"], probe_launches
+
+
+def transport_run(torch, wire_rate: float | None = None) -> dict:
+    """Phase 22 (see the module docstring), under a scoped
+    KTPU_SOLVE_MODE=auto with serving on. Returns the kernels line's phase
+    22 entries: wave_solve's launches in the measured windows of 22(a) and
+    22(b), the probe's over each run."""
+    from kubernetes_tpu_torch.utils import flags
+
+    t22 = time.perf_counter()
+    print(f"phase 22 on {card_line()}")
+    with flags.scoped_set("KTPU_SOLVE_MODE", "auto"), \
+            flags.scoped_set("KTPU_SERVING", "1"):
+        grpc_launches, grpc_probe = grpc_phase(torch, wire_rate)
+        pb_launches, pb_probe = protobuf_phase(torch)
+    print(f"phase 22 {time.perf_counter() - t22:.1f} s")
+    return {"wave_solve": {"grpc_launches": grpc_launches,
+                           "protobuf_launches": pb_launches},
+            "probe": {"grpc_launches": grpc_probe,
+                      "protobuf_launches": pb_probe}}
+
+
+def transport_phases(torch) -> int:
+    """`--phase22-only`: build the kernels (phase 1), then phase 22."""
+    from kubernetes_tpu_torch.ops import wave_kernel
+
+    t0 = time.perf_counter()
+    lib = wave_kernel.LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({lib.path.name})")
+    print(json.dumps(transport_run(torch)))
+    print_card()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -8686,6 +9106,9 @@ def main() -> int:
     parser.add_argument("--phase21-only", action="store_true",
                         help="build the kernels and run phase 21 alone "
                         "(prints no result lines)")
+    parser.add_argument("--phase22-only", action="store_true",
+                        help="build the kernels and run phase 22 alone "
+                        "(prints no result lines)")
     cli = parser.parse_args()
     seed = cli.seed
     if not torch.cuda.is_available():
@@ -8715,6 +9138,8 @@ def main() -> int:
         return sharded_processes_phases(torch)
     if cli.phase21_only:
         return controller_manager_phases(torch)
+    if cli.phase22_only:
+        return transport_phases(torch)
     with flags.scoped_set("KTPU_SOLVE_MODE", "greedy"):
         return smoke(torch, seed)
 
@@ -8772,7 +9197,7 @@ def print_card() -> None:
 
 
 def smoke(torch, seed: int) -> int:
-    """Phases 1-22 (see the module docstring)."""
+    """Phases 1-23 (see the module docstring)."""
     t_start = time.perf_counter()
     from kubernetes_tpu_torch.api.types import make_node, make_pod
     from kubernetes_tpu_torch.ops import solver, wave_kernel
@@ -9148,7 +9573,7 @@ def smoke(torch, seed: int) -> int:
     families = runner_families_run(torch, seed)
 
     # -- 18. the apiserver boundary and the policy chain -------------------
-    boundary = boundary_run_phases(torch)
+    boundary, wire_rate = boundary_run_phases(torch)
 
     # -- 19. the control plane as processes ---------------------------------
     processes = control_plane_run(torch)
@@ -9159,8 +9584,11 @@ def smoke(torch, seed: int) -> int:
     # -- 21. the controller manager -----------------------------------------
     cm = controller_manager_run(torch)
 
-    # -- 22. result --------------------------------------------------------
-    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-21)")
+    # -- 22. the gRPC service, protobuf over HTTP and the CLI ----------------
+    transports = transport_run(torch, wire_rate)
+
+    # -- 23. result --------------------------------------------------------
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s (phases 1-22)")
     src = "kubernetes_tpu_torch/csrc/wave_solve.cu"
     probe_bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
@@ -9175,7 +9603,7 @@ def smoke(torch, seed: int) -> int:
          "gang_chunk_launches": gang_chunk_launches, **large, **device,
          **stream_volume, **slice_topology, **families, **boundary,
          **processes["wave_solve"], **sharded_cp["wave_solve"],
-         **cm["wave_solve"]},
+         **cm["wave_solve"], **transports["wave_solve"]},
         {"name": "probe", "route": "cuda", "source": src,
          "replaces": "kubernetes_tpu/ops/pallas_kernel.py:111",
          "launches": launches["probe"], "max_abs_err": probe_err,
@@ -9183,7 +9611,8 @@ def smoke(torch, seed: int) -> int:
          "bound_by": "bytes", "library_ms": probe_plain_ms,
          "loop_launches": loop["loop_probe_launches"],
          "constraint_launches": anti["probe_launches"],
-         **processes["probe"], **sharded_cp["probe"], **cm["probe"]},
+         **processes["probe"], **sharded_cp["probe"], **cm["probe"],
+         **transports["probe"]},
         *sharded_entries,
     ]}))
     print_card()

@@ -10,11 +10,12 @@ interface informers and controllers consume in-process (list/watch/create/
 get/update/delete/guaranteed_update/subresource), so every component gains a
 remote mode with zero changes — the §3.2 PROCESS BOUNDARY made real.
 
-Copy of `kubernetes_tpu/apiserver/`: the HTTP server, its client, the KTPU
-wire (`wire.WireServer`, `wire.WireStore`), admission, RBAC and the
-process entry point (`python -m kubernetes_tpu_torch.apiserver`). The gRPC
-service (`grpc_server.py`) waits; `server.py` and `client.py` say what they
-refuse meanwhile.
+Copy of `kubernetes_tpu/apiserver/`: the HTTP server and its client (JSON,
+or the protobuf content type for single objects), the KTPU wire
+(`wire.WireServer`, `wire.WireStore`), the gRPC service
+(`grpc_server.GRPCAPIServer`, `grpc_server.GRPCRemoteStore`, with its
+schema under `proto/`), admission, RBAC and the process entry point
+(`python -m kubernetes_tpu_torch.apiserver`).
 """
 
 from kubernetes_tpu_torch.apiserver.client import RemoteStore

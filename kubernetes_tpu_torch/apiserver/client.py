@@ -12,9 +12,9 @@ type against an APIServer, so components gain a remote mode with no changes:
   (client-go util/retry.RetryOnConflict)
 - subresource POST (binding)
 
-Copy of `kubernetes_tpu/apiserver/client.py`. The protobuf envelope is not
-here (it needs `apiserver/grpc_server.py`): `RemoteStore(protobuf=True)`
-raises NotImplementedError, and so does a protobuf response body.
+Copy of `kubernetes_tpu/apiserver/client.py`. `RemoteStore(protobuf=True)`
+asks for the protobuf content type and decodes single objects from the
+`runtime.Unknown` envelope of `apiserver/grpc_server.py`.
 """
 
 from __future__ import annotations
@@ -45,10 +45,7 @@ from kubernetes_tpu_torch.store.mvcc import (
 from kubernetes_tpu_torch.api.meta import (
     CLUSTER_SCOPED_RESOURCES as CLUSTER_SCOPED,
 )
-from kubernetes_tpu_torch.apiserver.server import (
-    PROTOBUF_CT,
-    PROTOBUF_NOT_PORTED,
-)
+from kubernetes_tpu_torch.apiserver.server import PROTOBUF_CT
 
 logger = logging.getLogger(__name__)
 
@@ -88,10 +85,12 @@ class RemoteStore:
             # client-go ImpersonationConfig: every request asks the server
             # to run as this user (RBAC `impersonate` verb gates it).
             self._headers["Impersonate-User"] = impersonate
-        #: The reference negotiates the runtime.Unknown protobuf
-        #: envelope for single objects here; this package refuses it.
+        #: Negotiate the runtime.Unknown protobuf envelope for single
+        #: objects (the reference's application/vnd.kubernetes.protobuf
+        #: wire between core components); lists/watches stay JSON.
+        self.protobuf = protobuf
         if protobuf:
-            raise NotImplementedError(PROTOBUF_NOT_PORTED)
+            self._headers["Accept"] = f"{PROTOBUF_CT}, application/json"
         if token:
             self._headers["Authorization"] = f"Bearer {token}"
         self._session: aiohttp.ClientSession | None = None
@@ -182,7 +181,16 @@ class RemoteStore:
 
     async def _json(self, resp: aiohttp.ClientResponse):
         if resp.content_type == PROTOBUF_CT:
-            raise NotImplementedError(PROTOBUF_NOT_PORTED)
+            # runtime.Unknown envelope (see apiserver/grpc_server._wrap).
+            from kubernetes_tpu_torch.apiserver.grpc_server import (
+                _unwrap,
+                ktpu_pb2,
+            )
+            raw = await resp.read()
+            if resp.status < 400:
+                return _unwrap(ktpu_pb2.Unknown.FromString(raw))
+            body = raw.decode(errors="replace")
+            _raise_for_status(resp.status, body)
         try:
             body = await resp.json()
         except (aiohttp.ContentTypeError, json.JSONDecodeError):

@@ -18,11 +18,10 @@ Parity targets:
 Paths accept both core (`/api/v1/...`) and group (`/apis/<g>/<v>/...`)
 prefixes; resources map 1:1 onto store tables.
 
-Copy of `kubernetes_tpu/apiserver/server.py`, with one refusal where the
-reference reaches a module this package does not have yet: a request that
-accepts `application/vnd.kubernetes.protobuf` gets a 406 naming
-`apiserver/grpc_server.py` (whose envelope the protobuf content type
-carries); it does not fall back to JSON.
+Copy of `kubernetes_tpu/apiserver/server.py`. A request that accepts
+`application/vnd.kubernetes.protobuf` gets its single object in the
+`runtime.Unknown` envelope of `apiserver/grpc_server.py`; lists and
+watches stay JSON.
 """
 
 from __future__ import annotations
@@ -60,19 +59,17 @@ def _wants_protobuf(request: web.Request) -> bool:
     return PROTOBUF_CT in request.headers.get("Accept", "")
 
 
-#: the refusal a protobuf-accepting request gets (the reference wraps the
-#: object in grpc_server's runtime.Unknown envelope).
-PROTOBUF_NOT_PORTED = (
-    f"{PROTOBUF_CT} responses need apiserver/grpc_server.py, which this "
-    "package does not have yet; accept application/json")
-
-
 def _object_response(request: web.Request, obj: dict,
                      status: int = 200) -> web.Response:
-    """Content negotiation: JSON. A client accepting
-    application/vnd.kubernetes.protobuf never gets here: the
-    request-info stage refused it with 406 before any write (the
-    reference answers it with grpc_server's runtime.Unknown envelope)."""
+    """Content negotiation (§5.8: core components speak protobuf over
+    HTTP): a client accepting application/vnd.kubernetes.protobuf gets
+    the runtime.Unknown envelope (TypeMeta + raw JSON payload bytes —
+    the same wire the gRPC service carries); everyone else gets JSON."""
+    if _wants_protobuf(request):
+        from kubernetes_tpu_torch.apiserver.grpc_server import _wrap
+        return web.Response(status=status,
+                            body=_wrap(obj).SerializeToString(),
+                            content_type=PROTOBUF_CT)
     return web.json_response(obj, status=status)
 
 
@@ -382,9 +379,6 @@ class APIServer:
 
     @web.middleware
     async def _mw_request_info(self, request: web.Request, handler):
-        if _wants_protobuf(request):
-            return web.json_response(_status_body(
-                406, "NotAcceptable", PROTOBUF_NOT_PORTED), status=406)
         m = request.match_info
         request["resource"] = m.get("resource", "")
         request["namespace"] = m.get("namespace")

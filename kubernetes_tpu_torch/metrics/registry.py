@@ -622,15 +622,13 @@ class SchedulerMetrics:
         self.solver_sinkhorn_iterations = r.gauge(
             "solver_sinkhorn_iterations",
             "Sinkhorn iteration budget of the latest optimal-mode solve")
-        #: Pallas fused-kernel observability: chunks whose wavefront
-        #: solve ran the fused kernel (interpret or compiled), and
-        #: chunks where the router WANTED the kernel (KTPU_PALLAS
-        #: resolved on) but fell back to the lax.scan reference — the
-        #: reason label separates structural shapes the kernel does not
-        #: fuse (spread/shortlist/optimal/wave_off/shape) from a
-        #: backend without a pallas lowering (unavailable). The kill
-        #: switch (KTPU_PALLAS=off) and the CPU auto default do NOT
-        #: count: off-by-policy is not a fallback.
+        #: The reference's fused-kernel pair, registered under its names
+        #: so both packages expose one metric set. In the reference they
+        #: count chunks its kernel router sent to the fused kernel and
+        #: chunks it sent back to the scan. This package has no such
+        #: router and no switch for it, so nothing increments them; the
+        #: `wave_solve` wrapper's launch count says how often the CUDA
+        #: kernel ran.
         self.solver_pallas_solves = r.counter(
             "solver_pallas_solves_total",
             "Chunks solved through the fused Pallas wavefront kernel")

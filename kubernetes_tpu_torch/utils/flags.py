@@ -23,7 +23,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
-__all__ = ["Flag", "FLAGS", "get", "scoped_set"]
+__all__ = ["Flag", "FLAGS", "get", "scoped_set", "render_markdown_table"]
 
 _FALSE = frozenset(("0", "false", "off", "no"))
 
@@ -68,6 +68,10 @@ class Flag:
     default: Any
     parse: Callable[[str], Any] = field(repr=False)
     doc: str
+    #: structural kill switch: flipping it degrades a subsystem to its
+    #: pre-feature shape (the differential-test contract), rather than
+    #: tuning a knob.
+    kill_switch: bool = False
 
     def read(self) -> Any:
         raw = os.environ.get(self.name)
@@ -83,10 +87,12 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
     Flag("KTPU_SERVING", True, _parse_bool,
          "Online serving tier (admission window + resident planes + "
          "single-pod fast path). `0` degrades the dispatch loop "
-         "structurally to the pre-serving shape."),
+         "structurally to the pre-serving shape.",
+         kill_switch=True),
     Flag("KTPU_CLASS_PLANES", True, _parse_bool,
          "Class-dictionary (C,N) device planes. `0` falls back to "
-         "per-pod planes (C == P identity), identical assignments."),
+         "per-pod planes (C == P identity), identical assignments.",
+         kill_switch=True),
     Flag("KTPU_BLOCK_INDEX", True, _parse_bool,
          "Two-level block-sparse node index for the shortlist "
          "prefilter: per-block aggregate planes + an O(C·B) bound scan "
@@ -96,11 +102,13 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "degrades structurally to the full-width r18/r21 prefilter "
          "call graph, bit-identical assignments. It also gates the "
          "block aggregate planes the serving tier's resident planes "
-         "maintain."),
+         "maintain.",
+         kill_switch=True),
     Flag("KTPU_WAVEFRONT", True, _parse_bool,
          "Speculative wavefront solve (W pods per scan step with exact "
          "conflict replay). `0` degrades structurally to the "
-         "one-pod-per-step W=1 scans, bit-identical assignments."),
+         "one-pod-per-step W=1 scans, bit-identical assignments.",
+         kill_switch=True),
     Flag("KTPU_SHORTLIST_K", None, _parse_int,
          "Shortlist width override for the pruned solve; `0` disables "
          "pruning. Unset = the tuner derives K from chunk width and "
@@ -114,7 +122,8 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "spread) through the Sinkhorn transport plan and its W=1 "
          "multistart rounding, `auto` routes drain-scale chunks (at "
          "least OPTIMAL_MIN_PODS real pods, below the large-N row) "
-         "there and keeps the greedy scan for the rest."),
+         "there and keeps the greedy scan for the rest.",
+         kill_switch=True),
     Flag("KTPU_SINKHORN_ITERS", 24, _parse_int,
          "Sinkhorn iterations per optimal-mode chunk (the temperature "
          "annealing's 3 stages split this count)."),
@@ -146,7 +155,8 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "plugin, and Coscheduling's sliceShape contiguity check at "
          "Permit. `0` degrades structurally to flat capacity vectors: "
          "count-only gangs, no coordinate planes, identical assignments "
-         "on topology-free workloads."),
+         "on topology-free workloads.",
+         kill_switch=True),
     Flag("KTPU_MESH_SHAPE", "auto", _parse_str,
          "Interconnect mesh dimensions, e.g. `4x8` (2D torus), `2x4x4` "
          "(3D torus) or `4x8:mesh` (no wraparound). `auto` derives a "
@@ -156,17 +166,20 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "in the node name (row-major)."),
     Flag("KTPU_WATCH_CACHE", True, _parse_bool,
          "Watch-cache serving tier (store/cacher.py). `0` degrades "
-         "every LIST/watch to the direct-mvcc path."),
+         "every LIST/watch to the direct-mvcc path.",
+         kill_switch=True),
     Flag("KTPU_POLICY_INDEX", True, _parse_bool,
          "Pre-indexed ValidatingAdmissionPolicy matching (policy/"
          "vap.py): exact (resource, operation) reverse maps + interned "
          "namespace-selector signatures make admission O(matching "
          "policies). `0` degrades structurally to the linear "
-         "all-policies scan, bit-identical verdicts."),
+         "all-policies scan, bit-identical verdicts.",
+         kill_switch=True),
     Flag("KTPU_SHARDS", None, _parse_int,
          "Control-plane shard count override; `1` is the kill switch "
          "(plain single MVCCStore). Unset = the node-count threshold "
-         "policy picks."),
+         "policy picks.",
+         kill_switch=True),
     Flag("KTPU_SHARD_THRESHOLD", 100_000, _parse_int,
          "Node count at which the flagless shard policy switches from "
          "1 shard to 8 (store/sharded.control_plane_shards)."),
@@ -175,7 +188,8 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "shard becomes its own apiserver process on a unix-socket "
          "KTPU wire, the scheduler an active/standby process pair. "
          "`1` is the kill switch — the classic in-process tree, "
-         "identical call graph. Unset = in-process."),
+         "identical call graph. Unset = in-process.",
+         kill_switch=True),
     Flag("KTPU_ADMISSION_WINDOW", None, _parse_ms,
          "Serving admission coalesce window in MILLISECONDS (pinned "
          "for sweeps; `0` = always dispatch immediately). Unset = the "
@@ -189,7 +203,8 @@ FLAGS: dict[str, Flag] = {f.name: f for f in (
          "Write-ahead log between KTPU_DATA_DIR snapshots (store/"
          "durable.py): append every committed mvcc write, replay from "
          "the snapshot RV on recovery. `0` degrades durability to "
-         "snapshot-only (the pre-WAL r16 shape)."),
+         "snapshot-only (the pre-WAL r16 shape).",
+         kill_switch=True),
     Flag("KTPU_WAL_FSYNC", "batch", _parse_wal_fsync,
          "WAL fsync policy: `always` fsyncs per commit (the etcd "
          "posture: an acknowledged write is on disk), `batch` group-"
@@ -234,3 +249,18 @@ def scoped_set(name: str, value):
             os.environ.pop(name, None)
         else:
             os.environ[name] = prev
+
+
+def render_markdown_table() -> str:
+    """The README "Flags" table, generated — the flag pass fails when
+    the README's copy drifts from this render."""
+    lines = [
+        "| Flag | Default | Kill switch | What it does |",
+        "|---|---|---|---|",
+    ]
+    for f in FLAGS.values():
+        default = "unset" if f.default is None else str(f.default)
+        ks = "yes" if f.kill_switch else ""
+        doc = " ".join(f.doc.split())
+        lines.append(f"| `{f.name}` | `{default}` | {ks} | {doc} |")
+    return "\n".join(lines)

@@ -19,9 +19,9 @@ without a field manager, a 401, a 403 and a 410 watch). Results, bodies
 with their resource versions, error types and messages and event
 sequences must be identical; uids, timestamps and audit ids are masked.
 
-The port's refusal: a request accepting the protobuf content type gets
-406 naming `apiserver/grpc_server.py` (and `RemoteStore(protobuf=True)`
-raises). The `data_dir` bootstrap is held against the reference in
+The protobuf content type (the `runtime.Unknown` envelope of
+`apiserver/grpc_server.py`) and `RemoteStore(protobuf=True)` are held
+against the reference in `test_torch_grpc.py`; the `data_dir` bootstrap in
 `test_torch_durability.py`.
 
 Tolerance: none (exact host logic).
@@ -485,42 +485,3 @@ def test_the_script_reaches_every_path(runs):
     statuses = [r[2] for r in out["raw"][:-1]]
     for code in (200, 201, 400, 401, 403, 404, 410):
         assert code in statuses, code
-
-
-def test_protobuf_is_refused():
-    from kubernetes_tpu_torch.apiserver.client import RemoteStore
-    from kubernetes_tpu_torch.apiserver.server import PROTOBUF_NOT_PORTED
-    from kubernetes_tpu_torch.store import install_core_validation
-    from kubernetes_tpu_torch.store import new_cluster_store
-
-    with pytest.raises(NotImplementedError, match="grpc_server.py"):
-        RemoteStore("http://127.0.0.1:1", protobuf=True)
-
-    async def body():
-        store = new_cluster_store()
-        install_core_validation(store)
-        server = mod("kubernetes_tpu_torch", "apiserver.server").APIServer(
-            store)
-        await server.start()
-        try:
-            async with aiohttp.ClientSession() as s:
-                url = server.url + "/api/v1/namespaces/default/pods"
-                async with s.post(url, json={"metadata": {"name": "a"},
-                                             "spec": {"containers": [
-                                                 {"name": "c"}]}},
-                                  headers={"Accept":
-                                           "application/vnd.kubernetes."
-                                           "protobuf"}) as resp:
-                    status, body = resp.status, await resp.json()
-            # refused before the write: nothing was created
-            listed = (await store.list("pods")).items
-        finally:
-            await server.stop()
-            store.stop()
-        return status, body, listed
-
-    status, body, listed = asyncio.run(body())
-    assert status == 406 and body["reason"] == "NotAcceptable"
-    assert body["message"] == PROTOBUF_NOT_PORTED and listed == []
-
-

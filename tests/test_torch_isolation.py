@@ -7,7 +7,11 @@ importing all of them in a fresh interpreter loads neither package. So are
 the sharded control plane's and the multi-process control plane's modules,
 and a shard apiserver process (`multiproc.shardproc` with the store, the
 wire and the WAL it serves) loads no torch either; nor does the
-controller manager (`controllers/`, every module of the reference's)."""
+controller manager (`controllers/`, every module of the reference's).
+The last slice's modules (the gRPC service, the CLI, ktpu-lint) are named
+too: the CLI and the lint load neither torch nor either JAX package, the
+gRPC service loads no torch, and the port's generated `ktpu_pb2` is its
+own file even after the reference's has been loaded."""
 
 import ast
 import subprocess
@@ -190,3 +194,75 @@ def test_controller_manager_loads_no_torch():
     names += [f"kubernetes_tpu_torch.{rel[:-3].replace('/', '.')}"
               for rel in CONTROLLER_MODULES]
     assert _loaded(names, ("torch", "numpy") + FORBIDDEN) == []
+
+
+#: The modules the last slice added or changed: the gRPC service and its
+#: generated schema, the protobuf negotiation, the CLI and ktpu-lint.
+LAST_SLICE_MODULES = tuple(sorted(
+    f"{d}/{f.name}" for d in ("apiserver/proto", "cli", "analysis")
+    for f in (ROOT / "kubernetes_tpu_torch" / d).glob("*.py"))) + (
+    "apiserver/__init__.py", "apiserver/client.py",
+    "apiserver/grpc_server.py", "apiserver/server.py", "utils/flags.py")
+
+
+def test_last_slice_mirrors_the_reference_modules():
+    ref = sorted(f"{d}/{f.name}" for d in ("apiserver/proto", "cli",
+                                            "analysis")
+                 for f in (ROOT / "kubernetes_tpu" / d).glob("*.py"))
+    port = sorted(m for m in LAST_SLICE_MODULES
+                  if m.startswith(("apiserver/proto/", "cli/", "analysis/")))
+    assert sorted(set(port) - set(ref)) == ["apiserver/proto/__init__.py"]
+    assert set(ref) <= set(port) and len(ref) == 11
+    # the schema and its generated module are the reference's, byte for byte
+    for name in ("ktpu.proto", "ktpu_pb2.py"):
+        assert (ROOT / "kubernetes_tpu_torch" / "apiserver" / "proto" /
+                name).read_bytes() == (ROOT / "kubernetes_tpu" / "apiserver"
+                                       / "proto" / name).read_bytes()
+
+
+@pytest.mark.parametrize("rel", LAST_SLICE_MODULES)
+def test_last_slice_module_imports_nothing_of_the_reference(rel):
+    f = ROOT / "kubernetes_tpu_torch" / rel
+    assert f in _port_files()
+    mods = list(_imported_modules(ast.parse(f.read_text(), str(f))))
+    assert mods or rel.endswith("proto/__init__.py")
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
+
+
+def test_cli_and_lint_load_neither_torch_nor_jax():
+    names = ["kubernetes_tpu_torch.cli", "kubernetes_tpu_torch.cli.kubectl",
+             "kubernetes_tpu_torch.analysis"]
+    names += [f"kubernetes_tpu_torch.analysis.{f.stem}" for f in sorted(
+        (ROOT / "kubernetes_tpu_torch" / "analysis").glob("*.py"))
+        if f.stem not in ("__init__", "__main__")]
+    assert _loaded(names, ("torch",) + FORBIDDEN) == []
+
+
+def test_grpc_service_loads_no_torch():
+    names = ["kubernetes_tpu_torch.apiserver.grpc_server",
+             "kubernetes_tpu_torch.apiserver.proto.ktpu_pb2",
+             "kubernetes_tpu_torch.apiserver"]
+    assert _loaded(names, ("torch",) + FORBIDDEN) == []
+
+
+def test_port_ktpu_pb2_is_its_own_file_after_the_reference():
+    """The reference puts its proto directory on sys.path and imports a
+    top-level `ktpu_pb2`; the port's import is package-qualified, so it
+    gets its own file whichever package loads first."""
+    code = ("import sys\n"
+            "import kubernetes_tpu.apiserver.grpc_server as ref\n"
+            "import kubernetes_tpu_torch.apiserver.grpc_server as port\n"
+            "from kubernetes_tpu_torch.apiserver.proto import ktpu_pb2\n"
+            "print(port.ktpu_pb2.__file__)\n"
+            "print(ktpu_pb2.__name__)\n"
+            "print(ref.ktpu_pb2.__file__)\n"
+            "print(sys.modules['ktpu_pb2'].__file__)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    port_file, port_name, ref_file, top_file = out.stdout.split("\n")[:4]
+    proto = ROOT / "kubernetes_tpu_torch" / "apiserver" / "proto"
+    assert Path(port_file) == proto / "ktpu_pb2.py"
+    assert port_name == "kubernetes_tpu_torch.apiserver.proto.ktpu_pb2"
+    ref_proto = ROOT / "kubernetes_tpu" / "apiserver" / "proto"
+    assert Path(ref_file) == Path(top_file) == ref_proto / "ktpu_pb2.py"
