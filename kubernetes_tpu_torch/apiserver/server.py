@@ -36,7 +36,10 @@ from typing import Mapping
 from aiohttp import web
 
 from kubernetes_tpu_torch.api.labels import parse_field_selector, parse_selector
-from kubernetes_tpu_torch.metrics.registry import APIServerMetrics
+from kubernetes_tpu_torch.metrics.registry import (
+    APIServerMetrics,
+    StoreClockMetrics,
+)
 from kubernetes_tpu_torch.utils.tracing import stamp_traceparent
 from kubernetes_tpu_torch.store.mvcc import (
     AlreadyExists,
@@ -287,6 +290,11 @@ class APIServer:
             # Watch-dispatch counters live on the store (it owns dispatch);
             # surface them through this server's /metrics exposition.
             store.watch_metrics.register_into(metrics_registry)
+            if getattr(store, "timings", None) is not None:
+                # The store's host clocks, read at render (a client-side
+                # store of shard processes has none).
+                StoreClockMetrics(store.timings).register_into(
+                    metrics_registry)
             if store.cacher is not None:
                 # Watch-cache serving-tier counters (hits/misses/ring).
                 store.cacher.metrics.register_into(metrics_registry)

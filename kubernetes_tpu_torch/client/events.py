@@ -17,6 +17,7 @@ from typing import Mapping
 
 from kubernetes_tpu_torch.api.meta import name_of, namespace_of, new_object, now_iso
 from kubernetes_tpu_torch.store.mvcc import MVCCStore, StoreError
+from kubernetes_tpu_torch.utils.tracing import range_end, range_start
 
 logger = logging.getLogger(__name__)
 _seq = itertools.count(1)
@@ -132,6 +133,11 @@ class EventRecorder:
         #: the first drop of another. The public counters above are the
         #: accounting; this dict never feeds metrics.
         self._full_drops_by_key: dict[tuple[str, str], int] = {}
+        #: cumulative host seconds of the drain's event writes into the
+        #: store, each write timed alone, so the drain's own waits are not
+        #: in it; a write that suspends (a store over a wire) also counts
+        #: what other tasks ran meanwhile.
+        self.timings = {"drain_s": 0.0}
 
     def event(self, obj: Mapping, event_type: str, reason: str, message: str) -> None:
         """Fire-and-forget, like the reference's buffered broadcaster."""
@@ -238,6 +244,18 @@ class EventRecorder:
             await self._drain_task
             self._kick_drain()
 
+    async def _write(self, ev: dict) -> None:
+        """One buffered event into the store, timed into
+        `timings["drain_s"]`."""
+        rng = range_start("recorder.drain")
+        t0 = time.perf_counter()
+        try:
+            await self.store.create("events", ev, _owned=True,
+                                    return_copy=False)
+        finally:
+            self.timings["drain_s"] += time.perf_counter() - t0
+            range_end(rng)
+
     async def _drain(self) -> None:
         try:
             while self._pending:
@@ -260,9 +278,7 @@ class EventRecorder:
                     # error must stay loud — not vanish into a dropped
                     # gather result.
                     results = await asyncio.gather(
-                        *(self.store.create("events", ev, _owned=True,
-                                            return_copy=False)
-                          for ev in batch[lo:lo + window]),
+                        *(self._write(ev) for ev in batch[lo:lo + window]),
                         return_exceptions=True)
                     for r in results:
                         if isinstance(r, StoreError):

@@ -20,11 +20,14 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Any, Callable, Iterable, Mapping
 
 from kubernetes_tpu_torch.api.labels import Selector
 from kubernetes_tpu_torch.api.meta import namespaced_name, resource_version_of
+from kubernetes_tpu_torch.metrics.registry import WindowedLatencyRecorder
 from kubernetes_tpu_torch.store.mvcc import Expired, MVCCStore
+from kubernetes_tpu_torch.utils.tracing import range_end, range_start
 
 logger = logging.getLogger(__name__)
 
@@ -141,6 +144,12 @@ class SharedInformer:
         self._task: asyncio.Task | None = None
         self._synced = asyncio.Event()
         self.last_rv = 0
+        #: cumulative host seconds of `_apply` (the indexer update and
+        #: the handlers).
+        self.timings = {"apply_s": 0.0}
+        #: watch lag per event: from the store's record of it
+        #: (`Event.recorded_at`) until this informer's handlers returned.
+        self.lag = WindowedLatencyRecorder()
 
     def add_event_handler(self, handler: ResourceEventHandler) -> None:
         self.handlers.append(handler)
@@ -202,7 +211,8 @@ class SharedInformer:
                     if ev.type == "BOOKMARK":
                         self.last_rv = max(self.last_rv, ev.rv)
                         continue
-                    self._apply(ev.type, ev.object)
+                    self._apply(ev.type, ev.object,
+                                getattr(ev, "recorded_at", 0.0))
                     self.last_rv = ev.rv
             except Expired:
                 logger.info("informer %s: watch expired, relisting", self.resource)
@@ -231,21 +241,36 @@ class SharedInformer:
             if gone is not None:
                 self._apply("DELETED", gone)
 
-    def _apply(self, ev_type: str, obj: dict) -> None:
-        if ev_type == "DELETED":
-            old = self.indexer.delete(obj)
-            for h in self.handlers:
-                self._call(h.on_delete, old if old is not None else obj)
-            return
-        old = self.indexer.upsert(obj)
-        if old is None:
-            for h in self.handlers:
-                self._call(h.on_add, obj)
-        else:
-            if resource_version_of(old) == resource_version_of(obj):
-                return  # relist echo of known state
-            for h in self.handlers:
-                self._call(h.on_update, old, obj)
+    def _apply(self, ev_type: str, obj: dict,
+               recorded_at: float = 0.0) -> None:
+        """Apply one object to the indexer and call the handlers, timed into
+        `timings["apply_s"]`; a watch event recorded by a store in this
+        process (`recorded_at`, a wire's events carry none) also gives its
+        watch lag, from the store's record of it until the handlers
+        returned."""
+        rng = range_start("informer.apply")
+        t0 = time.perf_counter()
+        try:
+            if ev_type == "DELETED":
+                old = self.indexer.delete(obj)
+                for h in self.handlers:
+                    self._call(h.on_delete, old if old is not None else obj)
+                return
+            old = self.indexer.upsert(obj)
+            if old is None:
+                for h in self.handlers:
+                    self._call(h.on_add, obj)
+            else:
+                if resource_version_of(old) == resource_version_of(obj):
+                    return  # relist echo of known state
+                for h in self.handlers:
+                    self._call(h.on_update, old, obj)
+        finally:
+            t1 = time.perf_counter()
+            self.timings["apply_s"] += t1 - t0
+            if recorded_at:
+                self.lag.observe(t1 - recorded_at)
+            range_end(rng)
 
 
 class ShardedInformer(SharedInformer):
@@ -323,7 +348,8 @@ class ShardedInformer(SharedInformer):
                     if ev.type == "BOOKMARK":
                         rv = max(rv, ev.rv)
                         continue
-                    self._apply(ev.type, ev.object)
+                    self._apply(ev.type, ev.object,
+                                getattr(ev, "recorded_at", 0.0))
                     rv = max(rv, ev.rv)
                     self.last_rv = max(self.last_rv, ev.rv)
             except Expired:

@@ -19,8 +19,9 @@ from __future__ import annotations
 import bisect
 import itertools
 import math
+from array import array
 from collections import defaultdict
-from typing import Iterable, Mapping
+from typing import Callable, Iterable, Mapping
 
 from kubernetes_tpu_torch.utils.locking import new_lock
 
@@ -220,7 +221,10 @@ class WindowedLatencyRecorder:
 
     def __init__(self, capacity: int = 1 << 17):
         self.capacity = capacity
-        self._buf = [0.0] * capacity
+        # Raw doubles, not a list of float objects: the garbage collector
+        # never traverses the ring (each informer and the queue keep one
+        # on the per-event path).
+        self._buf = array("d", bytes(8 * capacity))
         self._n = 0
 
     def observe(self, value: float) -> None:
@@ -234,6 +238,15 @@ class WindowedLatencyRecorder:
 
     def count_since(self, mark: int) -> int:
         return self._n - mark
+
+    def values_between(self, mark0: int, mark1: int) -> list[float]:
+        """The observations made from `mark0` up to `mark1` (two marks,
+        the second taken later), in order: a window that ended before now.
+        Those the ring has overwritten since are gone, so the list holds
+        the newest retained ones (`mark1 - mark0` were made)."""
+        cap = self.capacity
+        return [self._buf[i % cap]
+                for i in range(max(mark0, self._n - cap), min(mark1, self._n))]
 
     def percentiles_since(self, mark: int,
                           qs: Iterable[float]) -> dict[float, float]:
@@ -253,9 +266,74 @@ class WindowedLatencyRecorder:
             hi = n % cap
             vals = self._buf[lo:] + self._buf[:hi] if lo >= hi \
                 else self._buf[lo:hi]
-        vals.sort()
+        vals = sorted(vals)
         return {q: vals[min(max(math.ceil(q * take) - 1, 0), take - 1)]
                 for q in qs}
+
+
+class ReadCounter:
+    """A counter family whose values are read at render time: its owner
+    keeps them in a plain dict that per-event paths add to (no lock, no
+    label lookup), and `read()` returns {label value: value} from it
+    (one label, `label`; {"": value} and no label for a single series)."""
+
+    def __init__(self, name: str, help_: str,
+                 read: Callable[[], Mapping[str, float]], label: str = ""):
+        self.name = name
+        self.help = help_
+        self.read = read
+        self.label = label
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {_esc_help(self.help)}",
+                 f"# TYPE {self.name} counter"]
+        for value_label, v in sorted(self.read().items()):
+            lines.append(
+                f'{self.name}{{{self.label}="{_esc_label(value_label)}"}} {v}'
+                if self.label else f"{self.name} {v}")
+        return "\n".join(lines)
+
+    def register_into(self, registry: "Registry") -> None:
+        """Render through `registry`, in place of an earlier owner's."""
+        registry._metrics[self.name] = self
+
+
+class RecorderSummary:
+    """`WindowedLatencyRecorder`s rendered as one summary family at render
+    time: each recorder's quantiles over the observations its ring still
+    holds, and `_count` over all it made. `read()` returns {label value:
+    recorder}, as `ReadCounter.read` does; observing costs nothing more."""
+
+    def __init__(self, name: str, help_: str,
+                 read: Callable[[], Mapping[str, WindowedLatencyRecorder]],
+                 label: str = "", quantiles: tuple = (0.5, 0.9, 0.99)):
+        self.name = name
+        self.help = help_
+        self.read = read
+        self.label = label
+        self.quantiles = quantiles
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {_esc_help(self.help)}",
+                 f"# TYPE {self.name} summary"]
+        for value_label, rec in sorted(self.read().items()):
+            base = f'{self.label}="{_esc_label(value_label)}"' \
+                if self.label else ""
+            sep = "," if base else ""
+            n = rec.mark()
+            if n:
+                qs = rec.percentiles_since(max(0, n - rec.capacity),
+                                           self.quantiles)
+                for q in self.quantiles:
+                    lines.append(
+                        f'{self.name}{{{base}{sep}quantile="{q}"}} {qs[q]}')
+            lines.append(f"{self.name}_count{{{base}}} {n}" if base
+                         else f"{self.name}_count {n}")
+        return "\n".join(lines)
+
+    def register_into(self, registry: "Registry") -> None:
+        """Render through `registry`, in place of an earlier owner's."""
+        registry._metrics[self.name] = self
 
 
 class Registry:
@@ -315,6 +393,30 @@ class WatchMetrics:
         for c in (self.events_dispatched, self.predicate_checks,
                   self.index_hits):
             registry._metrics.setdefault(c.name, c)
+
+
+class StoreClockMetrics:
+    """The store's host clocks (`MVCCStore.timings`) as counters, read at
+    render time: `apiserver_storage_host_seconds_total{section}` (`record`:
+    the history append and trim, the sinks and the cacher's ingest;
+    `fanout`: the watch dispatch) and
+    `apiserver_storage_events_recorded_total`. The apiserver surfaces
+    them at /metrics beside `WatchMetrics`."""
+
+    def __init__(self, timings: dict):
+        self.host_seconds = ReadCounter(
+            "apiserver_storage_host_seconds_total",
+            "Host seconds the store spent recording events and fanning "
+            "them out to its watchers",
+            lambda: {"record": timings["record_s"],
+                     "fanout": timings["fanout_s"]}, label="section")
+        self.events = ReadCounter(
+            "apiserver_storage_events_recorded_total",
+            "Events the store recorded", lambda: {"": timings["events"]})
+
+    def register_into(self, registry: Registry) -> None:
+        for c in (self.host_seconds, self.events):
+            c.register_into(registry)
 
 
 class WatchCacheMetrics:

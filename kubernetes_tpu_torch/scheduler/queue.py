@@ -24,6 +24,7 @@ import itertools
 import time
 from typing import Callable
 
+from kubernetes_tpu_torch.metrics.registry import WindowedLatencyRecorder
 from kubernetes_tpu_torch.scheduler.framework import Framework
 from kubernetes_tpu_torch.scheduler.types import PodInfo
 
@@ -46,6 +47,14 @@ QUEUE_SKIP = "QueueSkip"
 
 #: hint fn: (pod, event) -> QUEUE | QUEUE_SKIP
 HintFn = Callable[[PodInfo, ClusterEvent], str]
+
+
+def wait_start(pi: PodInfo) -> float:
+    """Where the pod's wait in activeQ for this attempt began: its
+    `enqueued_at`, re-stamped on every activeQ entry, so a retried pod's
+    wait leaves out its earlier cycles and backoff; else its `queued_at`
+    (0.0: never stamped)."""
+    return pi.enqueued_at or pi.queued_at
 
 
 class SchedulingQueue:
@@ -84,6 +93,9 @@ class SchedulingQueue:
         # retry) instead of unschedulable (the reference's moveRequestCycle
         # comparison in AddUnschedulableIfNotPresent).
         self._moved_while_in_flight: set[str] = set()
+        #: each pop's wait in activeQ, `wait_start` to `dequeued_at` in
+        #: the queue's clock; the scheduler renders it as a summary.
+        self.wait = WindowedLatencyRecorder()
 
     # -- configuration -----------------------------------------------------
 
@@ -187,9 +199,13 @@ class SchedulingQueue:
             _, _, pi = heapq.heappop(self._active)
             self._active_keys.discard(pi.key)
             pi.attempts += 1
-            # Queue-wait endpoint for the attempt's retroactive
-            # scheduler.queue.wait span (queued_at → dequeued_at).
+            # Queue-wait endpoint: this attempt's wait is observed here,
+            # and the scheduler's retroactive scheduler.queue.wait span
+            # reads the same two stamps (wait_start → dequeued_at).
             pi.dequeued_at = now
+            start = wait_start(pi)
+            if start:
+                self.wait.observe(now - start)
             self._in_flight.add(pi.key)
             out.append(pi)
         return out

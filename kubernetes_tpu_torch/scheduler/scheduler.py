@@ -55,7 +55,11 @@ from typing import Mapping
 from kubernetes_tpu_torch.api.meta import namespaced_name
 from kubernetes_tpu_torch.api.types import pod_is_terminal
 from kubernetes_tpu_torch.client import EventRecorder, InformerFactory, ResourceEventHandler
-from kubernetes_tpu_torch.metrics.registry import SchedulerMetrics
+from kubernetes_tpu_torch.metrics.registry import (
+    ReadCounter,
+    RecorderSummary,
+    SchedulerMetrics,
+)
 from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
 from kubernetes_tpu_torch.utils import flags
 from kubernetes_tpu_torch.scheduler.framework import (
@@ -74,10 +78,18 @@ from kubernetes_tpu_torch.scheduler.plugins.registry import (
     DEFAULT_SCORE_WEIGHTS,
     build_plugins,
 )
-from kubernetes_tpu_torch.scheduler.queue import ClusterEvent, SchedulingQueue
+from kubernetes_tpu_torch.scheduler.queue import (
+    ClusterEvent,
+    SchedulingQueue,
+    wait_start,
+)
 from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo, Snapshot
 from kubernetes_tpu_torch.utils.trace import Trace
-from kubernetes_tpu_torch.utils.tracing import traceparent_of
+from kubernetes_tpu_torch.utils.tracing import (
+    range_end,
+    range_start,
+    traceparent_of,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -179,6 +191,22 @@ class Scheduler:
         #: loop structurally identical to the pre-serving shape.
         self.serving = None
         self.recorder = EventRecorder(store, "default-scheduler")
+        #: cumulative host seconds of the cycle path's snapshots
+        #: (`snapshot_s`), of assume + Reserve + Permit + the binding
+        #: task's spawn per pod (`assume_s`), and of the binding cycles
+        #: from PreBind to `queue.done` (`bind_s`: the bind's store write
+        #: and the "Scheduled" event's buffering included); `bound`
+        #: counts the pods bound. The sections never nest in one another,
+        #: nor in the informers' `apply_s` or the recorder's `drain_s`.
+        #: `bind_s` and `drain_s` are wall time across awaits: they are
+        #: the sections' own only while those awaits do not suspend, as
+        #: with a store in this process and an uncontended queue; over a
+        #: wire the store write suspends, and they also count what other
+        #: tasks ran meanwhile. Rendered through `metrics.registry`
+        #: (`_register_clocks`).
+        self.timings = {"snapshot_s": 0.0, "assume_s": 0.0, "bind_s": 0.0,
+                        "bound": 0}
+        self._register_clocks()
         self._informer_factory: InformerFactory | None = None
         self._binding_tasks: set[asyncio.Task] = set()
         self._permit_waiters: dict[str, asyncio.Future] = {}
@@ -193,6 +221,56 @@ class Scheduler:
         self._pending_moves: dict[str, ClusterEvent] = {}
         self._move_scheduled = False
         self._register_default_hints(default_fwk)
+
+    def _register_clocks(self) -> None:
+        """Render the host clocks and the pod-stage recorders through the
+        scheduler's metrics registry, read at render time:
+        `scheduler_host_seconds_total{section}` (the informers' `apply_s`
+        summed, `snapshot_s`, `assume_s`, `bind_s`, the recorder's
+        `drain_s`: sections that never nest, so they sum against the
+        wall), `scheduler_pods_bound_total`, and the summaries
+        `scheduler_queue_wait_seconds` and
+        `scheduler_informer_watch_lag_seconds{resource}`."""
+        tm, drain = self.timings, self.recorder.timings
+
+        def informers():
+            f = self._informer_factory
+            return list(f._informers.values()) if f is not None else []
+
+        r = self.metrics.registry
+        ReadCounter(
+            "scheduler_host_seconds_total",
+            "Host seconds of the scheduler's sections (wall across awaits: "
+            "the section's own with a store in this process)",
+            lambda: {"informer_apply": sum(i.timings["apply_s"]
+                                           for i in informers()),
+                     "snapshot": tm["snapshot_s"], "assume": tm["assume_s"],
+                     "bind": tm["bind_s"], "event_drain": drain["drain_s"]},
+            label="section").register_into(r)
+        ReadCounter("scheduler_pods_bound_total",
+                    "Pods the binding cycle bound",
+                    lambda: {"": tm["bound"]}).register_into(r)
+        RecorderSummary(
+            "scheduler_queue_wait_seconds",
+            "Wait in activeQ of each pop, over the recorder's retained pops",
+            lambda: {"": self.queue.wait}).register_into(r)
+        RecorderSummary(
+            "scheduler_informer_watch_lag_seconds",
+            "From the store's record of an event to the informer's "
+            "handlers' return, over the retained events (a store in this "
+            "process)",
+            lambda: {i.resource: i.lag for i in informers()},
+            label="resource").register_into(r)
+
+    def _snapshot(self) -> Snapshot:
+        """`cache.update_snapshot()`, timed into `timings["snapshot_s"]`."""
+        rng = range_start("scheduler.snapshot")
+        t0 = time.perf_counter()
+        try:
+            return self.cache.update_snapshot()
+        finally:
+            self.timings["snapshot_s"] += time.perf_counter() - t0
+            range_end(rng)
 
     def _move_all_soon(self, event: ClusterEvent) -> None:
         """Coalesce same-tick cluster events into one queue scan: an
@@ -505,7 +583,7 @@ class Scheduler:
 
     async def _schedule_pods_traced(self, pods: list[PodInfo],
                                     tr) -> None:
-        snapshot = self.cache.update_snapshot()
+        snapshot = self._snapshot()
         tr.step("snapshot")
         # Extenders are per-pod HTTP webhooks whose round-trips dominate any
         # batch win, and their filter verdicts must precede assignment — so
@@ -533,7 +611,7 @@ class Scheduler:
                 placed = 0
                 for pi in nominated:
                     if await self._try_nominated(pi, snapshot):
-                        snapshot = self.cache.update_snapshot()
+                        snapshot = self._snapshot()
                         self._nominee_fails.pop(pi.key, None)
                         placed += 1
                         continue
@@ -574,17 +652,17 @@ class Scheduler:
                         sname in self.backend_profiles:
                     await self._schedule_via_backend(group, snapshot)
                     tr.step(f"backend assign [{sname}] ({len(group)} pods)")
-                    snapshot = self.cache.update_snapshot()
+                    snapshot = self._snapshot()
                 else:
                     for pi in group:
                         await self._schedule_host_path(pi, snapshot)
-                        snapshot = self.cache.update_snapshot()
+                        snapshot = self._snapshot()
                     tr.step(f"host path [{sname}] ({len(group)} pods)")
             return
         for pi in pods:
             await self._schedule_host_path(pi, snapshot)
             # Re-snapshot so pods later in the batch see earlier assumes.
-            snapshot = self.cache.update_snapshot()
+            snapshot = self._snapshot()
         tr.step(f"host path ({len(pods)} pods)")
 
     async def _try_nominated(self, pi: PodInfo, snapshot) -> bool:
@@ -623,7 +701,7 @@ class Scheduler:
             # joint decision over the whole batch, so per-pod spans would
             # invent a serialization that never happened. A single-pod
             # batch parents to its create request (stamped traceparent)
-            # and carries the pod key for trace_for joins.
+            # and carries the pod key.
             attrs = {"pods": len(pods), "profile": fwk.profile_name}
             tp = None
             if len(pods) == 1:
@@ -665,7 +743,7 @@ class Scheduler:
                     fwk, self._bind_state(fwk, pi, snapshot), pi, node)
             else:
                 failed.append(pi)
-        live = self.cache.update_snapshot() if failed else None
+        live = self._snapshot() if failed else None
         if failed:
             self._prime_preemption(fwk, failed, live, diagnostics)
         for pi in failed:
@@ -711,7 +789,7 @@ class Scheduler:
                     fwk, self._bind_state(fwk, pi, snapshot), pi, node)
                 else:
                     failed.append(pi)
-            live = self.cache.update_snapshot() if failed else None
+            live = self._snapshot() if failed else None
             if failed:
                 self._prime_preemption(fwk, failed, live, ctx.diagnostics)
             for pi in failed:
@@ -756,11 +834,9 @@ class Scheduler:
     def _record_queue_wait(self, pi: PodInfo) -> None:
         """Retroactive queue-wait child span: the informer→queue→cycle
         hop crosses tasks no context can follow, so the span is rebuilt
-        from the queue's own timestamps (same monotonic clock).
-        enqueued_at is re-stamped per activeQ entry, so a retried pod's
-        span covers only THIS attempt's wait — not earlier cycles or
-        backoff windows."""
-        start = pi.enqueued_at or pi.queued_at
+        from the queue's own stamps (same monotonic clock), the interval
+        the queue observed into its `wait` recorder at the pop."""
+        start = wait_start(pi)
         if start and pi.dequeued_at >= start > 0.0:
             self.tracer.record("scheduler.queue.wait", start,
                                pi.dequeued_at, pod=pi.key,
@@ -808,34 +884,40 @@ class Scheduler:
     async def _assume_and_bind(self, fwk: Framework, state: CycleState,
                                pi: PodInfo, node_name: str) -> None:
         """assume → Reserve → Permit → async bindingCycle."""
+        rng = range_start("scheduler.assume")
+        t0 = time.perf_counter()
         try:
-            self.cache.assume_pod(pi, node_name)
-        except (KeyError, ValueError) as e:
-            logger.error("assume failed for %s: %s", pi.key, e)
-            await self.queue.move_to_backoff(pi)
-            return
-        st = fwk.run_reserve(state, pi, node_name)
-        if not st.is_success():
-            self.cache.forget_pod(pi.key)
-            await self._requeue_unschedulable(pi, st)
-            return
-        permit_status, timeout = fwk.run_permit(state, pi, node_name)
-        if not permit_status.is_success() and not permit_status.is_wait():
-            fwk.run_unreserve(state, pi, node_name)
-            self.cache.forget_pod(pi.key)
-            await self._requeue_unschedulable(pi, permit_status)
-            return
-        if permit_status.is_wait():
-            # Register the waiter SYNCHRONOUSLY (frameworkImpl stores
-            # waitingPods inside RunPermitPlugins): a sibling's permit may
-            # allow/reject this pod before the async binding cycle starts.
-            self._permit_waiters[pi.key] = \
-                asyncio.get_event_loop().create_future()
-        task = asyncio.ensure_future(
-            self._binding_cycle(fwk, state, pi, node_name, permit_status, timeout))
-        self._binding_tasks.add(task)
-        task.add_done_callback(self._binding_tasks.discard)
-        self.metrics.goroutines.set(len(self._binding_tasks), operation="binding")
+            try:
+                self.cache.assume_pod(pi, node_name)
+            except (KeyError, ValueError) as e:
+                logger.error("assume failed for %s: %s", pi.key, e)
+                await self.queue.move_to_backoff(pi)
+                return
+            st = fwk.run_reserve(state, pi, node_name)
+            if not st.is_success():
+                self.cache.forget_pod(pi.key)
+                await self._requeue_unschedulable(pi, st)
+                return
+            permit_status, timeout = fwk.run_permit(state, pi, node_name)
+            if not permit_status.is_success() and not permit_status.is_wait():
+                fwk.run_unreserve(state, pi, node_name)
+                self.cache.forget_pod(pi.key)
+                await self._requeue_unschedulable(pi, permit_status)
+                return
+            if permit_status.is_wait():
+                # Register the waiter SYNCHRONOUSLY (frameworkImpl stores
+                # waitingPods inside RunPermitPlugins): a sibling's permit may
+                # allow/reject this pod before the async binding cycle starts.
+                self._permit_waiters[pi.key] = \
+                    asyncio.get_event_loop().create_future()
+            task = asyncio.ensure_future(
+                self._binding_cycle(fwk, state, pi, node_name, permit_status, timeout))
+            self._binding_tasks.add(task)
+            task.add_done_callback(self._binding_tasks.discard)
+            self.metrics.goroutines.set(len(self._binding_tasks), operation="binding")
+        finally:
+            self.timings["assume_s"] += time.perf_counter() - t0
+            range_end(rng)
 
     async def _binding_cycle(self, fwk: Framework, state: CycleState, pi: PodInfo,
                              node_name: str, permit_status: Status,
@@ -862,26 +944,38 @@ class Scheduler:
                     await self._requeue_unschedulable(
                         pi, Status.unschedulable("rejected at Permit"))
                     return
-            st = await fwk.run_pre_bind(state, pi, node_name)
-            if not st.is_success():
-                fwk.run_unreserve(state, pi, node_name)
-                self.cache.forget_pod(pi.key)
-                await self._requeue_unschedulable(pi, st)
-                return
-            st = await self._bind(fwk, state, pi, node_name)
-            if not st.is_success():
-                fwk.run_unreserve(state, pi, node_name)
-                self.cache.forget_pod(pi.key)
-                await self._requeue_unschedulable(pi, st)
-                return
-            # The pod is durably bound in the API from here on: failures
-            # below must NOT forget/requeue it (it is genuinely scheduled).
-            bound = True
-            self.cache.finish_binding(pi.key)
-            fwk.run_post_bind(state, pi, node_name)
-            self.recorder.event(pi.pod, "Normal", "Scheduled",
-                                f"Successfully assigned {pi.key} to {node_name}")
-            await self.queue.done(pi.key)
+            rng = range_start("scheduler.bind")
+            t0 = time.perf_counter()
+            try:
+                st = await fwk.run_pre_bind(state, pi, node_name)
+                if not st.is_success():
+                    fwk.run_unreserve(state, pi, node_name)
+                    self.cache.forget_pod(pi.key)
+                    await self._requeue_unschedulable(pi, st)
+                    return
+                st = await self._bind(fwk, state, pi, node_name)
+                if not st.is_success():
+                    fwk.run_unreserve(state, pi, node_name)
+                    self.cache.forget_pod(pi.key)
+                    await self._requeue_unschedulable(pi, st)
+                    return
+                # The pod is durably bound in the API from here on: failures
+                # below must NOT forget/requeue it (it is genuinely scheduled).
+                bound = True
+                self.timings["bound"] += 1
+                if pi.queued_at:
+                    self.metrics.e2e_sli_duration.observe(
+                        self.queue.clock() - pi.queued_at,
+                        attempts=str(pi.attempts) if pi.attempts < 15
+                        else "15+")
+                self.cache.finish_binding(pi.key)
+                fwk.run_post_bind(state, pi, node_name)
+                self.recorder.event(pi.pod, "Normal", "Scheduled",
+                                    f"Successfully assigned {pi.key} to {node_name}")
+                await self.queue.done(pi.key)
+            finally:
+                self.timings["bind_s"] += time.perf_counter() - t0
+                range_end(rng)
         except Exception:
             logger.exception("binding cycle crashed for %s", pi.key)
             if bound:

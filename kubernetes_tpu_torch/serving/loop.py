@@ -263,4 +263,4 @@ class ServingTier:
         fwk = sched.profiles.get(pi.scheduler_name)
         if fwk is None or pi.nominated_node:
             return
-        self.fastpath.warm(pi, sched.cache.update_snapshot(), fwk)
+        self.fastpath.warm(pi, sched._snapshot(), fwk)

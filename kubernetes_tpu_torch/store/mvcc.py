@@ -30,12 +30,14 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import AsyncIterator, Awaitable, Callable, Mapping
 
 from kubernetes_tpu_torch.api.labels import Selector
 from kubernetes_tpu_torch.utils import flags
 from kubernetes_tpu_torch.metrics.registry import WatchMetrics
+from kubernetes_tpu_torch.utils.tracing import range_end, range_start
 from kubernetes_tpu_torch.api.meta import (
     deep_copy,
     name_of,
@@ -90,6 +92,10 @@ class Event:
     #: spec.nodeName) so field watchers see enter/leave transitions the
     #: same way label watchers do.
     prev_fields: dict | None = None
+    #: `time.perf_counter()` when the store recorded the event (0.0: not
+    #: recorded by this process's store, e.g. a bookmark or a wire
+    #: event): informers read their watch lag from it.
+    recorded_at: float = field(default=0.0, compare=False, repr=False)
 
     def to_wire(self) -> dict:
         return {"type": self.type, "object": self.object}
@@ -101,7 +107,8 @@ def _synth(ev: Event, ev_type: str) -> Event:
     per-codec encoding of the shared object (encode-once fan-out): a
     MODIFIED event synthesized into ADDED for a whole selector group
     costs zero extra serializations."""
-    twin = Event(ev_type, ev.object, ev.rv, ev.prev_labels, ev.prev_fields)
+    twin = Event(ev_type, ev.object, ev.rv, ev.prev_labels, ev.prev_fields,
+                 ev.recorded_at)
     twin._wire_src = ev
     return twin
 
@@ -267,6 +274,12 @@ class MVCCStore:
         #: dispatch efficiency counters (metrics/registry.py); the bench
         #: harness reports the deltas per measured phase.
         self.watch_metrics = WatchMetrics()
+        #: cumulative host seconds of `_record`'s history append and trim,
+        #: sinks and cacher ingest (`record_s`) and of its watch fan-out
+        #: (`fanout_s`), and the events recorded. Their time is part of
+        #: the caller's: a create's, a bind's, the event recorder's drain.
+        #: The apiserver renders them at /metrics (`StoreClockMetrics`).
+        self.timings = {"record_s": 0.0, "fanout_s": 0.0, "events": 0}
         self._bookmark_task: asyncio.Task | None = None
         # Subresource hooks, e.g. ("pods", "binding") -> handler.
         self._subresources: dict[tuple[str, str], Callable[..., Awaitable[dict]]] = {}
@@ -325,28 +338,46 @@ class MVCCStore:
         return self._rv_counter.value
 
     def _record(self, resource: str, ev: Event) -> None:
-        self._events.append((resource, ev))
-        if len(self._events) > self._event_window:
-            drop = len(self._events) - self._event_window
-            self._first_retained_rv = self._events[drop - 1][1].rv + 1
-            del self._events[:drop]
-        # Durability sinks (store/durable.py WAL) observe every committed
-        # event BEFORE watch dispatch — the etcd raft-log position. A sink
-        # failure must not fail the (already committed) write nor starve
-        # live watchers of the event: the sink owns its own degradation
-        # (the WAL marks itself broken and stops appending).
-        for sink in self._event_sinks:
-            try:
-                sink(resource, ev)
-            except Exception:
-                logger.exception("event sink failed; write stays committed")
-        # Single fan-in for the serving tier (SURVEY §L0: the cacher's
-        # one store watch): the snapshot/ring absorb the event BEFORE
-        # watch dispatch, so a handler that reads during dispatch sees a
-        # cache consistent with the event it was handed.
-        if self.cacher is not None:
-            self.cacher.ingest(resource, ev)
-        self._dispatch(resource, ev)
+        tm = self.timings
+        rng = range_start("store.record")
+        t0 = ev.recorded_at = time.perf_counter()
+        try:
+            self._events.append((resource, ev))
+            if len(self._events) > self._event_window:
+                drop = len(self._events) - self._event_window
+                self._first_retained_rv = self._events[drop - 1][1].rv + 1
+                del self._events[:drop]
+            # Durability sinks (store/durable.py WAL) observe every
+            # committed event BEFORE watch dispatch — the etcd raft-log
+            # position. A sink failure must not fail the (already
+            # committed) write nor starve live watchers of the event: the
+            # sink owns its own degradation (the WAL marks itself broken
+            # and stops appending).
+            for sink in self._event_sinks:
+                try:
+                    sink(resource, ev)
+                except Exception:
+                    logger.exception(
+                        "event sink failed; write stays committed")
+            # Single fan-in for the serving tier (SURVEY §L0: the cacher's
+            # one store watch): the snapshot/ring absorb the event BEFORE
+            # watch dispatch, so a handler that reads during dispatch sees
+            # a cache consistent with the event it was handed.
+            if self.cacher is not None:
+                self.cacher.ingest(resource, ev)
+        finally:
+            t1 = time.perf_counter()
+            tm["record_s"] += t1 - t0
+            tm["events"] += 1
+            range_end(rng)
+        # One profiler check an event: the fan-out's range only where the
+        # record's opened.
+        rng = range_start("store.fanout") if rng is not None else None
+        try:
+            self._dispatch(resource, ev)
+        finally:
+            tm["fanout_s"] += time.perf_counter() - t1
+            range_end(rng)
 
     def add_event_sink(self, sink) -> None:
         """Register a synchronous (resource, Event) observer for every

@@ -122,6 +122,10 @@ class ShardedNodeStore:
         self.watch_metrics = WatchMetrics()
         for s in self.shards:
             s.watch_metrics = self.watch_metrics
+        # One clock dict across shards too (MVCCStore.timings).
+        self.timings = self.meta.timings
+        for s in self.shards[1:]:
+            s.timings = self.timings
         if self.meta.cacher is not None:
             shared = self.meta.cacher.metrics
             for s in self.shards[1:]:

@@ -1,11 +1,10 @@
-"""OTel-style request tracing (SURVEY §5.1 component-base/tracing).
+"""OTel-style request tracing (SURVEY §5.1 component-base/tracing) and the
+host layers' ranges on the device trace's clock.
 
 A lightweight in-process tracer: spans with trace/span ids, parentage
 via contextvars (so nested awaits auto-parent), W3C `traceparent`
 propagation for cross-component HTTP hops, and export to the Chrome
-trace-event JSON that Perfetto (and chrome://tracing) loads, the same
-timeline family torch.profiler's traces load into, so a control-plane
-trace and a device trace can sit side by side.
+trace-event JSON that Perfetto (and chrome://tracing) loads.
 
 Where spans come from:
 - APIServer: one span per request (verb/resource/user/status), child
@@ -16,13 +15,30 @@ Where spans come from:
 
 The pod's journey (create → schedule → bind) crosses async boundaries
 the context can't follow (informer → queue → cycle), so spans carry a
-`pod` attribute and `trace_for(pod_key)` assembles the cross-component
-story — the reference's kube-apiserver + kube-scheduler traces joined
-on object identity.
+`pod` attribute, and the creating request's traceparent rides the pod
+(`stamp_traceparent`) so the scheduler's attempt parents to it.
 
 Disabled by default: a disabled tracer's span() is a no-op costing one
 attribute check, so the hot paths stay clean (utiltrace remains the
 always-on threshold logger).
+
+How the two clocks are joined. Spans are stamped with `time.monotonic()`;
+torch.profiler (Kineto) stamps its events in Unix-epoch nanoseconds. Two
+things put them on one timeline:
+- while a profiler records, each host layer's section (`range_start` /
+  `range_end`: `store.record`, `store.fanout`, `informer.apply`,
+  `scheduler.snapshot`, `scheduler.assume`, `scheduler.bind`,
+  `recorder.drain`) opens a `torch.profiler.record_function` range of its
+  name, so it sits in the profiler's own trace on the profiler's clock;
+  with no profiler recording, a section costs one read of torch's
+  profiler-enabled flag. The sections never nest in one another, and
+  spans open no range, so no range nests in another of these;
+- `epoch_ns` converts a monotonic reading to the epoch through one
+  anchor (`EPOCH_OFFSET_NS`, read at import), and `to_perfetto` writes
+  the spans' timestamps, live and retroactive alike, that way. A
+  torch.profiler Chrome trace writes its `ts` relative to its
+  `baseTimeNanoseconds`: subtract that base (in µs) from `to_perfetto`'s
+  `ts` to lay both in one file.
 """
 
 from __future__ import annotations
@@ -32,6 +48,7 @@ import contextvars
 import itertools
 import json
 import logging
+import sys
 import time
 from typing import Any
 
@@ -42,6 +59,47 @@ logger = logging.getLogger(__name__)
 _ids = itertools.count(1)
 _current: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
     "ktpu_current_span", default=None)
+
+#: Unix-epoch ns minus monotonic ns, read once: the one anchor between
+#: the spans' clock and torch.profiler's (see the module docstring).
+EPOCH_OFFSET_NS = time.time_ns() - time.monotonic_ns()
+
+
+def epoch_ns(t: float) -> int:
+    """A `time.monotonic()` reading in Unix-epoch nanoseconds, the clock
+    torch.profiler stamps its events with."""
+    return int(t * 1e9) + EPOCH_OFFSET_NS
+
+
+#: torch's profiler-enabled check, bound once torch has been imported.
+_profiler_enabled = None
+
+
+def range_start(name: str):
+    """Open a `torch.profiler.record_function` range named `name` when a
+    profiler is recording on this thread, and return it for `range_end`;
+    else return None. Without a recording profiler this is one call of
+    torch's profiler-enabled check (and no torch import: a process that
+    has not imported torch has no profiler)."""
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return None
+        _profiler_enabled = torch.autograd._profiler_enabled
+    if not _profiler_enabled():
+        return None
+    import torch
+    rng = torch.autograd.profiler.record_function(name)
+    rng.__enter__()
+    return rng
+
+
+def range_end(rng) -> None:
+    """Close what `range_start` opened (None: nothing)."""
+    if rng is not None:
+        rng.__exit__(None, None, None)
+
 
 #: pod-annotation key carrying the creating request's traceparent across
 #: the informer/queue async boundary (the context can't follow a pod from
@@ -174,7 +232,9 @@ class Tracer:
         """Retroactively record a COMPLETED span from caller-held
         timestamps (time.monotonic clock), parented to the current span —
         e.g. the scheduler's queue wait, which elapses across tasks no
-        context can follow but whose endpoints the queue stamped."""
+        context can follow but whose endpoints the queue stamped. Like a
+        live span, it reaches the device trace's clock through
+        `to_perfetto`'s conversion."""
         if not self.enabled:
             return None
         parent = _current.get()
@@ -220,16 +280,10 @@ class Tracer:
 
     # -- queries + export --------------------------------------------------
 
-    def trace_for(self, pod_key: str) -> list[Span]:
-        """Every span attributed to one pod, time-ordered — the
-        cross-component create→schedule→bind story."""
-        return sorted((s for s in self.spans
-                       if s.attrs.get("pod") == pod_key),
-                      key=lambda s: s.start)
-
     def to_perfetto(self) -> str:
         """Chrome trace-event JSON (Perfetto/chrome://tracing).
-        Complete ('X') events in µs."""
+        Complete ('X') events, `ts` in Unix-epoch µs (`epoch_ns`), so they
+        line up with a torch.profiler trace (module docstring)."""
         events = []
         for s in self.spans:
             if s.end is None:
@@ -237,7 +291,7 @@ class Tracer:
             events.append({
                 "name": s.name, "ph": "X", "pid": 1,
                 "tid": abs(hash(s.trace_id)) % 100_000,
-                "ts": round(s.start * 1e6, 3),
+                "ts": round(epoch_ns(s.start) / 1e3, 3),
                 "dur": round((s.end - s.start) * 1e6, 3),
                 "args": {**{k: str(v) for k, v in s.attrs.items()},
                          "trace_id": s.trace_id, "span_id": s.span_id,
